@@ -27,9 +27,23 @@ lines:
    JAX reference's numbers), with the Fig. 5 rows, the kernels' launch
    counts and the calls of the ``tat_lookup`` match routine made inside
    the cell-scan kernel (the standalone ``tat_lookup`` kernel is not
-   launched on this path).
+   launched on this path);
+5. the ``flash_attention`` kernel against its plain version on the card
+   over the JAX sweep (f32 and bf16, causal with and without a window,
+   one non-causal case; 2e-5 / 3e-2) and at smollm-135m's prefill shape,
+   timed beside the plain version and ``scaled_dot_product_attention``;
+6. the ``ssd_scan`` kernel against its plain version over the JAX sweep
+   (1e-3 / 1e-1), a carried-in state, the sequential recurrence, and at
+   mamba2-1.3b's prefill shape, timed beside the plain version;
+7. the serving path, for smollm-135m and mamba2-1.3b at full width and
+   depth: (a) the f32 copy with ``numpy_params(cfg, 0)`` against
+   ``src/repro_torch/testdata/serve_ref.json`` (the JAX reference's
+   logits and greedy tokens), (b) the published bf16 config serving 4
+   requests of 1024 prompt tokens with 64 greedy steps through
+   ``launch.serve.serve``, with each kernel's launches in that run.
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then one JSON line with the serving numbers, one with every kernel's
+numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA.
@@ -320,6 +334,336 @@ def phase_main_path(torch, np, smem_ns, traces, configs, full):
                 main_latency_bound_ms=latency_bound)
 
 
+# ---- the model side: flash_attention, ssd_scan, serving ----------------
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
+FLASH_SWEEP = ((2, 2, 256, 64), (1, 4, 128, 128), (1, 1, 512, 256))
+SSD_SWEEP = ((2, 256, 3, 64, 128, 128), (1, 128, 2, 32, 64, 64),
+             (2, 512, 1, 64, 128, 128), (1, 256, 4, 64, 64, 128))
+TOL = {"float32": (2e-5, 1e-3), "bfloat16": (3e-2, 1e-1)}  # flash, ssd
+
+
+def bound(flops: float, nbytes: float):
+    """The least time for the work: flops at the dense bf16 peak or bytes
+    at the HBM rate, whichever is longer; (ms, what bounds it)."""
+    t_op, t_b = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_op, t_b) * 1e3, ("operations" if t_op >= t_b else "bytes")
+
+
+def max_err(got, want, what: str, tol: float) -> float:
+    """Max |got - want| in f32; raises past ``tol`` or on a non-finite
+    output."""
+    import torch
+    g = got.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{what}: non-finite output")
+    err = float((g - want.float()).abs().max())
+    if not err < tol:
+        fail(f"{what}: max abs error {err:.3g}, limit {tol}")
+    return err
+
+
+def phase_flash(torch, np):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    rng = np.random.default_rng(11)
+
+    def qkv(b, h, hkv, s, d, dtype):
+        # the model's layout: (B, S, H, D) projections, viewed (B, H, S, D)
+        return [torch.tensor(rng.standard_normal((b, s, n, d)),
+                             dtype=torch.float32, device="cuda")
+                .to(dtype).transpose(1, 2) for n in (h, hkv, hkv)]
+
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(sh, dt, True, w) for sh in FLASH_SWEEP
+             for dt in (torch.float32, torch.bfloat16) for w in (None, 64)]
+    cases.append(((1, 2, 256, 64), torch.float32, False, None))
+    for (b, h, s, d), dtype, causal, window in cases:
+        name = str(dtype).split(".")[1]
+        q, k, v = qkv(b, h, h, s, d, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        e = max_err(got, want, f"flash_attention {(b, h, s, d)} {name} "
+                    f"causal={causal} window={window}", TOL[name][0])
+        err[name] = max(err[name], e)
+    print(f"phase 5 flash_attention sweep ({len(cases)} cases): max abs "
+          f"error f32 {err['float32']:.3g}, bf16 {err['bfloat16']:.3g}")
+
+    # the serving shape: smollm-135m prefill, 4 x 1024 tokens, 9 query
+    # heads on 3 KV heads, head dim 64, bf16, causal
+    b, h, hkv, s, d = 4, 9, 3, 1024, 64
+    q, k, v = qkv(b, h, hkv, s, d, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    e = max_err(got, want, "flash_attention serving shape",
+                TOL["bfloat16"][0])
+    err["bfloat16"] = max(err["bfloat16"], e)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 50)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), 10)
+    # the library yardstick on the same inputs with K/V repeated per
+    # query head (never called by the port)
+    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), 50)
+    pairs = s * (s + 1) // 2                        # causal (q, k) pairs
+    flops = 4.0 * b * h * pairs * d                 # q·k and p·v
+    nbytes = 2.0 * (2 * b * h * s * d + 2 * b * hkv * s * d)
+    bms, by = bound(flops, nbytes)
+    print(f"phase 5 flash_attention (4, 9, 1024, 64) bf16 causal, 3 KV "
+          f"heads: max abs error {e:.3g}; kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+          f"bound {bms:.5f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); {ms / bms:.1f}x the bound")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, max_abs_err=max(err.values()),
+                max_abs_err_f32=err["float32"],
+                max_abs_err_bf16=err["bfloat16"])
+
+
+def ssd_inputs(torch, rng, b, s, h, p, n, dtype):
+    """x, B, C as slices of one (B, S, H·P + 2N) tensor, as the model's
+    conv output gives them; dt and A in f32."""
+    xbc = torch.tensor(rng.standard_normal((b, s, h * p + 2 * n)),
+                       dtype=torch.float32, device="cuda").to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.tensor(rng.uniform(0.01, 0.2, (b, s, h)),
+                      dtype=torch.float32, device="cuda")
+    A = torch.tensor(-rng.uniform(0.5, 1.5, (h,)), dtype=torch.float32,
+                     device="cuda")
+    return x, dt, A, B, C
+
+
+def phase_ssd(torch, np):
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.models.ssm import ssd_decode_step
+    rng = np.random.default_rng(12)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check(args, chunk, name, what, init=None):
+        y, fin = ss.ssd_scan(*args, chunk=chunk, init_state=init)
+        wy, wfin = ssd_scan_ref(*args, chunk=chunk, init_state=init)
+        torch.cuda.synchronize()
+        tol = TOL[name][1]
+        e = max(max_err(y, wy, f"ssd_scan y {what}", tol),
+                max_err(fin, wfin, f"ssd_scan state {what}", tol))
+        err[name] = max(err[name], e)
+        return e
+
+    for b, s, h, p, n, chunk in SSD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            check(ssd_inputs(torch, rng, b, s, h, p, n, dtype), chunk, name,
+                  f"{(b, s, h, p, n, chunk)} {name}")
+    # a carried-in state on a ragged length
+    args = ssd_inputs(torch, rng, 2, 200, 2, 64, 128, torch.float32)
+    init = torch.tensor(rng.standard_normal((2, 2, 64, 128)),
+                        dtype=torch.float32, device="cuda")
+    check(args, 128, "float32", "init_state, S=200", init)
+    # the sequential recurrence, token by token
+    x, dt, A, B, C = ssd_inputs(torch, rng, 1, 128, 2, 16, 32,
+                                torch.float32)
+    y, fin = ss.ssd_scan(x, dt, A, B, C, chunk=64)
+    state = torch.zeros((1, 2, 16, 32), device="cuda")
+    ys = []
+    for t in range(128):
+        yt, state = ssd_decode_step(x[:, t], dt[:, t], A, B[:, t], C[:, t],
+                                    state)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    e = max(max_err(y, torch.stack(ys, dim=1), "ssd_scan vs sequential y",
+                    1e-3),
+            max_err(fin, state, "ssd_scan vs sequential state", 1e-3))
+    err["float32"] = max(err["float32"], e)
+    print(f"phase 6 ssd_scan sweep (8 cases, init_state, sequential "
+          f"recurrence): max abs error f32 {err['float32']:.3g}, bf16 "
+          f"{err['bfloat16']:.3g}")
+
+    # the serving shape: mamba2-1.3b prefill, 4 x 1024 tokens, 64 heads of
+    # P = 64, N = 128, chunk 128, bf16
+    b, s, h, p, n, q = 4, 1024, 64, 64, 128, 128
+    args = ssd_inputs(torch, rng, b, s, h, p, n, torch.bfloat16)
+    e = check(args, q, "bfloat16", "serving shape")
+    y64, _ = ssd_scan_ref(*args, chunk=64)
+    y128, _ = ssd_scan_ref(*args, chunk=128)
+    floor = float((y64.float() - y128.float()).abs().max())
+    ms = cuda_ms(lambda: ss.ssd_scan(*args, chunk=q), 20)
+    plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=q), 5)
+    # the chunked algorithm's operations: C·Bᵀ (lower triangle, shared by
+    # the heads) per (batch, chunk); per (batch, head, chunk) the masked
+    # product with x, C·stateᵀ and the state update
+    nc = s // q
+    tri = q * (q + 1) / 2
+    flops = 2.0 * (b * nc * tri * n + b * h * nc * (tri * p + 2 * q * n * p))
+    nbytes = (2.0 * b * s * h * p * 2 + 4.0 * b * s * h + 4.0 * h
+              + 2.0 * 2 * b * s * n + 4.0 * b * h * p * n)
+    bms, by = bound(flops, nbytes)
+    print(f"phase 6 ssd_scan (4, 1024, 64, 64) N=128 chunk 128 bf16: max "
+          f"abs error {e:.3g} (the plain version at chunk 64 vs 128 "
+          f"differs by {floor:.3g}: one bf16 ulp of |y| up to "
+          f"{float(y128.float().abs().max()):.1f}); kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {bms:.5f} ms ({by}: "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"{ms / bms:.1f}x the bound")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
+                bound_by=by, max_abs_err=max(err.values()),
+                max_abs_err_f32=err["float32"],
+                max_abs_err_bf16=err["bfloat16"], plain_order_floor=floor)
+
+
+def device_ms_by_kernel(torch, fn):
+    """Device time of the kernels ``fn()`` launches (``torch.profiler``,
+    CUDA activity): (total ms, the six largest as (name, ms, calls))."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:6]
+
+
+def breakdown(torch, model, prompt, steps: int):
+    """Device ms of one prefill and of ``steps`` greedy decode steps."""
+    from repro_torch.models import transformer as T
+    s = prompt.shape[1]
+    with torch.inference_mode():
+        pre = device_ms_by_kernel(torch, lambda: T.prefill(
+            model, {"tokens": prompt}, s + steps))
+        logits, caches = T.prefill(model, {"tokens": prompt}, s + steps)
+
+        def decode():
+            tok, c = logits.argmax(dim=-1)[:, None], caches
+            for i in range(steps):
+                out, c = T.decode_step(model, tok, c, pos0=s + i)
+                tok = out.argmax(dim=-1)[:, None]
+        dec = device_ms_by_kernel(torch, decode)
+    return pre, dec
+
+
+def phase_serve(torch, np):
+    """Phase 7: each config at full width and depth: (a) the f32 copy
+    against serve_ref.json; (b) the published bf16 config served."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cell_scan as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import tat_lookup as tl
+    from repro_torch.launch.serve import random_prompt, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import numpy_params, params_from_reference
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "serve_ref.json")) as f:
+        ref = json.load(f)
+    rtol = ref["rtol"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch in ("smollm-135m", "mamba2-1.3b"):
+        d = ref["configs"][arch]
+        cfg = get_config(arch)
+        t0 = time.time()
+        tree = numpy_params(cfg, d["seed"])
+        fill_s = time.time() - t0
+
+        # (a) the datum, f32, teacher-forced on the reference's tokens
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        model = params_from_reference(cfg32, tree, "cuda")
+        prompt = torch.tensor(d["prompt"], device="cuda")
+        worst, checked, agree = 0.0, 0, 0
+        with torch.inference_mode():
+            logits, caches = T.prefill(model, {"tokens": prompt},
+                                       d["prompt_len"] + d["decode_steps"])
+            for i, st in enumerate(d["steps"]):
+                ids = torch.tensor(st["ids"], device="cuda")
+                want = torch.tensor(st["logits"], device="cuda")
+                got = torch.gather(logits, 1, ids)
+                scale = want.abs().max(dim=1).values
+                rel = float(((got - want).abs().max(dim=1).values
+                             / scale).max())
+                worst = max(worst, rel)
+                if rel > rtol or not bool(torch.isfinite(logits).all()):
+                    fail(f"{arch} f32 step {i}: logits off the reference "
+                         f"by {rel:.3g} relative (limit {rtol})")
+                margin = (want[:, 0] - want[:, 1]) / scale
+                top1 = logits.argmax(dim=1)
+                for j in range(ids.shape[0]):
+                    if float(margin[j]) > rtol:
+                        checked += 1
+                        if int(top1[j]) != int(ids[j, 0]):
+                            fail(f"{arch} f32 step {i} seq {j}: greedy "
+                                 f"{int(top1[j])}, reference "
+                                 f"{int(ids[j, 0])}")
+                    agree += int(top1[j]) == int(ids[j, 0])
+                if i == d["decode_steps"]:
+                    break
+                logits, caches = T.decode_step(model, ids[:, :1], caches,
+                                               pos0=d["prompt_len"] + i)
+        torch.cuda.synchronize()
+        del model, caches, logits
+        print(f"phase 7a {arch} f32 ({cfg.n_layers} layers, {d['batch']} x "
+              f"{d['prompt_len']} prompt + {d['decode_steps']} decode steps)"
+              f": logits within {worst:.3g} relative of serve_ref.json "
+              f"(limit {rtol}); greedy tokens equal on {checked} checked "
+              f"(margin > limit), {agree}/{len(d['steps']) * d['batch']} "
+              f"in all; numpy weight fill {fill_s:.1f} s")
+
+        # (b) the published bf16 config, served: 4 x 1024 prompt, 64 steps
+        torch.cuda.empty_cache()
+        model = params_from_reference(cfg, tree, "cuda")
+        del tree
+        prompt = random_prompt(cfg.vocab, 4, 1024, 0, "cuda")
+        serve(model, prompt[:, :128], 2)            # warm-up (build, cache)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = ss.launches = tl.launches = cs.launches = 0
+        res = serve(model, prompt, 64)
+        counts = dict(flash_attention=fa.launches, ssd_scan=ss.launches,
+                      tat_lookup=tl.launches, cell_scan=cs.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if res.tokens.shape != (4, 64) or res.tokens.min() < 0 \
+                or res.tokens.max() >= cfg.vocab:
+            fail(f"{arch} served tokens of shape {res.tokens.shape}")
+        want = dict(flash_attention=cfg.n_layers if not cfg.attn_free
+                    else 0, ssd_scan=cfg.n_layers if cfg.attn_free else 0,
+                    tat_lookup=0, cell_scan=0)
+        if counts != want:
+            fail(f"{arch} serve launched {counts}, expected {want} (one "
+                 f"prefill launch per layer)")
+        tok_s = 4 * 64 / res.decode_s
+        print(f"phase 7b {arch} bf16 served 4 x 1024 prompt + 64 greedy "
+              f"steps: prefill {res.prefill_s * 1e3:.1f} ms, decode "
+              f"{res.decode_s * 1e3:.1f} ms ({tok_s:.1f} tokens/s); "
+              f"launches {json.dumps(counts)}; peak memory {peak:.2f} GiB; "
+              f"first tokens {res.tokens[0, :8].tolist()}")
+        (pre_ms, pre_top), (dec_ms, dec_top) = breakdown(torch, model,
+                                                         prompt, 8)
+        step_wall = res.decode_s * 1e3 / 64
+        print(f"phase 7b {arch} device time (torch.profiler): prefill "
+              f"{pre_ms:.2f} ms, {100 * pre_ms / (res.prefill_s * 1e3):.1f}"
+              f" % of its wall; decode {dec_ms / 8:.3f} ms per step, "
+              f"{100 * dec_ms / 8 / step_wall:.1f} % of its "
+              f"{step_wall:.2f} ms wall")
+        for what, top in (("prefill", pre_top), ("decode x8", dec_top)):
+            for name, ms, calls in top:
+                print(f"  {what}: {ms:9.3f} ms {calls:6d} calls  "
+                      f"{name[:90]}")
+        out[arch] = dict(counts=counts, prefill_ms=res.prefill_s * 1e3,
+                         decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
+                         peak_gib=peak, datum_rel=worst,
+                         prefill_device_ms=pre_ms,
+                         decode_step_device_ms=dec_ms / 8)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -347,6 +691,9 @@ def main() -> int:
     traces, configs = paper_grid()
     full = phase_cell_scan_full(torch, traces, configs)
     main_path = phase_main_path(torch, np, smem_ns, traces, configs, full)
+    flash = phase_flash(torch, np)
+    ssd = phase_ssd(torch, np)
+    served = phase_serve(torch, np)
 
     eng = tat[(8, 16)]
     kernels = [
@@ -378,7 +725,35 @@ def main() -> int:
                  "main_latency_bound_ms"],
              main_path_max_steps=main_path["main_steps"],
              main_path_wall_s=main_path["wall_s"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:68",
+             launches=served["smollm-135m"]["counts"]["flash_attention"],
+             main_path="smollm-135m serve, 4 x 1024 prompt + 64 decode "
+                       "steps: one launch per layer at prefill",
+             max_abs_err=flash["max_abs_err"],
+             max_abs_err_f32=flash["max_abs_err_f32"],
+             max_abs_err_bf16=flash["max_abs_err_bf16"], ms=flash["ms"],
+             plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
+             bound_by=flash["bound_by"], library_ms=flash["library_ms"],
+             library="scaled_dot_product_attention (K/V repeated per "
+                     "query head)",
+             shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), bf16, "
+                   "causal"),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:68",
+             launches=served["mamba2-1.3b"]["counts"]["ssd_scan"],
+             main_path="mamba2-1.3b serve, 4 x 1024 prompt + 64 decode "
+                       "steps: one launch per layer at prefill",
+             max_abs_err=ssd["max_abs_err"],
+             max_abs_err_f32=ssd["max_abs_err_f32"],
+             max_abs_err_bf16=ssd["max_abs_err_bf16"], ms=ssd["ms"],
+             plain_ms=ssd["plain_ms"], bound_ms=ssd["bound_ms"],
+             bound_by=ssd["bound_by"], library_ms=None,
+             shape="x (4, 1024, 64, 64), N=128, chunk 128, bf16"),
     ]
+    print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,21 +28,10 @@ from repro_torch.core.engine.state import (SimResult, result_from_stats,
                                            scalars_from_config)
 from repro_torch.core.params import PCSConfig
 from repro_torch.core.traces import Trace
+from repro_torch.device import resolve_device
 from repro_torch.kernels import cell_scan as cs
 
 _BUCKET = 16384
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means CUDA; asking for CUDA without it raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on CUDA by default and no CUDA "
-                           "device is available; pass device='cpu' to run "
-                           "the plain version on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def check_scope(configs: Sequence[PCSConfig], macro: bool) -> None:

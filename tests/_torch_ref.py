@@ -7,8 +7,9 @@ imports the engine.  :func:`reference` gets round this on the tests'
 side only:
 
 * it sets ``jax.experimental.enable_x64`` to a stand-in built on
-  ``jax.enable_x64``, imports ``repro.core``, ``repro.core.engine`` and
-  ``repro.kernels``, and deletes the attribute again at once;
+  ``jax.enable_x64``, imports ``repro.core``, ``repro.core.engine``,
+  ``repro.kernels``, ``repro.models`` and ``repro.configs``, and deletes
+  the attribute again at once;
 * on exit it takes every ``repro`` module it imported back out of
   ``sys.modules`` (and off its parent package), so the reference's own
   tests that run later in the same process see exactly the import state
@@ -49,8 +50,12 @@ def reference():
         from repro.core.engine import (channels, grid, handlers, policy,
                                        state)
         from repro.kernels import ref as kref
-        # the package re-exports the function under the module's name
+        from repro import configs
+        from repro.models import attention, layers, ssm, transformer
+        # the package re-exports the functions under the modules' names
         ktat = importlib.import_module("repro.kernels.tat_lookup")
+        kflash = importlib.import_module("repro.kernels.flash_attention")
+        kssd = importlib.import_module("repro.kernels.ssd_scan")
     finally:
         if added:
             del jax.experimental.enable_x64
@@ -58,7 +63,9 @@ def reference():
         yield types.SimpleNamespace(
             core=repro.core, params=params, traces=traces, state=state,
             channels=channels, policy=policy, handlers=handlers, grid=grid,
-            kref=kref, ktat=ktat, x64=lambda: jax.enable_x64(True))
+            kref=kref, ktat=ktat, kflash=kflash, kssd=kssd, layers=layers,
+            attention=attention, ssm=ssm, transformer=transformer,
+            configs=configs, x64=lambda: jax.enable_x64(True))
     finally:
         for name in sorted(set(sys.modules) - before, reverse=True):
             if name != "repro" and not name.startswith("repro."):

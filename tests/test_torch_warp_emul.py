@@ -1,13 +1,14 @@
 """The CUDA kernels' own source, run on the CPU against the plain versions.
 
-There is no ``nvcc`` on a CPU-only machine, but the bodies of
-``csrc/tat_lookup.cu`` and ``csrc/cell_scan.cu`` are plain C++ apart
-from a handful of CUDA constructs.  ``warp_emul/cuda_emul.h`` supplies
-those for g++ (one warp = 32 threads, intrinsics through a barrier), so
-the kernels' logic — warp reductions, lane-owned slots, the
-read-then-write phases — is checked here against the plain versions
-with the wrappers' own launch code.  The card itself is checked by
-``chip_smoke.py``.
+There is no ``nvcc`` on a CPU-only machine, but the bodies of the
+kernels in ``csrc/`` are plain C++ apart from a handful of CUDA
+constructs.  ``warp_emul/cuda_emul.h`` supplies those for g++ (a warp =
+32 threads, a block = one or more warps, intrinsics and
+``__syncthreads`` through a barrier) and ``warp_emul/cuda_bf16.h`` the
+bf16 type, so the kernels' logic — warp reductions, lane-owned slots,
+the read-then-write phases, the tiles shared by a block's threads — is
+checked here against the plain versions with the wrappers' own launch
+code.  The card itself is checked by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,11 @@ import torch
 import repro_torch.core as P
 from repro_torch.core.engine import grid
 from repro_torch.kernels import cell_scan as cs
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels import tat_lookup as tl
-from repro_torch.kernels.ref import tat_lookup_ref
+from repro_torch.kernels.ref import (flash_attention_ref, ssd_scan_ref,
+                                     tat_lookup_ref)
 
 CSRC = Path(tl.__file__).resolve().parent / "csrc"
 EMUL = Path(__file__).resolve().parent / "warp_emul"
@@ -65,34 +69,94 @@ extern "C" int tat_lookup_launch(const int* req, const int* tat,
 }
 '''
 
+FLASH_LAUNCH = r'''
+namespace flash { alignas(16) float flash_smem[1 << 16]; }
+template <class T, int D>
+static int emu_flash(const flash::Args& a, int blocks) {
+  if (flash::smem_floats(D) > (1 << 16)) return 1;
+  emu_run(blocks, [&] { flash::flash_kernel<T, D>(a); }, flash::NT);
+  return 0;
+}
+template <class T>
+static int emu_flash_d(const flash::Args& a, int d, int blocks) {
+  switch (d) {
+    case 16: return emu_flash<T, 16>(a, blocks);
+    case 32: return emu_flash<T, 32>(a, blocks);
+    case 64: return emu_flash<T, 64>(a, blocks);
+    default: return 1;
+  }
+}
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* st, int B, int H, int S, int D, int g, int causal,
+    int window, float scale, int bf16, cudaStream_t) {
+  flash::Args a{q, k, v, o, st[0], st[1], st[2], st[3], st[4], st[5],
+                st[6], st[7], st[8], st[9], st[10], st[11],
+                H, S, g, causal, window, scale};
+  const int blocks = B * H * ((S + flash::BQ - 1) / flash::BQ);
+  return bf16 ? emu_flash_d<__nv_bfloat16>(a, D, blocks)
+              : emu_flash_d<float>(a, D, blocks);
+}
+'''
+
+SSD_LAUNCH = r'''
+namespace ssd { alignas(16) float ssd_smem[1 << 16]; }
+extern "C" int ssd_scan_launch(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* init, void* y, float* fin,
+    const long long* st, int batch, int S, int H, int P, int N, int Q,
+    int bf16, cudaStream_t) {
+  ssd::Args a{x, dt, A, Bm, Cm, init, y, fin, st[0], st[1], st[2], st[3],
+              st[4], st[5], st[6], st[7], st[8], st[9], S, H, P, N, Q};
+  if (ssd::smem_floats(Q, P, N) > (1 << 16)) return 1;
+  if (bf16)
+    emu_run(batch * H, [&] { ssd::ssd_kernel<__nv_bfloat16>(a); }, ssd::NT);
+  else
+    emu_run(batch * H, [&] { ssd::ssd_kernel<float>(a); }, ssd::NT);
+  return 0;
+}
+'''
+
 
 def _emulated_source(name: str, launcher: str) -> str:
     src = (CSRC / f"{name}.cu").read_text()
     body = src.split("// ---- host entry point")[0]
     body = body.replace("#include <cuda_runtime.h>",
                         f'#include "{EMUL / "cuda_emul.h"}"')
-    body = body.replace('#include "tat_match.cuh"',
-                        f'#include "{CSRC / "tat_match.cuh"}"')
+    for header in CSRC.glob("*.cuh"):
+        body = body.replace(f'#include "{header.name}"',
+                            f'#include "{header}"')
     return body + launcher
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def _build(out: Path, sources) -> dict:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is needed to build the emulated kernels")
-    out = tmp_path_factory.mktemp("warp_emul")
     loaded = {}
-    for name, launcher in (("cell_scan", CELL_SCAN_LAUNCH),
-                           ("tat_lookup", TAT_LOOKUP_LAUNCH)):
+    for name, launcher in sources:
         cpp = out / f"{name}.cpp"
         cpp.write_text(_emulated_source(name, launcher))
         so = out / f"lib{name}.so"
         subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off",
-                        "-fPIC", "-shared", "-pthread", "-o", str(so),
-                        str(cpp)], check=True, capture_output=True)
+                        "-fPIC", "-shared", "-pthread", f"-I{EMUL}", "-o",
+                        str(so), str(cpp)], check=True, capture_output=True)
         loaded[name] = ctypes.CDLL(str(so))
     return loaded
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("warp_emul"),
+                  (("cell_scan", CELL_SCAN_LAUNCH),
+                   ("tat_lookup", TAT_LOOKUP_LAUNCH)))
+
+
+@pytest.fixture(scope="module")
+def model_libs(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("warp_emul_model"),
+                  (("flash_attention", FLASH_LAUNCH),
+                   ("ssd_scan", SSD_LAUNCH)))
 
 
 @pytest.mark.parametrize("r,n", [(256, 16), (1024, 256), (8, 16), (37, 5)])
@@ -154,3 +218,54 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, case):
         if f != "lookups":
             assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(got.lookups.sum()) > 0
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype", [
+    (1, 2, 2, 128, 32, True, None, torch.float32),
+    (1, 2, 2, 128, 32, True, 48, torch.float32),
+    (1, 2, 2, 128, 32, False, None, torch.float32),
+    (1, 2, 2, 96, 16, False, 40, torch.float32),
+    (2, 4, 2, 70, 16, True, None, torch.float32),
+    (1, 3, 1, 64, 64, True, None, torch.bfloat16)])
+def test_emulated_flash_attention_equals_plain(model_libs, b, h, hkv, s, d,
+                                               causal, window, dtype):
+    """Strided (B, S, H, D) views, as the model passes them; GQA; ragged S;
+    bf16 loads and stores."""
+    rng = np.random.default_rng(s + d + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d))
+                                .astype(np.float32)).to(dtype)
+               .transpose(1, 2) for n in (h, hkv, hkv))
+    out = torch.empty_like(q)
+    assert out.stride() == q.stride()
+    assert fa.launch(model_libs["flash_attention"], q, k, v, out,
+                     causal=causal, window=window, stream=None) == 0
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((out.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("s,chunk,init,dtype", [
+    (128, 64, False, torch.float32), (100, 64, True, torch.float32),
+    (200, 128, True, torch.float32), (64, 64, False, torch.bfloat16)])
+def test_emulated_ssd_scan_equals_plain(model_libs, s, chunk, init, dtype):
+    """x, B and C as strided slices of one projection, as in the model;
+    ragged S; a carried-in state; bf16 loads and stores."""
+    b, h, p, n = 1, 2, 16, 32
+    rng = np.random.default_rng(s + chunk)
+    xbc = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * n))
+                           .astype(np.float32)).to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, h))
+                          .astype(np.float32))
+    A = torch.from_numpy(-rng.uniform(0.5, 1.5, h).astype(np.float32))
+    st = (torch.from_numpy(rng.standard_normal((b, h, p, n))
+                           .astype(np.float32)) if init else None)
+    y = torch.empty((b, s, h, p), dtype=dtype)
+    fin = torch.empty((b, h, p, n))
+    assert ss.launch(model_libs["ssd_scan"], x, dt, A, B, C, st, y, fin,
+                     chunk=chunk, stream=None) == 0
+    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=chunk, init_state=st)
+    tol = 1e-4 if dtype == torch.float32 else 1e-1
+    assert float((y.float() - wy.float()).abs().max()) < tol
+    assert float((fin - wfin).abs().max()) < tol

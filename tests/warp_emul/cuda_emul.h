@@ -1,11 +1,14 @@
 // Host emulation of the CUDA constructs the port's kernels use, so that
 // their bodies compile with g++ and run on a CPU.
 //
-// A block is one warp of 32 std::threads; blocks run one after another.
-// Warp intrinsics (__shfl_*_sync, __ballot_sync, __any_sync) exchange
-// values through a shared slot array between two barrier waits, and
-// __syncwarp/__syncthreads are a barrier wait, so a missing __syncwarp
-// between a write and another lane's read shows up as a real race.
+// A block is one warp of 32 std::threads unless the launcher asks for
+// more (whole warps); blocks run one after another.  Warp intrinsics
+// (__shfl_*_sync, __ballot_sync, __any_sync) exchange values through a
+// shared slot array between two waits on the block's barrier, so every
+// thread of the block must reach them together, as in the port's
+// kernels; __syncwarp/__syncthreads are a barrier wait, so a missing
+// sync between a write and another thread's read shows up as a real
+// race.
 // Dynamic shared memory is a global array that the including file
 // defines under the kernel's own extern name.
 #pragma once
@@ -45,7 +48,7 @@ using std::min;
 
 struct WarpCtx {
   std::barrier<>* bar;
-  uint64_t slots[32];
+  uint64_t slots[1024];
 };
 inline WarpCtx* g_warp;
 inline std::mutex g_atomic;
@@ -61,7 +64,7 @@ T emu_exchange(T v, int src) {
   std::memcpy(&b, &v, sizeof(T));
   g_warp->slots[threadIdx.x] = b;
   g_warp->bar->arrive_and_wait();
-  const uint64_t got = g_warp->slots[src & 31];
+  const uint64_t got = g_warp->slots[(threadIdx.x & ~31u) | (src & 31)];
   g_warp->bar->arrive_and_wait();
   T r;
   std::memcpy(&r, &got, sizeof(T));
@@ -79,8 +82,9 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   g_warp->slots[threadIdx.x] = pred ? 1 : 0;
   g_warp->bar->arrive_and_wait();
   unsigned m = 0;
+  const unsigned base = threadIdx.x & ~31u;
   for (int i = 0; i < 32; ++i)
-    if (g_warp->slots[i]) m |= 1u << i;
+    if (g_warp->slots[base + i]) m |= 1u << i;
   g_warp->bar->arrive_and_wait();
   return m;
 }
@@ -96,18 +100,19 @@ inline int atomicMax(int* p, int v) {
   return o;
 }
 
-// Run `body` as `blocks` blocks of one 32-lane warp each.
+// Run `body` as `blocks` blocks of `threads` threads each (a multiple
+// of 32, at most 1024).
 template <class F>
-void emu_run(int blocks, F&& body) {
-  std::barrier<> bar(32);
+void emu_run(int blocks, F&& body, int threads = 32) {
+  std::barrier<> bar(threads);
   static WarpCtx w;
   w.bar = &bar;
   g_warp = &w;
-  blockDim.x = 32;
+  blockDim.x = threads;
   gridDim.x = blocks;
   for (int b = 0; b < blocks; ++b) {
     std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
+    for (int l = 0; l < threads; ++l)
       lanes.emplace_back([&body, l, b] {
         threadIdx.x = l;
         blockIdx.x = b;
