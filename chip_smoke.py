@@ -27,20 +27,25 @@ lines:
    JAX reference's numbers), with the Fig. 5 rows, the kernels' launch
    counts and the calls of the ``tat_lookup`` match routine made inside
    the cell-scan kernel (the standalone ``tat_lookup`` kernel is not
-   launched on this path);
-5. the ``flash_attention`` kernel against its plain version on the card
-   over the JAX sweep (f32 and bf16, causal with and without a window,
-   one non-causal case; 2e-5 / 3e-2) and at smollm-135m's prefill shape,
-   timed beside the plain version and ``scaled_dot_product_attention``;
+   launched on this path); then the section profile of a step: the
+   same kernel built with ``-DCELL_SCAN_PROFILE`` on the three cholesky
+   cells (the longest), cycles and ns per step of each section;
+5. both routes of ``flash_attention`` against the plain version on the
+   card: the JAX sweep (f32 on the FMA kernel, bf16 on the tensor-core
+   kernel, causal with and without a window, one non-causal case each;
+   2e-5 / 3e-2; each case's route checked by its launch counter) and
+   smollm-135m's prefill shape in bf16 (the main path) and f32, timed
+   beside the plain version and ``scaled_dot_product_attention``;
 6. the ``ssd_scan`` kernel against its plain version over the JAX sweep
    (1e-3 / 1e-1), a carried-in state, the sequential recurrence, and at
    mamba2-1.3b's prefill shape, timed beside the plain version;
 7. the serving path, for smollm-135m and mamba2-1.3b at full width and
    depth: (a) the f32 copy with ``numpy_params(cfg, 0)`` against
    ``src/repro_torch/testdata/serve_ref.json`` (the JAX reference's
-   logits and greedy tokens), (b) the published bf16 config serving 4
-   requests of 1024 prompt tokens with 64 greedy steps through
-   ``launch.serve.serve``, with each kernel's launches in that run.
+   logits and greedy tokens; its prefill attention takes the FMA route),
+   (b) the published bf16 config serving 4 requests of 1024 prompt
+   tokens with 64 greedy steps through ``launch.serve.serve``, with each
+   kernel's launches in that run (attention on the tensor-core route).
 
 Then one JSON line with the serving numbers, one with every kernel's
 numbers, and as the last line
@@ -67,12 +72,19 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+SPIN_CYCLES = 10 ** 8               # ~50 ms of the card's clock
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events).  The
+    calls queue behind a spin kernel, so that a kernel shorter than its
+    wrapper's host time is timed on the device, not at the host's
+    enqueue rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -334,18 +346,96 @@ def phase_main_path(torch, np, smem_ns, traces, configs, full):
                 main_latency_bound_ms=latency_bound)
 
 
+PROF_SECTIONS = ("merge_keys", "merge_argmin", "merge_fetch", "read",
+                 "persist_lookup", "occupancy", "victim_select",
+                 "drain_policy", "state_writes", "stats", "other_ops",
+                 "bookkeeping")
+OP_NAMES = ("compute", "dram_read", "dram_write", "pm_read", "persist",
+            "barrier")
+
+
+def phase_cell_scan_profile(torch, traces, configs, full):
+    """The section profile of a step: ``cell_scan.cu`` built with
+    ``-DCELL_SCAN_PROFILE`` (``_build.VARIANTS``) on the paper grid's
+    cholesky cells (the longest), exact against the main path's outputs.
+    Returns each scheme's ns per step by section and the uninstrumented
+    kernel's time on the same cells."""
+    import ctypes
+    from repro_torch.core import Scheme
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cell_scan as cs
+    args, kw, got, _ = full
+    i = [t.name for t in traces].index("cholesky")
+    sel = [k for k in range(len(traces) * len(configs))
+           if k // len(configs) == i]
+    sel_t = torch.tensor(sel, device="cuda")
+    ins = [x.contiguous() for x in args]
+    ins[4], ins[5] = ins[4][sel_t].contiguous(), ins[5][sel_t].contiguous()
+    lib = _build.library("cell_scan_profile")
+    n_prof = len(PROF_SECTIONS) + len(OP_NAMES) + 1
+    prof = torch.zeros((len(sel), n_prof), dtype=torch.int64, device="cuda")
+    fn = lib.cell_scan_set_profile
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    _build.check(fn(prof.data_ptr()), "cell_scan_set_profile")
+    stream = torch.cuda.current_stream().cuda_stream
+    T, A = kw["n_tenants_max"], max(kw["n_track"], 1)
+    outs = {}
+
+    def run(name):
+        out = cs._empty_out(len(sel), T, A, "cuda")
+        _build.check(cs.launch(_build.library(name), ins, out,
+                               max_pbe=kw["max_pbe"],
+                               pm_banks=kw["pm_banks"], n_track=kw["n_track"],
+                               stream=stream), f"{name} launch")
+        outs[name] = out
+    prof_ms = cuda_ms(lambda: run("cell_scan_profile"), 1)
+    plain_ms = cuda_ms(lambda: run("cell_scan"), 1)
+    want = cs.CellScanOut(*(x[sel_t] for x in got))
+    for name, out in outs.items():
+        for f in cs.CellScanOut._fields:
+            if not torch_equal(getattr(out, f), getattr(want, f)):
+                fail(f"{name} on cholesky differs from the main path on {f}")
+    rows = prof.cpu().tolist()
+    steps = [int(x) for x in want.steps.cpu().tolist()]
+    ghz = max(r[-1] for r in rows) / (prof_ms * 1e6)
+    out = {}
+    for j, (row, n) in enumerate(zip(rows, steps)):
+        scheme = list(Scheme)[int(ins[5][j])].name
+        sec = {name: row[k] / n / ghz
+               for k, name in enumerate(PROF_SECTIONS)}
+        ops = dict(zip(OP_NAMES, row[len(PROF_SECTIONS):-1]))
+        out[scheme] = dict(ns_per_step=sec, total_ns_per_step=row[-1] / n
+                           / ghz, steps=n, ops=ops)
+        print(f"phase 4 cell_scan section profile cholesky/{scheme}: {n} "
+              f"steps ({', '.join(f'{k} {v}' for k, v in ops.items())}); "
+              f"ns per step: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sec.items())
+              + f"; total {row[-1] / n / ghz:.1f} ns "
+              f"({row[-1] / n:.0f} cycles) per step")
+    print(f"phase 4 cell_scan profile: instrumented {prof_ms:.3f} ms, "
+          f"uninstrumented {plain_ms:.3f} ms on the 3 cholesky cells "
+          f"({plain_ms * 1e6 / max(steps):.1f} ns/step); SM clock "
+          f"{ghz:.3f} GHz from the loop's cycles over the instrumented "
+          f"time; both exact against the main path")
+    return dict(sections=out, ms=plain_ms, profiled_ms=prof_ms,
+                ns_per_step=plain_ms * 1e6 / max(steps), ghz=ghz)
+
+
 # ---- the model side: flash_attention, ssd_scan, serving ----------------
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 FLASH_SWEEP = ((2, 2, 256, 64), (1, 4, 128, 128), (1, 1, 512, 256))
 SSD_SWEEP = ((2, 256, 3, 64, 128, 128), (1, 128, 2, 32, 64, 64),
              (2, 512, 1, 64, 128, 128), (1, 256, 4, 64, 64, 128))
 TOL = {"float32": (2e-5, 1e-3), "bfloat16": (3e-2, 1e-1)}  # flash, ssd
 
 
-def bound(flops: float, nbytes: float):
-    """The least time for the work: flops at the dense bf16 peak or bytes
-    at the HBM rate, whichever is longer; (ms, what bounds it)."""
-    t_op, t_b = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, flops_per_s: float = BF16_FLOPS_PER_S):
+    """The least time for the work: flops at the peak for their type
+    (dense bf16 unless given) or bytes at the HBM rate, whichever is
+    longer; (ms, what bounds it)."""
+    t_op, t_b = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_op, t_b) * 1e3, ("operations" if t_op >= t_b else "bytes")
 
 
@@ -363,6 +453,11 @@ def max_err(got, want, what: str, tol: float) -> float:
 
 
 def phase_flash(torch, np):
+    """Both routes of ``flash_attention`` against the plain version: the
+    JAX sweep (bf16 on the tensor-core kernel, f32 on the FMA kernel,
+    each route's launches counted) and smollm-135m's prefill shape in
+    bf16 (the main path) and in f32, timed beside the plain version and,
+    for bf16, ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
@@ -378,48 +473,63 @@ def phase_flash(torch, np):
     cases = [(sh, dt, True, w) for sh in FLASH_SWEEP
              for dt in (torch.float32, torch.bfloat16) for w in (None, 64)]
     cases.append(((1, 2, 256, 64), torch.float32, False, None))
+    cases.append(((1, 2, 256, 64), torch.bfloat16, False, None))
     for (b, h, s, d), dtype, causal, window in cases:
         name = str(dtype).split(".")[1]
         q, k, v = qkv(b, h, h, s, d, dtype)
+        tc0, fma0 = fa.launches_tc, fa.launches_fma
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        served = (fa.launches_tc - tc0, fa.launches_fma - fma0)
+        if served != ((1, 0) if dtype == torch.bfloat16 else (0, 1)):
+            fail(f"flash_attention {name} served by (tc, fma) = {served}")
         e = max_err(got, want, f"flash_attention {(b, h, s, d)} {name} "
                     f"causal={causal} window={window}", TOL[name][0])
         err[name] = max(err[name], e)
+    n_bf16 = sum(c[1] == torch.bfloat16 for c in cases)
     print(f"phase 5 flash_attention sweep ({len(cases)} cases): max abs "
-          f"error f32 {err['float32']:.3g}, bf16 {err['bfloat16']:.3g}")
+          f"error f32 {err['float32']:.3g} (FMA kernel, "
+          f"{len(cases) - n_bf16} launches), bf16 {err['bfloat16']:.3g} "
+          f"(tensor-core kernel, {n_bf16} launches)")
 
     # the serving shape: smollm-135m prefill, 4 x 1024 tokens, 9 query
-    # heads on 3 KV heads, head dim 64, bf16, causal
+    # heads on 3 KV heads, head dim 64, causal; bf16 is the main path
     b, h, hkv, s, d = 4, 9, 3, 1024, 64
-    q, k, v = qkv(b, h, hkv, s, d, torch.bfloat16)
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = flash_attention_ref(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    e = max_err(got, want, "flash_attention serving shape",
-                TOL["bfloat16"][0])
-    err["bfloat16"] = max(err["bfloat16"], e)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 50)
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), 10)
-    # the library yardstick on the same inputs with K/V repeated per
-    # query head (never called by the port)
-    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, kr, vr, is_causal=True), 50)
     pairs = s * (s + 1) // 2                        # causal (q, k) pairs
     flops = 4.0 * b * h * pairs * d                 # q·k and p·v
-    nbytes = 2.0 * (2 * b * h * s * d + 2 * b * hkv * s * d)
-    bms, by = bound(flops, nbytes)
-    print(f"phase 5 flash_attention (4, 9, 1024, 64) bf16 causal, 3 KV "
-          f"heads: max abs error {e:.3g}; kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-          f"bound {bms:.5f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB); {ms / bms:.1f}x the bound")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, max_abs_err=max(err.values()),
-                max_abs_err_f32=err["float32"],
-                max_abs_err_bf16=err["bfloat16"])
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        size = 2 if dtype == torch.bfloat16 else 4
+        q, k, v = qkv(b, h, hkv, s, d, dtype)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        e = max_err(got, want, f"flash_attention serving shape {name}",
+                    TOL[name][0])
+        err[name] = max(err[name], e)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 50)
+        plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                        10)
+        # the library yardstick on the same inputs with K/V repeated per
+        # query head (never called by the port)
+        kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True), 50)
+        nbytes = size * (2.0 * b * h * s * d + 2.0 * b * hkv * s * d)
+        bms, by = bound(flops, nbytes, BF16_FLOPS_PER_S
+                        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+        route = fa.ROUTES[dtype]
+        print(f"phase 5 {route} (4, 9, 1024, 64) {name} causal, 3 KV "
+              f"heads: max abs error {e:.3g}; kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms"
+              f", bound {bms:.5f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB); {ms / bms:.1f}x the bound")
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bms, bound_by=by, max_abs_err=err[name],
+                         serving_shape_err=e)
+    return out
 
 
 def ssd_inputs(torch, rng, b, s, h, p, n, dtype):
@@ -577,6 +687,7 @@ def phase_serve(torch, np):
         model = params_from_reference(cfg32, tree, "cuda")
         prompt = torch.tensor(d["prompt"], device="cuda")
         worst, checked, agree = 0.0, 0, 0
+        fa.launches_fma = fa.launches_tc = 0
         with torch.inference_mode():
             logits, caches = T.prefill(model, {"tokens": prompt},
                                        d["prompt_len"] + d["decode_steps"])
@@ -607,12 +718,20 @@ def phase_serve(torch, np):
                                                pos0=d["prompt_len"] + i)
         torch.cuda.synchronize()
         del model, caches, logits
+        routes32 = dict(flash_attention_fma=fa.launches_fma,
+                        flash_attention_tc=fa.launches_tc)
+        want32 = dict(flash_attention_fma=0 if cfg.attn_free
+                      else cfg.n_layers, flash_attention_tc=0)
+        if routes32 != want32:
+            fail(f"{arch} f32 prefill took flash routes {routes32}, "
+                 f"expected {want32}")
         print(f"phase 7a {arch} f32 ({cfg.n_layers} layers, {d['batch']} x "
               f"{d['prompt_len']} prompt + {d['decode_steps']} decode steps)"
               f": logits within {worst:.3g} relative of serve_ref.json "
               f"(limit {rtol}); greedy tokens equal on {checked} checked "
               f"(margin > limit), {agree}/{len(d['steps']) * d['batch']} "
-              f"in all; numpy weight fill {fill_s:.1f} s")
+              f"in all; flash routes {json.dumps(routes32)}; numpy weight "
+              f"fill {fill_s:.1f} s")
 
         # (b) the published bf16 config, served: 4 x 1024 prompt, 64 steps
         torch.cuda.empty_cache()
@@ -622,16 +741,20 @@ def phase_serve(torch, np):
         serve(model, prompt[:, :128], 2)            # warm-up (build, cache)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = ss.launches = tl.launches = cs.launches = 0
+        fa.launches_tc = fa.launches_fma = 0
+        ss.launches = tl.launches = cs.launches = 0
         res = serve(model, prompt, 64)
-        counts = dict(flash_attention=fa.launches, ssd_scan=ss.launches,
-                      tat_lookup=tl.launches, cell_scan=cs.launches)
+        counts = dict(flash_attention_tc=fa.launches_tc,
+                      flash_attention_fma=fa.launches_fma,
+                      ssd_scan=ss.launches, tat_lookup=tl.launches,
+                      cell_scan=cs.launches)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if res.tokens.shape != (4, 64) or res.tokens.min() < 0 \
                 or res.tokens.max() >= cfg.vocab:
             fail(f"{arch} served tokens of shape {res.tokens.shape}")
-        want = dict(flash_attention=cfg.n_layers if not cfg.attn_free
-                    else 0, ssd_scan=cfg.n_layers if cfg.attn_free else 0,
+        want = dict(flash_attention_tc=cfg.n_layers if not cfg.attn_free
+                    else 0, flash_attention_fma=0,
+                    ssd_scan=cfg.n_layers if cfg.attn_free else 0,
                     tat_lookup=0, cell_scan=0)
         if counts != want:
             fail(f"{arch} serve launched {counts}, expected {want} (one "
@@ -654,7 +777,8 @@ def phase_serve(torch, np):
             for name, ms, calls in top:
                 print(f"  {what}: {ms:9.3f} ms {calls:6d} calls  "
                       f"{name[:90]}")
-        out[arch] = dict(counts=counts, prefill_ms=res.prefill_s * 1e3,
+        out[arch] = dict(counts=counts, counts_f32_datum=routes32,
+                         prefill_ms=res.prefill_s * 1e3,
                          decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
                          peak_gib=peak, datum_rel=worst,
                          prefill_device_ms=pre_ms,
@@ -679,7 +803,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     t0 = time.time()
-    sources = _build.SOURCES + ("smem_probe",)
+    sources = _build.SOURCES + ("smem_probe",) + tuple(_build.VARIANTS)
     _build.build_all(sources)           # one nvcc per source, all at once
     print(f"phase 1 kernels built in {time.time() - t0:.1f} s "
           f"({', '.join(sources)})")
@@ -691,6 +815,7 @@ def main() -> int:
     traces, configs = paper_grid()
     full = phase_cell_scan_full(torch, traces, configs)
     main_path = phase_main_path(torch, np, smem_ns, traces, configs, full)
+    scan_profile = phase_cell_scan_profile(torch, traces, configs, full)
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
@@ -724,21 +849,45 @@ def main() -> int:
              main_path_latency_bound_ms=main_path[
                  "main_latency_bound_ms"],
              main_path_max_steps=main_path["main_steps"],
-             main_path_wall_s=main_path["wall_s"]),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             main_path_wall_s=main_path["wall_s"],
+             main_path_ns_per_step=main_path["main_ms"] * 1e6
+             / main_path["main_steps"],
+             cholesky_section_ns_per_step=scan_profile["sections"]),
+        dict(name="flash_attention_tc", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
-             launches=served["smollm-135m"]["counts"]["flash_attention"],
-             main_path="smollm-135m serve, 4 x 1024 prompt + 64 decode "
-                       "steps: one launch per layer at prefill",
-             max_abs_err=flash["max_abs_err"],
-             max_abs_err_f32=flash["max_abs_err_f32"],
-             max_abs_err_bf16=flash["max_abs_err_bf16"], ms=flash["ms"],
-             plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
-             bound_by=flash["bound_by"], library_ms=flash["library_ms"],
+             launches=served["smollm-135m"]["counts"]["flash_attention_tc"],
+             main_path="smollm-135m bf16 serve, 4 x 1024 prompt + 64 "
+                       "decode steps: one launch per layer at prefill "
+                       "(the bf16 route of flash_attention)",
+             max_abs_err=flash["bfloat16"]["max_abs_err"],
+             ms=flash["bfloat16"]["ms"],
+             plain_ms=flash["bfloat16"]["plain_ms"],
+             bound_ms=flash["bfloat16"]["bound_ms"],
+             bound_by=flash["bfloat16"]["bound_by"],
+             library_ms=flash["bfloat16"]["library_ms"],
              library="scaled_dot_product_attention (K/V repeated per "
                      "query head)",
              shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), bf16, "
+                   "causal"),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:68",
+             launches=served["smollm-135m"]["counts"]["flash_attention_fma"],
+             main_path="the f32 route of flash_attention: not launched by "
+                       "the bf16 serve; launched once per layer by the "
+                       "f32 datum prefill of phase 7a ("
+                       + str(served["smollm-135m"]["counts_f32_datum"][
+                           "flash_attention_fma"]) + " launches)",
+             max_abs_err=flash["float32"]["max_abs_err"],
+             ms=flash["float32"]["ms"],
+             plain_ms=flash["float32"]["plain_ms"],
+             bound_ms=flash["float32"]["bound_ms"],
+             bound_by=flash["float32"]["bound_by"],
+             library_ms=flash["float32"]["library_ms"],
+             library="scaled_dot_product_attention in f32 (K/V repeated "
+                     "per query head)",
+             shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), f32, "
                    "causal"),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -21,9 +21,14 @@ from typing import Dict, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # The package's kernels.  ``csrc/smem_probe.cu`` (a latency probe for
-# chip_smoke.py's bound, not a kernel of the port) is built only when
-# asked for by name.
-SOURCES = ("tat_lookup", "cell_scan", "flash_attention", "ssd_scan")
+# chip_smoke.py's bound, not a kernel of the port) and the VARIANTS are
+# built only when asked for by name.
+SOURCES = ("tat_lookup", "cell_scan", "flash_attention",
+           "flash_attention_tc", "ssd_scan")
+# Libraries built from another library's source with extra flags:
+# name -> (source, flags).  ``cell_scan_profile`` is the cell scan with
+# its section profile compiled in (chip_smoke.py's trace of a step).
+VARIANTS = {"cell_scan_profile": ("cell_scan", ("-DCELL_SCAN_PROFILE",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # -fmad=false: the reference's f64 arithmetic is separate adds, maxes and
@@ -32,8 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXACT_SOURCES = ("tat_lookup", "cell_scan", "smem_probe")
 
 
+def _source(name: str) -> Tuple[str, Tuple[str, ...]]:
+    return VARIANTS.get(name, (name, ()))
+
+
 def nvcc_flags(name: str) -> Tuple[str, ...]:
-    return NVCC_FLAGS + (("-fmad=false",) if name in EXACT_SOURCES else ())
+    src, extra = _source(name)
+    return NVCC_FLAGS + (("-fmad=false",) if src in EXACT_SOURCES else ()) \
+        + extra
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -49,7 +60,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{_source(name)[0]}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -68,7 +79,7 @@ def build_all(names: Sequence[str] = SOURCES) -> None:
         log = open(out.with_suffix(".log"), "w")
         procs.append((name, out, tmp, log, subprocess.Popen(
             [nvcc, *nvcc_flags(name), "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
+             str(CSRC / f"{_source(name)[0]}.cu")],
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for name, out, tmp, log, proc in procs:

@@ -17,7 +17,8 @@
 // state (clocks, cursors, PB tables, bank/PBC next-free times, barrier
 // counts, stats) lives in shared memory; aver/pm_ver (durability
 // tracking, A addresses) live in global memory.  Lanes own PBE slots
-// (slot s = lane + 32 j, up to 128 slots) and keep the per-step derived
+// (slot s = lane + 32 j, j < SPL, the template's slots per lane: 1, 2
+// or 4 for up to 32, 64 or 128 slots) and keep the per-step derived
 // slot columns in registers; every argmin is a warp reduction that
 // breaks ties to the lowest index, as jnp.argmin does.  All lanes run
 // the scalar part of a step redundantly (same inputs, same values);
@@ -25,19 +26,64 @@
 // __syncwarp(), then writes — lanes of a warp are not in lock step.
 //
 // What bounds it: each cell is a chain of dependent steps (379 029 for
-// the paper's cholesky at persist_budget=100_000), one step a few
-// dependent shared-memory round trips plus warp shuffles, so the kernel
-// is latency bound; the paper grid's 21 cells keep at most 21 of the
-// H100's 132 SMs busy.
+// the paper's cholesky at persist_budget=100_000), so the kernel is
+// latency bound; the paper grid's 21 cells keep at most 21 of the
+// H100's 132 SMs busy.  The section profile (-DCELL_SCAN_PROFILE,
+// chip_smoke.py phase 4) showed where a step's latency went, and the
+// design takes it off the step's dependent chain:
+//   * trace entries: each core's next RING entries wait in shared
+//     memory, refilled by cp.async as the core advances and read when it
+//     is next chosen, so no global load sits between one step's merge
+//     and the next;
+//   * the merge: with at most 32 cores, core c sits on lane c and only
+//     the keys go through the butterfly (one ballot then picks the
+//     lowest lane holding the minimum);
+//   * PB lookups, occupancy and counts: each lane evaluates its slots'
+//     tag match, liveness and serving test at once (independent loads),
+//     and warp-wide answers are ballots (tat_first, popc) instead of
+//     sweeps and shuffle sums; the three slot argmins share one
+//     butterfly; the RF drain ranks walk the Dirty slots by ballot and
+//     shuffle instead of O(P²) shared-memory scans;
+//   * addresses: the shared-memory carve-up is computed once on the
+//     host and passed as offsets, and the read path's config scalars sit
+//     in registers, so no step re-derives them;
+//   * a PM bank is a mask when the bank count is a power of two.
+// None of this changes an f64 expression or its order.
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "tat_match.cuh"
+
+// Section profile (built only with -DCELL_SCAN_PROFILE, never on the
+// main path): every lane adds the clock64() cycles since its last mark
+// to the section named at each mark; lane 0 writes, per cell, the
+// cycles of each section, the steps of each op kind and the loop's
+// total cycles to g_prof (cell_scan_set_profile).
+enum ProfSection {
+  SEC_KEYS, SEC_ARGMIN, SEC_FETCH, SEC_READ, SEC_LOOKUP, SEC_OCC,
+  SEC_SELECT, SEC_DRAIN, SEC_WRITE, SEC_STATS, SEC_OTHER, SEC_BOOK, N_SEC
+};
+constexpr int N_OPS = 6, N_PROF = N_SEC + N_OPS + 1;
+#ifdef CELL_SCAN_PROFILE
+__device__ long long* g_prof;
+#define PROF(sec)                         \
+  do {                                    \
+    const long long now_ = clock64();     \
+    prof_acc[sec] += now_ - prof_t;       \
+    prof_t = now_;                        \
+  } while (0)
+#else
+#define PROF(sec) \
+  do {            \
+  } while (0)
+#endif
 
 namespace {
 
 constexpr double INF = 1e30;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int SPL = 4;  // slots per lane: max_pbe <= 128
+constexpr int MAX_SPL = 4;  // slots per lane: max_pbe <= 128
+constexpr int RING = 4;  // trace entries per core held in shared memory
 
 constexpr int EMPTY = 0, DIRTY = 1, DRAIN = 2;
 constexpr int OP_COMPUTE = 0, OP_DRAM_READ = 1, OP_DRAM_WRITE = 2,
@@ -82,21 +128,72 @@ __device__ __forceinline__ int floor_mod(int a, int n) {
   return r < 0 ? r + n : r;
 }
 
+// The PM bank of a tag: floor_mod(tag, B), by a mask when B is a power
+// of two (two's complement makes the mask a floor modulo too).
+struct Banks {
+  int n, mask;  // mask = n - 1 for a power of two, else -1
+  __device__ __forceinline__ int operator()(int tag) const {
+    return mask >= 0 ? (tag & mask) : floor_mod(tag, n);
+  }
+};
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ void argmin_step(double& key, int& idx, int off) {
+  const double k2 = __shfl_xor_sync(FULL, key, off);
+  const int i2 = __shfl_xor_sync(FULL, idx, off);
+  if (k2 < key || (k2 == key && i2 < idx)) {
+    key = k2;
+    idx = i2;
+  }
 }
 
 // (key, idx) argmin over the warp, ties to the lowest index; every lane
 // gets the result.
 __device__ __forceinline__ void warp_argmin(double& key, int& idx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) argmin_step(key, idx, off);
+}
+
+// The same when lane l's candidate has index l and every key is a
+// non-negative double (no NaN, no -0), whose bit patterns order as
+// unsigned integers: the high words' minimum, then the low words' among
+// the lanes that hold it (two warp reductions), and one ballot finds
+// the lowest lane holding the minimum.
+__device__ __forceinline__ void warp_argmin_lane(double& key, int& idx) {
+  unsigned long long bits;
+  memcpy(&bits, &key, sizeof bits);
+  const unsigned hi = static_cast<unsigned>(bits >> 32);
+  const unsigned lo = static_cast<unsigned>(bits);
+  const unsigned min_hi = __reduce_min_sync(FULL, hi);
+  const unsigned min_lo = __reduce_min_sync(FULL, hi == min_hi ? lo : ~0u);
+  idx = __ffs(__ballot_sync(FULL, hi == min_hi && lo == min_lo)) - 1;
+  bits = (static_cast<unsigned long long>(min_hi) << 32) | min_lo;
+  memcpy(&key, &bits, sizeof bits);
+}
+
+// Three independent argmins in the same five rounds, so that their
+// shuffles overlap.
+__device__ __forceinline__ void warp_argmin3(double& k0, int& i0, double& k1,
+                                             int& i1, double& k2, int& i2) {
   for (int off = 16; off > 0; off >>= 1) {
-    const double k2 = __shfl_xor_sync(FULL, key, off);
-    const int i2 = __shfl_xor_sync(FULL, idx, off);
-    if (k2 < key || (k2 == key && i2 < idx)) {
-      key = k2;
-      idx = i2;
-    }
+    argmin_step(k0, i0, off);
+    argmin_step(k1, i1, off);
+    argmin_step(k2, i2, off);
   }
+}
+
+// How many of the warp's slots have pred set (lane l's pred[j] is slot
+// 32 j + l): one ballot per 32-slot tile.
+template <int N>
+__device__ __forceinline__ int warp_count(const bool (&pred)[N], int tiles) {
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < tiles) n += __popc(__ballot_sync(FULL, pred[j]));
+  return n;
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -110,37 +207,18 @@ __device__ __forceinline__ double warp_max(double v) {
   return v;
 }
 
-struct Args {
-  const int* ops;          // (K, C, L)
-  const int* addrs;        // (K, C, L)
-  const float* gaps;       // (K, C, L)
-  const int* lengths;      // (K, C)
-  const int* cell_trace;   // (N,)
-  const int* cell_cfg;     // (N,)
-  const int* schemes;      // (Kc,)
-  const double* sc_table;  // (Kc, N_SC)
-  const double* ten_table; // (Kc, N_TEN, T)
-  const double* lat_edges; // (N_LAT_BINS - 1,)
-  double* runtime;         // (N,)
-  double* stats;           // (N, T, N_STATS)
-  double* hop_stats;       // (N, 1, N_HOP_STATS)
-  int* durable_ver;        // (N, A)  pm_ver during the run
-  double* n_recov;         // (N,)
-  double* recov_ns;        // (N,)
-  double* recov_t;         // (N, T)
-  long long* steps;        // (N,)
-  long long* lookups;      // (N,)
-  int* aver;               // (N, A)  scratch
-  int C, L, P, B, A, T, n_track;
-};
 
-// Shared-memory carve-up of one cell's carry and scratch.
+// Shared-memory carve-up of one cell's carry and scratch.  Per core c:
+// its cursor, length, and the trace entry at the cursor (cop, caddr,
+// cgap); the ring holds entries ptr .. ptr + RING - 1 at slot
+// entry % RING, refilled by cp.async as the core advances.
 struct Smem {
   double *clock, *lru, *dd, *pm_busy, *stats, *hop, *pbc, *sc, *ten, *occ,
-      *key, *busy, *edges;
-  int *ptr, *tag, *ver, *tids, *lpt, *rank, *bank;
+      *edges;
+  int *ptr, *len, *cop, *caddr, *rop, *raddr, *tag, *ver, *tids, *lpt;
+  float *cgap, *rgap;
   short* bcount;
-  signed char *state, *owner, *blocked, *todrain;
+  signed char *state, *owner, *blocked;
 };
 
 struct Carver {
@@ -168,30 +246,77 @@ __host__ __device__ size_t carve(Smem& m, unsigned char* base, int C, int P,
   m.sc = cv.take<double>(N_SC);
   m.ten = cv.take<double>(static_cast<size_t>(N_TEN) * T);
   m.occ = cv.take<double>(T);
-  m.key = cv.take<double>(P);
-  m.busy = cv.take<double>(P);
   m.edges = cv.take<double>(N_LAT_BINS - 1);
   m.ptr = cv.take<int>(C);
+  m.len = cv.take<int>(C);
+  m.cop = cv.take<int>(C);
+  m.caddr = cv.take<int>(C);
+  m.rop = cv.take<int>(static_cast<size_t>(C) * RING);
+  m.raddr = cv.take<int>(static_cast<size_t>(C) * RING);
   m.tag = cv.take<int>(P);
   m.ver = cv.take<int>(P);
   m.tids = cv.take<int>(C);
   m.lpt = cv.take<int>(T);
-  m.rank = cv.take<int>(P);
-  m.bank = cv.take<int>(P);
+  m.cgap = cv.take<float>(C);
+  m.rgap = cv.take<float>(static_cast<size_t>(C) * RING);
   m.bcount = cv.take<short>(T);
   m.state = cv.take<signed char>(P);
   m.owner = cv.take<signed char>(P);
   m.blocked = cv.take<signed char>(C);
-  m.todrain = cv.take<signed char>(P);
   return cv.off;
 }
 
+#define SMEM_FIELDS(X)                                                     \
+  X(clock) X(lru) X(dd) X(pm_busy) X(stats) X(hop) X(pbc) X(sc) X(ten)     \
+  X(occ) X(edges) X(ptr) X(len) X(cop) X(caddr) X(rop) X(raddr) X(tag)    \
+  X(ver) X(tids) X(lpt) X(cgap) X(rgap) X(bcount) X(state) X(owner)       \
+  X(blocked)
+
+// The carve-up at `base`, from the offsets the host computed once.
+// Re-deriving them in the kernel leaves a chain of aligned adds that the
+// compiler rematerialises at every access under register pressure; an
+// offset from the kernel's parameters is one add.
+__device__ __forceinline__ Smem rebase(Smem m, unsigned char* base) {
+#define REBASE(f) \
+  m.f = reinterpret_cast<decltype(m.f)>(base + reinterpret_cast<size_t>(m.f));
+  SMEM_FIELDS(REBASE)
+#undef REBASE
+  return m;
+}
+
+struct Args {
+  const int* ops;          // (K, C, L)
+  const int* addrs;        // (K, C, L)
+  const float* gaps;       // (K, C, L)
+  const int* lengths;      // (K, C)
+  const int* cell_trace;   // (N,)
+  const int* cell_cfg;     // (N,)
+  const int* schemes;      // (Kc,)
+  const double* sc_table;  // (Kc, N_SC)
+  const double* ten_table; // (Kc, N_TEN, T)
+  const double* lat_edges; // (N_LAT_BINS - 1,)
+  double* runtime;         // (N,)
+  double* stats;           // (N, T, N_STATS)
+  double* hop_stats;       // (N, 1, N_HOP_STATS)
+  int* durable_ver;        // (N, A)  pm_ver during the run
+  double* n_recov;         // (N,)
+  double* recov_ns;        // (N,)
+  double* recov_t;         // (N, T)
+  long long* steps;        // (N,)
+  long long* lookups;      // (N,)
+  int* aver;               // (N, A)  scratch
+  int C, L, P, B, A, T, n_track;
+  Smem lay;  // the carve-up with a null base: byte offsets
+};
+
 }  // namespace
 
+// SPL: PBE slots per lane (slot s = lane + 32 j, j < SPL), the fewest
+// that hold max_pbe, so that a small PB keeps one slot a lane.
+template <int SPL>
 __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem m;
-  carve(m, smem_raw, a.C, a.P, a.B, a.T);
+  const Smem m = rebase(a.lay, smem_raw);
   const int lane = threadIdx.x;
   const int cell = blockIdx.x;
   const int C = a.C, L = a.L, P = a.P, B = a.B, A = a.A, T = a.T;
@@ -214,6 +339,17 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     m.clock[i] = 0.0;
     m.ptr[i] = 0;
     m.blocked[i] = 0;
+    const int len = lens[i], last = max(len - 1, 0);
+    m.len[i] = len;
+    for (int k = 0; k < RING; ++k) {
+      const size_t e = static_cast<size_t>(i) * L + min(k, last);
+      m.rop[i * RING + k] = ops[e];
+      m.raddr[i * RING + k] = addrs[e];
+      m.rgap[i * RING + k] = gaps[e];
+    }
+    m.cop[i] = m.rop[i * RING];
+    m.caddr[i] = m.raddr[i * RING];
+    m.cgap[i] = m.rgap[i * RING];
   }
   for (int s = lane; s < P; s += 32) {
     m.tag[s] = -1;
@@ -255,45 +391,78 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
   }
   __syncwarp();
   const int n_pbe = static_cast<int>(sc[K_N_PBE]);
+  const int tiles = (P + 31) / 32;  // 32-slot tiles of the PB
+  const Banks bank_of{B, (B & (B - 1)) == 0 ? B - 1 : -1};
   const double crash = sc[K_CRASH_AT];
+  // the read path's config scalars, in registers for the whole cell
+  // (pbc_read_tag is the reference's own sum pbc_read_ns + tag_ns)
+  const struct {
+    double ow_cpu_pm, nvm_read, nvm_r_occ, ow_cpu_sw1, pbc_read_tag,
+        fwd_margin, data_ns, switch_pipe, ow_sw1_pm, pbc_read_occ;
+  } rd{sc[K_OW_CPU_PM], sc[K_NVM_READ], sc[K_NVM_R_OCC],
+       sc[K_OW_CPU_SW1], sc[K_PBC_READ] + sc[K_TAG_NS], sc[K_FWD_MARGIN],
+       sc[K_DATA_NS], sc[K_SWITCH_PIPE], sc[K_OW_SW1_PM],
+       sc[K_PBC_READ_OCC]};
 
   long long steps = 0, lookups = 0;
+#ifdef CELL_SCAN_PROFILE
+  long long prof_acc[N_SEC] = {}, prof_ops[N_OPS] = {};
+  const long long prof_t0 = clock64();
+  long long prof_t = prof_t0;
+#endif
   for (;;) {
     // ---- issue-time merge: the core whose next op issues first ---------
+    // (inactive and blocked cores key INF, so when none can be selected
+    // the minimum is INF and every later step is a no-op)
+    auto key_of = [&](int c) {
+      const int p = m.ptr[c], len = m.len[c];
+      const bool blocked = m.blocked[c];
+      const double ck = m.clock[c];
+      const float gap = m.cgap[c];
+      return (p < len && !blocked) ? ck + static_cast<double>(gap) : INF;
+    };
     double best = INF;
     int bc = lane;
-    bool any_active = false;
-    for (int c = lane; c < C; c += 32) {
-      const int p = m.ptr[c], len = lens[c];
-      const bool act = p < len;
-      any_active |= act;
-      const int ix = min(p, max(len - 1, 0));
-      const double key =
-          (act && !m.blocked[c])
-              ? m.clock[c] + static_cast<double>(gaps[static_cast<size_t>(c) * L + ix])
-              : INF;
-      if (key < best) {
-        best = key;
-        bc = c;
+    if (C <= 32) {  // core c on lane c (an idle lane keys INF)
+      if (lane < C) best = key_of(lane);
+      PROF(SEC_KEYS);
+      warp_argmin_lane(best, bc);
+    } else {
+      for (int c = lane; c < C; c += 32) {
+        const double key = key_of(c);
+        if (key < best) {
+          best = key;
+          bc = c;
+        }
       }
+      PROF(SEC_KEYS);
+      warp_argmin(best, bc);
     }
-    warp_argmin(best, bc);
-    any_active = __any_sync(FULL, any_active);
-    // once no core can be selected every later step is a no-op
-    if (!(any_active && best < INF * 0.5)) break;
+    PROF(SEC_ARGMIN);
+    if (!(best < INF * 0.5)) break;
     ++steps;
     const int c = bc;
-    const int i = min(m.ptr[c], max(lens[c] - 1, 0));
-    const size_t ci = static_cast<size_t>(c) * L + i;
     const double t_issue = best;
     // ops issuing after the power loss never happen (machine is off)
     const bool live = t_issue <= crash;
-    const int op = live ? ops[ci] : OP_COMPUTE;
+    const int op = live ? m.cop[c] : OP_COMPUTE;
     const double t = live ? t_issue : m.clock[c];
-    const int addr = addrs[ci];
+    const int addr = m.caddr[c];
     const int tid = m.tids[c];
     const int n_live_t = m.lpt[tid];
     double* st_row = stats + static_cast<size_t>(tid) * N_STATS;
+    // core c's next trace entry, read now for the end of the step (lane
+    // 0's copies, one group a step: the entry was issued RING - 1 or
+    // more steps ago, so all but the newest RING - 2 groups suffice)
+    wg::cp_async_wait<RING - 2>();
+    const int p_next = m.ptr[c] + 1, nxt = c * RING + p_next % RING;
+    const int op_next = m.rop[nxt], addr_next = m.raddr[nxt];
+    const float gap_next = m.rgap[nxt];
+    const int last_c = max(m.len[c] - 1, 0);
+#ifdef CELL_SCAN_PROFILE
+    prof_ops[op] += 1;
+#endif
+    PROF(SEC_FETCH);
 
     if (op == OP_COMPUTE || op == OP_DRAM_WRITE) {
       __syncwarp();
@@ -305,10 +474,9 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         m.clock[c] = t + sc[K_DRAM_NS];
       }
     } else if (op == OP_PM_READ) {
-      const double ow = sc[K_OW_CPU_PM];
-      const int bank = floor_mod(addr, B);
-      const double pm_start_dir = fmax(m.pm_busy[bank], t + ow);
-      const double resp_dir = pm_start_dir + sc[K_NVM_READ] + ow;
+      const int bank = bank_of(addr);
+      const double pm_start_dir = fmax(m.pm_busy[bank], t + rd.ow_cpu_pm);
+      const double resp_dir = pm_start_dir + rd.nvm_read + rd.ow_cpu_pm;
       if (scheme == 0) {
         // NoPB: the volatile switch forwards every read to PM.
         __syncwarp();
@@ -316,55 +484,58 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           st_row[S_READ_SUM] += resp_dir - t;
           st_row[S_READ_CNT] += 1.0;
           m.clock[c] = resp_dir;
-          m.pm_busy[bank] = pm_start_dir + sc[K_NVM_R_OCC];
+          m.pm_busy[bank] = pm_start_dir + rd.nvm_r_occ;
         }
       } else {
-        // PB/PB_RF: read forwarding through the PI buffer.  state0 is
-        // the lazily freed state at t (policy.lazy_free).
-        auto st0 = [&](int s) {
-          const int v = m.state[s];
-          return (v == DRAIN && m.dd[s] <= t) ? EMPTY : v;
-        };
-        // policy.pb_lookup: the first Dirty match, else the first live
-        // match, else slot 0 — two tat_match compositions
-        int idx = tat_match(addr, m.tag, [&](int s) { return st0(s) == DIRTY; },
-                            n_pbe);
-        ++lookups;
-        bool has = idx >= 0;
-        if (!has) {
-          idx = tat_match(addr, m.tag, [&](int s) { return st0(s) != EMPTY; },
-                          n_pbe);
-          ++lookups;
-          has = idx >= 0;
-          idx = has ? idx : 0;
-        }
-        const double arr = t + sc[K_OW_CPU_SW1];
+        // PB/PB_RF: read forwarding through the PI buffer.
+        const double arr = t + rd.ow_cpu_sw1;
         const double pbc_prev = m.pbc[0];
-        const double pbc_start =
-            fmax(pbc_prev, arr) + (sc[K_PBC_READ] + sc[K_TAG_NS]);
-        const int st_i = st0(idx);
-        const double dd_i = m.dd[idx];
-        const bool served =
-            (st_i == DIRTY) ||
-            ((st_i == DRAIN) && (dd_i > pbc_start + sc[K_FWD_MARGIN]));
-        const double resp_pb = pbc_start + sc[K_DATA_NS] + sc[K_OW_CPU_SW1];
+        const double pbc_start = fmax(pbc_prev, arr) + rd.pbc_read_tag;
+        // s0: the lazily freed state at t (policy.lazy_free) of this
+        // lane's slots; each lane also decides whether its slot would
+        // serve the read, so the chosen slot's answer is one ballot bit
+        signed char s0[SPL];
+        bool hit_d[SPL], hit_l[SPL], serves[SPL];
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int s = lane + 32 * j, sp = s < P ? s : 0;
+          const int v = m.state[sp], tg = m.tag[sp];
+          const double ddv = m.dd[sp];
+          const int st = (v == DRAIN && ddv <= t) ? EMPTY : v;
+          s0[j] = static_cast<signed char>(s < P ? st : EMPTY);
+          const bool tm = s < n_pbe && tg == addr;
+          hit_d[j] = tm && st == DIRTY;
+          hit_l[j] = tm && st != EMPTY;
+          serves[j] = (st == DIRTY) ||
+                      ((st == DRAIN) && (ddv > pbc_start + rd.fwd_margin));
+        }
+        // policy.pb_lookup: the first Dirty match, else the first live
+        // match, else slot 0 — two tat_match compositions, evaluated
+        // together (counted as the reference runs them: the live match
+        // only after a Dirty miss)
+        const int i_dirty = tat_first(hit_d, tiles);
+        const int i_live = tat_first(hit_l, tiles);
+        lookups += i_dirty >= 0 ? 1 : 2;
+        const bool has = i_dirty >= 0 || i_live >= 0;
+        const int idx = i_dirty >= 0 ? i_dirty : (has ? i_live : 0);
+        bool served = false;
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const unsigned bits = j < tiles ? __ballot_sync(FULL, serves[j])
+                                          : 0u;
+          if (j == idx / 32) served = (bits >> (idx % 32)) & 1u;
+        }
+        const double resp_pb = pbc_start + rd.data_ns + rd.ow_cpu_sw1;
         const double pm_start_fwd =
-            fmax(m.pm_busy[bank],
-                 pbc_start + sc[K_SWITCH_PIPE] + sc[K_OW_SW1_PM]);
-        const double resp_fwd = pm_start_fwd + sc[K_NVM_READ] + ow;
+            fmax(m.pm_busy[bank], pbc_start + rd.switch_pipe + rd.ow_sw1_pm);
+        const double resp_fwd = pm_start_fwd + rd.nvm_read + rd.ow_cpu_pm;
         const bool hit = has && served;
         const double resp = has ? (served ? resp_pb : resp_fwd) : resp_dir;
         const double pmb = has ? (served ? m.pm_busy[bank]
-                                         : pm_start_fwd + sc[K_NVM_R_OCC])
-                               : pm_start_dir + sc[K_NVM_R_OCC];
+                                         : pm_start_fwd + rd.nvm_r_occ)
+                               : pm_start_dir + rd.nvm_r_occ;
         const double pbc_new =
-            has ? fmax(pbc_prev, arr) + sc[K_PBC_READ_OCC] : pbc_prev;
-        signed char s0[SPL];
-#pragma unroll
-        for (int j = 0; j < SPL; ++j) {
-          const int s = lane + 32 * j;
-          s0[j] = s < P ? static_cast<signed char>(st0(s)) : EMPTY;
-        }
+            has ? fmax(pbc_prev, arr) + rd.pbc_read_occ : pbc_prev;
         __syncwarp();
 #pragma unroll
         for (int j = 0; j < SPL; ++j) {
@@ -382,9 +553,10 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           m.pm_busy[bank] = pmb;
           m.pbc[0] = pbc_new;
         }
+        PROF(SEC_READ);
       }
     } else if (op == OP_PERSIST) {
-      const int bank = floor_mod(addr, B);
+      const int bank = bank_of(addr);
       const bool tracked = addr >= 0 && addr < n_track;
       const int a_idx = clampi(addr, 0, A - 1);
       const int v_new = aver[a_idx] + 1;
@@ -418,37 +590,43 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         const double pbc_prev = m.pbc[0];
         const double pbc_start =
             fmax(pbc_prev, arr) + (sc[K_PBC_PROC] + sc[K_TAG_NS]);
-        auto st1f = [&](int s) {
-          const int v = m.state[s];
-          return (v == DRAIN && m.dd[s] <= pbc_start) ? EMPTY : v;
-        };
+        // st1: the lazily freed state at pbc_start of this lane's slots
+        signed char st1[SPL];
+        bool hit_d[SPL];
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int s = lane + 32 * j, sp = s < P ? s : 0;
+          const int v = m.state[sp], tg = m.tag[sp];
+          const double ddv = m.dd[sp];
+          const int st = (v == DRAIN && ddv <= pbc_start) ? EMPTY : v;
+          st1[j] = static_cast<signed char>(s < P ? st : EMPTY);
+          hit_d[j] = s < n_pbe && tg == addr && st == DIRTY;
+        }
         // policy.coalesce_lookup: the first Dirty match
-        const int i_dirty = tat_match(
-            addr, m.tag, [&](int s) { return st1f(s) == DIRTY; }, n_pbe);
+        const int i_dirty = tat_first(hit_d, tiles);
         ++lookups;
         const bool has_dirty = i_dirty >= 0;
         const int idx = has_dirty ? i_dirty : 0;
         const bool is_coalesce = is_rf && has_dirty;
-
-        signed char st1[SPL];
+        PROF(SEC_LOOKUP);
+        // tenant_occupancy: live entries per owning tenant, a ballot per
+        // tile and tenant
+        int own1[SPL];
 #pragma unroll
         for (int j = 0; j < SPL; ++j) {
           const int s = lane + 32 * j;
-          st1[j] = s < P ? static_cast<signed char>(st1f(s)) : EMPTY;
+          own1[j] = s < n_pbe && st1[j] != EMPTY
+                        ? clampi(m.owner[s], 0, T - 1) : -1;
         }
-        // tenant_occupancy: live entries per owning tenant
         for (int tt = 0; tt < T; ++tt) {
-          int cnt = 0;
+          bool mine[SPL];
 #pragma unroll
-          for (int j = 0; j < SPL; ++j) {
-            const int s = lane + 32 * j;
-            cnt += (s < n_pbe) && st1[j] != EMPTY &&
-                   clampi(m.owner[s], 0, T - 1) == tt;
-          }
-          cnt = warp_sum(cnt);
+          for (int j = 0; j < SPL; ++j) mine[j] = own1[j] == tt;
+          const int cnt = warp_count(mine, tiles);
           if (lane == 0) m.occ[tt] = static_cast<double>(cnt);
         }
         __syncwarp();
+        PROF(SEC_OCC);
         // select_slot
         const bool over_quota = m.occ[tid] >= m.ten[T_QUOTA * T + tid];
         const bool weighted = sc[K_VICTIM_WEIGHTED] > 0.0;
@@ -491,14 +669,12 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         }
         const bool any_empty = __any_sync(FULL, any_e);
         const bool any_dirty = __any_sync(FULL, any_d);
-        warp_argmin(ke, ie);
-        warp_argmin(kv, iv);
-        warp_argmin(kd, id);
+        warp_argmin3(ke, ie, kv, iv, kd, id);
         const int empty_idx = ie, victim_idx = iv, earliest_idx = id;
 
         // victim drain (only used when no Empty entry exists)
         const int vic_tag = m.tag[victim_idx];
-        const int victim_bank = floor_mod(vic_tag, B);
+        const int victim_bank = bank_of(vic_tag);
         const double victim_pm_start =
             fmax(m.pm_busy[victim_bank], pbc_start + sc[K_OW_SW1_PM]);
         const double victim_dd =
@@ -551,6 +727,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           own3[j] = static_cast<signed char>(w ? tid : m.owner[sp]);
         }
 
+        PROF(SEC_SELECT);
         double policy_writes;
         double pmb2_mine = 0.0;  // pm_busy2[lane] (B <= 32)
         if (!is_rf) {
@@ -572,19 +749,17 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           // drain_threshold_preset: threshold/preset drain-down over LRU
           // Dirty entries, per-bank burst serialization
           const bool scoped = sc[K_DRAIN_SCOPE] > 0.0;
-          int dcnt = 0, ecnt = 0;
-          bool dmask[SPL];
+          bool dmask[SPL], emask[SPL];
 #pragma unroll
           for (int j = 0; j < SPL; ++j) {
             const int s = lane + 32 * j;
             const bool act = s < n_pbe;
             const bool in_scope = scoped ? own3[j] == tid : true;
             dmask[j] = st3[j] == DIRTY && act && in_scope;
-            dcnt += dmask[j];
-            ecnt += st3[j] == EMPTY && act;
+            emask[j] = st3[j] == EMPTY && act;
           }
-          dcnt = warp_sum(dcnt);
-          ecnt = warp_sum(ecnt);
+          const int dcnt = warp_count(dmask, tiles);
+          const int ecnt = warp_count(emask, tiles);
           double thr = scoped ? m.ten[T_THRESHOLD * T + tid] : sc[K_THRESHOLD];
           double pre = scoped ? m.ten[T_PRESET * T + tid] : sc[K_PRESET];
           thr = tight ? 1.0 : thr;
@@ -596,67 +771,80 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
                                    ? fmin(sc[K_LOW_WATER], dirty_cnt)
                                    : 0.0;
           const double k = fmax(k_thresh, k_low);
-          // stable-sort rank of the LRU key: #{j: key_j < key_i or
-          // (key_j == key_i and j < i)}
+          // stable-sort rank of the LRU key among the Dirty-masked
+          // slots: #{q: key_q < key_s or (key_q == key_s and q < s)};
+          // the others key INF and never count.  Lanes walk the masked
+          // slots q (a ballot per tile) and take key_q by shuffle.
+          int rank[SPL], bank[SPL];
 #pragma unroll
           for (int j = 0; j < SPL; ++j) {
-            const int s = lane + 32 * j;
-            if (s < P) {
-              m.key[s] = dmask[j] ? lru3[j] : INF;
-              m.bank[s] = floor_mod(tag3[j], B);
+            rank[j] = 0;
+            bank[j] = bank_of(tag3[j]);
+          }
+#pragma unroll
+          for (int jq = 0; jq < SPL; ++jq) {
+            if (jq >= tiles) break;
+            for (unsigned bits = __ballot_sync(FULL, dmask[jq]); bits;
+                 bits &= bits - 1) {
+              const int l = __ffs(bits) - 1, q = 32 * jq + l;
+              const double kq = __shfl_sync(FULL, lru3[jq], l);
+#pragma unroll
+              for (int j = 0; j < SPL; ++j) {
+                const int s = lane + 32 * j;
+                rank[j] += (kq < lru3[j]) || (kq == lru3[j] && q < s);
+              }
             }
           }
-          __syncwarp();
-          int rank[SPL];
           bool todo[SPL];
 #pragma unroll
-          for (int j = 0; j < SPL; ++j) {
-            const int s = lane + 32 * j;
-            int r = 0;
-            if (s < P) {
-              const double ks = m.key[s];
-              for (int q = 0; q < P; ++q) {
-                const double kq = m.key[q];
-                r += (kq < ks) || (kq == ks && q < s);
-              }
-              m.rank[s] = r;
-            }
-            rank[j] = r;
-            todo[j] = s < P && static_cast<double>(r) < k && dmask[j];
-            if (s < P) m.todrain[s] = todo[j];
-          }
-          __syncwarp();
+          for (int j = 0; j < SPL; ++j)
+            todo[j] = dmask[j] && static_cast<double>(rank[j]) < k;
+          // per-bank burst order: the drained slots of the same bank
+          // with a lower rank
+          unsigned todo_bits[SPL];
+          int rank_b[SPL];
 #pragma unroll
           for (int j = 0; j < SPL; ++j) {
-            const int s = lane + 32 * j;
-            st4[j] = st3[j];
-            dd4[j] = dd2[j];
-            if (s < P) {
-              const int bs = m.bank[s];
-              int rank_b = 0;
-              for (int q = 0; q < P; ++q)
-                rank_b += m.bank[q] == bs && m.rank[q] < rank[j] &&
-                          m.todrain[q];
-              const double start =
-                  fmax(pmb1(bs), t_written + sc[K_OW_SW1_PM]) +
-                  static_cast<double>(rank_b) * sc[K_NVM_W_OCC];
-              const double dd_j = start + sc[K_NVM_WRITE] + sc[K_OW_SW1_PM];
-              if (todo[j]) {
-                st4[j] = DRAIN;
-                dd4[j] = dd_j;
-              }
-              m.busy[s] = todo[j] ? start + sc[K_NVM_W_OCC] : 0.0;
+            todo_bits[j] = j < tiles ? __ballot_sync(FULL, todo[j]) : 0u;
+            rank_b[j] = 0;
+          }
+#pragma unroll
+          for (int jq = 0; jq < SPL; ++jq) {
+            for (unsigned bits = todo_bits[jq]; bits; bits &= bits - 1) {
+              const int l = __ffs(bits) - 1;
+              const int rq = __shfl_sync(FULL, rank[jq], l);
+              const int bq = __shfl_sync(FULL, bank[jq], l);
+#pragma unroll
+              for (int j = 0; j < SPL; ++j)
+                rank_b[j] += bq == bank[j] && rq < rank[j];
             }
           }
-          __syncwarp();
-          if (lane < B) {
-            double mx = 0.0;
-            for (int q = 0; q < P; ++q)
-              if (m.bank[q] == lane && m.todrain[q]) mx = fmax(mx, m.busy[q]);
-            pmb2_mine = fmax(pmb1(lane), mx);
+          double busy[SPL];
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            const double start =
+                fmax(pmb1(bank[j]), t_written + sc[K_OW_SW1_PM]) +
+                static_cast<double>(rank_b[j]) * sc[K_NVM_W_OCC];
+            st4[j] = todo[j] ? static_cast<signed char>(DRAIN) : st3[j];
+            dd4[j] = todo[j] ? start + sc[K_NVM_WRITE] + sc[K_OW_SW1_PM]
+                             : dd2[j];
+            busy[j] = start + sc[K_NVM_W_OCC];
           }
+          // pm_busy2: each bank's latest drained burst (lane b, B <= 32)
+          double mx = 0.0;
+#pragma unroll
+          for (int jq = 0; jq < SPL; ++jq) {
+            for (unsigned bits = todo_bits[jq]; bits; bits &= bits - 1) {
+              const int l = __ffs(bits) - 1;
+              const int bq = __shfl_sync(FULL, bank[jq], l);
+              const double bz = __shfl_sync(FULL, busy[jq], l);
+              if (bq == lane) mx = fmax(mx, bz);
+            }
+          }
+          if (lane < B) pmb2_mine = fmax(pmb1(lane), mx);
           policy_writes = k;
         }
+        PROF(SEC_DRAIN);
         const double pmb1_mine = lane < B ? pmb1(lane) : 0.0;
         const double stall = is_coalesce ? 0.0 : ta - pbc_start;
         const double pbc_free =
@@ -708,6 +896,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           }
         }
         if (lane < B) m.pm_busy[lane] = commit ? pmb2_mine : pmb1_mine;
+        PROF(SEC_WRITE);
         if (lane == 0) {
           if (vic_ok)
             atomicMax(&pm_ver[clampi(vic_tag, 0, A - 1)], vic_ver);
@@ -729,6 +918,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           m.pbc[0] = pbc_free;
           m.clock[c] = ack;
         }
+        PROF(SEC_STATS);
       }
     } else if (op == OP_BARRIER) {  // centralized barrier per tenant
       const bool last = (m.bcount[tid] + 1) >= n_live_t;
@@ -752,13 +942,34 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         }
       }
     }
-    // cursor and crash-clock bookkeeping
+    PROF(SEC_OTHER);
+    // cursor and crash-clock bookkeeping; core c's next entry becomes
+    // current and the ring slot it leaves takes entry p + RING - 1
     if (lane == 0) {
-      m.ptr[c] += 1;
+      m.ptr[c] = p_next;
       if (!live) m.clock[c] = t_issue;
+      m.cop[c] = op_next;
+      m.caddr[c] = addr_next;
+      m.cgap[c] = gap_next;
+      const int old = c * RING + (p_next - 1) % RING;
+      const size_t e =
+          static_cast<size_t>(c) * L + min(p_next + RING - 1, last_c);
+      wg::cp_async_4(wg::smem_u32(&m.rop[old]), ops + e);
+      wg::cp_async_4(wg::smem_u32(&m.raddr[old]), addrs + e);
+      wg::cp_async_4(wg::smem_u32(&m.rgap[old]), gaps + e);
+      wg::cp_async_commit();
     }
     __syncwarp();
+    PROF(SEC_BOOK);
   }
+#ifdef CELL_SCAN_PROFILE
+  if (lane == 0) {
+    long long* row = g_prof + static_cast<size_t>(cell) * N_PROF;
+    for (int k = 0; k < N_SEC; ++k) row[k] = prof_acc[k];
+    for (int k = 0; k < N_OPS; ++k) row[N_SEC + k] = prof_ops[k];
+    row[N_PROF - 1] = prof_t - prof_t0;
+  }
+#endif
 
   // ---- recovery snapshot + runtime ----------------------------------------
   double rt = 0.0;
@@ -837,15 +1048,26 @@ extern "C" int cell_scan_launch(
   Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
-         C, L, P, B, A, T, n_track};
-  Smem m;
-  const size_t smem = carve(m, nullptr, C, P, B, T);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cell_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cell_scan_kernel<<<n_cells, 32, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+         C, L, P, B, A, T, n_track, {}};
+  const size_t smem = carve(a.lay, nullptr, C, P, B, T);
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<n_cells, 32, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (P <= 32) return run(cell_scan_kernel<1>);
+  if (P <= 64) return run(cell_scan_kernel<2>);
+  return run(cell_scan_kernel<MAX_SPL>);
 }
+
+#ifdef CELL_SCAN_PROFILE
+// The profile's output: (n_cells, N_PROF) int64 on the device.
+extern "C" int cell_scan_set_profile(long long* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_prof, &buf, sizeof(buf)));
+}
+#endif

@@ -1,9 +1,11 @@
-// flash_attention: forward online-softmax attention on Hopper.
+// flash_attention: forward online-softmax attention on Hopper, f32.
 //
 // Replaces the Pallas kernel
 // repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _kernel): out = softmax(q kᵀ · D^-0.5, masked) v per (batch, head),
-// with a causal mask (k <= q) and an optional window (k > q - window),
+// _kernel) for f32 inputs (bf16 inputs take flash_attention_tc.cu, on
+// the tensor cores; wgmma would read f32 operands as TF32):
+// out = softmax(q kᵀ · D^-0.5, masked) v per (batch, head), with a
+// causal mask (k <= q) and an optional window (k > q - window),
 // f32 running max, normalizer and accumulator, and max(l, 1e-30) at the
 // end.  Beyond the Pallas kernel it takes grouped KV heads (query head
 // h reads KV head h / g) and any sequence length (the tail tile is
@@ -22,8 +24,8 @@
 // and accumulates P·V into 4 x D/16 registers a thread.  Key tiles
 // wholly outside the causal or window range are skipped, which changes
 // nothing.  On this card the work is bound by its operations (4·S²·D/2
-// flops per head against 2·S·D·4 bytes), and this first version runs
-// them on the f32 FMA units, not the tensor cores.
+// flops per head against 2·S·D·4 bytes), which this kernel runs on the
+// f32 FMA units: f32 precision is what the route is for.
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
@@ -229,7 +231,7 @@ extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides,  // q, k, v, o: (sb, sh, ss) each
     int B, int H, int S, int D, int g, int causal, int window, float scale,
-    int bf16, cudaStream_t stream) {
+    cudaStream_t stream) {
   flash::Args a{q, k, v, o,
                 strides[0], strides[1], strides[2],
                 strides[3], strides[4], strides[5],
@@ -237,6 +239,5 @@ extern "C" int flash_attention_launch(
                 strides[9], strides[10], strides[11],
                 H, S, g, causal, window, scale};
   const int blocks = B * H * ((S + flash::BQ - 1) / flash::BQ);
-  return bf16 ? flash_launch_d<__nv_bfloat16>(a, D, blocks, stream)
-              : flash_launch_d<float>(a, D, blocks, stream);
+  return flash_launch_d<float>(a, D, blocks, stream);
 }

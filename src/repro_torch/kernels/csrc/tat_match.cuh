@@ -22,3 +22,19 @@ __device__ __forceinline__ int tat_match(int addr, const int* tag, Live live,
   }
   return -1;
 }
+
+// The same match over hit bits that the caller has evaluated: lane l's
+// hit[j] says whether slot 32·j + l (j < tiles) matches — its tag equals
+// the request and it is live.  Returns the lowest such slot, or -1; a
+// kernel that keeps each lane's slots in registers calls this instead
+// of re-reading the table.
+template <int NT_>
+__device__ __forceinline__ int tat_first(const bool (&hit)[NT_], int tiles) {
+#pragma unroll
+  for (int j = 0; j < NT_; ++j) {
+    if (j >= tiles) break;
+    const unsigned m = __ballot_sync(0xffffffffu, hit[j]);
+    if (m) return 32 * j + __ffs(m) - 1;
+  }
+  return -1;
+}

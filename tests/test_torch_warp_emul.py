@@ -47,10 +47,15 @@ extern "C" int cell_scan_launch(
   Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
-         C, L, P, B, A, T, n_track};
-  Smem m;
-  if (carve(m, nullptr, C, P, B, T) > sizeof(smem_raw)) return 1;
-  emu_run(n_cells, [&] { cell_scan_kernel(a); });
+         C, L, P, B, A, T, n_track, {}};
+  if (carve(a.lay, nullptr, C, P, B, T) > sizeof(smem_raw)) return 1;
+  wg::emu_smem_base = smem_raw;
+  if (P <= 32)
+    emu_run(n_cells, [&] { cell_scan_kernel<1>(a); });
+  else if (P <= 64)
+    emu_run(n_cells, [&] { cell_scan_kernel<2>(a); });
+  else
+    emu_run(n_cells, [&] { cell_scan_kernel<MAX_SPL>(a); });
   return 0;
 }
 '''
@@ -89,13 +94,38 @@ static int emu_flash_d(const flash::Args& a, int d, int blocks) {
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     const long long* st, int B, int H, int S, int D, int g, int causal,
-    int window, float scale, int bf16, cudaStream_t) {
+    int window, float scale, cudaStream_t) {
   flash::Args a{q, k, v, o, st[0], st[1], st[2], st[3], st[4], st[5],
                 st[6], st[7], st[8], st[9], st[10], st[11],
                 H, S, g, causal, window, scale};
   const int blocks = B * H * ((S + flash::BQ - 1) / flash::BQ);
-  return bf16 ? emu_flash_d<__nv_bfloat16>(a, D, blocks)
-              : emu_flash_d<float>(a, D, blocks);
+  return emu_flash_d<float>(a, D, blocks);
+}
+'''
+
+FLASH_TC_LAUNCH = r'''
+namespace fatc { alignas(1024) unsigned char fatc_smem[smem_bytes(256)]; }
+template <int D>
+static int emu_flash_tc(const fatc::Args& a, int blocks) {
+  wg::emu_smem_base = fatc::fatc_smem;
+  emu_run(blocks, [&] { fatc::flash_tc_kernel<D>(a); }, fatc::NT);
+  return 0;
+}
+extern "C" int flash_attention_tc_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* st, int B, int H, int S, int D, int g, int causal,
+    int window, float scale, cudaStream_t) {
+  fatc::Args a{q, k, v, o, st[0], st[1], st[2], st[3], st[4], st[5],
+               st[6], st[7], st[8], st[9], st[10], st[11],
+               H, S, g, causal, window, scale};
+  const int blocks = B * H * ((S + fatc::BQ - 1) / fatc::BQ);
+  switch (D) {
+    case 32: return emu_flash_tc<32>(a, blocks);
+    case 64: return emu_flash_tc<64>(a, blocks);
+    case 128: return emu_flash_tc<128>(a, blocks);
+    case 256: return emu_flash_tc<256>(a, blocks);
+    default: return 1;
+  }
 }
 '''
 
@@ -124,8 +154,9 @@ def _emulated_source(name: str, launcher: str) -> str:
     body = body.replace("#include <cuda_runtime.h>",
                         f'#include "{EMUL / "cuda_emul.h"}"')
     for header in CSRC.glob("*.cuh"):
+        twin = EMUL / header.name        # a host twin of PTX primitives
         body = body.replace(f'#include "{header.name}"',
-                            f'#include "{header}"')
+                            f'#include "{twin if twin.exists() else header}"')
     return body + launcher
 
 
@@ -156,6 +187,7 @@ def libs(tmp_path_factory):
 def model_libs(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("warp_emul_model"),
                   (("flash_attention", FLASH_LAUNCH),
+                   ("flash_attention_tc", FLASH_TC_LAUNCH),
                    ("ssd_scan", SSD_LAUNCH)))
 
 
@@ -187,6 +219,19 @@ def _cases():
                                            latency_target_ns=300.0))]
     small = [P.make_trace(n, persist_budget=50)
              for n in ("radiosity", "lu_cont")]
+    # cores whose streams end at once (length 0 and 1) beside cores that
+    # go on: the trace-entry ring refills past a stream's end, and a
+    # tenant loses its cores while the other keeps running
+    short = []
+    for seed, p_barrier in ((5, 0.0), (6, 0.05)):
+        tr = P.fuzz_trace(seed, n_cores=6, n_slots=120, n_tenants=2,
+                          p_barrier=p_barrier)[0]
+        lengths = tr.lengths.copy()
+        lengths[0], lengths[4] = 0, 1
+        short.append(P.trace_from_arrays(f"short{seed}", tr.ops, tr.addrs,
+                                         tr.gaps, lengths))
+    # more cores than lanes: a lane owns cores lane, lane + 32
+    many = [P.fuzz_trace(7, n_cores=40, n_slots=100, n_tenants=2)[0]]
     return {
         "schemes": (small, [P.PCSConfig(scheme=s) for s in S], 0),
         "crash": (small, [P.PCSConfig(scheme=s).with_crash(t)
@@ -199,10 +244,17 @@ def _cases():
         "slots": (small[:1], [P.PCSConfig(scheme=s, n_pbe=n, pm_banks=3)
                               for s in (S.PB, S.PB_RF)
                               for n in (1, 33, 128)], 0),
+        "short_cores": (short, [P.PCSConfig(scheme=s, n_pbe=n, n_tenants=2,
+                                            policy=p)
+                                for s in (S.PB, S.PB_RF) for n in (8, 40)
+                                for p in pols[1:]], 8),
+        "many_cores": (many, [P.PCSConfig(scheme=s, n_pbe=16, n_tenants=2)
+                              for s in S], 8),
     }
 
 
-@pytest.mark.parametrize("case", ["schemes", "crash", "tenants", "slots"])
+@pytest.mark.parametrize("case", ["schemes", "crash", "tenants", "slots",
+                                  "short_cores", "many_cores"])
 def test_emulated_cell_scan_equals_eager_scan_cell(libs, case):
     traces, configs, track = _cases()[case]
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
@@ -237,11 +289,57 @@ def test_emulated_flash_attention_equals_plain(model_libs, b, h, hkv, s, d,
                .transpose(1, 2) for n in (h, hkv, hkv))
     out = torch.empty_like(q)
     assert out.stride() == q.stride()
-    assert fa.launch(model_libs["flash_attention"], q, k, v, out,
-                     causal=causal, window=window, stream=None) == 0
+    name = fa.ROUTES[dtype]           # bf16: the tensor-core kernel
+    assert fa.launch(model_libs[name], q, k, v, out, causal=causal,
+                     window=window, stream=None,
+                     entry=f"{name}_launch") == 0
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert float((out.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
+    (1, 3, 1, 100, 64, True, None),     # GQA g = 3, ragged S
+    (1, 3, 1, 200, 64, True, 64),       # window: rows with no key yet
+    (1, 2, 2, 96, 128, False, None),
+    (1, 2, 1, 130, 128, True, 64),
+    (1, 3, 1, 70, 256, True, None),
+    (2, 2, 1, 64, 32, True, None)])     # D < 64: zero-padded columns
+def test_emulated_flash_tc_equals_plain(model_libs, b, h, hkv, s, d, causal,
+                                        window):
+    """The tensor-core kernel's body, its wgmma, copies and swizzle done
+    by the twin header on the PTX ISA's documented layouts: bf16 in the
+    model's strided (B, S, H, D) layout, GQA, window, ragged S."""
+    rng = np.random.default_rng(3 * s + d + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d))
+                                .astype(np.float32)).bfloat16()
+               .transpose(1, 2) for n in (h, hkv, hkv))
+    out = torch.empty_like(q)
+    assert fa.launch(model_libs["flash_attention_tc"], q, k, v, out,
+                     causal=causal, window=window, stream=None,
+                     entry="flash_attention_tc_launch") == 0
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    assert float((out.float() - want.float()).abs().max()) < 3e-2
+
+
+def test_flash_routes_by_dtype(model_libs):
+    """f32 takes the FMA kernel and bf16 the tensor-core kernel; an f32
+    input run through its route's emulated kernel holds 2e-5."""
+    assert fa.ROUTES == {torch.float32: "flash_attention",
+                         torch.bfloat16: "flash_attention_tc"}
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, n, 64))
+                                .astype(np.float32)).transpose(1, 2)
+               for n in (3, 1, 1))
+    out = torch.empty_like(q)
+    name = fa.ROUTES[q.dtype]
+    assert fa.launch(model_libs[name], q, k, v, out, causal=True,
+                     window=None, stream=None, entry=f"{name}_launch") == 0
+    want = flash_attention_ref(q, k, v, causal=True)
+    assert float((out - want).abs().max()) < 2e-5
+    with pytest.raises(AttributeError):   # the FMA library has no bf16 entry
+        model_libs[name].flash_attention_tc_launch
 
 
 @pytest.mark.parametrize("s,chunk,init,dtype", [

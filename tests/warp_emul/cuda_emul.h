@@ -3,12 +3,12 @@
 //
 // A block is one warp of 32 std::threads unless the launcher asks for
 // more (whole warps); blocks run one after another.  Warp intrinsics
-// (__shfl_*_sync, __ballot_sync, __any_sync) exchange values through a
-// shared slot array between two waits on the block's barrier, so every
-// thread of the block must reach them together, as in the port's
-// kernels; __syncwarp/__syncthreads are a barrier wait, so a missing
-// sync between a write and another thread's read shows up as a real
-// race.
+// (__shfl_*_sync, __ballot_sync, __any_sync, __reduce_min_sync) exchange
+// values through a shared slot array between two waits on the block's
+// barrier, so every thread of the block must reach them together, as in
+// the port's kernels; __syncwarp/__syncthreads are a barrier wait, so a
+// missing sync between a write and another thread's read shows up as a
+// real race.
 // Dynamic shared memory is a global array that the including file
 // defines under the kernel's own extern name.
 #pragma once
@@ -90,6 +90,16 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline int __any_sync(unsigned mask, int pred) {
   return __ballot_sync(mask, pred) != 0;
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  g_warp->slots[threadIdx.x] = v;
+  g_warp->bar->arrive_and_wait();
+  const unsigned base = threadIdx.x & ~31u;
+  unsigned m = v;
+  for (int i = 0; i < 32; ++i)
+    m = std::min(m, static_cast<unsigned>(g_warp->slots[base + i]));
+  g_warp->bar->arrive_and_wait();
+  return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }

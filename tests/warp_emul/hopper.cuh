@@ -1,0 +1,137 @@
+// Host twin of src/repro_torch/kernels/csrc/hopper.cuh for g++ and the
+// warp emulation (cuda_emul.h): the same calls, done in scalar C++.
+//
+// Shared memory is the kernel's dynamic array, whose start the launcher
+// stores in emu_smem_base; a "shared address" is a byte offset from it
+// (the array is 1024-byte aligned, as the card's window is in effect).
+// The products do what the PTX ISA documents for
+// wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16, independently
+// of how the kernel lays out its tiles:
+//   * a descriptor holds (start >> 4) in bits 0-13, the leading byte
+//     offset >> 4 in 16-29, the stride byte offset >> 4 in 32-45 and the
+//     layout type in 62-63 (1 = 128-byte swizzle, the only one taken);
+//   * 128-byte swizzle: the byte at address x is stored at
+//     x ^ (((x >> 7) & 7) << 4);
+//   * K-major operand element (row m, k) lies at
+//     start + (m / 8)·SBO + (m % 8)·128 + 2k;
+//   * MN-major operand element (k, n) lies at
+//     start + (k / 8)·SBO + (n / 64)·LBO + (k % 8)·128 + 2(n % 64);
+//   * accumulator register i of thread t (warp w = t / 32, lane l):
+//     row 16w + l/4 + 8·((i % 4) / 2), column 8·(i / 4) + 2·(l % 4) + i % 2;
+//   * register-A fragment a[r] of thread t: row 16w + l/4 + 8·(r % 2),
+//     columns 2·(l % 4) + 8·(r / 2) + {0, 1} (low half first).
+// Each thread computes its own accumulator entries; a register-A
+// product gathers the warpgroup's fragments through a block-wide slot
+// array between two barriers, so all 128 threads must reach it together.
+#pragma once
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+
+#include "cuda_bf16.h"
+
+namespace wg {
+
+inline unsigned char* emu_smem_base;
+
+inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(static_cast<const unsigned char*>(p) -
+                               emu_smem_base);
+}
+
+inline void cp_async_16(uint32_t dst, const void* src, bool ok) {
+  if (ok)
+    std::memcpy(emu_smem_base + dst, src, 16);
+  else
+    std::memset(emu_smem_base + dst, 0, 16);
+}
+inline void cp_async_4(uint32_t dst, const void* src) {
+  std::memcpy(emu_smem_base + dst, src, 4);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+inline void fence_proxy_async() {}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N>
+inline void wgmma_wait() {}
+inline void fence_acc(float (&)[32]) {}
+
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return static_cast<uint32_t>(__float2bfloat16(lo).x) |
+         (static_cast<uint32_t>(__float2bfloat16(hi).x) << 16);
+}
+
+inline float bf16_at(uint32_t addr) {
+  const uint32_t x = addr ^ (((addr >> 7) & 7u) << 4);
+  __nv_bfloat16 v;
+  std::memcpy(&v, emu_smem_base + x, 2);
+  return __bfloat162float(v);
+}
+
+struct Desc {
+  uint32_t start, lbo, sbo;
+};
+inline Desc decode(uint64_t d) {
+  if ((d >> 62) != 1) std::abort();  // only the 128-byte swizzle
+  return {static_cast<uint32_t>(d & 0x3FFF) << 4,
+          static_cast<uint32_t>((d >> 16) & 0x3FFF) << 4,
+          static_cast<uint32_t>((d >> 32) & 0x3FFF) << 4};
+}
+inline float kmajor(const Desc& d, int m, int k) {
+  return bf16_at(d.start + (m / 8) * d.sbo + (m % 8) * 128 + 2 * k);
+}
+inline float mnmajor(const Desc& d, int k, int n) {
+  return bf16_at(d.start + (k / 8) * d.sbo + (n / 64) * d.lbo +
+                 (k % 8) * 128 + 2 * (n % 64));
+}
+
+template <class A, class B>
+inline void emu_mma(float (&d)[32], A a_at, B b_at, int scale_d) {
+  const int t = static_cast<int>(threadIdx.x) % 128, w = t / 32, l = t % 32;
+  for (int i = 0; i < 32; ++i) {
+    const int row = 16 * w + l / 4 + 8 * ((i % 4) / 2);
+    const int col = 8 * (i / 4) + 2 * (l % 4) + i % 2;
+    float acc = 0.f;
+    for (int k = 0; k < 16; ++k) acc += a_at(row, k) * b_at(k, col);
+    d[i] = scale_d ? d[i] + acc : acc;
+  }
+}
+
+template <int TB>
+inline float b_elem(const Desc& db, int k, int n) {
+  return TB ? mnmajor(db, k, n) : kmajor(db, n, k);
+}
+
+template <int TB>
+inline void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  const Desc a = decode(da), b = decode(db);
+  emu_mma(
+      d, [&](int m, int k) { return kmajor(a, m, k); },
+      [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
+}
+
+inline uint32_t emu_afrag[128][4];
+
+template <int TB>
+inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                     int scale_d) {
+  const int t = static_cast<int>(threadIdx.x) % 128;
+  for (int r = 0; r < 4; ++r) emu_afrag[t][r] = a[r];
+  __syncthreads();
+  const Desc b = decode(db);
+  auto a_at = [](int m, int k) {
+    // the thread holding (m, k): warp m / 16, lane 4·(m % 8) + (k % 8) / 2
+    const int w = m / 16, lane = 4 * (m % 8) + (k % 8) / 2;
+    const int r = (m % 16) / 8 + 2 * (k / 8);
+    const uint32_t bits = emu_afrag[32 * w + lane][r];
+    __nv_bfloat16 v{static_cast<uint16_t>(k % 2 ? bits >> 16 : bits)};
+    return __bfloat162float(v);
+  };
+  emu_mma(
+      d, a_at, [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
+  __syncthreads();
+}
+
+}  // namespace wg
