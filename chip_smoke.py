@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs four phases, each printing its own
+``build/repro_torch/``, and runs seven phases, each printing its own
 lines:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -36,16 +36,21 @@ lines:
    2e-5 / 3e-2; each case's route checked by its launch counter) and
    smollm-135m's prefill shape in bf16 (the main path) and f32, timed
    beside the plain version and ``scaled_dot_product_attention``;
-6. the ``ssd_scan`` kernel against its plain version over the JAX sweep
-   (1e-3 / 1e-1), a carried-in state, the sequential recurrence, and at
-   mamba2-1.3b's prefill shape, timed beside the plain version;
+6. both routes of ``ssd_scan`` against the plain version: the JAX sweep
+   (f32 on the FMA kernel, bf16 on the tensor-core kernel; 1e-3 / 1e-1;
+   each case's route checked by its launch counters), a carried-in state
+   on a ragged length in each dtype, the sequential recurrence, and
+   mamba2-1.3b's prefill shape in bf16 (the main path) and f32, timed
+   beside the plain version and the bound;
 7. the serving path, for smollm-135m and mamba2-1.3b at full width and
    depth: (a) the f32 copy with ``numpy_params(cfg, 0)`` against
    ``src/repro_torch/testdata/serve_ref.json`` (the JAX reference's
    logits and greedy tokens; its prefill attention takes the FMA route),
    (b) the published bf16 config serving 4 requests of 1024 prompt
    tokens with 64 greedy steps through ``launch.serve.serve``, with each
-   kernel's launches in that run (attention on the tensor-core route).
+   kernel's launches in that run (attention and SSD on their tensor-core
+   routes), and mamba2's bf16 prefill logits against the same model with
+   the plain ``ssd_scan_ref`` swapped in.
 
 Then one JSON line with the serving numbers, one with every kernel's
 numbers, and as the last line
@@ -546,7 +551,18 @@ def ssd_inputs(torch, rng, b, s, h, p, n, dtype):
     return x, dt, A, B, C
 
 
+# The FMA kernel's time at the serving shape in bf16, measured on the H100
+# before bf16 took the tensor-core route (PERF.md §6).
+SSD_FMA_BF16_MS = 1.522
+
+
 def phase_ssd(torch, np):
+    """Both routes of ``ssd_scan`` against the plain version: the JAX
+    sweep (bf16 on the tensor-core kernel, f32 on the FMA kernel, each
+    case's route checked by its launch counters), a carried-in state on
+    a ragged length in each dtype, the sequential recurrence (f32), and
+    mamba2-1.3b's prefill shape in bf16 (the main path) and f32, timed
+    beside the plain version and the bound."""
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import ssd_scan_ref
     from repro_torch.models.ssm import ssd_decode_step
@@ -554,25 +570,35 @@ def phase_ssd(torch, np):
     err = {"float32": 0.0, "bfloat16": 0.0}
 
     def check(args, chunk, name, what, init=None):
+        tc0, fma0 = ss.launches_tc, ss.launches_fma
         y, fin = ss.ssd_scan(*args, chunk=chunk, init_state=init)
         wy, wfin = ssd_scan_ref(*args, chunk=chunk, init_state=init)
         torch.cuda.synchronize()
+        served = (ss.launches_tc - tc0, ss.launches_fma - fma0)
+        if served != ((1, 0) if name == "bfloat16" else (0, 1)):
+            fail(f"ssd_scan {what} served by (tc, fma) = {served}")
         tol = TOL[name][1]
         e = max(max_err(y, wy, f"ssd_scan y {what}", tol),
                 max_err(fin, wfin, f"ssd_scan state {what}", tol))
         err[name] = max(err[name], e)
         return e
 
+    n_cases = 0
     for b, s, h, p, n, chunk in SSD_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             check(ssd_inputs(torch, rng, b, s, h, p, n, dtype), chunk, name,
                   f"{(b, s, h, p, n, chunk)} {name}")
-    # a carried-in state on a ragged length
-    args = ssd_inputs(torch, rng, 2, 200, 2, 64, 128, torch.float32)
-    init = torch.tensor(rng.standard_normal((2, 2, 64, 128)),
-                        dtype=torch.float32, device="cuda")
-    check(args, 128, "float32", "init_state, S=200", init)
+            n_cases += 1
+    # a carried-in state on a ragged length, in each dtype (the chain of
+    # the tensor-core kernel starts from it)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        args = ssd_inputs(torch, rng, 2, 200, 2, 64, 128, dtype)
+        init = torch.tensor(rng.standard_normal((2, 2, 64, 128)),
+                            dtype=torch.float32, device="cuda")
+        check(args, 128, name, f"init_state, S=200 {name}", init)
+        n_cases += 1
     # the sequential recurrence, token by token
     x, dt, A, B, C = ssd_inputs(torch, rng, 1, 128, 2, 16, 32,
                                 torch.float32)
@@ -588,40 +614,51 @@ def phase_ssd(torch, np):
                     1e-3),
             max_err(fin, state, "ssd_scan vs sequential state", 1e-3))
     err["float32"] = max(err["float32"], e)
-    print(f"phase 6 ssd_scan sweep (8 cases, init_state, sequential "
-          f"recurrence): max abs error f32 {err['float32']:.3g}, bf16 "
-          f"{err['bfloat16']:.3g}")
+    print(f"phase 6 ssd_scan sweep ({n_cases} cases, init_state in each "
+          f"dtype, sequential recurrence): max abs error f32 "
+          f"{err['float32']:.3g} (FMA kernel, {n_cases // 2 + 1} launches), "
+          f"bf16 {err['bfloat16']:.3g} (tensor-core kernel, "
+          f"{n_cases // 2} launches)")
 
     # the serving shape: mamba2-1.3b prefill, 4 x 1024 tokens, 64 heads of
-    # P = 64, N = 128, chunk 128, bf16
+    # P = 64, N = 128, chunk 128; bf16 is the main path
     b, s, h, p, n, q = 4, 1024, 64, 64, 128, 128
-    args = ssd_inputs(torch, rng, b, s, h, p, n, torch.bfloat16)
-    e = check(args, q, "bfloat16", "serving shape")
-    y64, _ = ssd_scan_ref(*args, chunk=64)
-    y128, _ = ssd_scan_ref(*args, chunk=128)
-    floor = float((y64.float() - y128.float()).abs().max())
-    ms = cuda_ms(lambda: ss.ssd_scan(*args, chunk=q), 20)
-    plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=q), 5)
+    nc = s // q
+    tri = q * (q + 1) / 2
     # the chunked algorithm's operations: C·Bᵀ (lower triangle, shared by
     # the heads) per (batch, chunk); per (batch, head, chunk) the masked
     # product with x, C·stateᵀ and the state update
-    nc = s // q
-    tri = q * (q + 1) / 2
     flops = 2.0 * (b * nc * tri * n + b * h * nc * (tri * p + 2 * q * n * p))
-    nbytes = (2.0 * b * s * h * p * 2 + 4.0 * b * s * h + 4.0 * h
-              + 2.0 * 2 * b * s * n + 4.0 * b * h * p * n)
-    bms, by = bound(flops, nbytes)
-    print(f"phase 6 ssd_scan (4, 1024, 64, 64) N=128 chunk 128 bf16: max "
-          f"abs error {e:.3g} (the plain version at chunk 64 vs 128 "
-          f"differs by {floor:.3g}: one bf16 ulp of |y| up to "
-          f"{float(y128.float().abs().max()):.1f}); kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {bms:.5f} ms ({by}: "
-          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"{ms / bms:.1f}x the bound")
-    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
-                bound_by=by, max_abs_err=max(err.values()),
-                max_abs_err_f32=err["float32"],
-                max_abs_err_bf16=err["bfloat16"], plain_order_floor=floor)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        size = 2 if dtype == torch.bfloat16 else 4
+        args = ssd_inputs(torch, rng, b, s, h, p, n, dtype)
+        e = check(args, q, name, f"serving shape {name}")
+        y64, _ = ssd_scan_ref(*args, chunk=64)
+        y128, _ = ssd_scan_ref(*args, chunk=128)
+        floor = float((y64.float() - y128.float()).abs().max())
+        ms = cuda_ms(lambda: ss.ssd_scan(*args, chunk=q), 20)
+        plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=q), 5)
+        nbytes = (size * 2.0 * b * s * h * p + 4.0 * b * s * h + 4.0 * h
+                  + size * 2.0 * b * s * n + 4.0 * b * h * p * n)
+        bms, by = bound(flops, nbytes, BF16_FLOPS_PER_S
+                        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+        route = ss.ROUTES[dtype]
+        print(f"phase 6 {route} (4, 1024, 64, 64) N=128 chunk 128 {name}: "
+              f"max abs error {e:.3g} (limit {TOL[name][1]}; the plain "
+              f"version at chunk 64 vs 128 differs by {floor:.3g}, |y| up "
+              f"to {float(y128.float().abs().max()):.1f}); kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.5f} ms "
+              f"({by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+              f"{ms / bms:.1f}x the bound"
+              + (f"; the FMA kernel took {SSD_FMA_BF16_MS} ms on this shape "
+                 f"in bf16 ({SSD_FMA_BF16_MS / ms:.1f}x this kernel's time)"
+                 if dtype == torch.bfloat16 else ""))
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                         bound_ms=bms, bound_by=by, max_abs_err=err[name],
+                         serving_shape_err=e, plain_order_floor=floor)
+    return out
 
 
 def device_ms_by_kernel(torch, fn):
@@ -656,6 +693,53 @@ def breakdown(torch, model, prompt, steps: int):
     return pre, dec
 
 
+# The bf16 serve's prefill logits on the tensor-core SSD route may differ
+# from the same model's with the plain version swapped in by at most this
+# share of each row's largest |logit|: a tenth of the 11 % that zeroing the
+# SSD kernel moves them (serve_ref.json), see PERF.md.
+SSD_BF16_SERVE_RTOL = 0.011
+
+
+def ssd_plain_check(torch, model, prompt):
+    """mamba2's bf16 prefill logits on the tensor-core route against the
+    same model with ``ssd_scan_ref`` swapped into ``models.ssm`` (here
+    only, never on the main path), and the same with the plain version at
+    chunk 64 against chunk 128 (the bf16 model's own order floor)."""
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    s = prompt.shape[1]
+
+    def logits():
+        with torch.inference_mode():
+            return T.prefill(model, {"tokens": prompt}, s + 1)[0].float()
+
+    def rel(a, b):
+        return float(((a - b).abs().max(dim=1).values
+                      / b.abs().max(dim=1).values).max())
+
+    kernel = logits()
+    route = ssm.ssd_scan
+    try:
+        ssm.ssd_scan = lambda *a, **k: ssd_scan_ref(*a, **k)
+        plain = logits()
+        ssm.ssd_scan = lambda *a, **k: ssd_scan_ref(*a, **dict(k, chunk=64))
+        plain64 = logits()
+    finally:
+        ssm.ssd_scan = route
+    r, floor = rel(kernel, plain), rel(plain64, plain)
+    agree = int((kernel.argmax(dim=1) == plain.argmax(dim=1)).sum())
+    print(f"phase 7b mamba2-1.3b bf16 prefill logits, tensor-core SSD route "
+          f"vs the plain version swapped in: largest relative difference "
+          f"{r:.3g} (limit {SSD_BF16_SERVE_RTOL}; plain at chunk 64 vs 128: "
+          f"{floor:.3g}); greedy tokens agree on {agree}/{kernel.shape[0]}")
+    if not r <= SSD_BF16_SERVE_RTOL:
+        fail(f"mamba2 bf16 prefill logits off the plain version by {r:.3g} "
+             f"relative (limit {SSD_BF16_SERVE_RTOL})")
+    return dict(rel=r, plain_order_floor=floor, greedy_agree=agree,
+                rows=kernel.shape[0])
+
+
 def phase_serve(torch, np):
     """Phase 7: each config at full width and depth: (a) the f32 copy
     against serve_ref.json; (b) the published bf16 config served."""
@@ -688,6 +772,7 @@ def phase_serve(torch, np):
         prompt = torch.tensor(d["prompt"], device="cuda")
         worst, checked, agree = 0.0, 0, 0
         fa.launches_fma = fa.launches_tc = 0
+        ss.launches_fma = ss.launches_tc = 0
         with torch.inference_mode():
             logits, caches = T.prefill(model, {"tokens": prompt},
                                        d["prompt_len"] + d["decode_steps"])
@@ -719,18 +804,22 @@ def phase_serve(torch, np):
         torch.cuda.synchronize()
         del model, caches, logits
         routes32 = dict(flash_attention_fma=fa.launches_fma,
-                        flash_attention_tc=fa.launches_tc)
+                        flash_attention_tc=fa.launches_tc,
+                        ssd_scan_fma=ss.launches_fma,
+                        ssd_scan_tc=ss.launches_tc)
         want32 = dict(flash_attention_fma=0 if cfg.attn_free
-                      else cfg.n_layers, flash_attention_tc=0)
+                      else cfg.n_layers, flash_attention_tc=0,
+                      ssd_scan_fma=cfg.n_layers if cfg.attn_free else 0,
+                      ssd_scan_tc=0)
         if routes32 != want32:
-            fail(f"{arch} f32 prefill took flash routes {routes32}, "
-                 f"expected {want32}")
+            fail(f"{arch} f32 prefill took routes {routes32}, expected "
+                 f"{want32}")
         print(f"phase 7a {arch} f32 ({cfg.n_layers} layers, {d['batch']} x "
               f"{d['prompt_len']} prompt + {d['decode_steps']} decode steps)"
               f": logits within {worst:.3g} relative of serve_ref.json "
               f"(limit {rtol}); greedy tokens equal on {checked} checked "
               f"(margin > limit), {agree}/{len(d['steps']) * d['batch']} "
-              f"in all; flash routes {json.dumps(routes32)}; numpy weight "
+              f"in all; kernel routes {json.dumps(routes32)}; numpy weight "
               f"fill {fill_s:.1f} s")
 
         # (b) the published bf16 config, served: 4 x 1024 prompt, 64 steps
@@ -738,15 +827,20 @@ def phase_serve(torch, np):
         model = params_from_reference(cfg, tree, "cuda")
         del tree
         prompt = random_prompt(cfg.vocab, 4, 1024, 0, "cuda")
-        serve(model, prompt[:, :128], 2)            # warm-up (build, cache)
+        # warm-up at the served shape: builds, and the caching allocator's
+        # blocks, so the timed run's prefill wall holds no first-call
+        # cudaMalloc
+        serve(model, prompt, 2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.launches_tc = fa.launches_fma = 0
-        ss.launches = tl.launches = cs.launches = 0
+        ss.launches_tc = ss.launches_fma = 0
+        tl.launches = cs.launches = 0
         res = serve(model, prompt, 64)
         counts = dict(flash_attention_tc=fa.launches_tc,
                       flash_attention_fma=fa.launches_fma,
-                      ssd_scan=ss.launches, tat_lookup=tl.launches,
+                      ssd_scan_tc=ss.launches_tc,
+                      ssd_scan_fma=ss.launches_fma, tat_lookup=tl.launches,
                       cell_scan=cs.launches)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if res.tokens.shape != (4, 64) or res.tokens.min() < 0 \
@@ -754,8 +848,8 @@ def phase_serve(torch, np):
             fail(f"{arch} served tokens of shape {res.tokens.shape}")
         want = dict(flash_attention_tc=cfg.n_layers if not cfg.attn_free
                     else 0, flash_attention_fma=0,
-                    ssd_scan=cfg.n_layers if cfg.attn_free else 0,
-                    tat_lookup=0, cell_scan=0)
+                    ssd_scan_tc=cfg.n_layers if cfg.attn_free else 0,
+                    ssd_scan_fma=0, tat_lookup=0, cell_scan=0)
         if counts != want:
             fail(f"{arch} serve launched {counts}, expected {want} (one "
                  f"prefill launch per layer)")
@@ -777,7 +871,10 @@ def phase_serve(torch, np):
             for name, ms, calls in top:
                 print(f"  {what}: {ms:9.3f} ms {calls:6d} calls  "
                       f"{name[:90]}")
+        plain_check = (ssd_plain_check(torch, model, prompt)
+                       if cfg.attn_free else None)
         out[arch] = dict(counts=counts, counts_f32_datum=routes32,
+                         bf16_vs_plain_ssd=plain_check,
                          prefill_ms=res.prefill_s * 1e3,
                          decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
                          peak_gib=peak, datum_rel=worst,
@@ -889,18 +986,37 @@ def main() -> int:
                      "per query head)",
              shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), f32, "
                    "causal"),
+        dict(name="ssd_scan_tc", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
+             replaces="src/repro/kernels/ssd_scan.py:68",
+             launches=served["mamba2-1.3b"]["counts"]["ssd_scan_tc"],
+             main_path="mamba2-1.3b bf16 serve, 4 x 1024 prompt + 64 "
+                       "decode steps: one launch per layer at prefill "
+                       "(the bf16 route of ssd_scan)",
+             max_abs_err=ssd["bfloat16"]["max_abs_err"],
+             serving_shape_err=ssd["bfloat16"]["serving_shape_err"],
+             plain_order_floor=ssd["bfloat16"]["plain_order_floor"],
+             ms=ssd["bfloat16"]["ms"], plain_ms=ssd["bfloat16"]["plain_ms"],
+             bound_ms=ssd["bfloat16"]["bound_ms"],
+             bound_by=ssd["bfloat16"]["bound_by"], library_ms=None,
+             serve_logits_vs_plain=served["mamba2-1.3b"][
+                 "bf16_vs_plain_ssd"],
+             shape="x (4, 1024, 64, 64), N=128, chunk 128, bf16"),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:68",
-             launches=served["mamba2-1.3b"]["counts"]["ssd_scan"],
-             main_path="mamba2-1.3b serve, 4 x 1024 prompt + 64 decode "
-                       "steps: one launch per layer at prefill",
-             max_abs_err=ssd["max_abs_err"],
-             max_abs_err_f32=ssd["max_abs_err_f32"],
-             max_abs_err_bf16=ssd["max_abs_err_bf16"], ms=ssd["ms"],
-             plain_ms=ssd["plain_ms"], bound_ms=ssd["bound_ms"],
-             bound_by=ssd["bound_by"], library_ms=None,
-             shape="x (4, 1024, 64, 64), N=128, chunk 128, bf16"),
+             launches=served["mamba2-1.3b"]["counts"]["ssd_scan_fma"],
+             main_path="the f32 route of ssd_scan: not launched by the "
+                       "bf16 serve; launched once per layer by the f32 "
+                       "datum prefill of phase 7a ("
+                       + str(served["mamba2-1.3b"]["counts_f32_datum"][
+                           "ssd_scan_fma"]) + " launches)",
+             max_abs_err=ssd["float32"]["max_abs_err"],
+             serving_shape_err=ssd["float32"]["serving_shape_err"],
+             ms=ssd["float32"]["ms"], plain_ms=ssd["float32"]["plain_ms"],
+             bound_ms=ssd["float32"]["bound_ms"],
+             bound_by=ssd["float32"]["bound_by"], library_ms=None,
+             shape="x (4, 1024, 64, 64), N=128, chunk 128, f32"),
     ]
     print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # chip_smoke.py's bound, not a kernel of the port) and the VARIANTS are
 # built only when asked for by name.
 SOURCES = ("tat_lookup", "cell_scan", "flash_attention",
-           "flash_attention_tc", "ssd_scan")
+           "flash_attention_tc", "ssd_scan", "ssd_scan_tc")
 # Libraries built from another library's source with extra flags:
 # name -> (source, flags).  ``cell_scan_profile`` is the cell scan with
 # its section profile compiled in (chip_smoke.py's trace of a step).

@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "wgmma_tile.cuh"
 
 namespace fatc {
 
@@ -71,23 +72,8 @@ __host__ __device__ constexpr int smem_bytes(int d) {
   return 5 * tile_bytes(d) + 1024;
 }
 
-// Byte offset of 16-byte chunk cc (columns 8cc..8cc+7) of row r in a
-// 64-row tile: column block cc / 8 of 64 x 128 B, chunk swizzled by r % 8.
-__host__ __device__ __forceinline__ uint32_t sw128(int r, int cc) {
-  return static_cast<uint32_t>((cc >> 3) * 8192 + r * 128 +
-                               (((cc & 7) ^ (r & 7)) << 4));
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (each >> 4), layout type 1 in bits
-// 62-63.
-__host__ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
-                                                        uint32_t lbo,
-                                                        uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
+using wg::desc_sw128;
+using wg::sw128;
 
 // Issue the copies of rows row0..row0+63 of one (S, D) slice into a tile.
 template <int D>

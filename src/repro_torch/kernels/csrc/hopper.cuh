@@ -3,7 +3,8 @@
 // addresses, cp.async copies (4 bytes, and 16 bytes with zero fill),
 // the async-proxy fence, and the warpgroup product
 // wgmma.mma_async m64n64k16 (f32 += bf16 x bf16) with A from shared
-// memory or from registers.  tests/warp_emul/hopper.cuh is its twin for
+// memory or from registers, and the flag accesses of a chain of
+// blocks.  tests/warp_emul/hopper.cuh is its twin for
 // the CPU: the same calls done in scalar C++ on the PTX ISA's documented
 // register-fragment and swizzled shared-memory layouts.
 #pragma once
@@ -42,6 +43,23 @@ __device__ __forceinline__ void cp_async_wait() {
 // included) visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A flag that chains blocks: the release store makes this thread's
+// earlier writes (and, after a block barrier, the block's, each fenced
+// with __threadfence) visible to any thread whose acquire load reads the
+// stored value, at the scope of the whole device.
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {

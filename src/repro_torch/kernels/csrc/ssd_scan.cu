@@ -1,8 +1,10 @@
-// ssd_scan: Mamba2 SSD chunked scan (dual form) on Hopper.
+// ssd_scan: Mamba2 SSD chunked scan (dual form) on Hopper, f32.
 //
 // Replaces the Pallas kernel repro/kernels/ssd_scan.py::ssd_scan_pallas
 // (body _kernel), with the initial state of the function it stands for,
-// repro/models/ssm.py::ssd_chunked.  Per (batch, head), chunks of Q
+// repro/models/ssm.py::ssd_chunked, for f32 inputs (bf16 inputs take
+// ssd_scan_tc.cu, on the tensor cores; wgmma would read f32 operands as
+// TF32).  Per (batch, head), chunks of Q
 // steps in order, with the (P, N) state carried:
 //   da_cum = cumsum(dt · A)
 //   y      = ((C Bᵀ) ∘ L ∘ dt) x + exp(da_cum) · (C stateᵀ),
@@ -261,14 +263,11 @@ extern "C" int ssd_scan_launch(
     const void* Cm, const float* init, void* y, float* fin,
     const long long* strides,  // x (sb, ss, sh), dt (sb, ss, sh),
                                // B (sb, ss), C (sb, ss)
-    int batch, int S, int H, int P, int N, int Q, int bf16,
-    cudaStream_t stream) {
+    int batch, int S, int H, int P, int N, int Q, cudaStream_t stream) {
   ssd::Args a{x, dt, A, Bm, Cm, init, y, fin,
               strides[0], strides[1], strides[2],
               strides[3], strides[4], strides[5],
               strides[6], strides[7], strides[8], strides[9],
               S, H, P, N, Q};
-  const int blocks = batch * H;
-  return bf16 ? ssd_launch_t<__nv_bfloat16>(a, blocks, stream)
-              : ssd_launch_t<float>(a, blocks, stream);
+  return ssd_launch_t<float>(a, batch * H, stream);
 }

@@ -2,17 +2,35 @@
 
 Replaces the Pallas kernel ``repro/kernels/ssd_scan.py::ssd_scan_pallas``
 (body ``_kernel``) and takes the initial state of the function it stands
-for, ``repro.models.ssm.ssd_chunked``.  The kernel
-(``csrc/ssd_scan.cu``) gives one block to each (batch, head) and runs
-the chunks in order with the ``(P, N)`` state resident in shared
-memory; see its header for the design.  A sequence length that is not a
-multiple of ``chunk`` is handled in the kernel by the reference's own
+for, ``repro.models.ssm.ssd_chunked``.  A sequence length that is not a
+multiple of ``chunk`` is handled in the kernels by the reference's own
 identity (steps past the end read dt = 0 and zero inputs, and their
 output is not stored), so no padded copy is made.
 
+The route is fixed by the dtype:
+
+* **bf16 → the tensor-core kernel** (``csrc/ssd_scan_tc.cu``): blocks
+  over (batch, chunk, head), every product on ``wgmma`` with
+  f32 accumulation, only the f32 carry chained from chunk to chunk;
+* **f32 → the FMA kernel** (``csrc/ssd_scan.cu``): one block per
+  (batch, head) walking its chunks, f32 products on the FMA units.
+  ``wgmma`` would read f32 operands as TF32 (about three decimal
+  digits), which cannot hold the f32 tolerance of 1e-3.
+
+See the sources' headers for their designs.  Each route counts its
+launches (``launches_tc``, ``launches_fma``; ``launches`` is their sum).
+A dtype or shape that the route's kernel does not take raises; a failed
+build or launch raises too, and nothing falls back to the other route
+or to the plain version.  x, B and C may be strided views with a
+unit-stride last axis (the model passes slices of its conv output); the
+tensor-core kernel copies 16-byte chunks, so its inputs' other strides
+must be multiples of 8 elements and their data 16-byte aligned, and an
+input that is not gets a contiguous copy first.
+
 Dispatch is by device: a CPU tensor takes the plain version
 (:func:`~repro_torch.kernels.ref.ssd_scan_ref`); a CUDA tensor launches
-the kernel or raises.  Both paths refuse what the kernel does not take.
+its route's kernel or raises.  Both paths refuse what the kernels do
+not take.
 """
 from __future__ import annotations
 
@@ -24,18 +42,39 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_scan_ref
 
-# Launches of the kernel (one per wrapper call on CUDA).
+# Launches per route (one per wrapper call on CUDA), and their sum.
 launches = 0
+launches_tc = 0
+launches_fma = 0
 
-DTYPES = (torch.float32, torch.bfloat16)
-RT = 64                    # rows of the Q x Q product built at a time
+# The kernel that serves each dtype: csrc/<name>.cu, entry <name>_launch.
+ROUTES = {torch.bfloat16: "ssd_scan_tc", torch.float32: "ssd_scan"}
+DTYPES = tuple(ROUTES)
+RT = 64                    # FMA kernel: rows of the Q x Q product at a time
 MAX_SMEM = 232_448         # bytes of shared memory a block can opt into
+TC_CHUNKS = (64, 128)      # tensor-core kernel: one or two warpgroups
+TC_MAX_P, TC_MAX_N = 64, 128
 
 
 def smem_bytes(q: int, p: int, n: int) -> int:
-    """Shared memory of one block (``ssd::smem_floats`` in the source)."""
+    """Shared memory of one FMA block (``ssd::smem_floats`` in the
+    source)."""
     return 4 * (q * p + q * (n + 1) + p * (n + 1) + RT * (n + 1)
                 + RT * (q + 1) + 2 * q)
+
+
+def _check_route(dtype, p: int, n: int, chunk: int) -> None:
+    if dtype == torch.bfloat16:
+        if chunk not in TC_CHUNKS or p % 8 or not 8 <= p <= TC_MAX_P \
+                or n % 8 or not 8 <= n <= TC_MAX_N:
+            raise ValueError(
+                f"ssd_scan: the bf16 kernel takes chunk in {TC_CHUNKS}, "
+                f"P <= {TC_MAX_P} and N <= {TC_MAX_N} (multiples of 8), "
+                f"got chunk {chunk}, P={p}, N={n}")
+    elif chunk < 1 or smem_bytes(chunk, p, n) > MAX_SMEM:
+        raise ValueError(f"ssd_scan: chunk {chunk} with P={p}, N={n} "
+                         f"needs {smem_bytes(chunk, p, n)} bytes of "
+                         f"shared memory, over {MAX_SMEM}")
 
 
 def _check_inputs(x, dt, A, B, C, chunk, init_state) -> None:
@@ -60,10 +99,7 @@ def _check_inputs(x, dt, A, B, C, chunk, init_state) -> None:
                                    init_state.dtype != torch.float32):
         raise ValueError("ssd_scan: init_state must be float32 "
                          f"{(b, h, p, n)}")
-    if chunk < 1 or smem_bytes(chunk, p, n) > MAX_SMEM:
-        raise ValueError(f"ssd_scan: chunk {chunk} with P={p}, N={n} "
-                         f"needs {smem_bytes(chunk, p, n)} bytes of "
-                         f"shared memory, over {MAX_SMEM}")
+    _check_route(x.dtype, p, n, chunk)
     devs = {t.device for t in (x, dt, A, B, C)} | (
         set() if init_state is None else {init_state.device})
     if len(devs) != 1:
@@ -74,25 +110,68 @@ def _unit_last(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
-def launch(lib, x, dt, A, B, C, init, y, fin, *, chunk: int,
-           stream) -> int:
-    """Call ``ssd_scan_launch`` of ``lib`` on checked tensors (x, B, C
-    unit-stride in their last axis; A, init, y and fin contiguous);
-    returns the C entry point's error code."""
-    b, s, h, p = x.shape
-    n = B.shape[-1]
-    strides = (ctypes.c_longlong * 10)(
+def _for_copies(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the tensor-core kernel's 16-byte copies can read it (unit
+    last stride, other strides multiples of 8 elements, data 16-byte
+    aligned), else a contiguous copy."""
+    if x.stride(-1) == 1 and all(st % 8 == 0 for st in x.stride()[:-1]) \
+            and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(x, dt, B, C):
+    return (ctypes.c_longlong * 10)(
         x.stride(0), x.stride(1), x.stride(2),
         dt.stride(0), dt.stride(1), dt.stride(2),
         B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def launch(lib, x, dt, A, B, C, init, y, fin, *, chunk: int,
+           stream) -> int:
+    """Call ``ssd_scan_launch`` (the FMA kernel) of ``lib`` on checked f32
+    tensors (x, B, C unit-stride in their last axis; A, init, y and fin
+    contiguous); returns the C entry point's error code."""
+    b, s, h, p = x.shape
+    strides = _strides(x, dt, B, C)
     fn = lib.ssd_scan_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     return fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-              C.data_ptr(), None if init is None else init.data_ptr(),
-              y.data_ptr(), fin.data_ptr(), ctypes.addressof(strides),
-              b, s, h, p, n, chunk, int(x.dtype == torch.bfloat16), stream)
+              C.data_ptr(), _ptr(init), y.data_ptr(), fin.data_ptr(),
+              ctypes.addressof(strides), b, s, h, p, B.shape[-1], chunk,
+              stream)
+
+
+def sync_buffer(x: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's zeroed ticket and per-(batch, head) chunk
+    flags for an ``x`` of shape (B, S, H, P)."""
+    return torch.zeros(1 + x.shape[0] * x.shape[2], dtype=torch.int32,
+                       device=x.device)
+
+
+def launch_tc(lib, x, dt, A, B, C, init, y, fin, sync, *, chunk: int,
+              stream) -> int:
+    """Call ``ssd_scan_tc_launch`` (the tensor-core kernel) of ``lib`` on
+    checked bf16 tensors that :func:`_for_copies` accepts (A, init, y and
+    fin contiguous; ``sync`` from :func:`sync_buffer`, zeroed for each
+    call; ``fin`` doubles as the chunk-to-chunk carry); returns the C
+    entry point's error code."""
+    b, s, h, p = x.shape
+    strides = _strides(x, dt, B, C)
+    fn = lib.ssd_scan_tc_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    return fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+              C.data_ptr(), _ptr(init), y.data_ptr(), fin.data_ptr(),
+              sync.data_ptr(), ctypes.addressof(strides), b, s, h, p,
+              B.shape[-1], chunk, stream)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -104,14 +183,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x: (B, S, H, P)  dt: (B, S, H) f32  A: (H,) f32  B/C: (B, S, N)
     Returns (y: (B, S, H, P) in x's dtype, final_state: (B, H, P, N) f32).
     """
-    global launches
+    global launches, launches_tc, launches_fma
     _check_inputs(x, dt, A, B, C, chunk, init_state)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
                             init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
-    x, B, C = _unit_last(x), _unit_last(B), _unit_last(C)
+    name = ROUTES[x.dtype]
+    tc = name == "ssd_scan_tc"
+    prep = _for_copies if tc else _unit_last
+    x, B, C = prep(x), prep(B), prep(C)
     init = None if init_state is None else init_state.contiguous()
     b, s, h, p = x.shape
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
@@ -119,9 +201,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       device=x.device)
     if b * h == 0:
         return y, fin
-    rc = launch(_build.library("ssd_scan"), x, dt, A.contiguous(), B, C,
-                init, y, fin, chunk=chunk,
-                stream=torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "ssd_scan launch")
+    if tc and s == 0:               # no chunk: the state passes through
+        return y, (fin.zero_() if init is None else fin.copy_(init))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _build.library(name)
+    A = A.contiguous()
+    if tc:
+        rc = launch_tc(lib, x, dt, A, B, C, init, y, fin, sync_buffer(x),
+                       chunk=chunk, stream=stream)
+    else:
+        rc = launch(lib, x, dt, A, B, C, init, y, fin, chunk=chunk,
+                    stream=stream)
+    _build.check(rc, f"{name} launch")
+    if tc:
+        launches_tc += 1
+    else:
+        launches_fma += 1
     launches += 1
     return y, fin

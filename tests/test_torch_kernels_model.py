@@ -174,7 +174,7 @@ def test_flash_wrapper_raises_on_what_it_does_not_take(bad):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "dt_dtype", "shape", "smem",
-                                 "init"])
+                                 "init", "tc_chunk", "tc_head_dim"])
 def test_ssd_wrapper_raises_on_what_it_does_not_take(bad):
     x, dt, A, B, C = map(_t, _ssd_case(11, 1, 64, 2, 16, 32))
     kw = {"chunk": 64}
@@ -186,6 +186,12 @@ def test_ssd_wrapper_raises_on_what_it_does_not_take(bad):
         B = B[:, :32]
     elif bad == "smem":
         kw["chunk"] = 1024           # the chunk's tiles exceed 227 KiB
+    elif bad == "tc_chunk":          # bf16: one or two 64-row warpgroups
+        x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+        kw["chunk"] = 32
+    elif bad == "tc_head_dim":       # bf16: P beyond one 64-column tile
+        x = torch.zeros(1, 64, 2, 72, dtype=torch.bfloat16)
+        B, C = B.bfloat16(), C.bfloat16()
     else:
         kw["init_state"] = torch.zeros(1, 2, 32, 16)
     with pytest.raises(ValueError):

@@ -26,6 +26,7 @@ from repro_torch.core.engine import grid
 from repro_torch.kernels import cell_scan as cs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.kernels import ssd_tc_probe
 from repro_torch.kernels import tat_lookup as tl
 from repro_torch.kernels.ref import (flash_attention_ref, ssd_scan_ref,
                                      tat_lookup_ref)
@@ -135,15 +136,45 @@ extern "C" int ssd_scan_launch(
     const void* x, const float* dt, const float* A, const void* Bm,
     const void* Cm, const float* init, void* y, float* fin,
     const long long* st, int batch, int S, int H, int P, int N, int Q,
-    int bf16, cudaStream_t) {
+    cudaStream_t) {
   ssd::Args a{x, dt, A, Bm, Cm, init, y, fin, st[0], st[1], st[2], st[3],
               st[4], st[5], st[6], st[7], st[8], st[9], S, H, P, N, Q};
   if (ssd::smem_floats(Q, P, N) > (1 << 16)) return 1;
-  if (bf16)
-    emu_run(batch * H, [&] { ssd::ssd_kernel<__nv_bfloat16>(a); }, ssd::NT);
-  else
-    emu_run(batch * H, [&] { ssd::ssd_kernel<float>(a); }, ssd::NT);
+  emu_run(batch * H, [&] { ssd::ssd_kernel<float>(a); }, ssd::NT);
   return 0;
+}
+'''
+
+SSD_TC_LAUNCH = r'''
+namespace ssdtc {
+alignas(1024) unsigned char ssdtc_smem[smem_bytes(128, 2)];
+}
+template <int Q, int NB>
+static int emu_ssd_tc(const ssdtc::Args& a, int blocks) {
+  wg::emu_smem_base = ssdtc::ssdtc_smem;
+  emu_run(blocks, [&] { ssdtc::ssd_tc_kernel<Q, NB>(a); }, 2 * Q);
+  return 0;
+}
+extern "C" int ssd_scan_tc_launch(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* init, void* y, float* fin, int* sync,
+    const long long* st, int batch, int S, int H, int P, int N, int Q,
+    cudaStream_t) {
+  if (P < 8 || P > 64 || P % 8 || N < 8 || N > 128 || N % 8) return 1;
+  ssdtc::Args a{static_cast<const __nv_bfloat16*>(x), dt, A,
+                static_cast<const __nv_bfloat16*>(Bm),
+                static_cast<const __nv_bfloat16*>(Cm), init,
+                static_cast<__nv_bfloat16*>(y), fin, sync,
+                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                st[8], st[9], batch, S, H, P, N};
+  const int blocks = (S + Q - 1) / Q * batch * H;
+  if (blocks == 0) return 0;
+  const bool wide = N > 64;
+  if (Q == 64) return wide ? emu_ssd_tc<64, 2>(a, blocks)
+                           : emu_ssd_tc<64, 1>(a, blocks);
+  if (Q == 128) return wide ? emu_ssd_tc<128, 2>(a, blocks)
+                            : emu_ssd_tc<128, 1>(a, blocks);
+  return 1;
 }
 '''
 
@@ -188,7 +219,8 @@ def model_libs(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("warp_emul_model"),
                   (("flash_attention", FLASH_LAUNCH),
                    ("flash_attention_tc", FLASH_TC_LAUNCH),
-                   ("ssd_scan", SSD_LAUNCH)))
+                   ("ssd_scan", SSD_LAUNCH),
+                   ("ssd_scan_tc", SSD_TC_LAUNCH)))
 
 
 @pytest.mark.parametrize("r,n", [(256, 16), (1024, 256), (8, 16), (37, 5)])
@@ -342,14 +374,10 @@ def test_flash_routes_by_dtype(model_libs):
         model_libs[name].flash_attention_tc_launch
 
 
-@pytest.mark.parametrize("s,chunk,init,dtype", [
-    (128, 64, False, torch.float32), (100, 64, True, torch.float32),
-    (200, 128, True, torch.float32), (64, 64, False, torch.bfloat16)])
-def test_emulated_ssd_scan_equals_plain(model_libs, s, chunk, init, dtype):
+def _ssd_case(seed, b, s, h, p, n, init, dtype):
     """x, B and C as strided slices of one projection, as in the model;
-    ragged S; a carried-in state; bf16 loads and stores."""
-    b, h, p, n = 1, 2, 16, 32
-    rng = np.random.default_rng(s + chunk)
+    dt and A in f32; a carried-in state or None."""
+    rng = np.random.default_rng(seed)
     xbc = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * n))
                            .astype(np.float32)).to(dtype)
     x = xbc[..., :h * p].reshape(b, s, h, p)
@@ -359,11 +387,85 @@ def test_emulated_ssd_scan_equals_plain(model_libs, s, chunk, init, dtype):
     A = torch.from_numpy(-rng.uniform(0.5, 1.5, h).astype(np.float32))
     st = (torch.from_numpy(rng.standard_normal((b, h, p, n))
                            .astype(np.float32)) if init else None)
-    y = torch.empty((b, s, h, p), dtype=dtype)
-    fin = torch.empty((b, h, p, n))
-    assert ss.launch(model_libs["ssd_scan"], x, dt, A, B, C, st, y, fin,
-                     chunk=chunk, stream=None) == 0
+    return x, dt, A, B, C, st
+
+
+def _run_ssd(model_libs, x, dt, A, B, C, st, *, chunk):
+    """The emulated kernel of x's route; returns (y, fin).  Both start as
+    NaN, so an output the kernel leaves unwritten fails the check."""
+    b, s, h, p = x.shape
+    y = torch.full((b, s, h, p), float("nan"), dtype=x.dtype)
+    fin = torch.full((b, h, p, B.shape[-1]), float("nan"))
+    name = ss.ROUTES[x.dtype]
+    if name == "ssd_scan_tc":
+        rc = ss.launch_tc(model_libs[name], x, dt, A, B, C, st, y, fin,
+                          ss.sync_buffer(x), chunk=chunk, stream=None)
+    else:
+        rc = ss.launch(model_libs[name], x, dt, A, B, C, st, y, fin,
+                       chunk=chunk, stream=None)
+    assert rc == 0
+    return y, fin
+
+
+@pytest.mark.parametrize("s,chunk,init,dtype", [
+    (128, 64, False, torch.float32), (100, 64, True, torch.float32),
+    (200, 128, True, torch.float32), (64, 64, False, torch.bfloat16)])
+def test_emulated_ssd_scan_equals_plain(model_libs, s, chunk, init, dtype):
+    """x, B and C as strided slices of one projection, as in the model;
+    ragged S; a carried-in state; bf16 through its route (the
+    tensor-core kernel)."""
+    x, dt, A, B, C, st = _ssd_case(s + chunk, 1, s, 2, 16, 32, init, dtype)
+    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=chunk)
     wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=chunk, init_state=st)
     tol = 1e-4 if dtype == torch.float32 else 1e-1
     assert float((y.float() - wy.float()).abs().max()) < tol
     assert float((fin - wfin).abs().max()) < tol
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init", [
+    (1, 200, 2, 16, 32, 64, False),     # 4 chunks, the last ragged
+    (1, 300, 3, 64, 128, 128, True),    # 3 chunks, 3 heads
+    (2, 197, 1, 64, 128, 64, True),     # 4 chunks of 64 at N = 128
+    (1, 256, 2, 32, 64, 128, False),    # 2 full chunks
+    (1, 150, 5, 16, 32, 128, True)])    # 5 heads, P, N < 64
+def test_emulated_ssd_tc_equals_plain(model_libs, b, s, h, p, n, chunk,
+                                      init):
+    """The tensor-core kernel's body, its wgmma, copies, swizzle and
+    chain flags done by the twin header on the PTX ISA's documented
+    layouts: strided bf16 slices, ragged S over several chunks (so the
+    carry runs through the chain), a carried-in state, P and N padded
+    to a 64-wide tile, several heads and batches."""
+    x, dt, A, B, C, st = _ssd_case(7 * s + p + n, b, s, h, p, n, init,
+                                   torch.bfloat16)
+    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=chunk)
+    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=chunk, init_state=st)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - wy.float()).abs().max()) < 1e-1
+    assert float((fin - wfin).abs().max()) < 1e-1
+
+
+def test_ssd_routes_by_dtype(model_libs):
+    """f32 takes the FMA kernel and bf16 the tensor-core kernel; an f32
+    input run through its route's emulated kernel holds 1e-4, and the
+    FMA library has no bf16 entry."""
+    assert ss.ROUTES == {torch.float32: "ssd_scan",
+                         torch.bfloat16: "ssd_scan_tc"}
+    x, dt, A, B, C, st = _ssd_case(5, 1, 150, 3, 16, 32, True,
+                                   torch.float32)
+    assert ss.ROUTES[x.dtype] == "ssd_scan"
+    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=64)
+    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=64, init_state=st)
+    assert float((y - wy).abs().max()) < 1e-4
+    assert float((fin - wfin).abs().max()) < 1e-4
+    with pytest.raises(AttributeError):
+        model_libs["ssd_scan"].ssd_scan_tc_launch
+
+
+@pytest.mark.parametrize("name", sorted(ssd_tc_probe.ABLATIONS))
+def test_ssd_tc_probe_edits_apply(name):
+    """Each ablation of the card probe finds its anchor once in the
+    tensor-core kernel's source and changes it (the base build alone is
+    the source as it is)."""
+    text = (CSRC / "ssd_scan_tc.cu").read_text()
+    edited = ssd_tc_probe.variant_source(text, ssd_tc_probe.ABLATIONS[name])
+    assert (edited == text) == (name == "base")

@@ -8,12 +8,17 @@
 // barrier, so every thread of the block must reach them together, as in
 // the port's kernels; __syncwarp/__syncthreads are a barrier wait, so a
 // missing sync between a write and another thread's read shows up as a
-// real race.
+// real race.  emu_warpgroup_sync waits for the caller's 128 threads only
+// (the warpgroup products of hopper.cuh).  Blocks run in blockIdx order,
+// so a kernel that chains its blocks through global flags finds each
+// flag it waits on already set.
 // Dynamic shared memory is a global array that the including file
 // defines under the kernel's own extern name.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <memory>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -26,7 +31,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __constant__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__
 #define __restrict__
@@ -48,7 +53,12 @@ using std::min;
 
 struct WarpCtx {
   std::barrier<>* bar;
+  std::barrier<>* wg_bar[8];  // one per warpgroup of a block of >= 128
   uint64_t slots[1024];
+};
+
+struct float2 {
+  float x, y;
 };
 inline WarpCtx* g_warp;
 inline std::mutex g_atomic;
@@ -57,6 +67,24 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
   g_warp->bar->arrive_and_wait();
 }
 inline void __syncthreads() { g_warp->bar->arrive_and_wait(); }
+inline void emu_warpgroup_sync() {
+  if (blockDim.x <= 128)
+    g_warp->bar->arrive_and_wait();
+  else
+    g_warp->wg_bar[threadIdx.x / 128]->arrive_and_wait();
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+template <class T>
+T __ldcg(const T* p) {
+  return *p;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
 
 template <class T>
 T emu_exchange(T v, int src) {
@@ -77,6 +105,12 @@ T __shfl_xor_sync(unsigned, T v, int off) {
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
   return emu_exchange(v, src);
+}
+template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  const unsigned lane = threadIdx.x & 31u;
+  return emu_exchange(v, static_cast<int>(lane >= delta ? lane - delta
+                                                        : lane));
 }
 inline unsigned __ballot_sync(unsigned, int pred) {
   g_warp->slots[threadIdx.x] = pred ? 1 : 0;
@@ -103,6 +137,12 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int atomicAdd(int* p, int v) {
+  std::lock_guard<std::mutex> g(g_atomic);
+  const int o = *p;
+  *p = o + v;
+  return o;
+}
 inline int atomicMax(int* p, int v) {
   std::lock_guard<std::mutex> g(g_atomic);
   const int o = *p;
@@ -117,6 +157,11 @@ void emu_run(int blocks, F&& body, int threads = 32) {
   std::barrier<> bar(threads);
   static WarpCtx w;
   w.bar = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> wg_bars;
+  for (int i = 0; i < threads / 128; ++i) {
+    wg_bars.push_back(std::make_unique<std::barrier<>>(128));
+    w.wg_bar[i] = wg_bars.back().get();
+  }
   g_warp = &w;
   blockDim.x = threads;
   gridDim.x = blocks;

@@ -21,9 +21,12 @@
 //   * register-A fragment a[r] of thread t: row 16w + l/4 + 8·(r % 2),
 //     columns 2·(l % 4) + 8·(r / 2) + {0, 1} (low half first).
 // Each thread computes its own accumulator entries; a register-A
-// product gathers the warpgroup's fragments through a block-wide slot
-// array between two barriers, so all 128 threads must reach it together.
+// product gathers the warpgroup's fragments through a slot array between
+// two waits on the warpgroup's barrier, so all 128 threads of the
+// warpgroup must reach it together.  The chain flags are atomics with
+// the same release and acquire orders.
 #pragma once
+#include <atomic>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -47,6 +50,13 @@ inline void cp_async_16(uint32_t dst, const void* src, bool ok) {
 }
 inline void cp_async_4(uint32_t dst, const void* src) {
   std::memcpy(emu_smem_base + dst, src, 4);
+}
+inline void st_release(int* p, int v) {
+  std::atomic_ref<int>(*p).store(v, std::memory_order_release);
+}
+inline int ld_acquire(const int* p) {
+  return std::atomic_ref<int>(*const_cast<int*>(p))
+      .load(std::memory_order_acquire);
 }
 inline void cp_async_commit() {}
 template <int N>
@@ -112,26 +122,26 @@ inline void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
       [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
 }
 
-inline uint32_t emu_afrag[128][4];
+inline uint32_t emu_afrag[1024][4];
 
 template <int TB>
 inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                      int scale_d) {
-  const int t = static_cast<int>(threadIdx.x) % 128;
+  const int t = static_cast<int>(threadIdx.x), g0 = t - t % 128;
   for (int r = 0; r < 4; ++r) emu_afrag[t][r] = a[r];
-  __syncthreads();
+  emu_warpgroup_sync();
   const Desc b = decode(db);
-  auto a_at = [](int m, int k) {
+  auto a_at = [g0](int m, int k) {
     // the thread holding (m, k): warp m / 16, lane 4·(m % 8) + (k % 8) / 2
     const int w = m / 16, lane = 4 * (m % 8) + (k % 8) / 2;
     const int r = (m % 16) / 8 + 2 * (k / 8);
-    const uint32_t bits = emu_afrag[32 * w + lane][r];
+    const uint32_t bits = emu_afrag[g0 + 32 * w + lane][r];
     __nv_bfloat16 v{static_cast<uint16_t>(k % 2 ? bits >> 16 : bits)};
     return __bfloat162float(v);
   };
   emu_mma(
       d, a_at, [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
-  __syncthreads();
+  emu_warpgroup_sync();
 }
 
 }  // namespace wg
