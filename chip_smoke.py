@@ -30,27 +30,36 @@ lines:
    launched on this path); then the section profile of a step: the
    same kernel built with ``-DCELL_SCAN_PROFILE`` on the three cholesky
    cells (the longest), cycles and ns per step of each section;
-5. both routes of ``flash_attention`` against the plain version on the
-   card: the JAX sweep (f32 on the FMA kernel, bf16 on the tensor-core
-   kernel, causal with and without a window, one non-causal case each;
-   2e-5 / 3e-2; each case's route checked by its launch counter) and
-   smollm-135m's prefill shape in bf16 (the main path) and f32, timed
-   beside the plain version and ``scaled_dot_product_attention``;
-6. both routes of ``ssd_scan`` against the plain version: the JAX sweep
-   (f32 on the FMA kernel, bf16 on the tensor-core kernel; 1e-3 / 1e-1;
-   each case's route checked by its launch counters), a carried-in state
-   on a ragged length in each dtype, the sequential recurrence, and
-   mamba2-1.3b's prefill shape in bf16 (the main path) and f32, timed
-   beside the plain version and the bound;
+5. every route of ``flash_attention`` against the plain version on the
+   card: the JAX sweep (bf16 and f32 up to head dim 128 on the
+   tensor-core kernel, f32 at 256 on the FMA kernel, causal with and
+   without a window, one non-causal case each; 2e-5 / 3e-2; each case's
+   route checked by its launch counters), the tensor-core kernel's bf16
+   outputs past 3e-2 over 8 seeds at smollm-135m's prefill shape (none
+   allowed), and that shape in bf16 (the main path) and f32 (the f32
+   tensor-core route beside the FMA kernel, run through ``launch``),
+   timed beside the plain version and ``scaled_dot_product_attention``;
+6. every route of ``ssd_scan`` against the plain version: the JAX sweep
+   in both dtypes (the tensor-core kernel; 1e-3 / 1e-1; each case's
+   route checked by its launch counters), a carried-in state on a
+   ragged length in each dtype, the sequential recurrence, mamba2-1.3b's
+   prefill shape in bf16 (the main path) and f32 (the f32 tensor-core
+   route beside the FMA kernel, run through ``launch``), timed beside
+   the plain version and the bound, an f32 chunk outside the
+   tensor-core limits (the FMA kernel), and the tensor-core kernel's
+   bf16 outputs past 1e-1 over 8 seeds at the prefill shape (none
+   allowed);
 7. the serving path, for smollm-135m and mamba2-1.3b at full width and
    depth: (a) the f32 copy with ``numpy_params(cfg, 0)`` against
    ``src/repro_torch/testdata/serve_ref.json`` (the JAX reference's
-   logits and greedy tokens; its prefill attention takes the FMA route),
-   (b) the published bf16 config serving 4 requests of 1024 prompt
-   tokens with 64 greedy steps through ``launch.serve.serve``, with each
-   kernel's launches in that run (attention and SSD on their tensor-core
-   routes), and mamba2's bf16 prefill logits against the same model with
-   the plain ``ssd_scan_ref`` swapped in.
+   logits and greedy tokens; its prefill takes the f32 tensor-core
+   routes), with that prefill's device time by kernel beside the same
+   prefill with the FMA route swapped in, (b) the published bf16 config
+   serving 4 requests of 1024 prompt tokens with 64 greedy steps through
+   ``launch.serve.serve``, with each kernel's launches in that run
+   (attention and SSD on their tensor-core routes), and mamba2's bf16
+   prefill logits against the same model with the plain
+   ``ssd_scan_ref`` swapped in.
 
 Then one JSON line with the serving numbers, one with every kernel's
 numbers, and as the last line
@@ -457,13 +466,61 @@ def max_err(got, want, what: str, tol: float) -> float:
     return err
 
 
+def flash_exact(torch, q, k, v):
+    """Causal attention evaluated in f64 (K/V heads repeated per query
+    head), before any rounding."""
+    g = q.shape[1] // k.shape[1]
+    qd, kd, vd = q.double(), k.double(), v.double()
+    kd, vd = kd.repeat_interleave(g, 1), vd.repeat_interleave(g, 1)
+    s = q.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", qd, kd) * q.shape[-1] ** -0.5
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1), vd)
+
+
+def flash_over_counts(torch, np, seeds=range(8), limit=3e-2):
+    """``flash_attention_tc``'s outputs past ``limit`` at smollm-135m's
+    prefill shape, per seed, against the plain version and against the
+    f64 evaluation rounded to bf16 (``phase_flash`` fails on any)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, h, hkv, s, d = 4, 9, 3, 1024, 64
+    out = dict(limit=limit, seeds=list(seeds), over_plain=[],
+               over_exact=[], plain_over_exact=[], max_abs_err=[])
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        q, k, v = (torch.tensor(rng.standard_normal((b, s, n, d)),
+                                dtype=torch.float32, device="cuda")
+                   .bfloat16().transpose(1, 2) for n in (h, hkv, hkv))
+        got = fa.flash_attention(q, k, v, causal=True).float()
+        plain = flash_attention_ref(q, k, v, causal=True).float()
+        exact = flash_exact(torch, q, k, v).bfloat16().float()
+        torch.cuda.synchronize()
+        out["max_abs_err"].append(float((got - plain).abs().max()))
+        out["over_plain"].append(int(((got - plain).abs() > limit).sum()))
+        out["over_exact"].append(int(((got - exact).abs() > limit).sum()))
+        out["plain_over_exact"].append(int(((plain - exact).abs() > limit)
+                                           .sum()))
+    print(f"phase 5 flash_attention_tc outputs past {limit} at (4, 9, 1024, "
+          f"64) bf16 causal over seeds {out['seeds']}: vs the plain version "
+          f"{out['over_plain']}, vs the f64 evaluation rounded to bf16 "
+          f"{out['over_exact']} (the plain version vs it "
+          f"{out['plain_over_exact']}); max abs error vs the plain version "
+          f"per seed {out['max_abs_err']}")
+    return out
+
+
 def phase_flash(torch, np):
-    """Both routes of ``flash_attention`` against the plain version: the
-    JAX sweep (bf16 on the tensor-core kernel, f32 on the FMA kernel,
-    each route's launches counted) and smollm-135m's prefill shape in
-    bf16 (the main path) and in f32, timed beside the plain version and,
-    for bf16, ``scaled_dot_product_attention``."""
+    """Every route of ``flash_attention`` against the plain version: the
+    JAX sweep (bf16 and f32 up to D = 128 on the tensor-core kernel, f32
+    at D = 256 on the FMA kernel; each case's route checked by the
+    per-route launch counters), then smollm-135m's prefill shape: the
+    bf16 outputs past 3e-2 over 8 seeds, and each dtype's route timed
+    beside the plain version and ``scaled_dot_product_attention``; the
+    FMA kernel, through ``launch``, is held and timed there in f32 too."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
     rng = np.random.default_rng(11)
@@ -474,11 +531,12 @@ def phase_flash(torch, np):
                              dtype=torch.float32, device="cuda")
                 .to(dtype).transpose(1, 2) for n in (h, hkv, hkv)]
 
-    err = {"float32": 0.0, "bfloat16": 0.0}
+    err = {"float32": 0.0, "bfloat16": 0.0, "fma": 0.0}
     cases = [(sh, dt, True, w) for sh in FLASH_SWEEP
              for dt in (torch.float32, torch.bfloat16) for w in (None, 64)]
     cases.append(((1, 2, 256, 64), torch.float32, False, None))
     cases.append(((1, 2, 256, 64), torch.bfloat16, False, None))
+    n_served = {"tc": 0, "fma": 0}
     for (b, h, s, d), dtype, causal, window in cases:
         name = str(dtype).split(".")[1]
         q, k, v = qkv(b, h, h, s, d, dtype)
@@ -487,23 +545,30 @@ def phase_flash(torch, np):
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         served = (fa.launches_tc - tc0, fa.launches_fma - fma0)
-        if served != ((1, 0) if dtype == torch.bfloat16 else (0, 1)):
-            fail(f"flash_attention {name} served by (tc, fma) = {served}")
+        tc = fa.route(dtype, d)[0] == "flash_attention_tc"
+        if served != ((1, 0) if tc else (0, 1)):
+            fail(f"flash_attention {name} D={d} served by (tc, fma) = "
+                 f"{served}")
+        n_served["tc" if tc else "fma"] += 1
         e = max_err(got, want, f"flash_attention {(b, h, s, d)} {name} "
                     f"causal={causal} window={window}", TOL[name][0])
-        err[name] = max(err[name], e)
-    n_bf16 = sum(c[1] == torch.bfloat16 for c in cases)
+        key = name if tc else "fma"
+        err[key] = max(err[key], e)
     print(f"phase 5 flash_attention sweep ({len(cases)} cases): max abs "
-          f"error f32 {err['float32']:.3g} (FMA kernel, "
-          f"{len(cases) - n_bf16} launches), bf16 {err['bfloat16']:.3g} "
-          f"(tensor-core kernel, {n_bf16} launches)")
+          f"error bf16 {err['bfloat16']:.3g} and f32 {err['float32']:.3g} "
+          f"(tensor-core kernel, {n_served['tc']} launches), f32 at D = 256 "
+          f"{err['fma']:.3g} (FMA kernel, {n_served['fma']} launches)")
+    f8 = flash_over_counts(torch, np)
+    if any(f8["over_plain"]) or any(f8["over_exact"]):
+        fail(f"flash_attention_tc bf16 outputs past 3e-2: {f8}")
 
     # the serving shape: smollm-135m prefill, 4 x 1024 tokens, 9 query
-    # heads on 3 KV heads, head dim 64, causal; bf16 is the main path
+    # heads on 3 KV heads, head dim 64, causal; bf16 is the main path,
+    # f32 the datum's (phase 7a)
     b, h, hkv, s, d = 4, 9, 3, 1024, 64
     pairs = s * (s + 1) // 2                        # causal (q, k) pairs
     flops = 4.0 * b * h * pairs * d                 # q·k and p·v
-    out = {}
+    out = {"f8_counts": f8}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         size = 2 if dtype == torch.bfloat16 else 4
@@ -523,17 +588,52 @@ def phase_flash(torch, np):
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, kr, vr, is_causal=True), 50)
         nbytes = size * (2.0 * b * h * s * d + 2.0 * b * hkv * s * d)
-        bms, by = bound(flops, nbytes, BF16_FLOPS_PER_S
-                        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
-        route = fa.ROUTES[dtype]
-        print(f"phase 5 {route} (4, 9, 1024, 64) {name} causal, 3 KV "
-              f"heads: max abs error {e:.3g}; kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms"
-              f", bound {bms:.5f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB); {ms / bms:.1f}x the bound")
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bms, bound_by=by, max_abs_err=err[name],
-                         serving_shape_err=e)
+        route, entry = fa.route(dtype, d)
+        rec = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                   max_abs_err=err[name], serving_shape_err=e)
+        if dtype == torch.bfloat16:
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+            extra = ""
+        else:
+            # f32 work: at the f32 FMA rate, or as the six bf16 products
+            # of three parts a product at the bf16 tensor-core rate
+            rec["bound_f32_fma_ms"] = bound(flops, nbytes,
+                                            F32_FLOPS_PER_S)[0]
+            rec["bound_ms"], rec["bound_by"] = bound(6 * flops, nbytes)
+            # the FMA kernel on the same inputs, through launch()
+            lib_fma = _build.library(fa.FMA_F32[0])
+            o_fma = torch.empty_like(q)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def run_fma():
+                _build.check(fa.launch(lib_fma, q, k, v, o_fma, causal=True,
+                                       window=None, stream=stream,
+                                       entry=fa.FMA_F32[1]), "FMA launch")
+            run_fma()
+            torch.cuda.synchronize()
+            e_fma = max_err(o_fma, want, "flash_attention FMA kernel, "
+                            "serving shape f32", TOL[name][0])
+            err["fma"] = max(err["fma"], e_fma)
+            fma_ms = cuda_ms(run_fma, 50)
+            out["fma"] = dict(ms=fma_ms, plain_ms=plain, library_ms=lib,
+                              max_abs_err=err["fma"],
+                              serving_shape_err=e_fma,
+                              bound_ms=rec["bound_ms"],
+                              bound_by=rec["bound_by"],
+                              bound_f32_fma_ms=rec["bound_f32_fma_ms"])
+            extra = (f"; bound at the f32 FMA rate "
+                     f"{rec['bound_f32_fma_ms']:.5f} ms; the FMA kernel "
+                     f"(flash_attention.cu, through launch) {fma_ms:.4f} ms"
+                     f", max abs error {e_fma:.3g}")
+        print(f"phase 5 {route} ({entry}) (4, 9, 1024, 64) {name} causal, "
+              f"3 KV heads: max abs error {e:.3g}; kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, scaled_dot_product_attention "
+              f"{lib:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}: {flops / 1e9:.2f} GFLOP"
+              + (" x 6 split products" if dtype == torch.float32 else "")
+              + f", {nbytes / 1e6:.1f} MB); {ms / rec['bound_ms']:.1f}x the "
+              f"bound" + extra)
+        out[name] = rec
     return out
 
 
@@ -556,18 +656,51 @@ def ssd_inputs(torch, rng, b, s, h, p, n, dtype):
 SSD_FMA_BF16_MS = 1.522
 
 
+def ssd_over_counts(torch, np, seeds=range(8), limit=1e-1):
+    """``ssd_scan_tc``'s bf16 outputs past ``limit`` at mamba2-1.3b's
+    prefill shape, per seed, against the plain version and against the
+    f64 evaluation rounded to bf16, on the inputs of
+    ``kernels/ssd_tc_probe.py``; fails on any."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_tc_probe as probe
+    from repro_torch.kernels.ref import ssd_scan_ref
+    out = dict(limit=limit, seeds=list(seeds), over_plain=[],
+               over_exact=[], plain_over_exact=[])
+    for seed in seeds:
+        x, dt, A, B, C = probe.inputs(torch, np, seed)
+        got = ss.ssd_scan(x, dt, A, B, C, chunk=128)[0].float()
+        plain = ssd_scan_ref(x, dt, A, B, C, chunk=128)[0].float()
+        exact = probe.exact_y(torch, x, dt, A, B, C, 128).bfloat16().float()
+        out["over_plain"].append(int(((got - plain).abs() > limit).sum()))
+        out["over_exact"].append(int(((got - exact).abs() > limit).sum()))
+        out["plain_over_exact"].append(int(((plain - exact).abs() > limit)
+                                           .sum()))
+    print(f"phase 6 ssd_scan_tc bf16 outputs past {limit} at (4, 1024, 64, "
+          f"64) N=128 chunk 128 over seeds {out['seeds']}: vs the plain "
+          f"version {out['over_plain']}, vs the f64 evaluation rounded to "
+          f"bf16 {out['over_exact']} (the plain version vs it "
+          f"{out['plain_over_exact']})")
+    if any(out["over_plain"]) or any(out["over_exact"]):
+        fail(f"ssd_scan_tc bf16 outputs past {limit}: {out}")
+    return out
+
+
 def phase_ssd(torch, np):
-    """Both routes of ``ssd_scan`` against the plain version: the JAX
-    sweep (bf16 on the tensor-core kernel, f32 on the FMA kernel, each
-    case's route checked by its launch counters), a carried-in state on
-    a ragged length in each dtype, the sequential recurrence (f32), and
-    mamba2-1.3b's prefill shape in bf16 (the main path) and f32, timed
-    beside the plain version and the bound."""
+    """Every route of ``ssd_scan`` against the plain version: the JAX sweep
+    in both dtypes (the tensor-core kernel; each case's route checked by
+    the launch counters), a carried-in state on a ragged length in each
+    dtype, the sequential recurrence, mamba2-1.3b's prefill shape in bf16
+    (the main path) and f32 (the datum's), timed beside the plain version
+    and the bound (the FMA kernel, through ``launch``, held and timed
+    there in f32 too), an f32 chunk outside the tensor-core limits (the
+    FMA kernel), and the bf16 outputs past 1e-1 over 8 seeds."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import ssd_scan_ref
     from repro_torch.models.ssm import ssd_decode_step
     rng = np.random.default_rng(12)
-    err = {"float32": 0.0, "bfloat16": 0.0}
+    err = {"float32": 0.0, "bfloat16": 0.0, "fma": 0.0}
+    n_served = {"tc": 0, "fma": 0}
 
     def check(args, chunk, name, what, init=None):
         tc0, fma0 = ss.launches_tc, ss.launches_fma
@@ -575,12 +708,17 @@ def phase_ssd(torch, np):
         wy, wfin = ssd_scan_ref(*args, chunk=chunk, init_state=init)
         torch.cuda.synchronize()
         served = (ss.launches_tc - tc0, ss.launches_fma - fma0)
-        if served != ((1, 0) if name == "bfloat16" else (0, 1)):
+        x, B = args[0], args[3]
+        tc = ss.route(x.dtype, chunk, x.shape[-1], B.shape[-1])[0] \
+            == "ssd_scan_tc"
+        if served != ((1, 0) if tc else (0, 1)):
             fail(f"ssd_scan {what} served by (tc, fma) = {served}")
+        n_served["tc" if tc else "fma"] += 1
         tol = TOL[name][1]
         e = max(max_err(y, wy, f"ssd_scan y {what}", tol),
                 max_err(fin, wfin, f"ssd_scan state {what}", tol))
-        err[name] = max(err[name], e)
+        key = name if tc else "fma"
+        err[key] = max(err[key], e)
         return e
 
     n_cases = 0
@@ -615,13 +753,12 @@ def phase_ssd(torch, np):
             max_err(fin, state, "ssd_scan vs sequential state", 1e-3))
     err["float32"] = max(err["float32"], e)
     print(f"phase 6 ssd_scan sweep ({n_cases} cases, init_state in each "
-          f"dtype, sequential recurrence): max abs error f32 "
-          f"{err['float32']:.3g} (FMA kernel, {n_cases // 2 + 1} launches), "
-          f"bf16 {err['bfloat16']:.3g} (tensor-core kernel, "
-          f"{n_cases // 2} launches)")
+          f"dtype, sequential recurrence): max abs error bf16 "
+          f"{err['bfloat16']:.3g} and f32 {err['float32']:.3g} (tensor-core "
+          f"kernel, {n_served['tc'] + 1} launches)")
 
     # the serving shape: mamba2-1.3b prefill, 4 x 1024 tokens, 64 heads of
-    # P = 64, N = 128, chunk 128; bf16 is the main path
+    # P = 64, N = 128, chunk 128; bf16 is the main path, f32 the datum's
     b, s, h, p, n, q = 4, 1024, 64, 64, 128, 128
     nc = s // q
     tri = q * (q + 1) / 2
@@ -642,22 +779,72 @@ def phase_ssd(torch, np):
         plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=q), 5)
         nbytes = (size * 2.0 * b * s * h * p + 4.0 * b * s * h + 4.0 * h
                   + size * 2.0 * b * s * n + 4.0 * b * h * p * n)
-        bms, by = bound(flops, nbytes, BF16_FLOPS_PER_S
-                        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
-        route = ss.ROUTES[dtype]
-        print(f"phase 6 {route} (4, 1024, 64, 64) N=128 chunk 128 {name}: "
-              f"max abs error {e:.3g} (limit {TOL[name][1]}; the plain "
-              f"version at chunk 64 vs 128 differs by {floor:.3g}, |y| up "
-              f"to {float(y128.float().abs().max()):.1f}); kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.5f} ms "
-              f"({by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-              f"{ms / bms:.1f}x the bound"
-              + (f"; the FMA kernel took {SSD_FMA_BF16_MS} ms on this shape "
-                 f"in bf16 ({SSD_FMA_BF16_MS / ms:.1f}x this kernel's time)"
-                 if dtype == torch.bfloat16 else ""))
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                         bound_ms=bms, bound_by=by, max_abs_err=err[name],
-                         serving_shape_err=e, plain_order_floor=floor)
+        route, entry = ss.route(dtype, q, p, n)
+        rec = dict(ms=ms, plain_ms=plain, library_ms=None,
+                   max_abs_err=err[name], serving_shape_err=e,
+                   plain_order_floor=floor)
+        if dtype == torch.bfloat16:
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+            extra = (f"; the FMA kernel took {SSD_FMA_BF16_MS} ms on this "
+                     f"shape in bf16 ({SSD_FMA_BF16_MS / ms:.1f}x this "
+                     f"kernel's time)")
+        else:
+            # f32 work: at the f32 FMA rate, or as the three bf16 products
+            # of two parts a product at the bf16 tensor-core rate
+            rec["bound_f32_fma_ms"] = bound(flops, nbytes,
+                                            F32_FLOPS_PER_S)[0]
+            rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes)
+            # the FMA kernel on the same inputs, through launch()
+            x, dt, A, B, C = args
+            lib_fma = _build.library(ss.FMA_F32[0])
+            y_fma = torch.empty(x.shape, dtype=x.dtype, device="cuda")
+            fin_fma = torch.empty((b, h, p, n), dtype=torch.float32,
+                                  device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def run_fma():
+                _build.check(ss.launch(lib_fma, x, dt, A, B, C, None, y_fma,
+                                       fin_fma, chunk=q, stream=stream),
+                             "FMA launch")
+            run_fma()
+            wy, wfin = ssd_scan_ref(*args, chunk=q)
+            torch.cuda.synchronize()
+            e_fma = max(max_err(y_fma, wy, "ssd_scan FMA kernel y, serving "
+                                "shape", TOL[name][1]),
+                        max_err(fin_fma, wfin, "ssd_scan FMA kernel state, "
+                                "serving shape", TOL[name][1]))
+            err["fma"] = max(err["fma"], e_fma)
+            fma_ms = cuda_ms(run_fma, 20)
+            out["fma"] = dict(ms=fma_ms, plain_ms=plain, library_ms=None,
+                              max_abs_err=err["fma"],
+                              serving_shape_err=e_fma,
+                              bound_ms=rec["bound_ms"],
+                              bound_by=rec["bound_by"],
+                              bound_f32_fma_ms=rec["bound_f32_fma_ms"])
+            extra = (f"; bound at the f32 FMA rate "
+                     f"{rec['bound_f32_fma_ms']:.5f} ms; the FMA kernel "
+                     f"(ssd_scan.cu, through launch) {fma_ms:.4f} ms, max "
+                     f"abs error {e_fma:.3g}")
+        print(f"phase 6 {route} ({entry}) (4, 1024, 64, 64) N=128 chunk 128 "
+              f"{name}: max abs error {e:.3g} (limit {TOL[name][1]}; the "
+              f"plain version at chunk 64 vs 128 differs by {floor:.3g}, "
+              f"|y| up to {float(y128.float().abs().max()):.1f}); kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: "
+              f"{flops / 1e9:.2f} GFLOP"
+              + (" x 3 split products" if dtype == torch.float32 else "")
+              + f", {nbytes / 1e6:.1f} MB); {ms / rec['bound_ms']:.1f}x the "
+              f"bound" + extra)
+        out[name] = rec
+    # f32 outside the tensor-core limits (chunk 32): the FMA kernel
+    init = torch.tensor(rng.standard_normal((1, 3, 64, 128)),
+                        dtype=torch.float32, device="cuda")
+    e = check(ssd_inputs(torch, rng, 1, 200, 3, 64, 128, torch.float32), 32,
+              "float32", "chunk 32, init_state, S=200 float32", init)
+    print(f"phase 6 ssd_scan f32 at chunk 32 (outside the tensor-core "
+          f"limits), init_state, S=200: the FMA kernel, max abs error "
+          f"{e:.3g}")
+    out["f7_counts"] = ssd_over_counts(torch, np)
     return out
 
 
@@ -673,6 +860,33 @@ def device_ms_by_kernel(torch, fn):
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), key=lambda r: -r[1])
     return sum(r[1] for r in rows), rows[:6]
+
+
+def f32_prefill_device(torch, cfg, model, prompt, max_len):
+    """Device time by kernel of one f32 datum prefill on its routes (the
+    tensor-core kernels), and of the same prefill with the f32 routes of
+    the config's kernel set to the FMA kernel (here only, restored after):
+    ((total ms, largest), (total ms, largest))."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import transformer as T
+
+    def run():
+        with torch.inference_mode():
+            T.prefill(model, {"tokens": prompt}, max_len)
+    run()
+    tc = device_ms_by_kernel(torch, run)
+    mod = ss if cfg.attn_free else fa
+    routes = mod.ROUTES
+    fma = ((mod.FMA_F32, mod.FMA_F32) if cfg.attn_free
+           else ((256, mod.FMA_F32),))
+    try:
+        mod.ROUTES = {**routes, torch.float32: fma}
+        run()
+        fma_run = device_ms_by_kernel(torch, run)
+    finally:
+        mod.ROUTES = routes
+    return tc, fma_run
 
 
 def breakdown(torch, model, prompt, steps: int):
@@ -802,15 +1016,15 @@ def phase_serve(torch, np):
                 logits, caches = T.decode_step(model, ids[:, :1], caches,
                                                pos0=d["prompt_len"] + i)
         torch.cuda.synchronize()
-        del model, caches, logits
+        del caches, logits
         routes32 = dict(flash_attention_fma=fa.launches_fma,
                         flash_attention_tc=fa.launches_tc,
                         ssd_scan_fma=ss.launches_fma,
                         ssd_scan_tc=ss.launches_tc)
-        want32 = dict(flash_attention_fma=0 if cfg.attn_free
-                      else cfg.n_layers, flash_attention_tc=0,
-                      ssd_scan_fma=cfg.n_layers if cfg.attn_free else 0,
-                      ssd_scan_tc=0)
+        want32 = dict(flash_attention_fma=0,
+                      flash_attention_tc=0 if cfg.attn_free
+                      else cfg.n_layers, ssd_scan_fma=0,
+                      ssd_scan_tc=cfg.n_layers if cfg.attn_free else 0)
         if routes32 != want32:
             fail(f"{arch} f32 prefill took routes {routes32}, expected "
                  f"{want32}")
@@ -821,6 +1035,17 @@ def phase_serve(torch, np):
               f"(margin > limit), {agree}/{len(d['steps']) * d['batch']} "
               f"in all; kernel routes {json.dumps(routes32)}; numpy weight "
               f"fill {fill_s:.1f} s")
+        (pre32_ms, pre32_top), (fma32_ms, fma32_top) = f32_prefill_device(
+            torch, cfg, model, prompt, d["prompt_len"] + d["decode_steps"])
+        print(f"phase 7a {arch} f32 datum prefill device time "
+              f"(torch.profiler): {pre32_ms:.2f} ms on the tensor-core "
+              f"routes; {fma32_ms:.2f} ms with the FMA route swapped in")
+        for what, top in (("tensor-core routes", pre32_top),
+                          ("FMA route", fma32_top)):
+            for name, ms, calls in top:
+                print(f"  f32 prefill, {what}: {ms:9.3f} ms {calls:6d} calls"
+                      f"  {name[:80]}")
+        del model
 
         # (b) the published bf16 config, served: 4 x 1024 prompt, 64 steps
         torch.cuda.empty_cache()
@@ -874,6 +1099,8 @@ def phase_serve(torch, np):
         plain_check = (ssd_plain_check(torch, model, prompt)
                        if cfg.attn_free else None)
         out[arch] = dict(counts=counts, counts_f32_datum=routes32,
+                         f32_prefill_device_ms=pre32_ms,
+                         f32_prefill_device_ms_fma_route=fma32_ms,
                          bf16_vs_plain_ssd=plain_check,
                          prefill_ms=res.prefill_s * 1e3,
                          decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
@@ -953,10 +1180,12 @@ def main() -> int:
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
+             entry="flash_attention_tc_launch",
              launches=served["smollm-135m"]["counts"]["flash_attention_tc"],
              main_path="smollm-135m bf16 serve, 4 x 1024 prompt + 64 "
                        "decode steps: one launch per layer at prefill "
                        "(the bf16 route of flash_attention)",
+             f8_counts=flash["f8_counts"],
              max_abs_err=flash["bfloat16"]["max_abs_err"],
              ms=flash["bfloat16"]["ms"],
              plain_ms=flash["bfloat16"]["plain_ms"],
@@ -967,21 +1196,46 @@ def main() -> int:
                      "query head)",
              shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), bf16, "
                    "causal"),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        dict(name="flash_attention_tc_f32", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
-             launches=served["smollm-135m"]["counts"]["flash_attention_fma"],
-             main_path="the f32 route of flash_attention: not launched by "
-                       "the bf16 serve; launched once per layer by the "
-                       "f32 datum prefill of phase 7a ("
-                       + str(served["smollm-135m"]["counts_f32_datum"][
-                           "flash_attention_fma"]) + " launches)",
+             entry="flash_attention_tc_f32_launch",
+             launches=served["smollm-135m"]["counts_f32_datum"][
+                 "flash_attention_tc"],
+             main_path="smollm-135m f32 datum prefill of phase 7a "
+                       "(2 x 256 prompt): one launch per layer (the f32 "
+                       "route of flash_attention at D <= 128)",
              max_abs_err=flash["float32"]["max_abs_err"],
              ms=flash["float32"]["ms"],
              plain_ms=flash["float32"]["plain_ms"],
              bound_ms=flash["float32"]["bound_ms"],
              bound_by=flash["float32"]["bound_by"],
+             bound_note="six bf16 products a product at the bf16 "
+                        "tensor-core peak; bound_f32_fma_ms: the f32 work "
+                        "at the f32 FMA rate",
+             bound_f32_fma_ms=flash["float32"]["bound_f32_fma_ms"],
              library_ms=flash["float32"]["library_ms"],
+             library="scaled_dot_product_attention in f32 (K/V repeated "
+                     "per query head)",
+             shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), f32, "
+                   "causal"),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:68",
+             entry="flash_attention_launch",
+             launches=served["smollm-135m"]["counts"]["flash_attention_fma"]
+             + served["smollm-135m"]["counts_f32_datum"][
+                 "flash_attention_fma"],
+             main_path="the f32 route of flash_attention at D = 256: not "
+                       "launched by the bf16 serve or the f32 datum "
+                       "prefill (D = 64); held and timed through launch() "
+                       "at the serving shape in phase 5",
+             max_abs_err=flash["fma"]["max_abs_err"],
+             ms=flash["fma"]["ms"], plain_ms=flash["fma"]["plain_ms"],
+             bound_ms=flash["fma"]["bound_ms"],
+             bound_by=flash["fma"]["bound_by"],
+             bound_f32_fma_ms=flash["fma"]["bound_f32_fma_ms"],
+             library_ms=flash["fma"]["library_ms"],
              library="scaled_dot_product_attention in f32 (K/V repeated "
                      "per query head)",
              shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), f32, "
@@ -989,10 +1243,12 @@ def main() -> int:
         dict(name="ssd_scan_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
              replaces="src/repro/kernels/ssd_scan.py:68",
+             entry="ssd_scan_tc_launch",
              launches=served["mamba2-1.3b"]["counts"]["ssd_scan_tc"],
              main_path="mamba2-1.3b bf16 serve, 4 x 1024 prompt + 64 "
                        "decode steps: one launch per layer at prefill "
                        "(the bf16 route of ssd_scan)",
+             f7_counts=ssd["f7_counts"],
              max_abs_err=ssd["bfloat16"]["max_abs_err"],
              serving_shape_err=ssd["bfloat16"]["serving_shape_err"],
              plain_order_floor=ssd["bfloat16"]["plain_order_floor"],
@@ -1002,20 +1258,44 @@ def main() -> int:
              serve_logits_vs_plain=served["mamba2-1.3b"][
                  "bf16_vs_plain_ssd"],
              shape="x (4, 1024, 64, 64), N=128, chunk 128, bf16"),
-        dict(name="ssd_scan", route="cuda",
-             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        dict(name="ssd_scan_tc_f32", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
              replaces="src/repro/kernels/ssd_scan.py:68",
-             launches=served["mamba2-1.3b"]["counts"]["ssd_scan_fma"],
-             main_path="the f32 route of ssd_scan: not launched by the "
-                       "bf16 serve; launched once per layer by the f32 "
-                       "datum prefill of phase 7a ("
-                       + str(served["mamba2-1.3b"]["counts_f32_datum"][
-                           "ssd_scan_fma"]) + " launches)",
+             entry="ssd_scan_tc_f32_launch",
+             launches=served["mamba2-1.3b"]["counts_f32_datum"][
+                 "ssd_scan_tc"],
+             main_path="mamba2-1.3b f32 datum prefill of phase 7a "
+                       "(2 x 256 prompt): one launch per layer (the f32 "
+                       "route of ssd_scan inside the tensor-core limits)",
              max_abs_err=ssd["float32"]["max_abs_err"],
              serving_shape_err=ssd["float32"]["serving_shape_err"],
              ms=ssd["float32"]["ms"], plain_ms=ssd["float32"]["plain_ms"],
              bound_ms=ssd["float32"]["bound_ms"],
-             bound_by=ssd["float32"]["bound_by"], library_ms=None,
+             bound_by=ssd["float32"]["bound_by"],
+             bound_note="bytes at 3.35 TB/s or three bf16 products a "
+                        "product at the bf16 tensor-core peak; "
+                        "bound_f32_fma_ms: the f32 work at the f32 FMA rate",
+             bound_f32_fma_ms=ssd["float32"]["bound_f32_fma_ms"],
+             library_ms=None,
+             shape="x (4, 1024, 64, 64), N=128, chunk 128, f32"),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:68",
+             entry="ssd_scan_launch",
+             launches=served["mamba2-1.3b"]["counts"]["ssd_scan_fma"]
+             + served["mamba2-1.3b"]["counts_f32_datum"]["ssd_scan_fma"],
+             main_path="the f32 route of ssd_scan outside the tensor-core "
+                       "limits: not launched by the bf16 serve or the f32 "
+                       "datum prefill; held through the wrapper at chunk "
+                       "32 and through launch() at the serving shape "
+                       "(timed) in phase 6",
+             max_abs_err=ssd["fma"]["max_abs_err"],
+             serving_shape_err=ssd["fma"]["serving_shape_err"],
+             ms=ssd["fma"]["ms"], plain_ms=ssd["fma"]["plain_ms"],
+             bound_ms=ssd["fma"]["bound_ms"],
+             bound_by=ssd["fma"]["bound_by"],
+             bound_f32_fma_ms=ssd["fma"]["bound_f32_fma_ms"],
+             library_ms=None,
              shape="x (4, 1024, 64, 64), N=128, chunk 128, f32"),
     ]
     print(json.dumps({"serve": served}))

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas kernel
 // repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _kernel) for f32 inputs (bf16 inputs take flash_attention_tc.cu, on
-// the tensor cores; wgmma would read f32 operands as TF32):
+// _kernel) for f32 inputs of head dim 256 (bf16 inputs, and f32 up to
+// head dim 128, take flash_attention_tc.cu on the tensor cores, whose
+// three bf16 parts of K and V do not fit shared memory at 256):
 // out = softmax(q kᵀ · D^-0.5, masked) v per (batch, head), with a
 // causal mask (k <= q) and an optional window (k > q - window),
 // f32 running max, normalizer and accumulator, and max(l, 1e-30) at the

@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas kernel repro/kernels/ssd_scan.py::ssd_scan_pallas
 // (body _kernel), with the initial state of the function it stands for,
-// repro/models/ssm.py::ssd_chunked, for f32 inputs (bf16 inputs take
-// ssd_scan_tc.cu, on the tensor cores; wgmma would read f32 operands as
-// TF32).  Per (batch, head), chunks of Q
+// repro/models/ssm.py::ssd_chunked, for f32 inputs outside the
+// tensor-core kernel's limits (ssd_scan_tc.cu takes bf16, and f32 at
+// chunk 64 or 128 with P <= 64 and N <= 128; this kernel takes any
+// chunk whose tiles fit shared memory).  Per (batch, head), chunks of Q
 // steps in order, with the (P, N) state carried:
 //   da_cum = cumsum(dt · A)
 //   y      = ((C Bᵀ) ∘ L ∘ dt) x + exp(da_cum) · (C stateᵀ),

@@ -7,18 +7,25 @@ causal mask and an optional sliding window, accumulated in f32.  Each
 kernel gives one block to each (batch·head, 64-query tile); see the
 sources' headers for their designs.
 
-The route is fixed by the dtype:
+The route is fixed before launch by the dtype and the head dim (``ROUTES``;
+:func:`route`):
 
-* **bf16 → the tensor-core kernel** (``csrc/flash_attention_tc.cu``):
-  both products on ``wgmma`` with f32 accumulation, P rounded to bf16;
-* **f32 → the FMA kernel** (``csrc/flash_attention.cu``): f32 products
-  on the FMA units.  ``wgmma`` would read f32 operands as TF32 (about
-  three decimal digits), which cannot hold the f32 tolerance of 2e-5.
+* **bf16 → the tensor-core kernel** (``csrc/flash_attention_tc.cu``,
+  entry ``flash_attention_tc_launch``): both products on ``wgmma`` with
+  f32 accumulation, P in one bf16 part;
+* **f32 with D <= 128 → the same tensor-core kernel**
+  (``flash_attention_tc_f32_launch``): Q, K, V and P enter the products
+  as three bf16 parts each, of whose cross products the six that reach
+  f32 precision are kept (the source's Precision note), so the f32
+  tolerance of 2e-5 holds on the tensor cores;
+* **f32 with D = 256 → the FMA kernel** (``csrc/flash_attention.cu``):
+  three parts of K and V do not fit the tensor-core kernel's shared
+  memory at that width.
 
-Each route counts its launches (``launches_tc``, ``launches_fma``;
-``launches`` is their sum).  A dtype or head dim that neither kernel
-takes raises; a failed build or launch raises too, and nothing falls
-back to the other route or to the plain version.
+Each route counts its launches (``launches_tc`` for both tensor-core
+entries, ``launches_fma``; ``launches`` is their sum).  A dtype or head
+dim that no route takes raises; a failed build or launch raises too, and
+nothing falls back to another route or to the plain version.
 
 Beyond the Pallas contract, ``k`` and ``v`` may have fewer heads than
 ``q`` (grouped-query attention: query head ``h`` reads KV head
@@ -27,8 +34,8 @@ no repeated K/V), ``S`` need not be a multiple of the tile (the tail is
 masked in the kernel), and the tensors may be strided views as long as
 ``D`` is the unit-stride axis: the model passes its ``(B, S, H, D)``
 projections transposed, without a copy, and the output has ``q``'s
-layout.  The tensor-core kernel copies 16-byte chunks, so its inputs'
-other strides must be multiples of 8 elements and their data 16-byte
+layout.  The tensor-core kernel reads 16-byte chunks, so its inputs'
+other strides must be multiples of 16 bytes and their data 16-byte
 aligned; an input that is not gets a contiguous copy first.
 
 Dispatch is by device: a CPU tensor takes the plain version
@@ -52,10 +59,20 @@ launches_tc = 0
 launches_fma = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-# The kernel that serves each dtype: csrc/<name>.cu, entry <name>_launch.
-ROUTES = {torch.bfloat16: "flash_attention_tc",
-          torch.float32: "flash_attention"}
+# A route: the kernel's library (csrc/<lib>.cu) and its C entry point.
+TC_BF16 = ("flash_attention_tc", "flash_attention_tc_launch")
+TC_F32 = ("flash_attention_tc", "flash_attention_tc_f32_launch")
+FMA_F32 = ("flash_attention", "flash_attention_launch")
+TC_F32_MAX_D = 128          # fatc::F32_MAX_D in the source
+# dtype -> ((largest head dim, route), ...): the first that takes D serves.
+ROUTES = {torch.bfloat16: ((256, TC_BF16),),
+          torch.float32: ((TC_F32_MAX_D, TC_F32), (256, FMA_F32))}
 DTYPES = tuple(ROUTES)
+
+
+def route(dtype: torch.dtype, d: int):
+    """The (library, entry) that serves ``dtype`` at head dim ``d``."""
+    return next(r for dmax, r in ROUTES[dtype] if d <= dmax)
 
 
 def _check_inputs(q, k, v, window) -> None:
@@ -91,9 +108,9 @@ def launch(lib, q, k, v, out, *, causal: bool, window: Optional[int],
            stream, entry: str = "flash_attention_launch") -> int:
     """Call ``entry`` of ``lib`` on checked tensors; returns the C entry
     point's error code.  ``flash_attention_launch`` (the FMA kernel) takes
-    f32 tensors whose last axis is unit-stride,
-    ``flash_attention_tc_launch`` (the tensor-core kernel) bf16 tensors
-    that :func:`_for_copies` accepts."""
+    f32 tensors whose last axis is unit-stride, the tensor-core entries
+    (``flash_attention_tc_launch`` bf16, ``flash_attention_tc_f32_launch``
+    f32) tensors that :func:`_for_copies` accepts."""
     b, h, s, d = q.shape
     strides = (ctypes.c_longlong * 12)(*(
         st for x in (q, k, v, out) for st in (x.stride(0), x.stride(1),
@@ -109,10 +126,11 @@ def launch(lib, q, k, v, out, *, causal: bool, window: Optional[int],
 
 
 def _for_copies(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if the tensor-core kernel's 16-byte copies can read it (unit
-    last stride, other strides multiples of 8 elements, data 16-byte
+    """``x`` if the tensor-core kernel's 16-byte reads can take it (unit
+    last stride, other strides multiples of 16 bytes, data 16-byte
     aligned), else a contiguous copy."""
-    if x.stride(-1) == 1 and all(st % 8 == 0 for st in x.stride()[:-1]) \
+    per = 16 // x.element_size()
+    if x.stride(-1) == 1 and all(st % per == 0 for st in x.stride()[:-1]) \
             and x.data_ptr() % 16 == 0:
         return x
     return x.clone(memory_format=torch.contiguous_format)
@@ -128,7 +146,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    name = ROUTES[q.dtype]
+    name, entry = route(q.dtype, q.shape[-1])
     tc = name == "flash_attention_tc"
     prep = _for_copies if tc else _unit_last
     q, k, v = prep(q), prep(k), prep(v)
@@ -139,8 +157,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = launch(_build.library(name), q, k, v, out, causal=causal,
-                window=window, stream=stream, entry=f"{name}_launch")
-    _build.check(rc, f"{name} launch")
+                window=window, stream=stream, entry=entry)
+    _build.check(rc, f"{entry}")
     if tc:
         launches_tc += 1
     else:

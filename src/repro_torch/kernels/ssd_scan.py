@@ -7,25 +7,31 @@ multiple of ``chunk`` is handled in the kernels by the reference's own
 identity (steps past the end read dt = 0 and zero inputs, and their
 output is not stored), so no padded copy is made.
 
-The route is fixed by the dtype:
+The route is fixed before launch by the dtype and the shape (``ROUTES``;
+:func:`route`):
 
-* **bf16 → the tensor-core kernel** (``csrc/ssd_scan_tc.cu``): blocks
-  over (batch, chunk, head), every product on ``wgmma`` with
-  f32 accumulation, only the f32 carry chained from chunk to chunk;
-* **f32 → the FMA kernel** (``csrc/ssd_scan.cu``): one block per
-  (batch, head) walking its chunks, f32 products on the FMA units.
-  ``wgmma`` would read f32 operands as TF32 (about three decimal
-  digits), which cannot hold the f32 tolerance of 1e-3.
+* **the tensor-core kernel** (``csrc/ssd_scan_tc.cu``) for bf16 (entry
+  ``ssd_scan_tc_launch``) and f32 (``ssd_scan_tc_f32_launch``) at chunk
+  64 or 128 with P <= 64 and N <= 128, multiples of 8 (:func:`tc_takes`):
+  blocks over (batch, chunk, head), every product on ``wgmma`` with f32
+  accumulation, only the f32 carry chained from chunk to chunk.  f32
+  operands enter the products as two bf16 parts each (the source's
+  Precision note), which holds the f32 tolerance of 1e-3;
+* **the FMA kernel** (``csrc/ssd_scan.cu``) for every other f32 shape
+  whose chunk fits its shared memory: one block per (batch, head)
+  walking its chunks, f32 products on the FMA units.
 
 See the sources' headers for their designs.  Each route counts its
-launches (``launches_tc``, ``launches_fma``; ``launches`` is their sum).
-A dtype or shape that the route's kernel does not take raises; a failed
-build or launch raises too, and nothing falls back to the other route
-or to the plain version.  x, B and C may be strided views with a
-unit-stride last axis (the model passes slices of its conv output); the
-tensor-core kernel copies 16-byte chunks, so its inputs' other strides
-must be multiples of 8 elements and their data 16-byte aligned, and an
-input that is not gets a contiguous copy first.
+launches (``launches_tc`` for both tensor-core entries,
+``launches_fma``; ``launches`` is their sum).  A dtype or shape that no
+route takes raises (a bf16 shape outside the tensor-core limits, an f32
+chunk too large for the FMA kernel); a failed build or launch raises
+too, and nothing falls back to another route or to the plain version.
+x, B and C may be strided views with a unit-stride last axis (the model
+passes slices of its conv output); the tensor-core kernel reads 16-byte
+chunks, so its inputs' other strides must be multiples of 16 bytes and
+their data 16-byte aligned, and an input that is not gets a contiguous
+copy first.
 
 Dispatch is by device: a CPU tensor takes the plain version
 (:func:`~repro_torch.kernels.ref.ssd_scan_ref`); a CUDA tensor launches
@@ -47,13 +53,30 @@ launches = 0
 launches_tc = 0
 launches_fma = 0
 
-# The kernel that serves each dtype: csrc/<name>.cu, entry <name>_launch.
-ROUTES = {torch.bfloat16: "ssd_scan_tc", torch.float32: "ssd_scan"}
+# A route: the kernel's library (csrc/<lib>.cu) and its C entry point.
+TC_BF16 = ("ssd_scan_tc", "ssd_scan_tc_launch")
+TC_F32 = ("ssd_scan_tc", "ssd_scan_tc_f32_launch")
+FMA_F32 = ("ssd_scan", "ssd_scan_launch")
+# dtype -> (route where tc_takes(chunk, P, N), route otherwise or None)
+ROUTES = {torch.bfloat16: (TC_BF16, None), torch.float32: (TC_F32, FMA_F32)}
 DTYPES = tuple(ROUTES)
 RT = 64                    # FMA kernel: rows of the Q x Q product at a time
 MAX_SMEM = 232_448         # bytes of shared memory a block can opt into
 TC_CHUNKS = (64, 128)      # tensor-core kernel: one or two warpgroups
 TC_MAX_P, TC_MAX_N = 64, 128
+
+
+def tc_takes(chunk: int, p: int, n: int) -> bool:
+    """Whether the tensor-core kernel takes this chunk, P and N."""
+    return chunk in TC_CHUNKS and p % 8 == 0 and 8 <= p <= TC_MAX_P \
+        and n % 8 == 0 and 8 <= n <= TC_MAX_N
+
+
+def route(dtype: torch.dtype, chunk: int, p: int, n: int):
+    """The (library, entry) that serves ``dtype`` at this chunk, P and N,
+    or None."""
+    tc, other = ROUTES[dtype]
+    return tc if tc_takes(chunk, p, n) else other
 
 
 def smem_bytes(q: int, p: int, n: int) -> int:
@@ -64,14 +87,13 @@ def smem_bytes(q: int, p: int, n: int) -> int:
 
 
 def _check_route(dtype, p: int, n: int, chunk: int) -> None:
-    if dtype == torch.bfloat16:
-        if chunk not in TC_CHUNKS or p % 8 or not 8 <= p <= TC_MAX_P \
-                or n % 8 or not 8 <= n <= TC_MAX_N:
-            raise ValueError(
-                f"ssd_scan: the bf16 kernel takes chunk in {TC_CHUNKS}, "
-                f"P <= {TC_MAX_P} and N <= {TC_MAX_N} (multiples of 8), "
-                f"got chunk {chunk}, P={p}, N={n}")
-    elif chunk < 1 or smem_bytes(chunk, p, n) > MAX_SMEM:
+    r = route(dtype, chunk, p, n)
+    if r is None:
+        raise ValueError(
+            f"ssd_scan: the bf16 kernel takes chunk in {TC_CHUNKS}, "
+            f"P <= {TC_MAX_P} and N <= {TC_MAX_N} (multiples of 8), "
+            f"got chunk {chunk}, P={p}, N={n}")
+    if r == FMA_F32 and (chunk < 1 or smem_bytes(chunk, p, n) > MAX_SMEM):
         raise ValueError(f"ssd_scan: chunk {chunk} with P={p}, N={n} "
                          f"needs {smem_bytes(chunk, p, n)} bytes of "
                          f"shared memory, over {MAX_SMEM}")
@@ -111,10 +133,11 @@ def _unit_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def _for_copies(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if the tensor-core kernel's 16-byte copies can read it (unit
-    last stride, other strides multiples of 8 elements, data 16-byte
+    """``x`` if the tensor-core kernel's 16-byte reads can take it (unit
+    last stride, other strides multiples of 16 bytes, data 16-byte
     aligned), else a contiguous copy."""
-    if x.stride(-1) == 1 and all(st % 8 == 0 for st in x.stride()[:-1]) \
+    per = 16 // x.element_size()
+    if x.stride(-1) == 1 and all(st % per == 0 for st in x.stride()[:-1]) \
             and x.data_ptr() % 16 == 0:
         return x
     return x.clone(memory_format=torch.contiguous_format)
@@ -157,14 +180,15 @@ def sync_buffer(x: torch.Tensor) -> torch.Tensor:
 
 def launch_tc(lib, x, dt, A, B, C, init, y, fin, sync, *, chunk: int,
               stream) -> int:
-    """Call ``ssd_scan_tc_launch`` (the tensor-core kernel) of ``lib`` on
-    checked bf16 tensors that :func:`_for_copies` accepts (A, init, y and
-    fin contiguous; ``sync`` from :func:`sync_buffer`, zeroed for each
-    call; ``fin`` doubles as the chunk-to-chunk carry); returns the C
-    entry point's error code."""
+    """Call the tensor-core kernel's entry for x's dtype
+    (``ssd_scan_tc_launch`` bf16, ``ssd_scan_tc_f32_launch`` f32) of
+    ``lib`` on checked tensors that :func:`_for_copies` accepts (A, init,
+    y and fin contiguous; ``sync`` from :func:`sync_buffer`, zeroed for
+    each call; ``fin`` doubles as the chunk-to-chunk carry); returns the
+    C entry point's error code."""
     b, s, h, p = x.shape
     strides = _strides(x, dt, B, C)
-    fn = lib.ssd_scan_tc_launch
+    fn = getattr(lib, (TC_F32 if x.dtype == torch.float32 else TC_BF16)[1])
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
@@ -190,7 +214,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
-    name = ROUTES[x.dtype]
+    name, entry = route(x.dtype, chunk, x.shape[-1], B.shape[-1])
     tc = name == "ssd_scan_tc"
     prep = _for_copies if tc else _unit_last
     x, B, C = prep(x), prep(B), prep(C)
@@ -212,7 +236,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     else:
         rc = launch(lib, x, dt, A, B, C, init, y, fin, chunk=chunk,
                     stream=stream)
-    _build.check(rc, f"{name} launch")
+    _build.check(rc, entry)
     if tc:
         launches_tc += 1
     else:

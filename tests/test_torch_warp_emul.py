@@ -89,6 +89,8 @@ static int emu_flash_d(const flash::Args& a, int d, int blocks) {
     case 16: return emu_flash<T, 16>(a, blocks);
     case 32: return emu_flash<T, 32>(a, blocks);
     case 64: return emu_flash<T, 64>(a, blocks);
+    case 128: return emu_flash<T, 128>(a, blocks);
+    case 256: return emu_flash<T, 256>(a, blocks);
     default: return 1;
   }
 }
@@ -105,28 +107,49 @@ extern "C" int flash_attention_launch(
 '''
 
 FLASH_TC_LAUNCH = r'''
-namespace fatc { alignas(1024) unsigned char fatc_smem[smem_bytes(256)]; }
-template <int D>
+namespace fatc {
+alignas(1024) unsigned char fatc_smem[smem_bytes(256, false)];
+static_assert(smem_bytes(F32_MAX_D, true) <= smem_bytes(256, false));
+}
+template <class T, int D>
 static int emu_flash_tc(const fatc::Args& a, int blocks) {
   wg::emu_smem_base = fatc::fatc_smem;
-  emu_run(blocks, [&] { fatc::flash_tc_kernel<D>(a); }, fatc::NT);
+  emu_run(blocks, [&] { fatc::flash_tc_kernel<T, D>(a); }, fatc::NT);
   return 0;
 }
-extern "C" int flash_attention_tc_launch(
-    const void* q, const void* k, const void* v, void* o,
-    const long long* st, int B, int H, int S, int D, int g, int causal,
-    int window, float scale, cudaStream_t) {
+template <class T>
+static int emu_flash_tc_t(const void* q, const void* k, const void* v,
+                          void* o, const long long* st, int B, int H, int S,
+                          int D, int g, int causal, int window, float scale) {
   fatc::Args a{q, k, v, o, st[0], st[1], st[2], st[3], st[4], st[5],
                st[6], st[7], st[8], st[9], st[10], st[11],
                H, S, g, causal, window, scale};
   const int blocks = B * H * ((S + fatc::BQ - 1) / fatc::BQ);
   switch (D) {
-    case 32: return emu_flash_tc<32>(a, blocks);
-    case 64: return emu_flash_tc<64>(a, blocks);
-    case 128: return emu_flash_tc<128>(a, blocks);
-    case 256: return emu_flash_tc<256>(a, blocks);
+    case 16: return emu_flash_tc<T, 16>(a, blocks);
+    case 32: return emu_flash_tc<T, 32>(a, blocks);
+    case 64: return emu_flash_tc<T, 64>(a, blocks);
+    case 128: return emu_flash_tc<T, 128>(a, blocks);
+    case 256:
+      if constexpr (!std::is_same<T, float>::value)
+        return emu_flash_tc<T, 256>(a, blocks);
+      return 1;
     default: return 1;
   }
+}
+extern "C" int flash_attention_tc_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* st, int B, int H, int S, int D, int g, int causal,
+    int window, float scale, cudaStream_t) {
+  return emu_flash_tc_t<__nv_bfloat16>(q, k, v, o, st, B, H, S, D, g,
+                                       causal, window, scale);
+}
+extern "C" int flash_attention_tc_f32_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* st, int B, int H, int S, int D, int g, int causal,
+    int window, float scale, cudaStream_t) {
+  return emu_flash_tc_t<float>(q, k, v, o, st, B, H, S, D, g, causal,
+                               window, scale);
 }
 '''
 
@@ -147,34 +170,48 @@ extern "C" int ssd_scan_launch(
 
 SSD_TC_LAUNCH = r'''
 namespace ssdtc {
-alignas(1024) unsigned char ssdtc_smem[smem_bytes(128, 2)];
+alignas(1024) unsigned char ssdtc_smem[smem_bytes(128, 2, true)];
+static_assert(smem_bytes(128, 2, false) <= smem_bytes(128, 2, true));
 }
-template <int Q, int NB>
+template <class T, int Q, int NB>
 static int emu_ssd_tc(const ssdtc::Args& a, int blocks) {
   wg::emu_smem_base = ssdtc::ssdtc_smem;
-  emu_run(blocks, [&] { ssdtc::ssd_tc_kernel<Q, NB>(a); }, 2 * Q);
+  emu_run(blocks, [&] { ssdtc::ssd_tc_kernel<T, Q, NB>(a); }, 2 * Q);
   return 0;
+}
+template <class T>
+static int emu_ssd_tc_t(const void* x, const float* dt, const float* A,
+                        const void* Bm, const void* Cm, const float* init,
+                        void* y, float* fin, int* sync, const long long* st,
+                        int batch, int S, int H, int P, int N, int Q) {
+  if (P < 8 || P > 64 || P % 8 || N < 8 || N > 128 || N % 8) return 1;
+  ssdtc::Args a{x, dt, A, Bm, Cm, init, y, fin, sync,
+                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                st[8], st[9], batch, S, H, P, N};
+  const int blocks = (S + Q - 1) / Q * batch * H;
+  if (blocks == 0) return 0;
+  const bool wide = N > 64;
+  if (Q == 64) return wide ? emu_ssd_tc<T, 64, 2>(a, blocks)
+                           : emu_ssd_tc<T, 64, 1>(a, blocks);
+  if (Q == 128) return wide ? emu_ssd_tc<T, 128, 2>(a, blocks)
+                            : emu_ssd_tc<T, 128, 1>(a, blocks);
+  return 1;
 }
 extern "C" int ssd_scan_tc_launch(
     const void* x, const float* dt, const float* A, const void* Bm,
     const void* Cm, const float* init, void* y, float* fin, int* sync,
     const long long* st, int batch, int S, int H, int P, int N, int Q,
     cudaStream_t) {
-  if (P < 8 || P > 64 || P % 8 || N < 8 || N > 128 || N % 8) return 1;
-  ssdtc::Args a{static_cast<const __nv_bfloat16*>(x), dt, A,
-                static_cast<const __nv_bfloat16*>(Bm),
-                static_cast<const __nv_bfloat16*>(Cm), init,
-                static_cast<__nv_bfloat16*>(y), fin, sync,
-                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-                st[8], st[9], batch, S, H, P, N};
-  const int blocks = (S + Q - 1) / Q * batch * H;
-  if (blocks == 0) return 0;
-  const bool wide = N > 64;
-  if (Q == 64) return wide ? emu_ssd_tc<64, 2>(a, blocks)
-                           : emu_ssd_tc<64, 1>(a, blocks);
-  if (Q == 128) return wide ? emu_ssd_tc<128, 2>(a, blocks)
-                            : emu_ssd_tc<128, 1>(a, blocks);
-  return 1;
+  return emu_ssd_tc_t<__nv_bfloat16>(x, dt, A, Bm, Cm, init, y, fin, sync,
+                                     st, batch, S, H, P, N, Q);
+}
+extern "C" int ssd_scan_tc_f32_launch(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* init, void* y, float* fin, int* sync,
+    const long long* st, int batch, int S, int H, int P, int N, int Q,
+    cudaStream_t) {
+  return emu_ssd_tc_t<float>(x, dt, A, Bm, Cm, init, y, fin, sync, st,
+                             batch, S, H, P, N, Q);
 }
 '''
 
@@ -313,65 +350,90 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, case):
     (1, 3, 1, 64, 64, True, None, torch.bfloat16)])
 def test_emulated_flash_attention_equals_plain(model_libs, b, h, hkv, s, d,
                                                causal, window, dtype):
-    """Strided (B, S, H, D) views, as the model passes them; GQA; ragged S;
-    bf16 loads and stores."""
+    """The FMA kernel (f32) and the tensor-core kernel (bf16) on strided
+    (B, S, H, D) views, as the model passes them; GQA; ragged S; bf16
+    loads and stores."""
     rng = np.random.default_rng(s + d + h)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d))
                                 .astype(np.float32)).to(dtype)
                .transpose(1, 2) for n in (h, hkv, hkv))
     out = torch.empty_like(q)
     assert out.stride() == q.stride()
-    name = fa.ROUTES[dtype]           # bf16: the tensor-core kernel
+    name, entry = fa.FMA_F32 if dtype == torch.float32 else fa.TC_BF16
     assert fa.launch(model_libs[name], q, k, v, out, causal=causal,
-                     window=window, stream=None,
-                     entry=f"{name}_launch") == 0
+                     window=window, stream=None, entry=entry) == 0
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert float((out.float() - want.float()).abs().max()) < tol
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
-    (1, 3, 1, 100, 64, True, None),     # GQA g = 3, ragged S
-    (1, 3, 1, 200, 64, True, 64),       # window: rows with no key yet
-    (1, 2, 2, 96, 128, False, None),
-    (1, 2, 1, 130, 128, True, 64),
-    (1, 3, 1, 70, 256, True, None),
-    (2, 2, 1, 64, 32, True, None)])     # D < 64: zero-padded columns
+def _by_dtype(rows):
+    """Rows ending in a dtype: bf16 rows keep the ids they had before the
+    dtype column, f32 rows get an ``f32-`` prefix."""
+    return [pytest.param(*r, id=("f32-" if r[-1] == torch.float32 else "")
+                         + "-".join(str(x) for x in r[:-1])) for r in rows]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype", _by_dtype([
+    (1, 3, 1, 100, 64, True, None, torch.bfloat16),   # GQA g = 3, ragged S
+    (1, 3, 1, 200, 64, True, 64, torch.bfloat16),     # window: empty rows
+    (1, 2, 2, 96, 128, False, None, torch.bfloat16),
+    (1, 2, 1, 130, 128, True, 64, torch.bfloat16),
+    (1, 3, 1, 70, 256, True, None, torch.bfloat16),
+    (2, 2, 1, 64, 32, True, None, torch.bfloat16),    # D < 64: zero-padded
+    (1, 3, 1, 100, 64, True, None, torch.float32),
+    (1, 3, 1, 200, 64, True, 64, torch.float32),
+    (1, 2, 2, 96, 128, False, None, torch.float32),
+    (1, 2, 1, 130, 128, True, 64, torch.float32),
+    (2, 2, 1, 64, 32, True, None, torch.float32),
+    (1, 2, 1, 70, 16, False, 40, torch.float32)]))
 def test_emulated_flash_tc_equals_plain(model_libs, b, h, hkv, s, d, causal,
-                                        window):
+                                        window, dtype):
     """The tensor-core kernel's body, its wgmma, copies and swizzle done
-    by the twin header on the PTX ISA's documented layouts: bf16 in the
-    model's strided (B, S, H, D) layout, GQA, window, ragged S."""
+    by the twin header on the PTX ISA's documented layouts, in the
+    model's strided (B, S, H, D) layout: GQA, window, ragged S; bf16, and
+    f32 in three bf16 parts (its own entry) at the f32 limit."""
     rng = np.random.default_rng(3 * s + d + h)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d))
-                                .astype(np.float32)).bfloat16()
+                                .astype(np.float32)).to(dtype)
                .transpose(1, 2) for n in (h, hkv, hkv))
     out = torch.empty_like(q)
-    assert fa.launch(model_libs["flash_attention_tc"], q, k, v, out,
-                     causal=causal, window=window, stream=None,
-                     entry="flash_attention_tc_launch") == 0
+    name, entry = fa.route(dtype, d)
+    assert name == "flash_attention_tc"
+    assert fa.launch(model_libs[name], q, k, v, out, causal=causal,
+                     window=window, stream=None, entry=entry) == 0
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     assert bool(torch.isfinite(out.float()).all())
-    assert float((out.float() - want.float()).abs().max()) < 3e-2
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((out.float() - want.float()).abs().max()) < tol
 
 
 def test_flash_routes_by_dtype(model_libs):
-    """f32 takes the FMA kernel and bf16 the tensor-core kernel; an f32
-    input run through its route's emulated kernel holds 2e-5."""
-    assert fa.ROUTES == {torch.float32: "flash_attention",
-                         torch.bfloat16: "flash_attention_tc"}
+    """bf16 takes the tensor-core kernel at every head dim, f32 takes it up
+    to D = 128 and the FMA kernel at D = 256; an f32 input at D = 256 run
+    through its route's emulated kernel holds 2e-5, the tensor-core
+    kernel refuses it, and a head dim no route takes raises."""
+    assert all(fa.route(torch.bfloat16, d) == fa.TC_BF16
+               for d in fa.HEAD_DIMS)
+    assert [fa.route(torch.float32, d) for d in fa.HEAD_DIMS] == \
+        [fa.TC_F32] * 4 + [fa.FMA_F32]
     rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, n, 64))
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, n, 256))
                                 .astype(np.float32)).transpose(1, 2)
                for n in (3, 1, 1))
     out = torch.empty_like(q)
-    name = fa.ROUTES[q.dtype]
+    name, entry = fa.route(q.dtype, 256)
     assert fa.launch(model_libs[name], q, k, v, out, causal=True,
-                     window=None, stream=None, entry=f"{name}_launch") == 0
+                     window=None, stream=None, entry=entry) == 0
     want = flash_attention_ref(q, k, v, causal=True)
     assert float((out - want).abs().max()) < 2e-5
+    assert fa.launch(model_libs["flash_attention_tc"], q, k, v, out,
+                     causal=True, window=None, stream=None,
+                     entry=fa.TC_F32[1]) != 0
     with pytest.raises(AttributeError):   # the FMA library has no bf16 entry
         model_libs[name].flash_attention_tc_launch
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
 
 
 def _ssd_case(seed, b, s, h, p, n, init, dtype):
@@ -390,13 +452,14 @@ def _ssd_case(seed, b, s, h, p, n, init, dtype):
     return x, dt, A, B, C, st
 
 
-def _run_ssd(model_libs, x, dt, A, B, C, st, *, chunk):
-    """The emulated kernel of x's route; returns (y, fin).  Both start as
-    NaN, so an output the kernel leaves unwritten fails the check."""
+def _run_ssd(model_libs, x, dt, A, B, C, st, *, chunk, route=None):
+    """The emulated kernel of ``route`` (default: the wrapper's route for
+    x's dtype and shape); returns (y, fin).  Both start as NaN, so an
+    output the kernel leaves unwritten fails the check."""
     b, s, h, p = x.shape
     y = torch.full((b, s, h, p), float("nan"), dtype=x.dtype)
     fin = torch.full((b, h, p, B.shape[-1]), float("nan"))
-    name = ss.ROUTES[x.dtype]
+    name, _ = route or ss.route(x.dtype, chunk, p, B.shape[-1])
     if name == "ssd_scan_tc":
         rc = ss.launch_tc(model_libs[name], x, dt, A, B, C, st, y, fin,
                           ss.sync_buffer(x), chunk=chunk, stream=None)
@@ -411,61 +474,224 @@ def _run_ssd(model_libs, x, dt, A, B, C, st, *, chunk):
     (128, 64, False, torch.float32), (100, 64, True, torch.float32),
     (200, 128, True, torch.float32), (64, 64, False, torch.bfloat16)])
 def test_emulated_ssd_scan_equals_plain(model_libs, s, chunk, init, dtype):
-    """x, B and C as strided slices of one projection, as in the model;
-    ragged S; a carried-in state; bf16 through its route (the
-    tensor-core kernel)."""
+    """The FMA kernel (f32) and the tensor-core kernel (bf16) on x, B and
+    C as strided slices of one projection, as in the model; ragged S; a
+    carried-in state."""
     x, dt, A, B, C, st = _ssd_case(s + chunk, 1, s, 2, 16, 32, init, dtype)
-    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=chunk)
+    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=chunk,
+                      route=ss.FMA_F32 if dtype == torch.float32 else None)
     wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=chunk, init_state=st)
     tol = 1e-4 if dtype == torch.float32 else 1e-1
     assert float((y.float() - wy.float()).abs().max()) < tol
     assert float((fin - wfin).abs().max()) < tol
 
 
-@pytest.mark.parametrize("b,s,h,p,n,chunk,init", [
-    (1, 200, 2, 16, 32, 64, False),     # 4 chunks, the last ragged
-    (1, 300, 3, 64, 128, 128, True),    # 3 chunks, 3 heads
-    (2, 197, 1, 64, 128, 64, True),     # 4 chunks of 64 at N = 128
-    (1, 256, 2, 32, 64, 128, False),    # 2 full chunks
-    (1, 150, 5, 16, 32, 128, True)])    # 5 heads, P, N < 64
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,dtype", _by_dtype([
+    (1, 200, 2, 16, 32, 64, False, torch.bfloat16),  # 4 chunks, last ragged
+    (1, 300, 3, 64, 128, 128, True, torch.bfloat16),   # 3 chunks, 3 heads
+    (2, 197, 1, 64, 128, 64, True, torch.bfloat16),    # chunks of 64, N 128
+    (1, 256, 2, 32, 64, 128, False, torch.bfloat16),   # 2 full chunks
+    (1, 150, 5, 16, 32, 128, True, torch.bfloat16),    # 5 heads, P, N < 64
+    (1, 200, 2, 16, 32, 64, False, torch.float32),
+    (1, 300, 3, 64, 128, 128, True, torch.float32),
+    (2, 197, 1, 64, 128, 64, True, torch.float32),
+    (1, 150, 5, 16, 32, 128, True, torch.float32)]))
 def test_emulated_ssd_tc_equals_plain(model_libs, b, s, h, p, n, chunk,
-                                      init):
+                                      init, dtype):
     """The tensor-core kernel's body, its wgmma, copies, swizzle and
     chain flags done by the twin header on the PTX ISA's documented
-    layouts: strided bf16 slices, ragged S over several chunks (so the
-    carry runs through the chain), a carried-in state, P and N padded
-    to a 64-wide tile, several heads and batches."""
+    layouts: strided slices, ragged S over several chunks (so the carry
+    runs through the chain), a carried-in state, P and N padded to a
+    64-wide tile, several heads and batches; bf16, and f32 in two bf16
+    parts (its own entry) at the f32 limit."""
     x, dt, A, B, C, st = _ssd_case(7 * s + p + n, b, s, h, p, n, init,
-                                   torch.bfloat16)
+                                   dtype)
+    assert ss.route(dtype, chunk, p, n)[0] == "ssd_scan_tc"
     y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=chunk)
     wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=chunk, init_state=st)
+    tol = 1e-3 if dtype == torch.float32 else 1e-1
     assert bool(torch.isfinite(y.float()).all())
-    assert float((y.float() - wy.float()).abs().max()) < 1e-1
-    assert float((fin - wfin).abs().max()) < 1e-1
+    assert float((y.float() - wy.float()).abs().max()) < tol
+    assert float((fin - wfin).abs().max()) < tol
 
 
 def test_ssd_routes_by_dtype(model_libs):
-    """f32 takes the FMA kernel and bf16 the tensor-core kernel; an f32
-    input run through its route's emulated kernel holds 1e-4, and the
-    FMA library has no bf16 entry."""
-    assert ss.ROUTES == {torch.float32: "ssd_scan",
-                         torch.bfloat16: "ssd_scan_tc"}
+    """Inside the tensor-core limits both dtypes take the tensor-core
+    kernel; outside them (here chunk 32) f32 takes the FMA kernel, whose
+    emulated run holds 1e-4, and bf16 raises.  The FMA library has no
+    tensor-core entry."""
+    assert ss.route(torch.bfloat16, 128, 64, 128) == ss.TC_BF16
+    assert ss.route(torch.float32, 128, 64, 128) == ss.TC_F32
+    assert ss.route(torch.float32, 32, 16, 32) == ss.FMA_F32
+    assert ss.route(torch.float32, 128, 72, 128) == ss.FMA_F32
+    assert ss.route(torch.bfloat16, 32, 16, 32) is None
     x, dt, A, B, C, st = _ssd_case(5, 1, 150, 3, 16, 32, True,
                                    torch.float32)
-    assert ss.ROUTES[x.dtype] == "ssd_scan"
-    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=64)
-    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=64, init_state=st)
+    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=32)
+    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=32, init_state=st)
     assert float((y - wy).abs().max()) < 1e-4
     assert float((fin - wfin).abs().max()) < 1e-4
+    with pytest.raises(ValueError, match="bf16 kernel takes"):
+        ss.ssd_scan(x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16(),
+                    chunk=32)
     with pytest.raises(AttributeError):
         model_libs["ssd_scan"].ssd_scan_tc_launch
 
 
-@pytest.mark.parametrize("name", sorted(ssd_tc_probe.ABLATIONS))
+@pytest.fixture(scope="module")
+def ref():
+    from _torch_ref import reference
+    with reference() as r:
+        yield r
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
+def test_emulated_f32_tc_model_matches_reference(model_libs, ref,
+                                                 monkeypatch, arch):
+    """The f32 smoke model's prefill with its kernel call (attention or
+    SSD) served by the emulated f32 tensor-core kernel, the route the card
+    takes for f32, against the JAX reference's prefill on the same numpy
+    weights and tokens: 1e-4 of the largest logit, the bound of
+    ``test_torch_models`` for the plain versions."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch import configs as tconfigs
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import ssm as tssm
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.convert import (numpy_params,
+                                            params_from_reference)
+    launched = []
+
+    def emu_flash(q, k, v, *, causal=True, window=None):
+        name, entry = fa.route(q.dtype, q.shape[-1])
+        assert entry == fa.TC_F32[1]
+        q, k, v = (fa._for_copies(x) for x in (q, k, v))
+        out = torch.empty(q.shape, dtype=q.dtype)
+        assert fa.launch(model_libs[name], q, k, v, out, causal=causal,
+                         window=window, stream=None, entry=entry) == 0
+        launched.append(entry)
+        return out
+
+    def emu_ssd(x, dt, A, B, C, *, chunk, init_state=None):
+        name, entry = ss.route(x.dtype, chunk, x.shape[-1], B.shape[-1])
+        assert entry == ss.TC_F32[1]
+        x, B, C = (ss._for_copies(t) for t in (x, B, C))
+        b, s, h, p = x.shape
+        y = torch.empty(x.shape, dtype=x.dtype)
+        fin = torch.empty((b, h, p, B.shape[-1]))
+        init = None if init_state is None else init_state.contiguous()
+        assert ss.launch_tc(model_libs[name], x, dt, A.contiguous(), B, C,
+                            init, y, fin, ss.sync_buffer(x), chunk=chunk,
+                            stream=None) == 0
+        launched.append(entry)
+        return y, fin
+
+    monkeypatch.setattr(tattn, "flash_attention", emu_flash)
+    monkeypatch.setattr(tssm, "ssd_scan", emu_ssd)
+    jcfg = ref.configs.get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    tree = numpy_params(tcfg, 0)
+    model = params_from_reference(tcfg, tree, "cpu")
+    b, s = 2, 70
+    toks = np.random.default_rng(3).integers(0, tcfg.vocab, (b, s))
+    jl, _ = ref.transformer.prefill(jcfg, jax.tree.map(jnp.asarray, tree),
+                                    {"tokens": jnp.asarray(toks)}, s + 1)
+    with torch.inference_mode():
+        tl_, _ = tt.prefill(model, {"tokens": torch.from_numpy(toks)}, s + 1)
+    assert len(launched) == tcfg.n_layers
+    jl = np.asarray(jl, np.float64)
+    assert float(np.abs(tl_.numpy() - jl).max() / np.abs(jl).max()) < 1e-4
+
+
+SPLIT_LAUNCH = r'''
+extern "C" void split_parts_n(const float* a, uint32_t* out, int n,
+                              int parts) {
+  emu_run(1, [&] {
+    for (int i = 0; i < n; i += 2) {
+      uint32_t p3[3], p2[2];
+      if (parts == 3) wg::split_parts(a[i], a[i + 1], p3);
+      else wg::split_parts(a[i], a[i + 1], p2);
+      for (int s = 0; s < parts; ++s)
+        out[(i / 2) * parts + s] = parts == 3 ? p3[s] : p2[s];
+    }
+  });
+}
+'''
+
+
+def _split_values():
+    """Values near powers of two (a few ulps either side), subnormals,
+    +-0 and random normals, in f32."""
+    rng = np.random.default_rng(0)
+    near = [np.nextafter(np.float32(2.0) ** k, np.float32(sgn * np.inf),
+                         dtype=np.float32)
+            for k in range(-100, 120, 7) for sgn in (1, -1)]
+    ulps = [np.float32(2.0) ** k * np.float32(1 + j * 2.0 ** -23)
+            for k in (-3, 0, 5) for j in range(-3, 4)]
+    sub = [np.float32(v) for v in (1e-45, 3e-42, 1.17e-38, 5.9e-39, -2e-40)]
+    tiny = [np.float32(2.0) ** -115 * np.float32(1.337)]
+    vals = np.array(near + ulps + sub + tiny + [0.0, -0.0], np.float32)
+    rand = (rng.standard_normal(512) * np.exp(rng.uniform(-20, 20, 512)))
+    vals = np.concatenate([vals, rand.astype(np.float32)])
+    return vals if vals.size % 2 == 0 else np.append(vals, np.float32(1))
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+def test_split_parts_exact(tmp_path, parts):
+    """``wg::split_parts`` (csrc/wgmma_tile.cuh): the first part is the
+    value rounded to bf16 (as torch rounds), each part rounds what the
+    parts before it left, three parts give back every f32 down to 2^-110
+    exactly (below, within half of bf16's smallest subnormal, 2^-134)
+    and two parts to 2^-17 relative; +-0 keeps its sign."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is needed to build the emulated kernels")
+    cpp = tmp_path / "split.cpp"
+    cpp.write_text(f'#include "{EMUL / "cuda_emul.h"}"\n'
+                   f'#include "{EMUL / "hopper.cuh"}"\n'
+                   f'#include "{CSRC / "wgmma_tile.cuh"}"\n' + SPLIT_LAUNCH)
+    so = tmp_path / "libsplit.so"
+    subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-pthread", f"-I{EMUL}", "-o", str(so),
+                    str(cpp)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    a = _split_values()
+    out = np.zeros(a.size // 2 * parts, np.uint32)
+    lib.split_parts_n.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_int]
+    lib.split_parts_n(a.ctypes.data, out.ctypes.data, a.size, parts)
+    words = out.reshape(-1, parts)
+    # part s of value 2i is the low half of word s, of value 2i + 1 the high
+    halves = np.stack([words & 0xFFFF, words >> 16], axis=1)  # (n/2, 2, P)
+    bits = halves.reshape(-1, parts).astype(np.uint32) << 16
+    p = bits.view(np.float32).astype(np.float64)             # (n, parts)
+    hi = torch.from_numpy(a).bfloat16().float().numpy()
+    assert np.array_equal(p[:, 0].astype(np.float32).view(np.uint32),
+                          hi.view(np.uint32))
+    total = p.sum(axis=1)
+    err = np.abs(total - a.astype(np.float64))
+    if parts == 3:
+        big = np.abs(a) >= 2.0 ** -110
+        assert np.all(err[big] == 0)
+        assert np.all(err[~big] <= 2.0 ** -134)
+    else:
+        assert np.all(err <= 2.0 ** -17 * np.abs(a.astype(np.float64))
+                      + 2.0 ** -134)
+    zero = a == 0
+    assert np.array_equal(np.signbit(p[zero, 0]), np.signbit(a[zero]))
+
+
+@pytest.mark.parametrize("name", sorted(ssd_tc_probe.VARIANTS))
 def test_ssd_tc_probe_edits_apply(name):
-    """Each ablation of the card probe finds its anchor once in the
-    tensor-core kernel's source and changes it (the base build alone is
-    the source as it is)."""
+    """Each ablation and precision variant of the card probe finds its
+    anchors once in the tensor-core kernel's source and changes it (the
+    base build alone is the source as it is), and so does its f32-output
+    twin."""
     text = (CSRC / "ssd_scan_tc.cu").read_text()
-    edited = ssd_tc_probe.variant_source(text, ssd_tc_probe.ABLATIONS[name])
+    edits = ssd_tc_probe.VARIANTS[name]
+    edited = ssd_tc_probe.variant_source(text, edits)
     assert (edited == text) == (name == "base")
+    assert ssd_tc_probe.variant_source(
+        text, edits + ssd_tc_probe.F32_OUT) != edited

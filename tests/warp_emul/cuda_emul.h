@@ -60,6 +60,19 @@ struct WarpCtx {
 struct float2 {
   float x, y;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
 inline WarpCtx* g_warp;
 inline std::mutex g_atomic;
 
