@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs seven phases, each printing its own
+``build/repro_torch/``, and runs eight phases, each printing its own
 lines:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -59,7 +59,20 @@ lines:
    ``launch.serve.serve``, with each kernel's launches in that run
    (attention and SSD on their tensor-core routes), and mamba2's bf16
    prefill logits against the same model with the plain
-   ``ssd_scan_ref`` swapped in.
+   ``ssd_scan_ref`` swapped in;
+8. (run after phase 4, before 5) switch chains through the cell scan's
+   deep-hop rows: (a) Fig. 1's depth sweep at its published size
+   (``benchmarks/fig1_switch_depth.py``: 1 core, 2000 persist/read
+   pairs; NoPB at depths 0-4, PB and PB_RF at 1-4 and crashed at half
+   the op span; 21 cells) and (b) the 7 workloads x 3 schemes at
+   ``n_switches`` 2-4 and ``persist_budget=100_000`` (63 cells), each
+   through ``simulate_grid`` with its launch counts, exact against
+   ``src/repro_torch/testdata/chain_ref.json`` (all of (a), (b)'s
+   depth-3 PB and PB_RF cells) and the eager ``scan_cell`` (all of (a),
+   lu_cont's cells of (b); a pool of host processes), with each Fig. 1
+   row's persist latency over depth-0 NoPB and its per-hop recovery;
+   then (c) 225 fuzzed crash cells at depths 1-3 on the card against the
+   port's untimed oracle (``tests/_torch_crash_driver.py``).
 
 Then one JSON line with the serving numbers, one with every kernel's
 numbers, and as the last line
@@ -175,17 +188,20 @@ def torch_equal(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
-def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int) -> float:
+def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int,
+               D: int = 0) -> float:
     """Bytes the cell scan must move: each trace op (op, addr, gap) and
     stream length read once, the config tables read once, every output
-    written once."""
+    written once (D: the grid's deep-hop rows)."""
     from repro_torch.core.engine.state import N_HOP_STATS, N_STATS
-    from repro_torch.kernels.cell_scan import SC_KEYS, TENANT_KEYS
+    from repro_torch.kernels.cell_scan import (CHAIN_KEYS, DEEP_KEYS,
+                                               SC_KEYS, TENANT_KEYS)
     inputs = sum(12 * t.total_ops + 4 * t.n_cores for t in traces)
-    inputs += 8 * n_cfg * (len(SC_KEYS) + len(TENANT_KEYS) * T) + 4 * n_cfg
-    inputs += 8 * n_cells
-    outputs = n_cells * (8 + 8 * T * N_STATS + 8 * N_HOP_STATS + 4 * A
-                         + 8 + 8 + 8 * T + 8 + 8)
+    inputs += 8 * n_cfg * (len(SC_KEYS) + len(TENANT_KEYS) * T
+                           + len(CHAIN_KEYS) + len(DEEP_KEYS) * max(D, 1))
+    inputs += 4 * n_cfg + 8 * n_cells
+    outputs = n_cells * (8 + 8 * T * N_STATS + 8 * (D + 1) * N_HOP_STATS
+                         + 4 * A + 8 + 8 + 8 * T + 8 * (D + 1) + 8 + 8)
     return float(inputs + outputs)
 
 
@@ -397,11 +413,12 @@ def phase_cell_scan_profile(torch, traces, configs, full):
     outs = {}
 
     def run(name):
-        out = cs._empty_out(len(sel), T, A, "cuda")
+        out = cs._empty_out(len(sel), T, A, kw["n_deep_max"], "cuda")
         _build.check(cs.launch(_build.library(name), ins, out,
                                max_pbe=kw["max_pbe"],
                                pm_banks=kw["pm_banks"], n_track=kw["n_track"],
-                               stream=stream), f"{name} launch")
+                               n_deep=kw["n_deep_max"], stream=stream),
+                     f"{name} launch")
         outs[name] = out
     prof_ms = cuda_ms(lambda: run("cell_scan_profile"), 1)
     plain_ms = cuda_ms(lambda: run("cell_scan"), 1)
@@ -434,6 +451,290 @@ def phase_cell_scan_profile(torch, traces, configs, full):
           f"time; both exact against the main path")
     return dict(sections=out, ms=plain_ms, profiled_ms=prof_ms,
                 ns_per_step=plain_ms * 1e6 / max(steps), ghz=ghz)
+
+
+# ---- phase 8: switch chains ----------------------------------------------
+FIG1_DEPTHS = (0, 1, 2, 3, 4)          # benchmarks/fig1_switch_depth.py
+FIG1_OPS, FIG1_GAP = 2000, 2000.0
+CHAIN_DEPTHS = (2, 3, 4)               # the chained paper grid
+ORACLE_CHAINS = ((1, None), (2, (3, 3)), (3, (3, 2, 1)))
+
+
+def fig1_grid(np):
+    """Fig. 1's depth sweep at its published size
+    (``benchmarks/fig1_switch_depth.py``): the probe trace (one core,
+    2000 persist/read pairs, 2 us apart) and 21 cells: NoPB at depths
+    0-4, PB and PB_RF at 1-4, and a replica of every PB cell crashed at
+    half the op span.  Returns ``(trace, labels, configs)``; a label is
+    ``(scheme name, n_switches, crashed)``."""
+    from repro_torch.core import Op, PCSConfig, Scheme, trace_from_arrays
+    ops, addrs = [], []
+    for i in range(FIG1_OPS):
+        ops += [int(Op.PERSIST), int(Op.PM_READ)]
+        addrs += [i, (1 << 20) + i]
+    tr = trace_from_arrays("fig1_probe", np.array([ops], np.int32),
+                           np.array([addrs], np.int32),
+                           np.full((1, len(ops)), FIG1_GAP, np.float32),
+                           np.array([len(ops)], np.int32))
+    labels, configs = [], []
+    for n_sw in FIG1_DEPTHS:
+        labels.append(("NOPB", n_sw, False))
+        configs.append(PCSConfig(scheme=Scheme.NOPB, n_switches=n_sw))
+        if n_sw >= 1:
+            for s in (Scheme.PB, Scheme.PB_RF):
+                labels.append((s.name, n_sw, False))
+                configs.append(PCSConfig(scheme=s, n_switches=n_sw))
+    crash_at = 0.5 * (2 * FIG1_OPS) * FIG1_GAP
+    for s in (Scheme.PB, Scheme.PB_RF):
+        for n_sw in FIG1_DEPTHS[1:]:
+            labels.append((s.name, n_sw, True))
+            configs.append(PCSConfig(scheme=s, n_switches=n_sw)
+                           .with_crash(crash_at))
+    return tr, labels, configs
+
+
+def _eager_worker(task):
+    """One cell of the eager plain version in a pool process."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.kernels import cell_scan as cs
+    k, args, kw = task
+    t0 = time.time()
+    out = cs.cell_scan_ref(*args, **kw)
+    return k, out, time.time() - t0
+
+
+def eager_cells(torch, args, kw, sel):
+    """The eager plain version on cells ``sel`` of the kernel's inputs
+    ``args``, a cell per task over a pool of spawned processes (one per
+    host core); each task carries only its own trace, cut to its longest
+    stream.  Returns ``(CellScanOut over sel, summed seconds of the
+    cells, wall seconds of the pool)``."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.kernels import cell_scan as cs
+    host = [a.cpu() for a in args]
+    tasks = []
+    for k in sel:
+        tr, cf = int(host[4][k]), int(host[5][k])
+        L = max(int(host[3][tr].max()), 1)
+        one = [x[tr:tr + 1, ..., :L] if i < 3 else x[tr:tr + 1]
+               for i, x in enumerate(host[:4])]
+        one += [torch.zeros(1, dtype=torch.int32),
+                torch.tensor([cf], dtype=torch.int32)] + host[6:]
+        tasks.append((k, one, kw))
+    t0 = time.time()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(os.cpu_count() or 1, len(tasks)),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        done = {k: (out, sec) for k, out, sec in ex.map(_eager_worker,
+                                                        tasks)}
+    wall = time.time() - t0
+    outs = [done[k][0] for k in sel]
+    plain = cs.CellScanOut(*(torch.cat([getattr(o, f) for o in outs])
+                             for f in cs.CellScanOut._fields))
+    return plain, sum(done[k][1] for k in sel), wall
+
+
+def chain_grid_b():
+    """The 7 workloads at ``persist_budget=100_000`` x NoPB/PB/PB_RF at
+    n_switches 2, 3 and 4 (default PCSConfig): the chained version of
+    phase 4's grid, 63 cells.  Returns ``(traces, labels, configs)``."""
+    from repro_torch.core import PCSConfig, Scheme, WORKLOADS, make_trace
+    traces = [make_trace(n, persist_budget=100_000) for n in WORKLOADS]
+    labels, configs = [], []
+    for n_sw in CHAIN_DEPTHS:
+        for s in Scheme:
+            labels.append((s.name, n_sw))
+            configs.append(PCSConfig(scheme=s, n_switches=n_sw))
+    return traces, labels, configs
+
+
+def same_as_datum(np, r, d, what):
+    """A SimResult equal, field by field, to the one the JAX datum's
+    numbers give (runtime, stats, hop rows, recovery)."""
+    from repro_torch.core.engine.state import result_from_stats
+    hs = np.asarray([[float(x) for x in row] for row in d["hop_stats"]])
+    want = result_from_stats(
+        float(d["runtime_ns"]), np.asarray([float(x) for x in d["stats"]]),
+        crash_at_ns=r.crash_at_ns, recovery_entries=d["recovery_entries"],
+        recovery_ns=float(d["recovery_ns"]), n_hops=len(d["hop_recovery"]),
+        hop_stats=hs if len(hs) else None,
+        hop_recovery=np.asarray(d["hop_recovery"], np.int64))
+    for f in ("runtime_ns", "persists", "pm_reads", "read_hits",
+              "coalesces", "pm_writes", "stall_ns", "pi_detours",
+              "victim_drains", "acked_persists", "durable_persists",
+              "recovery_entries", "recovery_ns", "slo_violations",
+              "persist_lat_ns", "read_lat_ns", "n_hops"):
+        if getattr(r, f) != getattr(want, f) and not (
+                getattr(r, f) != getattr(r, f)
+                and getattr(want, f) != getattr(want, f)):    # NaN == NaN
+            fail(f"{what}: {f} = {getattr(r, f)!r}, reference "
+                 f"{getattr(want, f)!r}")
+    for f in ("lat_hist", "hop_stats", "hop_recovery"):
+        a, b = getattr(r, f), getattr(want, f)
+        if (a is None) != (b is None) or (a is not None and
+                                          not np.array_equal(a, b)):
+            fail(f"{what}: {f} = {a!r}, reference {b!r}")
+
+
+def phase_chains(torch, np, smem_ns):
+    """Phase 8: switch chains through the cell scan's deep-hop rows.
+    (a) Fig. 1's depth sweep at its published size and (b) the 7
+    workloads x 3 schemes at n_switches 2-4 run through
+    ``simulate_grid`` on the card (each with the launch counts zeroed
+    just before and read just after), exact against
+    ``testdata/chain_ref.json`` (all of (a); (b)'s depth-3 PB and PB_RF
+    cells) and against the eager plain version (all of (a); lu_cont's
+    cells of (b)); then fuzzed crash cells at depths 1-3 on the card
+    against the port's untimed oracle."""
+    from repro_torch.core import Scheme, simulate_grid
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.kernels import cell_scan as cs
+    from repro_torch.kernels import tat_lookup as tl
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "chain_ref.json")) as f:
+        ref = json.load(f)
+    out = {}
+
+    # (a) Fig. 1's depth sweep
+    tr, labels, configs = fig1_grid(np)
+    cs.launches = tl.launches = 0
+    t0 = time.time()
+    cells = simulate_grid([tr], configs)[0]          # default device: CUDA
+    wall_a = time.time() - t0
+    counts_a = dict(cell_scan=cs.launches, tat_lookup=tl.launches)
+    if counts_a["cell_scan"] < 1:
+        fail(f"Fig. 1 sweep did not run through the kernel: {counts_a}")
+    base = cells[labels.index(("NOPB", 0, False))].persist_lat_ns
+    for (name, n_sw, crashed), r in zip(labels, cells):
+        key = f"{name}/{n_sw}" + ("/crash" if crashed else "")
+        same_as_datum(np, r, ref["fig1"][key], f"Fig. 1 {key}")
+        rec = None if r.hop_recovery is None else r.hop_recovery.tolist()
+        print(f"phase 8a fig1 {key}: persist {r.persist_lat_ns:.1f} ns "
+              f"({r.persist_lat_ns / base:.3f}x depth-0 NoPB), runtime "
+              f"{r.runtime_ns:.1f} ns, hop_recovery {rec}")
+    pairs = list(range(len(configs)))
+    args, kw = cell_inputs([tr], configs, [0] * len(pairs), pairs,
+                           device="cuda")
+    got = cs.cell_scan(*args, **kw)
+    torch.cuda.synchronize()
+    ms_a = cuda_ms(lambda: cs.cell_scan(*args, **kw), 3)
+    plain, plain_s, pool_s = eager_cells(torch, args, kw, pairs)
+    err = compare_outputs(plain, got, "Fig. 1 sweep")
+    steps_a = int(plain.steps.max())
+    bound_a = cell_bytes([tr], len(pairs), 1, 1, len(configs),
+                         kw["n_deep_max"]) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 8a simulate_grid (Fig. 1 sweep, 21 cells, D = "
+          f"{kw['n_deep_max']}) wall {wall_a:.3f} s; launches "
+          f"{json.dumps(counts_a)}; exact against chain_ref.json and the "
+          f"eager scan_cell on all 21 cells (eager {plain_s:.1f} s of cells, "
+          f"{pool_s:.1f} s wall over a pool); kernel {ms_a:.3f} ms, longest "
+          f"cell {steps_a} steps ({ms_a * 1e6 / steps_a:.1f} ns/step; "
+          f"latency bound {steps_a * smem_ns / 1e6:.3f} ms)")
+    out["fig1"] = dict(counts=counts_a, wall_s=wall_a, ms=ms_a,
+                       plain_s=plain_s, pool_s=pool_s, bound_ms=bound_a,
+                       steps=steps_a, max_abs_err=err,
+                       persist_norm={f"{n}/{d}": r.persist_lat_ns / base
+                                     for (n, d, c), r in zip(labels, cells)
+                                     if not c},
+                       hop_recovery={f"{n}/{d}": r.hop_recovery.tolist()
+                                     for (n, d, c), r in zip(labels, cells)
+                                     if c})
+
+    # (b) the chained paper grid
+    t0 = time.time()
+    traces, blabels, bconfigs = chain_grid_b()
+    print(f"phase 8b traces built in {time.time() - t0:.1f} s")
+    names = [t.name for t in traces]
+    cs.launches = tl.launches = 0
+    t0 = time.time()
+    bcells = simulate_grid(traces, bconfigs)
+    wall_b = time.time() - t0
+    counts_b = dict(cell_scan=cs.launches, tat_lookup=tl.launches)
+    if counts_b["cell_scan"] < 1:
+        fail(f"chained grid did not run through the kernel: {counts_b}")
+    n_datum = 0
+    for i, n in enumerate(names):
+        for j, (sname, n_sw) in enumerate(blabels):
+            if n_sw == 3 and sname != "NOPB":
+                same_as_datum(np, bcells[i][j], ref["grid_b"][n][sname],
+                              f"chained grid {n}/{sname}/3")
+                n_datum += 1
+    bpairs = [(i, j) for i in range(len(traces))
+              for j in range(len(bconfigs))]
+    bargs, bkw = cell_inputs(traces, bconfigs, [p[0] for p in bpairs],
+                             [p[1] for p in bpairs], device="cuda")
+    bgot = cs.cell_scan(*bargs, **bkw)
+    torch.cuda.synchronize()
+    ms_b = cuda_ms(lambda: cs.cell_scan(*bargs, **bkw), 1)
+    sel = [k for k, p in enumerate(bpairs) if names[p[0]] == "lu_cont"]
+    bplain, bplain_s, bpool_s = eager_cells(torch, bargs, bkw, sel)
+    sel_t = torch.tensor(sel, device="cuda")
+    err = max(err, compare_outputs(
+        bplain, cs.CellScanOut(*(x[sel_t] for x in bgot)),
+        "chained grid lu_cont"))
+    steps_b = int(bgot.steps.max())
+    bound_b = cell_bytes(traces, len(bpairs), 1, 1, len(bconfigs),
+                         bkw["n_deep_max"]) / HBM_BYTES_PER_S * 1e3
+    per_depth = {}
+    for n_sw in CHAIN_DEPTHS:
+        ks = [k for k, (i, j) in enumerate(bpairs) if blabels[j][1] == n_sw]
+        per_depth[n_sw] = int(bgot.steps[ks].max())
+    print(f"phase 8b simulate_grid (7 workloads x 3 schemes x n_switches "
+          f"2-4, budget 100000, 63 cells) wall {wall_b:.3f} s; launches "
+          f"{json.dumps(counts_b)}; exact against chain_ref.json on "
+          f"{n_datum} depth-3 PB/PB_RF cells and against the eager "
+          f"scan_cell on lu_cont's {len(sel)} cells ({bplain_s:.1f} s of "
+          f"cells, {bpool_s:.1f} s wall over a pool); kernel {ms_b:.3f} ms, "
+          f"longest cell {steps_b} steps ({ms_b * 1e6 / steps_b:.1f} "
+          f"ns/step; latency bound {steps_b * smem_ns / 1e6:.3f} ms)")
+    for i, n in enumerate(names):
+        row = []
+        for j, (sname, n_sw) in enumerate(blabels):
+            if sname != "NOPB":
+                nopb = bcells[i][blabels.index(("NOPB", n_sw))].runtime_ns
+                row.append(f"{sname}/{n_sw} "
+                           f"{100.0 * (nopb / bcells[i][j].runtime_ns - 1.0):.1f}")
+        print(f"phase 8b speedup over NoPB at the same depth, {n}: "
+              + ", ".join(row) + " %")
+    out["grid_b"] = dict(counts=counts_b, wall_s=wall_b, ms=ms_b,
+                         plain_s_lu_cont=bplain_s, pool_s=bpool_s,
+                         bound_ms=bound_b, steps=steps_b,
+                         steps_by_depth=per_depth, datum_cells=n_datum)
+
+    # (c) fuzzed crash cells at depths 1-3 against the port's oracle
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_crash_driver import assert_cell_matches, oracle_replay
+    from repro_torch.core import PCSConfig, fuzz_crash_ns, fuzz_trace
+    n_cells = 0
+    t0 = time.time()
+    for seed in range(5):
+        ftr, sched = fuzz_trace(seed, n_cores=3, n_slots=50, n_addrs=6,
+                                p_persist=0.7)
+        plan = [(s, d, hp, k) for s in Scheme for d, hp in ORACLE_CHAINS
+                for k in (0, 11, 23, 36, 50)]
+        fcfg = [PCSConfig(scheme=s, n_pbe=3, n_switches=d,
+                          pbe_per_hop=None if s == Scheme.NOPB else hp
+                          ).with_crash(fuzz_crash_ns(k))
+                for s, d, hp, k in plan]
+        fres = simulate_grid([ftr], fcfg, max_pbe=3, track_addrs=6)[0]
+        for (s, d, hp, k), r in zip(plan, fres):
+            try:
+                assert_cell_matches(r, oracle_replay(sched, k, s, 3,
+                                                     n_switches=d,
+                                                     pbe_per_hop=hp), 6,
+                                    label=(seed, s.name, d, hp, k))
+            except AssertionError as e:
+                fail(f"oracle differential: {e}")
+            n_cells += 1
+    print(f"phase 8c {n_cells} fuzzed crash cells (3 schemes x depths 1-3 "
+          f"x 5 crash points x 5 seeds) on the card agree with the port's "
+          f"oracle (durable versions, counts, per-hop survivors and "
+          f"telemetry) in {time.time() - t0:.1f} s")
+    out["oracle_cells"] = n_cells
+    out["max_abs_err"] = err
+    return out
 
 
 # ---- the model side: flash_attention, ssd_scan, serving ----------------
@@ -1140,6 +1441,7 @@ def main() -> int:
     full = phase_cell_scan_full(torch, traces, configs)
     main_path = phase_main_path(torch, np, smem_ns, traces, configs, full)
     scan_profile = phase_cell_scan_profile(torch, traces, configs, full)
+    chains = phase_chains(torch, np, smem_ns)
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
@@ -1177,6 +1479,37 @@ def main() -> int:
              main_path_ns_per_step=main_path["main_ms"] * 1e6
              / main_path["main_steps"],
              cholesky_section_ns_per_step=scan_profile["sections"]),
+        dict(name="cell_scan_chain", route="cuda",
+             source="src/repro_torch/kernels/csrc/cell_scan.cu",
+             replaces="src/repro/core/engine/step.py:102",
+             entry="cell_scan_launch with n_deep > 0 (the deep-hop rows "
+                   "of engine/chain.py)",
+             launches=chains["fig1"]["counts"]["cell_scan"],
+             main_path="phase 8a: simulate_grid over Fig. 1's depth sweep "
+                       "at its published size (21 cells, D = 3); phase 8b "
+                       "launched it once more over the chained paper grid",
+             launches_chained_grid=chains["grid_b"]["counts"]["cell_scan"],
+             max_abs_err=chains["max_abs_err"], ms=chains["fig1"]["ms"],
+             plain_ms=chains["fig1"]["plain_s"] * 1e3,
+             plain_note="the eager scan_cell's seconds summed over the 21 "
+                        "cells (run on the host, a pool of processes)",
+             bound_ms=chains["fig1"]["bound_ms"], bound_by="bytes",
+             library_ms=None,
+             shape="Fig. 1 sweep: 1 core, 2000 persist/read pairs, NoPB "
+                   "depths 0-4, PB and PB_RF depths 1-4 and crashed",
+             fig1_steps=chains["fig1"]["steps"],
+             fig1_latency_bound_ms=chains["fig1"]["steps"] * smem_ns / 1e6,
+             fig1_persist_norm=chains["fig1"]["persist_norm"],
+             fig1_hop_recovery=chains["fig1"]["hop_recovery"],
+             chained_grid_ms=chains["grid_b"]["ms"],
+             chained_grid_steps=chains["grid_b"]["steps"],
+             chained_grid_ns_per_step=chains["grid_b"]["ms"] * 1e6
+             / chains["grid_b"]["steps"],
+             chained_grid_bound_ms=chains["grid_b"]["bound_ms"],
+             chained_grid_latency_bound_ms=chains["grid_b"]["steps"]
+             * smem_ns / 1e6,
+             chained_grid_wall_s=chains["grid_b"]["wall_s"],
+             oracle_cells=chains["oracle_cells"]),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",

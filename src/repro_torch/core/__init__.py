@@ -1,7 +1,5 @@
-"""PCS core, torch port: parameters, traces and the timed engine.
-
-The untimed oracle (``repro.core.semantics``) is not part of this slice.
-"""
+"""PCS core, torch port: parameters, traces, the untimed oracle
+(``semantics``) and the timed engine."""
 from repro_torch.core.engine import (SimResult, simulate,  # noqa: F401
                                      simulate_cells, simulate_grid,
                                      simulate_sweep)
@@ -9,6 +7,8 @@ from repro_torch.core.params import (AllocPolicy, DrainPolicy,  # noqa: F401
                                      FabricTopology, LatencyProfile, Op,
                                      PBEState, PBPolicy, PCSConfig, Schedule,
                                      Scheme, config_from_fields)
+from repro_torch.core.semantics import (Event, EventKind,  # noqa: F401
+                                        PersistentBuffer, PersistentMemory)
 from repro_torch.core.traces import (BurstyArrivals,  # noqa: F401
                                      DiurnalArrivals, PoissonArrivals, Trace,
                                      WORKLOADS, apply_arrivals,
@@ -22,6 +22,7 @@ from repro_torch.core.traces import (BurstyArrivals,  # noqa: F401
 __all__ = [
     "AllocPolicy", "DrainPolicy", "FabricTopology", "LatencyProfile",
     "Op", "PBEState", "PBPolicy", "PCSConfig", "Schedule", "Scheme",
+    "Event", "EventKind", "PersistentBuffer", "PersistentMemory",
     "SimResult", "simulate", "simulate_cells", "simulate_grid",
     "simulate_sweep", "config_from_fields",
     "BurstyArrivals", "DiurnalArrivals", "PoissonArrivals",

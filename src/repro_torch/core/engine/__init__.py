@@ -1,8 +1,10 @@
-"""Timed PCS engine, torch port (depth-1 slice of ``repro.core.engine``).
+"""Timed PCS engine, torch port of ``repro.core.engine`` (switch chains;
+no fabric, schedules or macro-steps yet).
 
   * ``state``    — machine state, stats layout, config lowering
   * ``channels`` — PM bank + PBC resource model (next-free scalars)
   * ``policy``   — allocation, victim selection, drain policies
+  * ``chain``    — switch-chain forwarding through the deep-hop rows
   * ``handlers`` — per-op handlers, Python-branched on op and scheme
   * ``step``     — issue-time merge loop: the eager ``scan_cell``, the
                    plain version of the cell-scan kernel

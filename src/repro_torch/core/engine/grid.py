@@ -12,7 +12,8 @@ CPU the same wrapper runs the eager ``scan_cell`` cell by cell.
 pair); ``simulate`` and ``simulate_sweep`` are thin wrappers over the
 same path.
 
-Scope of this slice: one switch, no fabric, one schedule epoch and no
+Scope of the port so far: switch chains (up to the kernel's
+``MAX_DEEP + 1`` switches), no fabric, one schedule epoch and no
 macro-stepping.  Configs outside it raise ``NotImplementedError``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, and
 raise where there is no CUDA.
@@ -41,9 +42,6 @@ def check_scope(configs: Sequence[PCSConfig], macro: bool) -> None:
             "macro-stepping is not ported; run with macro=False (results "
             "are identical)")
     for c in configs:
-        if c.n_switches >= 2:
-            raise NotImplementedError(
-                f"n_switches={c.n_switches}: switch chains are not ported")
         if c.fabric is not None:
             raise NotImplementedError("fabric topologies are not ported")
         if c.n_epochs > 1:
@@ -83,8 +81,13 @@ def cell_inputs(traces, configs, cell_trace, cell_cfg, *, max_pbe=None,
     if len(banks) != 1:
         raise ValueError("grid configs must share pm_banks (array shape)")
     n_tenants_max = max(c.n_tenants for c in configs)
-    scs = [scalars_from_config(c, n_tenants_max) for c in configs]
-    sc_table, ten_table = cs.pack_configs(scs, n_tenants_max, device)
+    # deep-hop rows are a grid-wide shape; only PB-bearing configs need
+    # them (a deep NOPB chain is pure wire), and a depth-<=1-only grid
+    # carries none (n_deep == 0)
+    n_deep = max(max((len(c.hop_pbes) - 1 for c in configs), default=0), 0)
+    scs = [scalars_from_config(c, n_tenants_max, n_deep) for c in configs]
+    sc_table, ten_table, chain_table = cs.pack_configs(scs, n_tenants_max,
+                                                       device)
     ops, addrs, gaps, lengths = (torch.from_numpy(a).to(device)
                                  for a in _stack_traces(traces))
     schemes = torch.tensor([int(c.scheme) for c in configs],
@@ -93,9 +96,10 @@ def cell_inputs(traces, configs, cell_trace, cell_cfg, *, max_pbe=None,
     def idx(v):
         return torch.tensor(list(v), dtype=torch.int32, device=device)
     args = (ops, addrs, gaps, lengths, idx(cell_trace), idx(cell_cfg),
-            schemes, sc_table, ten_table)
+            schemes, sc_table, ten_table, chain_table)
     return args, dict(max_pbe=max_pbe, pm_banks=banks.pop(),
-                      n_track=track_addrs, n_tenants_max=n_tenants_max)
+                      n_track=track_addrs, n_tenants_max=n_tenants_max,
+                      n_deep_max=n_deep)
 
 
 def _run(traces, configs, cell_trace, cell_cfg, *, max_pbe, track_addrs,
@@ -119,7 +123,7 @@ def _run(traces, configs, cell_trace, cell_cfg, *, max_pbe, track_addrs,
             tenant_recovery=host.recov_t[k],
             n_hops=len(cfg.hop_pbes),
             hop_stats=host.hop_stats[k],
-            hop_recovery=host.n_recov[k].reshape(1)))
+            hop_recovery=host.recov_h[k]))
     return results
 
 

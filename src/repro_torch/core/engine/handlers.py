@@ -1,4 +1,4 @@
-"""Op handlers of the timed engine (torch port, depth-1 slice).
+"""Op handlers of the timed engine (torch port).
 
 Each handler maps ``(ctx, MachineState) -> MachineState`` for the op the
 selected core issues at time ``ctx.t``.  The step loop picks the
@@ -11,10 +11,13 @@ so the results are identical.
 PM write acks are modeled lazily: when a drain is scheduled its ack
 arrival time at the switch is computed immediately (PM queueing
 included) and stored per entry; any later event observes Drain->Empty
-transitions whose ack time has passed (``policy.lazy_free``).
+transitions whose ack time has passed (``policy.lazy_free``).  Under a
+switch chain (``n_switches >= 2``) a hop-1 drain is acked by hop 2's
+persistent cells instead, and the reads pass every deeper switch's PBCS
+(``engine.chain``).
 
-Scope: one switch (no chain rows), no fabric, one epoch; the grid
-front-end rejects configs that would need more.
+Scope: switch chains, no fabric, one epoch; the grid front-end rejects
+configs that would need more.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from repro_torch.core.engine import channels, policy
+from repro_torch.core.engine import chain, channels, policy
 from repro_torch.core.engine.state import (DIRTY, DRAIN, INF, H_COALESCES,
                                            H_FWD_CNT, H_FWD_SUM, H_READ_HITS,
                                            MachineState, S_ACKED,
@@ -136,25 +139,43 @@ def _read_via_pb(ctx: StepCtx, st: MachineState) -> MachineState:
         st.pm_busy[bank], pbc_start + sc["switch_pipe"] + sc["ow_sw1_pm"])
     resp_fwd = pm_start_fwd + sc["nvm_read"] + ow
 
+    # Read-forwarding checks below hop 1 (switch chain): when hop 1 has
+    # no live entry, the packet travels toward PM passing every deeper
+    # switch's PBCS — the shallowest hop holding a visible live entry
+    # serves it.  (A *stale* hop-1 Drain entry keeps its forward-to-PM
+    # path: the deep refinement is skipped.)
+    deep_hit, dlru, hrow = False, st.dlru, 0
+    if st.dtag.shape[0] > 0 and float(sc["n_switches"]) >= 2.0 \
+            and not bool(has):
+        deep_hit, resp_deep, dlru, hrow = chain.deep_read(sc, st, addr, t)
+
     hit = has & served
-    resp = torch.where(has, torch.where(served, resp_pb, resp_fwd), resp_dir)
-    pm_busy2 = _set(st.pm_busy, bank, torch.where(
-        has,
-        torch.where(served, st.pm_busy[bank], pm_start_fwd + sc["nvm_r_occ"]),
-        pm_start_dir + sc["nvm_r_occ"]))
+    if deep_hit:
+        resp, pmb = resp_deep, st.pm_busy[bank]
+    else:
+        resp = torch.where(has, torch.where(served, resp_pb, resp_fwd),
+                           resp_dir)
+        pmb = torch.where(
+            has, torch.where(served, st.pm_busy[bank],
+                             pm_start_fwd + sc["nvm_r_occ"]),
+            pm_start_dir + sc["nvm_r_occ"])
+    pm_busy2 = _set(st.pm_busy, bank, pmb)
     pbc_busy2 = torch.where(
         has, channels.pbc_hold(st.pbc_busy, arr, sc["pbc_read_occ"]),
         st.pbc_busy)
     lru2 = _set(st.lru, idx, torch.where(hit, t, st.lru[idx]))
     hop_stats = st.hop_stats.clone()
     hop_stats[0, H_READ_HITS] += _f64(hit)
+    if deep_hit:
+        hop_stats[hrow + 1, H_READ_HITS] += 1.0
     stats = _add_stats(
         st.stats, ctx.tenant,
         [S_READ_SUM, S_READ_CNT, S_READ_HITS, S_PI_DETOURS],
-        torch.stack([resp - t, torch.ones_like(resp), _f64(hit), _f64(has)]))
+        torch.stack([resp - t, torch.ones_like(resp), _f64(hit | deep_hit),
+                     _f64(has)]))
     return st._replace(clock=_set(st.clock, ctx.c, resp), state=state0,
-                       lru=lru2, pm_busy=pm_busy2, pbc_busy=pbc_busy2,
-                       stats=stats, hop_stats=hop_stats)
+                       lru=lru2, dlru=dlru, pm_busy=pm_busy2,
+                       pbc_busy=pbc_busy2, stats=stats, hop_stats=hop_stats)
 
 
 def handle_pm_read(ctx: StepCtx, st: MachineState) -> MachineState:
@@ -214,7 +235,34 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
     pm_ver1[v_idx] = torch.maximum(
         pm_ver1[v_idx], torch.where(vic_ok, st.ver[victim_idx], 0))
     vic_emit = needs_victim & (pbc_start <= crash)
-    vic_wait = victim_dd
+
+    # ---- switch chain, victim leg (per-switch persistent buffers) -----
+    # With >= 2 switches in the chain, a hop-1 drain is acked by hop 2's
+    # persistent cells, not by PM: the victim packet travels the chain
+    # FIRST (it leaves the PBC at pbc_start, ahead of the entry write),
+    # so the slot frees at its true downstream ack.  A batch with no
+    # active packet changes nothing, so it is not sent.
+    is_chain = st.dtag.shape[0] > 0 and float(sc["n_switches"]) >= 2.0
+    if is_chain:
+        dd_v, rows_v, hpbc_v, hstats_v = (st.dd, chain.rows_of(st), st.hpbc,
+                                          st.hop_stats)
+        pmb_v, pmv_v = st.pm_busy, st.pm_ver
+        pmw_v = torch.zeros((), dtype=torch.float64, device=t.device)
+        if bool(vic_emit):
+            one_i = torch.tensor([0], dtype=torch.int32, device=t.device)
+            vic_batch = chain.Batch(
+                active=vic_emit.reshape(1), addr=vic_tag.reshape(1),
+                ver=st.ver[victim_idx].reshape(1),
+                owner=st.owner[victim_idx].reshape(1),
+                emit=pbc_start.reshape(1), ohop=one_i,
+                oslot=victim_idx.to(torch.int32).reshape(1))
+            (dd_v, rows_v, hpbc_v, hstats_v, pmb_v, pmv_v,
+             pmw_v) = chain.forward_chain(
+                sc, ctx.scheme, rows_v, hpbc_v, hstats_v, vic_batch, dd_v,
+                pmb_v, pmv_v, n_banks=ctx.n_banks, n_track=ctx.n_track)
+        vic_wait = torch.where(vic_emit, dd_v[victim_idx], victim_dd)
+    else:
+        vic_wait = victim_dd
 
     slot = torch.where(any_empty, empty_idx,
                        torch.where(any_dirty, victim_idx, earliest_idx))
@@ -287,8 +335,44 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
     pm_writes_inc = (_f64(vic_emit)
                      + torch.where(commit, policy_writes, 0.0))
 
-    # hop-1 telemetry row
-    hop_stats = st.hop_stats.clone()
+    # ---- switch chain, policy-drain leg --------------------------------
+    # The drains the policy just scheduled travel to hop 2 as one batch
+    # (they leave the PBC together at t_written, after the victim leg);
+    # under the chain the PM-path dd/pm values computed above are
+    # replaced by the cascade's downstream acks and landings.
+    chain_cols = {}
+    hop_stats = st.hop_stats
+    if is_chain:
+        P = st.tag.shape[0]
+        # the batch leaves the PBC in LRU order of the drained entries
+        # (the wire order the oracle's drain-down replays)
+        pol_active = drained_now & commit
+        dd_c = torch.where(commit, dd4, dd_v)
+        rows_c, hpbc_c, hstats_c = rows_v, hpbc_v, hstats_v
+        pmb_c, pmv_c = pmb_v, pmv_v
+        pmw_c = torch.zeros((), dtype=torch.float64, device=t.device)
+        if bool(pol_active.any()):
+            pol_order = torch.argsort(torch.where(pol_active, lru3, INF),
+                                      stable=True).to(torch.int32)
+            po = pol_order.long()
+            pol_batch = chain.Batch(
+                active=pol_active[po], addr=tag3[po], ver=ver3[po],
+                owner=owner3[po],
+                emit=torch.zeros((P,), dtype=torch.float64,
+                                 device=t.device) + t_written,
+                ohop=torch.zeros((P,), dtype=torch.int32, device=t.device),
+                oslot=pol_order)
+            (dd_c, rows_c, hpbc_c, hstats_c, pmb_c, pmv_c,
+             pmw_c) = chain.forward_chain(
+                sc, ctx.scheme, rows_c, hpbc_c, hstats_c, pol_batch, dd_c,
+                pmb_c, pmv_c, n_banks=ctx.n_banks, n_track=ctx.n_track)
+        dd5, pm_ver3, pm_busy3 = dd_c, pmv_c, pmb_c
+        pm_writes_inc = pmw_v + pmw_c
+        chain_cols = dict(rows_c, hpbc=hpbc_c)
+        hop_stats = hstats_c
+
+    # hop-1 telemetry row (chain row 0; maintained at every depth >= 1)
+    hop_stats = hop_stats.clone()
     hop_stats[0, H_FWD_CNT] += _f64(commit)
     hop_stats[0, H_FWD_SUM] += torch.where(commit, t_written - arr, 0.0)
     hop_stats[0, H_COALESCES] += _f64(is_coalesce & commit)
@@ -324,7 +408,7 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
                        state=state5, lru=lru5, dd=dd5, ver=ver5,
                        owner=owner5, aver=aver3, pm_ver=pm_ver3,
                        pm_busy=pm_busy3, pbc_busy=pbc_free, stats=stats,
-                       hop_stats=hop_stats)
+                       hop_stats=hop_stats, **chain_cols)
 
 
 def _persist_direct(ctx: StepCtx, st: MachineState) -> MachineState:
@@ -387,19 +471,27 @@ def recovery_snapshot(st: MachineState, scheme: int, sc, slot_active,
     """Section V-D4 recovery pass over the crash-time machine state.
 
     NoPB has no PBEs, so its durable state is exactly ``pm_ver`` and
-    recovery is free; PB/PB_RF drain-all the surviving Dirty/Drain
-    entries.  Returns ``(durable_ver (A,) i32, n_recovered f64,
-    recovery_ns f64, recovered_per_tenant (T,) f64, recovered_per_hop
-    (1,) f64, recovered_per_leaf (1,) f64)``.
+    recovery is free; PB/PB_RF drain-all the *union* of surviving
+    Dirty/Drain entries across every hop of the switch chain — a crash
+    freezes each hop independently, and durability per address is the
+    newest version held at any surviving hop (or PM).  Returns
+    ``(durable_ver (A,) i32, n_recovered f64, recovery_ns f64,
+    recovered_per_tenant (T,) f64, recovered_per_hop (D+1,) f64,
+    recovered_per_leaf (1,) f64)``; the last three attribute each
+    surviving entry to its owning tenant, to the hop holding it, and to
+    the one leaf (hop 1) of a chain.
     """
     crash = sc["crash_at"]
     A = st.pm_ver.shape[0]
     T = st.stats.shape[0]
+    D, P = st.dtag.shape
     dev = st.stats.device
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     zero_t = torch.zeros((T,), dtype=torch.float64, device=dev)
     if scheme == 0:
-        return st.pm_ver, zero, zero, zero_t, zero.reshape(1), zero.reshape(1)
+        return (st.pm_ver, zero, zero, zero_t,
+                torch.zeros((D + 1,), dtype=torch.float64, device=dev),
+                zero.reshape(1))
     surviving = policy.surviving_entries(st.state, st.dd, slot_active, crash)
     in_range = surviving & (st.tag >= 0) & (st.tag < n_track)
     dv = st.pm_ver.scatter_reduce(0, torch.clamp(st.tag, 0, A - 1).long(),
@@ -410,5 +502,26 @@ def recovery_snapshot(st: MachineState, scheme: int, sc, slot_active,
     per_bank = torch.zeros((n_banks,), dtype=torch.float64,
                            device=dev).index_add(0, banks.long(), surv)
     n = surv.sum()
-    cost = policy.recovery_burst_cost(sc, per_bank, n)
-    return dv, n, cost, per_t, n.reshape(1), n.reshape(1)
+    per_hop = [n]
+    slot_ids = torch.arange(P, device=dev)
+    for j in range(D):
+        row_live = float(j) + 2.0 <= float(sc["n_switches"])
+        sa = slot_ids < sc["deep_pbe"][j].to(torch.int32)
+        # same survival rule per hop: Dirty cells persist; a Drain entry
+        # survives iff its downstream ack is lost with the power
+        surv_j = (row_live & sa & (st.dwt[j] <= crash)
+                  & ((st.dstate[j] == DIRTY)
+                     | ((st.dstate[j] == DRAIN) & (st.ddd[j] > crash))))
+        in_r = surv_j & (st.dtag[j] >= 0) & (st.dtag[j] < n_track)
+        dv = dv.scatter_reduce(0, torch.clamp(st.dtag[j], 0, A - 1).long(),
+                               torch.where(in_r, st.dver[j], 0), "amax")
+        sj = _f64(surv_j)
+        per_t = per_t.index_add(
+            0, torch.clamp(st.downer[j].long(), 0, T - 1), sj)
+        bj = torch.where(surv_j, torch.remainder(st.dtag[j], n_banks), 0)
+        per_bank = per_bank.index_add(0, bj.long(), sj)
+        per_hop.append(sj.sum())
+    per_hop = torch.stack(per_hop)
+    n_total = per_hop.sum()
+    cost = policy.recovery_burst_cost(sc, per_bank, n_total)
+    return dv, n_total, cost, per_t, per_hop, n.reshape(1)

@@ -1,21 +1,22 @@
 """Machine state, statistics layout and config lowering (torch port).
 
-Port of ``repro.core.engine.state`` for the depth-1 slice.  The scan
-carry of the timed engine is one :class:`MachineState` of tensors:
-per-core clocks and trace cursors, the PB tables (TAT tags, ST states,
-LRU stamps, in-flight drain-ack times), the resource next-free times
-(PM banks, PBC) and the statistics accumulators behind Figs. 1 and 5-8.
+Port of ``repro.core.engine.state``.  The scan carry of the timed
+engine is one :class:`MachineState` of tensors: per-core clocks and
+trace cursors, the PB tables (TAT tags, ST states, LRU stamps, in-flight
+drain-ack times), the deep-hop PB tables of a switch chain, the resource
+next-free times (PM banks, PBC, deep-hop PBCs) and the statistics
+accumulators behind Figs. 1 and 5-8.
 
 Every latency parameter, the live PBE bound, the drain thresholds, the
-scheme id and the tenant count are per-config scalars/vectors
-(:func:`scalars_from_config`), so one grid of mixed configs runs through
-one cell-scan kernel launch.  Statistics are accumulated per tenant —
-``stats`` is ``(T, N_STATS)`` — and the global :class:`SimResult` is the
-sum over tenants, bit-exact for single-tenant configs.
+scheme id, the tenant count and the switch-chain depth with its per-hop
+capacities are per-config scalars/vectors (:func:`scalars_from_config`),
+so one grid of mixed configs runs through one cell-scan kernel launch.
+Statistics are accumulated per tenant — ``stats`` is ``(T, N_STATS)`` —
+and the global :class:`SimResult` is the sum over tenants, bit-exact for
+single-tenant configs.
 
-The deep-hop (switch chain) and fabric columns of the reference carry
-are not part of this slice: the grid front-end rejects configs that
-would need them.
+The fabric columns of the reference carry are not part of the port yet:
+the grid front-end rejects configs that would need them.
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ LAT_HIST_MIN_NS = 256.0
 LAT_HIST_RATIO = float(np.sqrt(2.0))
 
 # per-switch (hop) statistics row layout — ``MachineState.hop_stats`` is
-# ``(1, N_HOP_STATS)`` at depth 1 (row 0 = the tenant-facing switch)
+# ``(Hmax, N_HOP_STATS)`` with row h = switch h+1 of the chain
 H_FWD_SUM = 0        # total commit latency of packets written into this hop
 H_FWD_CNT = 1        # packets committed into this hop's PB (alloc+coalesce)
 H_COALESCES = 2      # arrivals absorbed into an existing Dirty entry
@@ -166,7 +167,7 @@ def lat_hist_mean(hist) -> float:
 
 
 class MachineState(NamedTuple):
-    """The scan carry: the entire machine at one instant (depth 1).
+    """The scan carry: the entire machine at one instant.
 
     ``ver``/``aver``/``pm_ver`` are the durability-tracking arrays behind
     the crash model: per-PBE held version, per-address issue counter, and
@@ -174,8 +175,9 @@ class MachineState(NamedTuple):
     Addresses ``>= n_track`` are not tracked (A = max(n_track, 1)).
 
     Packing contract as in the reference: categorical columns
-    (``state``/``owner``) are int8, barrier counts int16, tags and
-    version counters int32, and every *time* column float64.
+    (``state``/``owner`` and their deep-hop twins) are int8, barrier
+    counts int16, tags and version counters int32, and every *time*
+    column float64.
     """
 
     clock: torch.Tensor     # (C,)  f64  per-core clocks
@@ -193,7 +195,20 @@ class MachineState(NamedTuple):
     blocked: torch.Tensor   # (C,)  bool blocked at barrier
     bcount: torch.Tensor    # (T,)  i16  per-tenant barrier arrival counts
     stats: torch.Tensor     # (T, N_STATS) f64 per-tenant accumulators
-    hop_stats: torch.Tensor  # (1, N_HOP_STATS) f64 hop-1 telemetry
+    # ---- deep-hop PB columns (the switch-level axis, D = n_deep_max) ----
+    # Switch j+2 of the chain owns row j of each array; the flat columns
+    # above stay the first (tenant-facing) switch, and D == 0 carries no
+    # deep row at all (the depth-1 machine).
+    dtag: torch.Tensor      # (D, P) i32  deep-hop TAT tags
+    dstate: torch.Tensor    # (D, P) i8   deep-hop ST states
+    dlru: torch.Tensor      # (D, P) f64  deep-hop LRU stamps
+    ddd: torch.Tensor       # (D, P) f64  deep-hop in-flight forward-ack times
+    dver: torch.Tensor      # (D, P) i32  deep-hop held persist versions
+    downer: torch.Tensor    # (D, P) i8   owning tenant (recovery attribution)
+    dwt: torch.Tensor       # (D, P) f64  commit time into this hop's cells
+                            #             (crash gate + read visibility)
+    hpbc: torch.Tensor      # (D,)   f64  deep-hop PBC next-free times
+    hop_stats: torch.Tensor  # (D + 1, N_HOP_STATS) f64 per-switch telemetry
 
 
 _STATE_DTYPES = dict(
@@ -202,32 +217,44 @@ _STATE_DTYPES = dict(
     ver=torch.int32, owner=torch.int8, aver=torch.int32,
     pm_ver=torch.int32, pm_busy=torch.float64, pbc_busy=torch.float64,
     blocked=torch.bool, bcount=torch.int16, stats=torch.float64,
-    hop_stats=torch.float64)
+    dtag=torch.int32, dstate=torch.int8, dlru=torch.float64,
+    ddd=torch.float64, dver=torch.int32, downer=torch.int8,
+    dwt=torch.float64, hpbc=torch.float64, hop_stats=torch.float64)
+DEEP_FIELDS = ("dtag", "dstate", "dlru", "ddd", "dver", "downer", "dwt")
 
 
 def init_state(n_cores: int, max_pbe: int, pm_banks: int,
-               n_track: int = 0, n_tenants_max: int = 1, *,
-               device="cpu") -> MachineState:
+               n_track: int = 0, n_tenants_max: int = 1,
+               n_deep_max: int = 0, *, device="cpu") -> MachineState:
     A = max(n_track, 1)
     T = max(n_tenants_max, 1)
+    D = max(n_deep_max, 0)
     if T > 127:
         raise ValueError("n_tenants_max exceeds the int8 owner column")
     shapes = dict(clock=(n_cores,), ptr=(n_cores,), tag=(max_pbe,),
                   state=(max_pbe,), lru=(max_pbe,), dd=(max_pbe,),
                   ver=(max_pbe,), owner=(max_pbe,), aver=(A,), pm_ver=(A,),
                   pm_busy=(pm_banks,), pbc_busy=(), blocked=(n_cores,),
-                  bcount=(T,), stats=(T, N_STATS),
-                  hop_stats=(1, N_HOP_STATS))
+                  bcount=(T,), stats=(T, N_STATS), hpbc=(D,),
+                  hop_stats=(D + 1, N_HOP_STATS),
+                  **{k: (D, max_pbe) for k in DEEP_FIELDS})
     st = {k: torch.zeros(shapes[k], dtype=_STATE_DTYPES[k], device=device)
           for k in MachineState._fields}
     st["tag"].fill_(-1)
     st["state"].fill_(EMPTY)
+    st["dtag"].fill_(-1)
+    st["dstate"].fill_(EMPTY)
     return MachineState(**st)
 
 
 def state_from_numpy(*, device="cpu", **arrays) -> MachineState:
     """Build a :class:`MachineState` from numpy arrays (one per field),
-    cast to the packing contract's dtypes."""
+    cast to the packing contract's dtypes.  The deep-hop columns may be
+    left out: they then default to a chain-free machine (no deep row)."""
+    P = np.asarray(arrays.get("tag", ())).shape[0]
+    defaults = {k: np.zeros((0, P)) for k in DEEP_FIELDS}
+    defaults["hpbc"] = np.zeros((0,))
+    arrays = {**defaults, **arrays}
     missing = set(MachineState._fields) - set(arrays)
     if missing:
         raise ValueError(f"state_from_numpy: missing fields {sorted(missing)}")

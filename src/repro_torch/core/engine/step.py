@@ -56,13 +56,14 @@ def tenant_map(lengths, n_tenants, n_tenants_max: int):
 
 def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
               max_pbe: int, pm_banks: int, n_track: int = 0,
-              n_tenants_max: int = 1):
+              n_tenants_max: int = 1, n_deep_max: int = 0):
     """Simulate one (trace, config) cell, one Python iteration per step.
 
     ``ops``/``addrs`` (C, L) int32, ``gaps`` (C, L) f32 and ``lengths``
     (C,) int32 are the cell's trace; ``sc`` is the config's
-    :func:`~repro_torch.core.engine.state.scalars_from_config` dict.
-    Returns ``(runtime, stats, durable_ver, n_recovered, recovery_ns,
+    :func:`~repro_torch.core.engine.state.scalars_from_config` dict,
+    lowered with the grid's deep-row bound ``n_deep_max`` (the grid's
+    largest depth minus one; 0 carries no deep row).  Returns ``(runtime, stats, durable_ver, n_recovered, recovery_ns,
     recovered_per_tenant, hop_stats, recovered_per_hop,
     recovered_per_leaf, n_steps)`` — the reference's outputs without
     the macro telemetry, plus the number of executed steps.
@@ -79,7 +80,7 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
     gaps64 = gaps.to(torch.float64)
     crash_at = sc["crash_at"]
     st = init_state(C, max_pbe, pm_banks, n_track, n_tenants_max,
-                    device=dev)
+                    n_deep_max, device=dev)
     n_steps = 0
     while True:
         active = st.ptr < lengths

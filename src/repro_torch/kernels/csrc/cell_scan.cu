@@ -7,10 +7,12 @@
 // keeps that code's form and order (f64 adds, maxes and products, built
 // with -fmad=false), so the two agree bit for bit.
 //
-// Scope: depth 1 (one switch), no fabric, one schedule epoch — the
-// depth-1 handler and policy bodies with tenants, PBPolicy quotas and
-// weighted victims, the SLO drain tightening, the crash gate and
-// durability tracking.
+// Scope: switch chains of up to MAX_DEEP + 1 = 4 switches, no fabric,
+// one schedule epoch — the handler and policy bodies with tenants,
+// PBPolicy quotas and weighted victims, the SLO drain tightening, the
+// crash gate and durability tracking, and the deep-hop rows of
+// engine/chain.py (the template's D, the grid's deep-row count; D = 0
+// compiles every chain statement out).
 //
 // Design: one block of one warp per (trace, config) cell; every cell of
 // a grid in one launch, with the scheme read per cell.  The machine
@@ -49,6 +51,18 @@
 //     in registers, so no step re-derives them;
 //   * a PM bank is a mask when the bank count is a power of two.
 // None of this changes an f64 expression or its order.
+//
+// The chain (struct Chain): the deep rows live in shared memory, a lane
+// owning slot lane + 32 j of each row as on hop 1, and the deep lookups
+// are ballots through tat_match.cuh.  A hop-1 drain batch (the victim,
+// then the policy drains) walks the rows as a list of its active
+// packets in wire order; the per-packet recurrences (the FIFO service's
+// closed form, the rank of each allocation, the per-bank burst order at
+// PM) run on lane 0, the per-slot updates on the owning lanes.  Where
+// the reference's vectorised form decides a result through the packets
+// it carries inactive — an origin's ack written by the batch's last
+// block only (XLA's in-order scatter), the commit-latency sum in XLA's
+// chunk order — the list keeps each packet's position in that batch.
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
@@ -97,7 +111,7 @@ constexpr int S_PERSIST_SUM = 0, S_PERSIST_CNT = 1, S_READ_SUM = 2,
               S_ACKED = 12, S_DURABLE = 13, S_SLO_OVER = 14,
               S_LAT_HIST0 = 15, N_LAT_BINS = 28,
               N_STATS = S_LAT_HIST0 + N_LAT_BINS;
-constexpr int H_FWD_SUM = 0, H_FWD_CNT = 1, H_COALESCES = 2,
+constexpr int H_FWD_SUM = 0, H_FWD_CNT = 1, H_COALESCES = 2, H_BYPASS = 3,
               H_READ_HITS = 4, N_HOP_STATS = 5;
 
 // config table columns (repro_torch/kernels/cell_scan.py SC_KEYS)
@@ -111,6 +125,10 @@ enum ScKey {
 };
 // per-tenant rows (TENANT_KEYS)
 enum TenKey { T_QUOTA, T_SHARE, T_THRESHOLD, T_PRESET, N_TEN };
+// the switch chain's row of the chain table: CHAIN_KEYS, then one run of
+// D values per DEEP_KEYS entry (value j = switch j+2)
+enum ChKey { C_N_SWITCHES, C_HOP_NS, C_LINK_NS, N_CH };
+enum DeepKey { DK_PBE, DK_THR, DK_PRE, DK_TAG, DK_DATA, N_DK };
 
 // Histogram bin of one persist latency: #{k : lat >= edges[k]} over the
 // reference's own bin edges (state.py LAT_BIN_EDGES, passed in by the
@@ -284,6 +302,435 @@ __device__ __forceinline__ Smem rebase(Smem m, unsigned char* base) {
   return m;
 }
 
+
+// ---- the switch chain (engine/chain.py) ----------------------------------
+// The deep-hop rows of switches 2 .. D+1 (row j = switch j+2; slot s of
+// a row is owned by lane s % 32, as on hop 1), their PBC clocks and
+// telemetry rows, the chain's config row, and two packet lists.  A list
+// holds a batch's *active* packets in wire order, each with its position
+// in the reference's full batch (the inactive packets it carries decide
+// only the order of the commit-latency sum, through the positions); the
+// per-packet scratch holds one row's service times and outcome.
+struct ChainSmem {
+  double *dlru, *ddd, *dwt, *hpbc, *hop, *csc, *pmb, *bnew, *vack, *t0,
+      *t_row, *emit0, *emit1, *klass, *commit;
+  int *dtag, *dver, *pos0, *pos1, *oslot0, *oslot1, *addr0, *addr1, *ver0,
+      *ver1, *slot, *elist, *bcnt, *n0, *n1;
+  signed char *dstate, *downer, *ohop0, *ohop1, *own0, *own1, *flag;
+};
+
+#define CHAIN_FIELDS(X)                                                     \
+  X(dlru) X(ddd) X(dwt) X(hpbc) X(hop) X(csc) X(pmb) X(bnew) X(vack) X(t0)  \
+  X(t_row) X(emit0) X(emit1) X(klass) X(commit) X(dtag) X(dver) X(pos0)    \
+  X(pos1) X(oslot0) X(oslot1) X(addr0) X(addr1) X(ver0) X(ver1) X(slot)    \
+  X(elist) X(bcnt) X(n0) X(n1) X(dstate) X(downer) X(ohop0) X(ohop1)       \
+  X(own0) X(own1) X(flag)
+
+// The chain's arrays after the depth-1 carve-up (which ends at `off`);
+// returns the end.  Q = (D + 1) P packets hold any batch.
+__host__ __device__ size_t carve_chain(ChainSmem& c, unsigned char* base,
+                                       size_t off, int P, int B, int D) {
+  Carver cv{base, off};
+  const size_t DP = static_cast<size_t>(D) * P, Q = (D + 1) * static_cast<size_t>(P);
+  c.dlru = cv.take<double>(DP);
+  c.ddd = cv.take<double>(DP);
+  c.dwt = cv.take<double>(DP);
+  c.hpbc = cv.take<double>(D);
+  c.hop = cv.take<double>(static_cast<size_t>(D) * N_HOP_STATS);
+  c.csc = cv.take<double>(N_CH + N_DK * D);
+  c.pmb = cv.take<double>(B);
+  c.bnew = cv.take<double>(B);
+  c.vack = cv.take<double>(1);
+  c.t0 = cv.take<double>(1);
+  c.t_row = cv.take<double>(1);
+  c.emit0 = cv.take<double>(Q);
+  c.emit1 = cv.take<double>(Q);
+  c.klass = cv.take<double>(Q);
+  c.commit = cv.take<double>(Q);
+  c.dtag = cv.take<int>(DP);
+  c.dver = cv.take<int>(DP);
+  c.pos0 = cv.take<int>(Q);
+  c.pos1 = cv.take<int>(Q);
+  c.oslot0 = cv.take<int>(Q);
+  c.oslot1 = cv.take<int>(Q);
+  c.addr0 = cv.take<int>(Q);
+  c.addr1 = cv.take<int>(Q);
+  c.ver0 = cv.take<int>(Q);
+  c.ver1 = cv.take<int>(Q);
+  c.slot = cv.take<int>(Q);
+  c.elist = cv.take<int>(P);
+  c.bcnt = cv.take<int>(B);
+  c.n0 = cv.take<int>(1);
+  c.n1 = cv.take<int>(1);
+  c.dstate = cv.take<signed char>(DP);
+  c.downer = cv.take<signed char>(DP);
+  c.ohop0 = cv.take<signed char>(Q);
+  c.ohop1 = cv.take<signed char>(Q);
+  c.own0 = cv.take<signed char>(Q);
+  c.own1 = cv.take<signed char>(Q);
+  c.flag = cv.take<signed char>(Q);
+  return cv.off;
+}
+
+__device__ __forceinline__ ChainSmem rebase_chain(ChainSmem c,
+                                                  unsigned char* base) {
+#define REBASE(f) \
+  c.f = reinterpret_cast<decltype(c.f)>(base + reinterpret_cast<size_t>(c.f));
+  CHAIN_FIELDS(REBASE)
+#undef REBASE
+  return c;
+}
+
+// One packet list: active packets in wire order.
+struct Pkts {
+  int *pos, *oslot, *addr, *ver, *n;
+  double* emit;
+  signed char *ohop, *owner;
+};
+
+// Per-packet outcome bits of one row (ChainSmem::flag).
+constexpr int F_CO = 1, F_PLACED = 2, F_GATE = 4;
+
+// The reference's commit-latency sum is an f64 sum over the Q packets of
+// a batch, in XLA's CPU order (chain.py::xla_sum): chunks summed left to
+// right, then the chunk sums.  The inactive packets add 0.0, so the
+// addends go in by their positions in the full batch, in order.
+struct ChunkSum {
+  int first, m, chunk = 0;
+  double part = 0.0, total = 0.0;
+  __host__ __device__ explicit ChunkSum(int Q) {
+    m = Q <= 32 ? 0 : max(0, (Q - 64 + 31) / 32);
+    const int r = Q - 32 * m;
+    first = Q <= 32 ? Q : (r + 1) / 2;
+  }
+  __host__ __device__ void add(int pos, double v) {
+    const int ch = pos < first ? 0 : 1 + min((pos - first) / 32, m);
+    if (ch != chunk) {
+      total += part;
+      part = 0.0;
+      chunk = ch;
+    }
+    part += v;
+  }
+  __host__ __device__ double sum() const { return total + part; }
+};
+
+// The chain's forwarding for one cell: forward_chain, its _place and
+// _pm_land, and deep_read (engine/chain.py), over the deep rows in
+// shared memory.  Every lane calls every method together; sequential
+// per-packet work runs on lane 0 between __syncwarp()s, per-slot work on
+// the owning lanes.  `pm_ver` is the cell's durable-version row (global).
+template <int SPL, int D>
+struct Chain {
+  ChainSmem c;
+  int lane, P, B, A, n_track, tiles;
+  Banks bank_of;
+  double crash, n_sw, hop_ns, link_ns, pbc_occ, pbc_proc, w_occ, nvm_write;
+  int* pm_ver;
+
+  __device__ double deep(int key, int j) const { return c.csc[N_CH + key * D + j]; }
+  __device__ int idx(int j, int s) const { return j * P + s; }
+  __device__ Pkts list(int which) const {
+    return which == 0 ? Pkts{c.pos0, c.oslot0, c.addr0, c.ver0, c.n0,
+                             c.emit0, c.ohop0, c.own0}
+                      : Pkts{c.pos1, c.oslot1, c.addr1, c.ver1, c.n1,
+                             c.emit1, c.ohop1, c.own1};
+  }
+
+  // _pm_land at switch `pos_sw`: the list lands at PM (per-bank burst
+  // order, the pm_busy scratch c.pmb); the acks of the batch's last
+  // block (`last`, >= 1) go to deep row last-1.  Returns the writes.
+  __device__ double land(const Pkts& b, int pos_sw, int last) {
+    const int n = *b.n;
+    if (lane == 0) {
+      const double rem = fmax(n_sw - static_cast<double>(pos_sw), 0.0);
+      const double path_down = link_ns + rem * hop_ns;
+      for (int k = 0; k < B; ++k) {
+        c.bcnt[k] = 0;
+        c.bnew[k] = 0.0;
+      }
+      for (int q = 0; q < n; ++q) {
+        const double arr = b.emit[q] + path_down;
+        const int bk = bank_of(b.addr[q]);
+        const int rank_b = c.bcnt[bk]++;
+        const double start =
+            fmax(c.pmb[bk], arr) + static_cast<double>(rank_b) * w_occ;
+        const double path_up =
+            link_ns + fmax(n_sw - static_cast<double>(b.ohop[q] + 1), 0.0) *
+                          hop_ns;
+        const double dd_val = start + nvm_write + path_up;
+        c.bnew[bk] = fmax(c.bnew[bk], start + w_occ);
+        const int ad = b.addr[q];
+        if (dd_val <= crash && ad >= 0 && ad < n_track)
+          atomicMax(&pm_ver[clampi(ad, 0, A - 1)], b.ver[q]);
+        if (b.ohop[q] == last) c.ddd[idx(last - 1, b.oslot[q])] = dd_val;
+      }
+      for (int k = 0; k < B; ++k) c.pmb[k] = fmax(c.pmb[k], c.bnew[k]);
+    }
+    __syncwarp();
+    return static_cast<double>(n);
+  }
+
+  // _place into row j of list `b` (Q packets in the full batch), its own
+  // drain-down, and the next list `nx`.  Row 0's acks go to the hop-1 dd
+  // sink (`dd1`, or the single slot `*dd1` when `single`).
+  __device__ void place(int j, int scheme, const Pkts& b, int Q,
+                        const Pkts& nx, double* dd1, bool single,
+                        long long& lookups) {
+    const int n = *b.n;
+    const double tag_j = deep(DK_TAG, j), data_j = deep(DK_DATA, j);
+    const int pbe_j = static_cast<int>(deep(DK_PBE, j));
+    // fifo_service: start_q = occ*rank_q + max(busy, cummax(arr - occ*rank))
+    if (lane == 0) {
+      const double busy = c.hpbc[j];
+      double run = -INF, busy_after = busy, t0 = INF;
+      for (int q = 0; q < n; ++q) {
+        const double rank = static_cast<double>(q);
+        const double arr = b.emit[q] + hop_ns;
+        run = fmax(run, arr - pbc_occ * rank);
+        const double start = pbc_occ * rank + fmax(run, busy);
+        const double klass = start + pbc_proc + tag_j;
+        c.klass[q] = klass;
+        c.commit[q] = klass + data_j;
+        busy_after = fmax(busy_after, start + pbc_occ);
+        t0 = fmin(t0, klass);
+      }
+      c.hpbc[j] = busy_after;
+      // lazy free observed once, at the batch head
+      *c.t0 = n > 0 ? t0 : -INF;
+    }
+    __syncwarp();
+    const double t0 = *c.t0;
+    signed char st0[SPL];
+    int tg[SPL];
+    bool emp[SPL];
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj) {
+      const int s = lane + 32 * jj, sp = s < P ? s : 0;
+      const int v = c.dstate[idx(j, sp)];
+      st0[jj] = static_cast<signed char>(
+          (v == DRAIN && c.ddd[idx(j, sp)] <= t0) ? EMPTY : v);
+      tg[jj] = c.dtag[idx(j, sp)];
+      emp[jj] = s < pbe_j && st0[jj] == EMPTY;
+    }
+    // coalesce matches: the tat_match routine over the row, a packet at
+    // a time (each hop holds at most one Dirty entry per line)
+    for (int q = 0; q < n; ++q) {
+      const int ad = b.addr[q];
+      bool hit[SPL];
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj)
+        hit[jj] = lane + 32 * jj < pbe_j && tg[jj] == ad && st0[jj] == DIRTY;
+      const int co = tat_first(hit, tiles);
+      ++lookups;
+      if (lane == 0) {
+        c.slot[q] = co;
+        c.flag[q] = co >= 0 ? F_CO : 0;
+      }
+    }
+    // Empty slots by rank: elist[e] = the e-th Empty slot
+    int n_empty = 0;
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj) {
+      if (jj >= tiles) break;
+      const unsigned bits = __ballot_sync(FULL, emp[jj]);
+      if (emp[jj]) c.elist[n_empty + __popc(bits & ((1u << lane) - 1u))] =
+          lane + 32 * jj;
+      n_empty += __popc(bits);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      int arank = 0, nb = 0, ended_cnt = 0, co_cnt = 0, by_cnt = 0;
+      ChunkSum fwd_sum(Q);
+      double t_row = -INF;
+      for (int q = 0; q < n; ++q) {
+        int f = c.flag[q];
+        if (!(f & F_CO)) {
+          const bool placed = arank < n_empty;
+          c.slot[q] = placed ? c.elist[arank] : -1;
+          f |= placed ? F_PLACED : 0;
+          ++arank;
+        }
+        const double cm = c.commit[q];
+        const bool gate = cm <= crash;
+        f |= gate ? F_GATE : 0;
+        c.flag[q] = static_cast<signed char>(f);
+        const bool ended = f & (F_CO | F_PLACED);
+        if (ended && gate) {
+          ++ended_cnt;
+          fwd_sum.add(b.pos[q], cm - b.emit[q]);
+          t_row = fmax(t_row, cm);
+        }
+        co_cnt += (f & F_CO) && gate;
+        by_cnt += !ended && gate;
+        // the acks of the batch's last block (row 0: the hop-1 origins)
+        if (ended && b.ohop[q] == j) {
+          const double dd_val =
+              cm + (static_cast<double>(j + 2) -
+                    (static_cast<double>(b.ohop[q]) + 1.0)) * hop_ns;
+          if (j == 0)
+            dd1[single ? 0 : b.oslot[q]] = dd_val;
+          else
+            c.ddd[idx(j - 1, b.oslot[q])] = dd_val;
+        }
+        if (!ended) {  // bypass: on toward the next switch
+          nx.pos[nb] = b.pos[q];
+          nx.oslot[nb] = b.oslot[q];
+          nx.addr[nb] = b.addr[q];
+          nx.ver[nb] = b.ver[q];
+          nx.owner[nb] = b.owner[q];
+          nx.ohop[nb] = b.ohop[q];
+          nx.emit[nb] = c.klass[q];
+          ++nb;
+        }
+      }
+      double* hs = c.hop + j * N_HOP_STATS;
+      hs[H_FWD_CNT] += static_cast<double>(ended_cnt);
+      hs[H_FWD_SUM] += fwd_sum.sum();
+      hs[H_COALESCES] += static_cast<double>(co_cnt);
+      hs[H_BYPASS] += static_cast<double>(by_cnt);
+      *c.t_row = fmax(t_row, 0.0);
+      *nx.n = nb;
+    }
+    __syncwarp();
+    // the row after the batch: each lane's slots take their writer packet
+    signed char st1[SPL], own1[SPL];
+    int tag1[SPL], ver1[SPL];
+    double lru1[SPL], wt1[SPL];
+    bool dirty[SPL];
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj) {
+      const int s = lane + 32 * jj, sp = s < P ? s : 0, i = idx(j, sp);
+      int w = -1;
+      for (int q = 0; q < n; ++q)
+        if (c.slot[q] == s && (c.flag[q] & F_GATE)) w = q;
+      const bool upd = w >= 0;
+      const bool al = upd && (c.flag[w] & F_PLACED);
+      const bool co_upd = upd && (c.flag[w] & F_CO);
+      const int ver_in = upd ? b.ver[w] : 0;
+      const int dv = c.dver[i];
+      tag1[jj] = al ? b.addr[w] : tg[jj];
+      st1[jj] = al ? static_cast<signed char>(DIRTY) : st0[jj];
+      ver1[jj] = al ? ver_in : (co_upd ? max(ver_in, dv) : dv);
+      const bool keep_owner = co_upd && dv > ver_in;
+      own1[jj] = (upd && !keep_owner) ? b.owner[w] : c.downer[i];
+      lru1[jj] = upd ? c.commit[w] : c.dlru[i];
+      wt1[jj] = upd ? c.commit[w] : c.dwt[i];
+      dirty[jj] = s < pbe_j && st1[jj] == DIRTY;
+    }
+    // this hop's own drain-down: PB forwards every Dirty entry, PB_RF
+    // its threshold/preset count, in LRU order (ties to the lower slot)
+    const double dirty_cnt = static_cast<double>(warp_count(dirty, tiles));
+    const double k =
+        scheme == 1 ? dirty_cnt
+                    : (dirty_cnt >= deep(DK_THR, j) ? dirty_cnt - deep(DK_PRE, j)
+                                                    : 0.0);
+    int rank[SPL];
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj) rank[jj] = 0;
+#pragma unroll
+    for (int jq = 0; jq < SPL; ++jq) {
+      if (jq >= tiles) break;
+      for (unsigned bits = __ballot_sync(FULL, dirty[jq]); bits;
+           bits &= bits - 1) {
+        const int l = __ffs(bits) - 1, q = 32 * jq + l;
+        const double kq = __shfl_sync(FULL, lru1[jq], l);
+#pragma unroll
+        for (int jj = 0; jj < SPL; ++jj) {
+          const int s = lane + 32 * jj;
+          rank[jj] += (kq < lru1[jj]) || (kq == lru1[jj] && q < s);
+        }
+      }
+    }
+    bool drain[SPL];
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj)
+      drain[jj] = dirty[jj] && static_cast<double>(rank[jj]) < k;
+    const int n_drain = warp_count(drain, tiles);
+    const double t_row = *c.t_row;
+    const int nb = *nx.n;
+    __syncwarp();
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj) {
+      const int s = lane + 32 * jj;
+      if (s < P) {
+        const int i = idx(j, s);
+        c.dtag[i] = tag1[jj];
+        c.dstate[i] = drain[jj] ? static_cast<signed char>(DRAIN) : st1[jj];
+        c.dlru[i] = lru1[jj];
+        c.dver[i] = ver1[jj];
+        c.downer[i] = own1[jj];
+        c.dwt[i] = wt1[jj];
+        if (drain[jj]) {  // the drained entry leaves at its LRU rank
+          const int o = nb + rank[jj];
+          nx.pos[o] = Q + rank[jj];
+          nx.oslot[o] = s;
+          nx.addr[o] = tag1[jj];
+          nx.ver[o] = ver1[jj];
+          nx.owner[o] = own1[jj];
+          nx.ohop[o] = static_cast<signed char>(j + 1);
+          nx.emit[o] = t_row;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) *nx.n = nb + n_drain;
+    __syncwarp();
+  }
+
+  // forward_chain: list 0 holds the batch (Q0 packets in the full
+  // batch); returns the PM writes.
+  __device__ double forward(int scheme, int Q0, double* dd1, bool single,
+                            long long& lookups) {
+    int cur = 0, Q = Q0;
+#pragma unroll 1
+    for (int j = 0; j < D; ++j) {
+      if (!(static_cast<double>(j) + 2.0 <= n_sw))
+        return land(list(cur), j + 1, j);
+      place(j, scheme, list(cur), Q, list(1 - cur), dd1, single, lookups);
+      cur = 1 - cur;
+      Q += P;
+    }
+    return land(list(cur), D + 1, D);
+  }
+
+  // deep_read: the shallowest live row holding a visible servable entry
+  // for `addr` at t.  Returns the row (or -1), with the slot and the
+  // response time.
+  __device__ int read(int addr, double t, double ow_cpu_sw1,
+                      double fwd_margin, double pbc_read_ns, int& slot,
+                      double& resp, long long& lookups) {
+#pragma unroll 1
+    for (int j = 0; j < D; ++j) {
+      if (!(static_cast<double>(j) + 2.0 <= n_sw)) return -1;
+      const int pbe_j = static_cast<int>(deep(DK_PBE, j));
+      const double arr =
+          t + ow_cpu_sw1 + static_cast<double>(j + 1) * hop_ns;
+      bool sv[SPL], sd[SPL];
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) {
+        const int s = lane + 32 * jj, sp = s < P ? s : 0, i = idx(j, sp);
+        const int v = c.dstate[i];
+        const bool live = s < pbe_j && c.dtag[i] == addr && v != EMPTY &&
+                          c.dwt[i] <= t;
+        sv[jj] = live && (v == DIRTY ||
+                          (v == DRAIN && c.ddd[i] > arr + fwd_margin));
+        sd[jj] = sv[jj] && v == DIRTY;
+      }
+      const int i_sd = tat_first(sd, tiles);
+      const int i_sv = i_sd >= 0 ? i_sd : tat_first(sv, tiles);
+      lookups += i_sd >= 0 ? 1 : 2;
+      if (i_sv >= 0) {
+        slot = i_sv;
+        resp = arr + pbc_read_ns + deep(DK_TAG, j) + deep(DK_DATA, j) +
+               ow_cpu_sw1 + static_cast<double>(j + 1) * hop_ns;
+        return j;
+      }
+    }
+    return -1;
+  }
+};
+
 struct Args {
   const int* ops;          // (K, C, L)
   const int* addrs;        // (K, C, L)
@@ -307,13 +754,19 @@ struct Args {
   int* aver;               // (N, A)  scratch
   int C, L, P, B, A, T, n_track;
   Smem lay;  // the carve-up with a null base: byte offsets
+  // ---- the switch chain (D > 0 instantiations only) ----
+  const double* chain_table;  // (Kc, N_CH + N_DK * D)
+  double* recov_h;            // (N, D + 1) survivors per hop
+  ChainSmem clay;             // the chain's carve-up: byte offsets
 };
 
 }  // namespace
 
 // SPL: PBE slots per lane (slot s = lane + 32 j, j < SPL), the fewest
-// that hold max_pbe, so that a small PB keeps one slot a lane.
-template <int SPL>
+// that hold max_pbe, so that a small PB keeps one slot a lane.  D: the
+// grid's deep-hop rows (0: no switch chain; every `if constexpr (D > 0)`
+// below is then compiled out).
+template <int SPL, int D>
 __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem m = rebase(a.lay, smem_raw);
@@ -373,6 +826,24 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     aver[i] = 0;
   }
   if (lane == 0) m.pbc[0] = 0.0;
+  // the chain: its rows and clocks start empty, its config row in smem
+  Chain<SPL, D> ch{};
+  if constexpr (D > 0) {
+    ch.c = rebase_chain(a.clay, smem_raw);
+    for (int i = lane; i < D * P; i += 32) {
+      ch.c.dtag[i] = -1;
+      ch.c.dstate[i] = EMPTY;
+      ch.c.dlru[i] = 0.0;
+      ch.c.ddd[i] = 0.0;
+      ch.c.dver[i] = 0;
+      ch.c.downer[i] = 0;
+      ch.c.dwt[i] = 0.0;
+    }
+    for (int i = lane; i < D; i += 32) ch.c.hpbc[i] = 0.0;
+    for (int i = lane; i < D * N_HOP_STATS; i += 32) ch.c.hop[i] = 0.0;
+    for (int i = lane; i < N_CH + N_DK * D; i += 32)
+      ch.c.csc[i] = a.chain_table[static_cast<size_t>(cf) * (N_CH + N_DK * D) + i];
+  }
   __syncwarp();
 
   // ---- tenancy: balanced contiguous partition of the live cores ---------
@@ -394,6 +865,26 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
   const int tiles = (P + 31) / 32;  // 32-slot tiles of the PB
   const Banks bank_of{B, (B & (B - 1)) == 0 ? B - 1 : -1};
   const double crash = sc[K_CRASH_AT];
+  bool is_chain = false;  // n_switches >= 2: hop 1's drains go down the chain
+  if constexpr (D > 0) {
+    ch.lane = lane;
+    ch.P = P;
+    ch.B = B;
+    ch.A = A;
+    ch.n_track = n_track;
+    ch.tiles = (P + 31) / 32;
+    ch.bank_of = bank_of;
+    ch.crash = crash;
+    ch.n_sw = ch.c.csc[C_N_SWITCHES];
+    ch.hop_ns = ch.c.csc[C_HOP_NS];
+    ch.link_ns = ch.c.csc[C_LINK_NS];
+    ch.pbc_occ = sc[K_PBC_OCC];
+    ch.pbc_proc = sc[K_PBC_PROC];
+    ch.w_occ = sc[K_NVM_W_OCC];
+    ch.nvm_write = sc[K_NVM_WRITE];
+    ch.pm_ver = pm_ver;
+    is_chain = ch.n_sw >= 2.0;
+  }
   // the read path's config scalars, in registers for the whole cell
   // (pbc_read_tag is the reference's own sum pbc_read_ns + tag_ns)
   const struct {
@@ -530,10 +1021,26 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
             fmax(m.pm_busy[bank], pbc_start + rd.switch_pipe + rd.ow_sw1_pm);
         const double resp_fwd = pm_start_fwd + rd.nvm_read + rd.ow_cpu_pm;
         const bool hit = has && served;
-        const double resp = has ? (served ? resp_pb : resp_fwd) : resp_dir;
-        const double pmb = has ? (served ? m.pm_busy[bank]
-                                         : pm_start_fwd + rd.nvm_r_occ)
-                               : pm_start_dir + rd.nvm_r_occ;
+        // read forwarding below hop 1 (chain.deep_read): with no live
+        // hop-1 entry the packet passes every deeper switch's PBCS, and
+        // the shallowest servable entry answers
+        int deep_row = -1, deep_slot = 0;
+        double resp_deep = 0.0;
+        if constexpr (D > 0) {
+          if (is_chain && !has)
+            deep_row = ch.read(addr, t, rd.ow_cpu_sw1, rd.fwd_margin,
+                               sc[K_PBC_READ], deep_slot, resp_deep,
+                               lookups);
+        }
+        const bool deep_hit = deep_row >= 0;
+        const double resp =
+            deep_hit ? resp_deep
+                     : (has ? (served ? resp_pb : resp_fwd) : resp_dir);
+        const double pmb =
+            deep_hit ? m.pm_busy[bank]
+                     : (has ? (served ? m.pm_busy[bank]
+                                      : pm_start_fwd + rd.nvm_r_occ)
+                            : pm_start_dir + rd.nvm_r_occ);
         const double pbc_new =
             has ? fmax(pbc_prev, arr) + rd.pbc_read_occ : pbc_prev;
         __syncwarp();
@@ -545,9 +1052,15 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         if (lane == 0) {
           if (hit) m.lru[idx] = t;
           m.hop[H_READ_HITS] += hit ? 1.0 : 0.0;
+          if constexpr (D > 0) {
+            if (deep_hit) {
+              ch.c.dlru[deep_row * P + deep_slot] = t;
+              ch.c.hop[deep_row * N_HOP_STATS + H_READ_HITS] += 1.0;
+            }
+          }
           st_row[S_READ_SUM] += resp - t;
           st_row[S_READ_CNT] += 1.0;
-          st_row[S_READ_HITS] += hit ? 1.0 : 0.0;
+          st_row[S_READ_HITS] += (hit || deep_hit) ? 1.0 : 0.0;
           st_row[S_PI_DETOURS] += has ? 1.0 : 0.0;
           m.clock[c] = resp;
           m.pm_busy[bank] = pmb;
@@ -684,11 +1197,38 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
                             vic_tag >= 0 && vic_tag < n_track;
         const int vic_ver = m.ver[victim_idx];
         const bool vic_emit = needs_victim && pbc_start <= crash;
+        // switch chain, victim leg: the victim packet travels the chain
+        // first (it leaves the PBC at pbc_start), and the slot frees at
+        // its downstream ack; the chain works on its own copy of the
+        // banks' clocks (ch.c.pmb), as the PM path below reads the
+        // machine's
+        double vic_wait = victim_dd, pmw_v = 0.0, vack = 0.0;
+        if constexpr (D > 0) {
+          if (is_chain) {
+            for (int b = lane; b < B; b += 32) ch.c.pmb[b] = m.pm_busy[b];
+            if (lane == 0) {
+              *ch.c.vack = m.dd[victim_idx];
+              const Pkts b0 = ch.list(0);
+              b0.pos[0] = 0;
+              b0.oslot[0] = victim_idx;
+              b0.addr[0] = vic_tag;
+              b0.ver[0] = vic_ver;
+              b0.owner[0] = m.owner[victim_idx];
+              b0.ohop[0] = 0;
+              b0.emit[0] = pbc_start;
+              *b0.n = 1;
+            }
+            __syncwarp();
+            if (vic_emit) pmw_v = ch.forward(scheme, 1, ch.c.vack, true, lookups);
+            vack = *ch.c.vack;
+            if (vic_emit) vic_wait = vack;
+          }
+        }
         const int slot =
             any_empty ? empty_idx : (any_dirty ? victim_idx : earliest_idx);
         const double ta =
             any_empty ? pbc_start
-                      : (any_dirty ? victim_dd
+                      : (any_dirty ? vic_wait
                                    : fmax(pbc_start, m.dd[earliest_idx]));
         // pm_busy1: the victim's bank reserved
         auto pmb1 = [&](int b) {
@@ -878,7 +1418,8 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
               const bool drained_now = st4[j] == DRAIN && st3[j] == DIRTY;
               const bool drain_ok = drained_now && dd4[j] <= crash &&
                                     tag3[j] >= 0 && tag3[j] < n_track;
-              if (drain_ok) atomicMax(&pm_ver[clampi(tag3[j], 0, A - 1)], ver3[j]);
+              if (drain_ok && !is_chain)
+                atomicMax(&pm_ver[clampi(tag3[j], 0, A - 1)], ver3[j]);
               m.state[s] = st4[j];
               m.tag[s] = tag3[j];
               m.lru[s] = lru3[j];
@@ -887,7 +1428,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
               m.owner[s] = own3[j];
             } else {
               m.state[s] = vsl ? static_cast<signed char>(DRAIN) : st_o[j];
-              m.dd[s] = vsl ? victim_dd : dd_o[j];
+              m.dd[s] = vsl ? (is_chain ? vack : victim_dd) : dd_o[j];
               m.tag[s] = tag_o[j];
               m.lru[s] = lru_o[j];
               m.ver[s] = ver_o[j];
@@ -895,10 +1436,60 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
             }
           }
         }
-        if (lane < B) m.pm_busy[lane] = commit ? pmb2_mine : pmb1_mine;
+        // switch chain, policy-drain leg: the drains just scheduled leave
+        // the PBC together at t_written, in LRU order (ties to the lower
+        // slot), and their downstream acks replace the PM-path dd
+        double pmw_c = 0.0;
+        if constexpr (D > 0) {
+          if (is_chain) {
+            bool pol[SPL];
+            int pol_rank[SPL];
+#pragma unroll
+            for (int j = 0; j < SPL; ++j) {
+              pol[j] = commit && lane + 32 * j < P && st4[j] == DRAIN &&
+                       st3[j] == DIRTY;
+              pol_rank[j] = 0;
+            }
+#pragma unroll
+            for (int jq = 0; jq < SPL; ++jq) {
+              if (jq >= tiles) break;
+              for (unsigned bits = __ballot_sync(FULL, pol[jq]); bits;
+                   bits &= bits - 1) {
+                const int l = __ffs(bits) - 1, q = 32 * jq + l;
+                const double kq = __shfl_sync(FULL, lru3[jq], l);
+#pragma unroll
+                for (int j = 0; j < SPL; ++j) {
+                  const int s = lane + 32 * j;
+                  pol_rank[j] += (kq < lru3[j]) || (kq == lru3[j] && q < s);
+                }
+              }
+            }
+            const int n_pol = warp_count(pol, tiles);
+            const Pkts b0 = ch.list(0);
+#pragma unroll
+            for (int j = 0; j < SPL; ++j) {
+              if (pol[j]) {
+                const int o = pol_rank[j];
+                b0.pos[o] = o;
+                b0.oslot[o] = lane + 32 * j;
+                b0.addr[o] = tag3[j];
+                b0.ver[o] = ver3[j];
+                b0.owner[o] = own3[j];
+                b0.ohop[o] = 0;
+                b0.emit[o] = t_written;
+              }
+            }
+            if (lane == 0) *b0.n = n_pol;
+            __syncwarp();  // the hop-1 columns and the batch are written
+            if (n_pol > 0) pmw_c = ch.forward(scheme, P, m.dd, false, lookups);
+            if (lane < B) m.pm_busy[lane] = ch.c.pmb[lane];
+          }
+        }
+        if (!is_chain && lane < B)
+          m.pm_busy[lane] = commit ? pmb2_mine : pmb1_mine;
         PROF(SEC_WRITE);
         if (lane == 0) {
-          if (vic_ok)
+          if (vic_ok && !is_chain)
             atomicMax(&pm_ver[clampi(vic_tag, 0, A - 1)], vic_ver);
           if (commit && tracked) aver[a_idx] += 1;
           m.hop[H_FWD_CNT] += commit ? 1.0 : 0.0;
@@ -910,7 +1501,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           st_row[S_PERSIST_CNT] += 1.0;
           st_row[S_SLO_OVER] += over_now;
           st_row[S_COALESCES] += is_coalesce ? 1.0 : 0.0;
-          st_row[S_PM_WRITES] += pm_writes_inc;
+          st_row[S_PM_WRITES] += is_chain ? pmw_v + pmw_c : pm_writes_inc;
           st_row[S_STALL_TIME] += stall;
           st_row[S_ACKED] += ack <= crash ? 1.0 : 0.0;
           st_row[S_DURABLE] += commit ? 1.0 : 0.0;
@@ -978,78 +1569,157 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     rt = fmax(rt, ck < INF * 0.5 ? fmin(ck, crash) : 0.0);
   }
   rt = warp_max(rt);
-  double n_rec = 0.0, cost = 0.0;
-  double* rec_t = a.recov_t + static_cast<size_t>(cell) * T;
-  if (scheme == 0) {
-    for (int tt = lane; tt < T; tt += 32) rec_t[tt] = 0.0;
+  // the recovery pass and the outputs: the chain-free machine's as they
+  // were (D = 0), or over every hop of the chain
+  if constexpr (D == 0) {
+    double n_rec = 0.0, cost = 0.0;
+    double* rec_t = a.recov_t + static_cast<size_t>(cell) * T;
+    if (scheme == 0) {
+      for (int tt = lane; tt < T; tt += 32) rec_t[tt] = 0.0;
+    } else {
+      bool surv[SPL];
+      int n = 0;
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int s = lane + 32 * j;
+        const int sp = s < P ? s : 0;
+        const int v = m.state[sp];
+        surv[j] = s < n_pbe &&
+                  (v == DIRTY || (v == DRAIN && m.dd[sp] > crash));
+        n += surv[j];
+        if (surv[j] && m.tag[sp] >= 0 && m.tag[sp] < n_track)
+          atomicMax(&pm_ver[clampi(m.tag[sp], 0, A - 1)], m.ver[sp]);
+      }
+      n = warp_sum(n);
+      for (int tt = 0; tt < T; ++tt) {
+        int cnt = 0;
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int s = lane + 32 * j;
+          cnt += surv[j] && clampi(m.owner[s < P ? s : 0], 0, T - 1) == tt;
+        }
+        cnt = warp_sum(cnt);
+        if (lane == 0) rec_t[tt] = static_cast<double>(cnt);
+      }
+      double worst = 0.0;
+      for (int b = 0; b < B; ++b) {
+        int cnt = 0;
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int s = lane + 32 * j;
+          cnt += surv[j] && floor_mod(m.tag[s < P ? s : 0], B) == b;
+        }
+        worst = fmax(worst, static_cast<double>(warp_sum(cnt)));
+      }
+      n_rec = static_cast<double>(n);
+      cost = n > 0 ? (worst - 1.0) * sc[K_NVM_W_OCC] + sc[K_NVM_WRITE] +
+                         2.0 * sc[K_OW_SW1_PM]
+                   : 0.0;
+    }
+    double* st_out = a.stats + static_cast<size_t>(cell) * T * N_STATS;
+    for (int k = lane; k < T * N_STATS; k += 32) st_out[k] = stats[k];
+    for (int k = lane; k < N_HOP_STATS; k += 32)
+      a.hop_stats[static_cast<size_t>(cell) * N_HOP_STATS + k] = m.hop[k];
+    if (lane == 0) {
+      a.runtime[cell] = rt;
+      a.n_recov[cell] = n_rec;
+      a.recov_ns[cell] = cost;
+      a.steps[cell] = steps;
+      a.lookups[cell] = lookups;
+    }
   } else {
-    bool surv[SPL];
-    int n = 0;
+    double n_rec = 0.0, cost = 0.0;
+    double* rec_t = a.recov_t + static_cast<size_t>(cell) * T;
+    double* rec_h = a.recov_h + static_cast<size_t>(cell) * (D + 1);
+    if (scheme == 0) {
+      for (int tt = lane; tt < T; tt += 32) rec_t[tt] = 0.0;
+      for (int h = lane; h <= D; h += 32) rec_h[h] = 0.0;
+    } else {
+      // the union over the chain's hops: hop 1's survivors, then each
+      // deep row's under the same rule (a Drain entry survives iff its
+      // ack is lost), counted per hop, per owning tenant and per PM bank
+      bool surv[D + 1][SPL];
+      int n_all = 0;
+      for (int h = 0; h <= D; ++h) {
+        const bool live_h =
+            h == 0 || static_cast<double>(h - 1) + 2.0 <= ch.n_sw;
+        const int pbe_h =
+            h == 0 ? n_pbe : static_cast<int>(ch.deep(DK_PBE, h - 1));
 #pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      const int s = lane + 32 * j;
-      const int sp = s < P ? s : 0;
-      const int v = m.state[sp];
-      surv[j] = s < n_pbe &&
-                (v == DIRTY || (v == DRAIN && m.dd[sp] > crash));
-      n += surv[j];
-      if (surv[j] && m.tag[sp] >= 0 && m.tag[sp] < n_track)
-        atomicMax(&pm_ver[clampi(m.tag[sp], 0, A - 1)], m.ver[sp]);
-    }
-    n = warp_sum(n);
-    for (int tt = 0; tt < T; ++tt) {
-      int cnt = 0;
-#pragma unroll
-      for (int j = 0; j < SPL; ++j) {
-        const int s = lane + 32 * j;
-        cnt += surv[j] && clampi(m.owner[s < P ? s : 0], 0, T - 1) == tt;
+        for (int j = 0; j < SPL; ++j) {
+          const int s = lane + 32 * j, sp = s < P ? s : 0;
+          const int i = (h - 1) * P + sp;
+          const int v = h == 0 ? m.state[sp] : ch.c.dstate[i];
+          const double ack = h == 0 ? m.dd[sp] : ch.c.ddd[i];
+          surv[h][j] = live_h && s < pbe_h &&
+                       (h == 0 || ch.c.dwt[i] <= crash) &&
+                       (v == DIRTY || (v == DRAIN && ack > crash));
+          const int tg = h == 0 ? m.tag[sp] : ch.c.dtag[i];
+          if (surv[h][j] && tg >= 0 && tg < n_track)
+            atomicMax(&pm_ver[clampi(tg, 0, A - 1)],
+                      h == 0 ? m.ver[sp] : ch.c.dver[i]);
+        }
+        const int nh = warp_count(surv[h], tiles);
+        n_all += nh;
+        if (lane == 0) rec_h[h] = static_cast<double>(nh);
       }
-      cnt = warp_sum(cnt);
-      if (lane == 0) rec_t[tt] = static_cast<double>(cnt);
-    }
-    double worst = 0.0;
-    for (int b = 0; b < B; ++b) {
-      int cnt = 0;
+      for (int tt = 0; tt < T; ++tt) {
+        int cnt = 0;
+        for (int h = 0; h <= D; ++h) {
 #pragma unroll
-      for (int j = 0; j < SPL; ++j) {
-        const int s = lane + 32 * j;
-        cnt += surv[j] && floor_mod(m.tag[s < P ? s : 0], B) == b;
+          for (int j = 0; j < SPL; ++j) {
+            const int sp = min(lane + 32 * j, P - 1);
+            const int o = h == 0 ? m.owner[sp] : ch.c.downer[(h - 1) * P + sp];
+            cnt += surv[h][j] && clampi(o, 0, T - 1) == tt;
+          }
+        }
+        cnt = warp_sum(cnt);
+        if (lane == 0) rec_t[tt] = static_cast<double>(cnt);
       }
-      worst = fmax(worst, static_cast<double>(warp_sum(cnt)));
+      double worst = 0.0;
+      for (int b = 0; b < B; ++b) {
+        int cnt = 0;
+        for (int h = 0; h <= D; ++h) {
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            const int sp = min(lane + 32 * j, P - 1);
+            const int tg = h == 0 ? m.tag[sp] : ch.c.dtag[(h - 1) * P + sp];
+            cnt += surv[h][j] && floor_mod(tg, B) == b;
+          }
+        }
+        worst = fmax(worst, static_cast<double>(warp_sum(cnt)));
+      }
+      n_rec = static_cast<double>(n_all);
+      cost = n_all > 0 ? (worst - 1.0) * sc[K_NVM_W_OCC] + sc[K_NVM_WRITE] +
+                             2.0 * sc[K_OW_SW1_PM]
+                       : 0.0;
     }
-    n_rec = static_cast<double>(n);
-    cost = n > 0 ? (worst - 1.0) * sc[K_NVM_W_OCC] + sc[K_NVM_WRITE] +
-                       2.0 * sc[K_OW_SW1_PM]
-                 : 0.0;
-  }
-  double* st_out = a.stats + static_cast<size_t>(cell) * T * N_STATS;
-  for (int k = lane; k < T * N_STATS; k += 32) st_out[k] = stats[k];
-  for (int k = lane; k < N_HOP_STATS; k += 32)
-    a.hop_stats[static_cast<size_t>(cell) * N_HOP_STATS + k] = m.hop[k];
-  if (lane == 0) {
-    a.runtime[cell] = rt;
-    a.n_recov[cell] = n_rec;
-    a.recov_ns[cell] = cost;
-    a.steps[cell] = steps;
-    a.lookups[cell] = lookups;
+    double* st_out = a.stats + static_cast<size_t>(cell) * T * N_STATS;
+    for (int k = lane; k < T * N_STATS; k += 32) st_out[k] = stats[k];
+    // hop_stats: row 0 (hop 1), then the chain's rows 1 .. D
+    double* hop_out =
+        a.hop_stats + static_cast<size_t>(cell) * (D + 1) * N_HOP_STATS;
+    for (int k = lane; k < N_HOP_STATS; k += 32) hop_out[k] = m.hop[k];
+    for (int k = lane; k < D * N_HOP_STATS; k += 32)
+      hop_out[N_HOP_STATS + k] = ch.c.hop[k];
+    if (lane == 0) {
+      a.runtime[cell] = rt;
+      a.n_recov[cell] = n_rec;
+      a.recov_ns[cell] = cost;
+      a.steps[cell] = steps;
+      a.lookups[cell] = lookups;
+    }
   }
 }
 
 // ---- host entry point -------------------------------------------------
-extern "C" int cell_scan_launch(
-    const int* ops, const int* addrs, const float* gaps, const int* lengths,
-    const int* cell_trace, const int* cell_cfg, const int* schemes,
-    const double* sc_table, const double* ten_table,
-    const double* lat_edges, double* runtime, double* stats,
-    double* hop_stats, int* durable_ver, double* n_recov,
-    double* recov_ns, double* recov_t, long long* steps, long long* lookups,
-    int* aver, int n_cells, int C, int L, int P, int B, int A, int T,
-    int n_track, cudaStream_t stream) {
-  Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-         sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
-         durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
-         C, L, P, B, A, T, n_track, {}};
-  const size_t smem = carve(a.lay, nullptr, C, P, B, T);
+// n_deep (the grid's deep-hop rows, the D of the instantiation) is
+// bounded by MAX_DEEP: chains of up to MAX_DEEP + 1 switches.
+constexpr int MAX_DEEP = 3;
+
+template <int SPL>
+static int run_spl(Args& a, int n_cells, int n_deep, size_t smem,
+                   cudaStream_t stream) {
   auto run = [&](auto kernel) {
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -1060,9 +1730,36 @@ extern "C" int cell_scan_launch(
     kernel<<<n_cells, 32, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   };
-  if (P <= 32) return run(cell_scan_kernel<1>);
-  if (P <= 64) return run(cell_scan_kernel<2>);
-  return run(cell_scan_kernel<MAX_SPL>);
+  switch (n_deep) {
+    case 0: return run(cell_scan_kernel<SPL, 0>);
+    case 1: return run(cell_scan_kernel<SPL, 1>);
+    case 2: return run(cell_scan_kernel<SPL, 2>);
+    case 3: return run(cell_scan_kernel<SPL, 3>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int cell_scan_launch(
+    const int* ops, const int* addrs, const float* gaps, const int* lengths,
+    const int* cell_trace, const int* cell_cfg, const int* schemes,
+    const double* sc_table, const double* ten_table,
+    const double* lat_edges, double* runtime, double* stats,
+    double* hop_stats, int* durable_ver, double* n_recov,
+    double* recov_ns, double* recov_t, long long* steps, long long* lookups,
+    int* aver, const double* chain_table, double* recov_h, int n_cells,
+    int C, int L, int P, int B, int A, int T, int n_track, int n_deep,
+    cudaStream_t stream) {
+  Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
+         sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
+         durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
+         C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {}};
+  if (n_deep < 0 || n_deep > MAX_DEEP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = carve(a.lay, nullptr, C, P, B, T);
+  if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
+  if (P <= 32) return run_spl<1>(a, n_cells, n_deep, smem, stream);
+  if (P <= 64) return run_spl<2>(a, n_cells, n_deep, smem, stream);
+  return run_spl<MAX_SPL>(a, n_cells, n_deep, smem, stream);
 }
 
 #ifdef CELL_SCAN_PROFILE

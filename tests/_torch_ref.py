@@ -46,7 +46,7 @@ def reference():
         import repro.core
         import repro.core.engine
         import repro.kernels
-        from repro.core import params, traces
+        from repro.core import params, semantics, traces
         from repro.core.engine import (channels, grid, handlers, policy,
                                        state)
         from repro.kernels import ref as kref
@@ -61,7 +61,8 @@ def reference():
             del jax.experimental.enable_x64
     try:
         yield types.SimpleNamespace(
-            core=repro.core, params=params, traces=traces, state=state,
+            core=repro.core, params=params, semantics=semantics,
+            traces=traces, state=state,
             channels=channels, policy=policy, handlers=handlers, grid=grid,
             kref=kref, ktat=ktat, kflash=kflash, kssd=kssd, layers=layers,
             attention=attention, ssm=ssm, transformer=transformer,

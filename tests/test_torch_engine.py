@@ -99,7 +99,8 @@ def test_paper_grid_ref_datum_holds_the_reference_shape():
 
 
 OUT_OF_SCOPE = [
-    dict(n_switches=2),
+    dict(n_switches=3, policy=P.PBPolicy(drain=P.DrainPolicy(
+        threshold=P.Schedule((1e4,), (0.8, 0.5)), preset=0.25))),
     dict(fabric=P.FabricTopology()),
     dict(policy=P.PBPolicy(drain=P.DrainPolicy(
         threshold=P.Schedule((1e4,), (0.8, 0.5)),

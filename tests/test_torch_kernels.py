@@ -102,7 +102,7 @@ def test_cell_scan_wrapper_cpu_runs_eager_scan_cell():
     assert out.lookups.eq(0).all()
     for k, (i, j) in enumerate(pairs):
         t = traces[i]
-        sc = cs._config_view(args[7], args[8], j)
+        sc = cs._config_view(args[7], args[8], args[9], j)
         want = scan_cell(torch.from_numpy(t.ops), torch.from_numpy(t.addrs),
                          torch.from_numpy(t.gaps),
                          torch.from_numpy(t.lengths), int(configs[j].scheme),
@@ -140,11 +140,15 @@ def test_pack_configs_columns_follow_sc_keys():
     cfgs = [PCSConfig(scheme=Scheme.PB, crash_at_ns=77.0),
             PCSConfig(scheme=Scheme.PB_RF, n_tenants=2)]
     scs = [scalars_from_config(c, 2) for c in cfgs]
-    sct, tent = cs.pack_configs(scs, 2, "cpu")
+    sct, tent, cht = cs.pack_configs(scs, 2, "cpu")
     assert sct.shape == (2, len(cs.SC_KEYS))
     assert tent.shape == (2, len(cs.TENANT_KEYS), 2)
+    assert cht.shape == (2, len(cs.CHAIN_KEYS) + len(cs.DEEP_KEYS))
     for j, sc in enumerate(scs):
         for i, k in enumerate(cs.SC_KEYS):
             assert float(sct[j, i]) == float(sc[k])
         for i, k in enumerate(cs.TENANT_KEYS):
             assert torch.equal(tent[j, i], sc[k])
+        view = cs._config_view(sct, tent, cht, j)
+        for k in cs.CHAIN_KEYS + cs.DEEP_KEYS:
+            assert torch.equal(view[k].reshape(-1), sc[k].reshape(-1)), k

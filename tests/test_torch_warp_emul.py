@@ -36,6 +36,15 @@ EMUL = Path(__file__).resolve().parent / "warp_emul"
 
 CELL_SCAN_LAUNCH = r'''
 alignas(16) unsigned char smem_raw[1 << 20];
+template <int SPL>
+static void emu_spl(Args& a, int n_cells, int n_deep) {
+  switch (n_deep) {
+    case 0: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 0>(a); }); break;
+    case 1: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 1>(a); }); break;
+    case 2: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 2>(a); }); break;
+    case 3: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 3>(a); }); break;
+  }
+}
 extern "C" int cell_scan_launch(
     const int* ops, const int* addrs, const float* gaps, const int* lengths,
     const int* cell_trace, const int* cell_cfg, const int* schemes,
@@ -43,21 +52,32 @@ extern "C" int cell_scan_launch(
     const double* lat_edges, double* runtime, double* stats,
     double* hop_stats, int* durable_ver, double* n_recov,
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
-    int* aver, int n_cells, int C, int L, int P, int B, int A, int T,
-    int n_track, cudaStream_t) {
+    int* aver, const double* chain_table, double* recov_h, int n_cells,
+    int C, int L, int P, int B, int A, int T, int n_track, int n_deep,
+    cudaStream_t) {
   Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
-         C, L, P, B, A, T, n_track, {}};
-  if (carve(a.lay, nullptr, C, P, B, T) > sizeof(smem_raw)) return 1;
+         C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {}};
+  if (n_deep < 0 || n_deep > 3) return 1;
+  size_t smem = carve(a.lay, nullptr, C, P, B, T);
+  if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
+  if (smem > sizeof(smem_raw)) return 1;
   wg::emu_smem_base = smem_raw;
   if (P <= 32)
-    emu_run(n_cells, [&] { cell_scan_kernel<1>(a); });
+    emu_spl<1>(a, n_cells, n_deep);
   else if (P <= 64)
-    emu_run(n_cells, [&] { cell_scan_kernel<2>(a); });
+    emu_spl<2>(a, n_cells, n_deep);
   else
-    emu_run(n_cells, [&] { cell_scan_kernel<MAX_SPL>(a); });
+    emu_spl<MAX_SPL>(a, n_cells, n_deep);
   return 0;
+}
+// the chain's commit-latency sum over (position, value) addends of a
+// batch of Q packets
+extern "C" double chunk_sum(int Q, int n, const int* pos, const double* v) {
+  ChunkSum s(Q);
+  for (int i = 0; i < n; ++i) s.add(pos[i], v[i]);
+  return s.sum();
 }
 '''
 
@@ -301,6 +321,8 @@ def _cases():
                                          tr.gaps, lengths))
     # more cores than lanes: a lane owns cores lane, lane + 32
     many = [P.fuzz_trace(7, n_cores=40, n_slots=100, n_tenants=2)[0]]
+    chain_fz = [P.fuzz_trace(seed, n_cores=3, n_slots=50, n_addrs=6,
+                             p_persist=0.7)[0] for seed in (0, 1)]
     return {
         "schemes": (small, [P.PCSConfig(scheme=s) for s in S], 0),
         "crash": (small, [P.PCSConfig(scheme=s).with_crash(t)
@@ -319,11 +341,42 @@ def _cases():
                                 for p in pols[1:]], 8),
         "many_cores": (many, [P.PCSConfig(scheme=s, n_pbe=16, n_tenants=2)
                               for s in S], 8),
+        # switch chains, one grid per deep-row count D = depth - 1
+        # (mixed with depth-1 and NoPB cells); crash points, uneven and
+        # bypass-heavy capacities, tenants
+        "chain_d1": (chain_fz + small[:1],
+                     [P.PCSConfig(scheme=s, n_pbe=4, n_switches=2)
+                      .with_crash(t) for s in S for t in (3e7, 1e12)]
+                     + [P.PCSConfig(scheme=S.PB_RF, n_pbe=4),
+                        P.PCSConfig(scheme=S.PB, n_switches=2,
+                                    pbe_per_hop=(4, 1))], 8),
+        "chain_d2": (chain_fz + small[:1],
+                     [P.PCSConfig(scheme=s, n_pbe=3, n_switches=3,
+                                  pbe_per_hop=hp).with_crash(t)
+                      for s in (S.PB, S.PB_RF)
+                      for hp in ((3, 2, 1), (3, 4, 4))
+                      for t in (2e7, 1e12)]
+                     + [P.PCSConfig(scheme=S.NOPB, n_switches=3),
+                        P.PCSConfig(scheme=S.PB_RF, n_pbe=3, n_tenants=2,
+                                    n_switches=2)], 8),
+        "chain_d3": (chain_fz + small[:1],
+                     [P.PCSConfig(scheme=s, n_pbe=4, n_switches=4)
+                      .with_crash(t) for s in (S.PB, S.PB_RF)
+                      for t in (1.5e7, 3.5e7, 1e12)]
+                     + [P.PCSConfig(scheme=S.PB_RF, n_pbe=4, n_switches=4,
+                                    pbe_per_hop=(4, 2, 1, 1)),
+                        P.PCSConfig(scheme=S.PB, n_pbe=4, n_switches=3)],
+                     8),
+        "chain_wide": (small[:1], [P.PCSConfig(scheme=s, n_pbe=n,
+                                               n_switches=3)
+                                   for s in (S.PB, S.PB_RF)
+                                   for n in (40, 70)], 0),
     }
 
 
 @pytest.mark.parametrize("case", ["schemes", "crash", "tenants", "slots",
-                                  "short_cores", "many_cores"])
+                                  "short_cores", "many_cores", "chain_d1",
+                                  "chain_d2", "chain_d3", "chain_wide"])
 def test_emulated_cell_scan_equals_eager_scan_cell(libs, case):
     traces, configs, track = _cases()[case]
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
@@ -331,14 +384,39 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, case):
                                 [p[1] for p in pairs], track_addrs=track)
     want = cs.cell_scan(*args, **kw)
     got = cs._empty_out(len(pairs), kw["n_tenants_max"], max(track, 1),
-                        "cpu")
+                        kw["n_deep_max"], "cpu")
     assert cs.launch(libs["cell_scan"], list(args), got,
                      max_pbe=kw["max_pbe"], pm_banks=kw["pm_banks"],
-                     n_track=track, stream=None) == 0
+                     n_track=track, n_deep=kw["n_deep_max"],
+                     stream=None) == 0
     for f in cs.CellScanOut._fields:
         if f != "lookups":
             assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(got.lookups.sum()) > 0
+    if case.startswith("chain"):
+        # the chain's rows saw commits, and its hops hold survivors
+        assert float(want.hop_stats[:, 1:, 1].sum()) > 0
+        if track:
+            assert float(want.recov_h[:, 1:].sum()) > 0
+
+
+@pytest.mark.parametrize("q", [9, 32, 48, 64, 80, 130, 384])
+def test_emulated_chunk_sum_equals_xla_sum(libs, q):
+    """The kernel's commit-latency sum adds a batch's addends in the
+    order of the eager ``chain.xla_sum`` (the reference's XLA order)."""
+    from repro_torch.core.engine.chain import xla_sum
+    fn = libs["cell_scan"].chunk_sum
+    fn.restype = ctypes.c_double
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    rng = np.random.default_rng(q)
+    for _ in range(50):
+        v = rng.standard_normal(q) * 10.0 ** rng.integers(-3, 8, q)
+        v[rng.random(q) < 0.5] = 0.0
+        pos = np.flatnonzero(v).astype(np.int32)
+        vals = np.ascontiguousarray(v[pos])
+        got = fn(q, len(pos), pos.ctypes.data, vals.ctypes.data)
+        assert got == float(xla_sum(torch.tensor(v))), q
 
 
 @pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype", [
