@@ -67,18 +67,27 @@ lines:
    the op span; 21 cells) and (b) the 7 workloads x 3 schemes at
    ``n_switches`` 2-4 and ``persist_budget=100_000`` (63 cells), each
    through ``simulate_grid`` with its launch counts, exact against
-   ``src/repro_torch/testdata/chain_ref.json`` (all of (a), (b)'s
-   depth-3 PB and PB_RF cells) and the eager ``scan_cell`` (all of (a),
-   lu_cont's cells of (b); a pool of host processes), with each Fig. 1
-   row's persist latency over depth-0 NoPB and its per-hop recovery;
-   then (c) 225 fuzzed crash cells at depths 1-3 on the card against the
-   port's untimed oracle (``tests/_torch_crash_driver.py``).
+   ``src/repro_torch/testdata/chain_ref.json`` (all of (a) and (b)) and
+   the eager ``scan_cell`` (all of (a), lu_cont's cells of (b); a pool
+   of host processes), with each Fig. 1 row's persist latency over
+   depth-0 NoPB and its per-hop recovery; then (d) the section profile
+   of a chained step (Fig. 1's PB/4 and PB_RF/4 cells, cholesky's cells
+   at ``n_switches`` 4), exact against (a) and (b); then (c) 225 fuzzed
+   crash cells at depths 1-3 on the card against the port's untimed
+   oracle (``tests/_torch_crash_driver.py``).
 
 Then one JSON line with the serving numbers, one with every kernel's
 numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA.
+
+``python3 chip_smoke.py --against OLD.cu`` runs only a comparison of
+the package's cell scan with another ``cell_scan.cu`` (an earlier
+revision's, its headers beside it or the package's) on Fig. 1's sweep
+and the chained paper grid: outputs equal but for the lookup counts,
+kernel times in the order other, this, this, other, and both section
+profiles (phase 8d's cells); it prints the card and one JSON line.
 """
 from __future__ import annotations
 
@@ -379,32 +388,32 @@ def phase_main_path(torch, np, smem_ns, traces, configs, full):
 PROF_SECTIONS = ("merge_keys", "merge_argmin", "merge_fetch", "read",
                  "persist_lookup", "occupancy", "victim_select",
                  "drain_policy", "state_writes", "stats", "other_ops",
-                 "bookkeeping")
+                 "bookkeeping", "chain_batch", "chain_read", "chain_fifo",
+                 "chain_match", "chain_alloc", "chain_writer",
+                 "chain_drain_rank", "chain_land")
 OP_NAMES = ("compute", "dram_read", "dram_write", "pm_read", "persist",
             "barrier")
 
 
-def phase_cell_scan_profile(torch, traces, configs, full):
-    """The section profile of a step: ``cell_scan.cu`` built with
-    ``-DCELL_SCAN_PROFILE`` (``_build.VARIANTS``) on the paper grid's
-    cholesky cells (the longest), exact against the main path's outputs.
-    Returns each scheme's ns per step by section and the uninstrumented
-    kernel's time on the same cells."""
+def profile_cells(torch, args, kw, got, sel, labels, libs=None):
+    """The section profile of a step on cells ``sel`` of the kernel's
+    inputs ``args``: ``cell_scan.cu`` built with ``-DCELL_SCAN_PROFILE``
+    (``_build.VARIANTS``) beside the uninstrumented build, both exact
+    against ``got`` (the main path's outputs; the lookup counts too).
+    ``libs``: the (uninstrumented, profile) libraries, the package's by
+    default.  Returns ``{label: {ns_per_step, total_ns_per_step, steps,
+    ops}}`` (sections with no cycles left out) and both kernel times."""
     import ctypes
-    from repro_torch.core import Scheme
     from repro_torch.kernels import _build
     from repro_torch.kernels import cell_scan as cs
-    args, kw, got, _ = full
-    i = [t.name for t in traces].index("cholesky")
-    sel = [k for k in range(len(traces) * len(configs))
-           if k // len(configs) == i]
+    plain_lib, prof_lib = libs or (_build.library("cell_scan"),
+                                   _build.library("cell_scan_profile"))
     sel_t = torch.tensor(sel, device="cuda")
     ins = [x.contiguous() for x in args]
     ins[4], ins[5] = ins[4][sel_t].contiguous(), ins[5][sel_t].contiguous()
-    lib = _build.library("cell_scan_profile")
     n_prof = len(PROF_SECTIONS) + len(OP_NAMES) + 1
     prof = torch.zeros((len(sel), n_prof), dtype=torch.int64, device="cuda")
-    fn = lib.cell_scan_set_profile
+    fn = prof_lib.cell_scan_set_profile
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p]
     _build.check(fn(prof.data_ptr()), "cell_scan_set_profile")
@@ -412,45 +421,64 @@ def phase_cell_scan_profile(torch, traces, configs, full):
     T, A = kw["n_tenants_max"], max(kw["n_track"], 1)
     outs = {}
 
-    def run(name):
+    def run(name, lib):
         out = cs._empty_out(len(sel), T, A, kw["n_deep_max"], "cuda")
-        _build.check(cs.launch(_build.library(name), ins, out,
-                               max_pbe=kw["max_pbe"],
+        _build.check(cs.launch(lib, ins, out, max_pbe=kw["max_pbe"],
                                pm_banks=kw["pm_banks"], n_track=kw["n_track"],
                                n_deep=kw["n_deep_max"], stream=stream),
                      f"{name} launch")
         outs[name] = out
-    prof_ms = cuda_ms(lambda: run("cell_scan_profile"), 1)
-    plain_ms = cuda_ms(lambda: run("cell_scan"), 1)
+    prof_ms = cuda_ms(lambda: run("profile", prof_lib), 1)
+    plain_ms = cuda_ms(lambda: run("uninstrumented", plain_lib), 1)
     want = cs.CellScanOut(*(x[sel_t] for x in got))
     for name, out in outs.items():
         for f in cs.CellScanOut._fields:
             if not torch_equal(getattr(out, f), getattr(want, f)):
-                fail(f"{name} on cholesky differs from the main path on {f}")
+                fail(f"{name} build on {labels} differs from the main path "
+                     f"on {f}")
     rows = prof.cpu().tolist()
     steps = [int(x) for x in want.steps.cpu().tolist()]
     ghz = max(r[-1] for r in rows) / (prof_ms * 1e6)
-    out = {}
-    for j, (row, n) in enumerate(zip(rows, steps)):
-        scheme = list(Scheme)[int(ins[5][j])].name
+    cells = {}
+    for label, row, n in zip(labels, rows, steps):
         sec = {name: row[k] / n / ghz
-               for k, name in enumerate(PROF_SECTIONS)}
-        ops = dict(zip(OP_NAMES, row[len(PROF_SECTIONS):-1]))
-        out[scheme] = dict(ns_per_step=sec, total_ns_per_step=row[-1] / n
-                           / ghz, steps=n, ops=ops)
-        print(f"phase 4 cell_scan section profile cholesky/{scheme}: {n} "
-              f"steps ({', '.join(f'{k} {v}' for k, v in ops.items())}); "
-              f"ns per step: "
-              + ", ".join(f"{k} {v:.1f}" for k, v in sec.items())
-              + f"; total {row[-1] / n / ghz:.1f} ns "
-              f"({row[-1] / n:.0f} cycles) per step")
-    print(f"phase 4 cell_scan profile: instrumented {prof_ms:.3f} ms, "
-          f"uninstrumented {plain_ms:.3f} ms on the 3 cholesky cells "
-          f"({plain_ms * 1e6 / max(steps):.1f} ns/step); SM clock "
-          f"{ghz:.3f} GHz from the loop's cycles over the instrumented "
-          f"time; both exact against the main path")
-    return dict(sections=out, ms=plain_ms, profiled_ms=prof_ms,
+               for k, name in enumerate(PROF_SECTIONS) if row[k]}
+        cells[label] = dict(ns_per_step=sec, total_ns_per_step=row[-1] / n
+                            / ghz, steps=n,
+                            ops=dict(zip(OP_NAMES, row[len(PROF_SECTIONS):-1])))
+    return dict(cells=cells, ms=plain_ms, profiled_ms=prof_ms,
                 ns_per_step=plain_ms * 1e6 / max(steps), ghz=ghz)
+
+
+def print_profile(phase, what, p):
+    for label, c in p["cells"].items():
+        print(f"phase {phase} cell_scan section profile {label}: "
+              f"{c['steps']} steps ("
+              + ", ".join(f"{k} {v}" for k, v in c["ops"].items())
+              + "); ns per step: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in c["ns_per_step"].items())
+              + f"; total {c['total_ns_per_step']:.1f} ns per step")
+    print(f"phase {phase} cell_scan profile: instrumented "
+          f"{p['profiled_ms']:.3f} ms, uninstrumented {p['ms']:.3f} ms on "
+          f"{what} ({p['ns_per_step']:.1f} ns/step); SM clock "
+          f"{p['ghz']:.3f} GHz from the loop's cycles over the instrumented "
+          f"time; both exact against the main path")
+
+
+def phase_cell_scan_profile(torch, traces, configs, full):
+    """The section profile of a depth-1 step on the paper grid's cholesky
+    cells (the longest)."""
+    from repro_torch.core import Scheme
+    args, kw, got, _ = full
+    i = [t.name for t in traces].index("cholesky")
+    sel = [k for k in range(len(traces) * len(configs))
+           if k // len(configs) == i]
+    labels = [f"cholesky/{list(Scheme)[int(args[5][k])].name}" for k in sel]
+    p = profile_cells(torch, args, kw, got, sel, labels)
+    print_profile(4, "the 3 cholesky cells", p)
+    return dict(sections={k.split("/")[1]: c for k, c in p["cells"].items()},
+                ms=p["ms"], profiled_ms=p["profiled_ms"],
+                ns_per_step=p["ns_per_step"], ghz=p["ghz"])
 
 
 # ---- phase 8: switch chains ----------------------------------------------
@@ -584,10 +612,10 @@ def phase_chains(torch, np, smem_ns):
     workloads x 3 schemes at n_switches 2-4 run through
     ``simulate_grid`` on the card (each with the launch counts zeroed
     just before and read just after), exact against
-    ``testdata/chain_ref.json`` (all of (a); (b)'s depth-3 PB and PB_RF
-    cells) and against the eager plain version (all of (a); lu_cont's
-    cells of (b)); then fuzzed crash cells at depths 1-3 on the card
-    against the port's untimed oracle."""
+    ``testdata/chain_ref.json`` (all 21 + 63 cells) and against the
+    eager plain version (all of (a); lu_cont's cells of (b)); (d) the
+    section profile of a chained step; then fuzzed crash cells at depths
+    1-3 on the card against the port's untimed oracle."""
     from repro_torch.core import Scheme, simulate_grid
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
@@ -657,10 +685,9 @@ def phase_chains(torch, np, smem_ns):
     n_datum = 0
     for i, n in enumerate(names):
         for j, (sname, n_sw) in enumerate(blabels):
-            if n_sw == 3 and sname != "NOPB":
-                same_as_datum(np, bcells[i][j], ref["grid_b"][n][sname],
-                              f"chained grid {n}/{sname}/3")
-                n_datum += 1
+            same_as_datum(np, bcells[i][j], ref["grid_b"][n][f"{sname}/{n_sw}"],
+                          f"chained grid {n}/{sname}/{n_sw}")
+            n_datum += 1
     bpairs = [(i, j) for i in range(len(traces))
               for j in range(len(bconfigs))]
     bargs, bkw = cell_inputs(traces, bconfigs, [p[0] for p in bpairs],
@@ -684,7 +711,7 @@ def phase_chains(torch, np, smem_ns):
     print(f"phase 8b simulate_grid (7 workloads x 3 schemes x n_switches "
           f"2-4, budget 100000, 63 cells) wall {wall_b:.3f} s; launches "
           f"{json.dumps(counts_b)}; exact against chain_ref.json on "
-          f"{n_datum} depth-3 PB/PB_RF cells and against the eager "
+          f"{n_datum} cells and against the eager "
           f"scan_cell on lu_cont's {len(sel)} cells ({bplain_s:.1f} s of "
           f"cells, {bpool_s:.1f} s wall over a pool); kernel {ms_b:.3f} ms, "
           f"longest cell {steps_b} steps ({ms_b * 1e6 / steps_b:.1f} "
@@ -702,6 +729,11 @@ def phase_chains(torch, np, smem_ns):
                          plain_s_lu_cont=bplain_s, pool_s=bpool_s,
                          bound_ms=bound_b, steps=steps_b,
                          steps_by_depth=per_depth, datum_cells=n_datum)
+
+    # (d) the section profile of a chained step
+    out["profile"] = chain_profile(
+        torch, (args, kw, got, labels), (bargs, bkw, bgot, bpairs, names,
+                                         blabels))
 
     # (c) fuzzed crash cells at depths 1-3 against the port's oracle
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -735,6 +767,149 @@ def phase_chains(torch, np, smem_ns):
     out["oracle_cells"] = n_cells
     out["max_abs_err"] = err
     return out
+
+
+def chain_profile(torch, fig1, grid_b, libs=None):
+    """Phase 8d: the section profile of a chained step on Fig. 1's PB/4
+    and PB_RF/4 cells and on cholesky's chained cells at n_switches 4,
+    exact against the main path's outputs (``fig1``: the sweep's inputs,
+    outputs and labels; ``grid_b``: the chained grid's, with its cell
+    pairs, workload names and labels)."""
+    args, kw, got, labels = fig1
+    sel = [labels.index((s, 4, False)) for s in ("PB", "PB_RF")]
+    pa = profile_cells(torch, args, kw, got, sel,
+                       [f"fig1/{s}/4" for s in ("PB", "PB_RF")], libs)
+    print_profile("8d", "Fig. 1's PB/4 and PB_RF/4 cells", pa)
+    bargs, bkw, bgot, bpairs, names, blabels = grid_b
+    sel = [k for k, (i, j) in enumerate(bpairs)
+           if names[i] == "cholesky" and blabels[j][1] == 4]
+    pb = profile_cells(torch, bargs, bkw, bgot, sel,
+                       [f"cholesky/{blabels[bpairs[k][1]][0]}/4"
+                        for k in sel], libs)
+    print_profile("8d", "cholesky's 3 cells at n_switches 4", pb)
+    return dict(fig1=pa, cholesky_4=pb)
+
+
+def build_against(path: str):
+    """The cell scan of another ``cell_scan.cu`` (an earlier revision's),
+    uninstrumented and with its section profile, built with the
+    package's flags into ``build/repro_torch/against/``; headers beside
+    ``path`` first, then the package's."""
+    import ctypes
+    from repro_torch.kernels import _build
+    out = _build.BUILD_DIR / "against"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in ("cell_scan", "cell_scan_profile"):
+        so = out / f"lib{name}.so"
+        procs.append((so, subprocess.Popen(
+            [_build._nvcc(), *_build.nvcc_flags(name), f"-I{_build.CSRC}",
+             "-o", str(so), path])))
+    for so, proc in procs:
+        if proc.wait() != 0:
+            fail(f"building {path} as {so.name} failed")
+    return tuple(ctypes.CDLL(str(so)) for so, _ in procs)
+
+
+def compare_against(torch, np, path: str) -> dict:
+    """``chip_smoke.py --against OLD.cu``: the package's cell scan beside
+    another source's on Fig. 1's sweep and the chained paper grid —
+    outputs equal (all but the lookup counts), kernel times in the order
+    other, this, this, other, and both section profiles (phase 8d's
+    cells)."""
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cell_scan as cs
+    other = build_against(path)
+    this = (_build.library("cell_scan"), _build.library("cell_scan_profile"))
+    tr, labels, configs = fig1_grid(np)
+    pairs = list(range(len(configs)))
+    args, kw = cell_inputs([tr], configs, [0] * len(pairs), pairs,
+                           device="cuda")
+    traces, blabels, bconfigs = chain_grid_b()
+    names = [t.name for t in traces]
+    bpairs = [(i, j) for i in range(len(traces))
+              for j in range(len(bconfigs))]
+    bargs, bkw = cell_inputs(traces, bconfigs, [p[0] for p in bpairs],
+                             [p[1] for p in bpairs], device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for grid, (a, k, n, reps) in (("fig1", (args, kw, len(pairs), 3)),
+                                  ("grid_b", (bargs, bkw, len(bpairs), 1))):
+        ins = [x.contiguous() for x in a]
+        outs = {}
+
+        def run(which, lib):
+            out = cs._empty_out(n, k["n_tenants_max"], max(k["n_track"], 1),
+                                k["n_deep_max"], "cuda")
+            _build.check(cs.launch(lib, ins, out, max_pbe=k["max_pbe"],
+                                   pm_banks=k["pm_banks"],
+                                   n_track=k["n_track"],
+                                   n_deep=k["n_deep_max"], stream=stream),
+                         f"{which} launch")
+            outs[which] = out
+        ms = {"other": [], "this": []}
+        for which in ("other", "this", "this", "other"):
+            lib = (other if which == "other" else this)[0]
+            ms[which].append(cuda_ms(lambda: run(which, lib), reps))
+        for f in cs.CellScanOut._fields:
+            if f != "lookups" and not torch_equal(getattr(outs["other"], f),
+                                                  getattr(outs["this"], f)):
+                fail(f"{grid}: {path} and the package's cell scan differ "
+                     f"on {f}")
+        steps = int(outs["this"].steps.max())
+        res[grid] = dict(ms=ms, steps=steps,
+                         ns_per_step={w: [t * 1e6 / steps for t in v]
+                                      for w, v in ms.items()},
+                         lookups={w: int(o.lookups.sum())
+                                  for w, o in outs.items()})
+        print(f"against {grid}: outputs equal on {n} cells; kernel ms "
+              f"other {ms['other']}, this {ms['this']} (order other, this, "
+              f"this, other); longest cell {steps} steps; lookups "
+              f"{res[grid]['lookups']}")
+        if grid == "fig1":
+            fig1 = {w: (args, kw, o, labels) for w, o in outs.items()}
+        else:
+            grid_b = {w: (bargs, bkw, o, bpairs, names, blabels)
+                      for w, o in outs.items()}
+    for which, libs in (("other", other), ("this", this)):
+        print(f"against: section profile of {which}")
+        res[f"profile_{which}"] = chain_profile(torch, fig1[which],
+                                                grid_b[which], libs)
+    res["depth1"] = depth1_profiles(torch)
+    return res
+
+
+def depth1_profiles(torch) -> dict:
+    """cholesky's depth-1 cells (NoPB, PB, PB_RF; Table I) through the
+    cell scan's D = 0 instantiation and through its D = 3 one (beside a
+    chained cell of a short trace), both profiled and equal: what the
+    chain's instantiation costs the hop-1 work."""
+    from repro_torch.core import PCSConfig, Scheme, make_trace
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.kernels import cell_scan as cs
+    tr = make_trace("cholesky", persist_budget=100_000)
+    short = make_trace("lu_cont", persist_budget=50)
+    configs = [PCSConfig(scheme=s) for s in Scheme]
+    res, outs = {}, {}
+    for name, traces, cfgs, pairs in (
+            ("D0", [tr], configs, [(0, 0), (0, 1), (0, 2)]),
+            ("D3", [tr, short],
+             configs + [PCSConfig(scheme=Scheme.PB, n_switches=4)],
+             [(0, 0), (0, 1), (0, 2), (1, 3)])):
+        args, kw = cell_inputs(traces, cfgs, [p[0] for p in pairs],
+                               [p[1] for p in pairs], device="cuda")
+        got = cs.cell_scan(*args, **kw)
+        outs[name] = got
+        p = profile_cells(torch, args, kw, got, [0, 1, 2],
+                          [f"cholesky/{s.name}/1 ({name})" for s in Scheme])
+        print_profile("against", f"cholesky's depth-1 cells ({name})", p)
+        res[name] = p
+    for f in ("runtime", "stats", "durable_ver", "n_recov", "steps"):
+        if not torch_equal(getattr(outs["D0"], f)[:3],
+                           getattr(outs["D3"], f)[:3]):
+            fail(f"depth-1 cells differ between D = 0 and D = 3 on {f}")
+    return res
 
 
 # ---- the model side: flash_attention, ssd_scan, serving ----------------
@@ -1427,6 +1602,11 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    if len(sys.argv) == 3 and sys.argv[1] == "--against":
+        _build.build_all(("cell_scan", "cell_scan_profile"))
+        print(json.dumps({"against": compare_against(torch, np,
+                                                     sys.argv[2])}))
+        return 0
     t0 = time.time()
     sources = _build.SOURCES + ("smem_probe",) + tuple(_build.VARIANTS)
     _build.build_all(sources)           # one nvcc per source, all at once
@@ -1509,6 +1689,9 @@ def main() -> int:
              chained_grid_latency_bound_ms=chains["grid_b"]["steps"]
              * smem_ns / 1e6,
              chained_grid_wall_s=chains["grid_b"]["wall_s"],
+             chain_section_ns_per_step={
+                 k: {c: v["ns_per_step"] for c, v in p["cells"].items()}
+                 for k, p in chains["profile"].items()},
              oracle_cells=chains["oracle_cells"]),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",

@@ -53,16 +53,21 @@
 // None of this changes an f64 expression or its order.
 //
 // The chain (struct Chain): the deep rows live in shared memory, a lane
-// owning slot lane + 32 j of each row as on hop 1, and the deep lookups
-// are ballots through tat_match.cuh.  A hop-1 drain batch (the victim,
-// then the policy drains) walks the rows as a list of its active
-// packets in wire order; the per-packet recurrences (the FIFO service's
-// closed form, the rank of each allocation, the per-bank burst order at
-// PM) run on lane 0, the per-slot updates on the owning lanes.  Where
-// the reference's vectorised form decides a result through the packets
-// it carries inactive — an origin's ack written by the batch's last
-// block only (XLA's in-order scatter), the commit-latency sum in XLA's
-// chunk order — the list keeps each packet's position in that batch.
+// owning slot lane + 32 j of each row as on hop 1.  A hop-1 drain batch
+// (the victim, then the policy drains) walks the rows as a list of its
+// active packets in wire order, 32 packets at a time, one a lane: the
+// reference's per-packet recurrences become warp operations (the FIFO
+// service's running max a shuffle scan, allocation ranks and the bypass
+// list ballot prefix counts, the per-bank burst order a ballot per
+// bank), and a batch of one packet — most of them — is evaluated on
+// every lane at once with no warp operation but its match.  The deep
+// lookups go through tat_match.cuh: a read's candidates of every deep
+// row fold into one key and one warp reduction finds the shallowest.
+// Where the reference's vectorised form decides a result through the
+// packets it carries inactive — an origin's ack written by the batch's
+// last block only (XLA's in-order scatter), the commit-latency sum in
+// XLA's chunk order — the list keeps each packet's position in that
+// batch.  No f64 expression changes its form or order.
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
@@ -72,20 +77,35 @@
 // main path): every lane adds the clock64() cycles since its last mark
 // to the section named at each mark; lane 0 writes, per cell, the
 // cycles of each section, the steps of each op kind and the loop's
-// total cycles to g_prof (cell_scan_set_profile).
+// total cycles to g_prof (cell_scan_set_profile).  The SEC_C_* sections
+// are the switch chain's (D > 0): building a hop-1 batch, the deep read
+// (its loads count in SEC_READ), and per deep row the FIFO service with
+// the row's and the batch's loads, the coalesce match (a lone packet's
+// counts in the next), allocation, gates, acks and bypass, the writers'
+// hand-off and the row after the batch, the drain rank with the row's
+// write-back, and the PM landing.
 enum ProfSection {
   SEC_KEYS, SEC_ARGMIN, SEC_FETCH, SEC_READ, SEC_LOOKUP, SEC_OCC,
-  SEC_SELECT, SEC_DRAIN, SEC_WRITE, SEC_STATS, SEC_OTHER, SEC_BOOK, N_SEC
+  SEC_SELECT, SEC_DRAIN, SEC_WRITE, SEC_STATS, SEC_OTHER, SEC_BOOK,
+  SEC_C_BATCH, SEC_C_READ, SEC_C_FIFO, SEC_C_MATCH, SEC_C_ALLOC,
+  SEC_C_WRITER, SEC_C_DRANK, SEC_C_LAND, N_SEC
 };
 constexpr int N_OPS = 6, N_PROF = N_SEC + N_OPS + 1;
 #ifdef CELL_SCAN_PROFILE
 __device__ long long* g_prof;
-#define PROF(sec)                         \
-  do {                                    \
-    const long long now_ = clock64();     \
-    prof_acc[sec] += now_ - prof_t;       \
-    prof_t = now_;                        \
-  } while (0)
+struct Prof {
+  long long acc[N_SEC], t;
+};
+__device__ __forceinline__ void prof_mark(Prof& p, int sec) {
+  const long long now = clock64();
+  p.acc[sec] += now - p.t;
+  p.t = now;
+}
+__device__ __forceinline__ void prof_mark(Prof* p, int sec) {
+  prof_mark(*p, sec);
+}
+// `prof`: the kernel's Prof, or the Chain's pointer to it
+#define PROF(sec) prof_mark(prof, sec)
 #else
 #define PROF(sec) \
   do {            \
@@ -305,26 +325,28 @@ __device__ __forceinline__ Smem rebase(Smem m, unsigned char* base) {
 
 // ---- the switch chain (engine/chain.py) ----------------------------------
 // The deep-hop rows of switches 2 .. D+1 (row j = switch j+2; slot s of
-// a row is owned by lane s % 32, as on hop 1), their PBC clocks and
-// telemetry rows, the chain's config row, and two packet lists.  A list
-// holds a batch's *active* packets in wire order, each with its position
-// in the reference's full batch (the inactive packets it carries decide
-// only the order of the commit-latency sum, through the positions); the
-// per-packet scratch holds one row's service times and outcome.
+// a row is owned by lane s % 32, as on hop 1), the chain's config row,
+// two packet lists, and per-slot and per-bank scratch.  A list holds a
+// batch's *active* packets in wire order, each with its position in the
+// reference's full batch (the inactive packets it carries decide only
+// the order of the commit-latency sum, through the positions).  The
+// writer scratch (w*) holds, per slot of the row being placed, the
+// packet that writes it (wflag 0: none); the bank scratch, per PM bank,
+// the latest burst end of a landing (f64 bits; both are all zero
+// between uses).
 struct ChainSmem {
-  double *dlru, *ddd, *dwt, *hpbc, *hop, *csc, *pmb, *bnew, *vack, *t0,
-      *t_row, *emit0, *emit1, *klass, *commit;
+  double *dlru, *ddd, *dwt, *csc, *vack, *emit0, *emit1, *wcommit;
   int *dtag, *dver, *pos0, *pos1, *oslot0, *oslot1, *addr0, *addr1, *ver0,
-      *ver1, *slot, *elist, *bcnt, *n0, *n1;
-  signed char *dstate, *downer, *ohop0, *ohop1, *own0, *own1, *flag;
+      *ver1, *wver, *waddr, *bcnt;
+  unsigned long long* bnew;
+  signed char *dstate, *downer, *ohop0, *ohop1, *own0, *own1, *wflag, *wown;
 };
 
 #define CHAIN_FIELDS(X)                                                     \
-  X(dlru) X(ddd) X(dwt) X(hpbc) X(hop) X(csc) X(pmb) X(bnew) X(vack) X(t0)  \
-  X(t_row) X(emit0) X(emit1) X(klass) X(commit) X(dtag) X(dver) X(pos0)    \
-  X(pos1) X(oslot0) X(oslot1) X(addr0) X(addr1) X(ver0) X(ver1) X(slot)    \
-  X(elist) X(bcnt) X(n0) X(n1) X(dstate) X(downer) X(ohop0) X(ohop1)       \
-  X(own0) X(own1) X(flag)
+  X(dlru) X(ddd) X(dwt) X(csc) X(vack) X(emit0) X(emit1) X(wcommit) X(dtag) \
+  X(dver) X(pos0) X(pos1) X(oslot0) X(oslot1) X(addr0) X(addr1) X(ver0)    \
+  X(ver1) X(wver) X(waddr) X(bcnt) X(bnew) X(dstate) X(downer) X(ohop0)    \
+  X(ohop1) X(own0) X(own1) X(wflag) X(wown)
 
 // The chain's arrays after the depth-1 carve-up (which ends at `off`);
 // returns the end.  Q = (D + 1) P packets hold any batch.
@@ -335,18 +357,11 @@ __host__ __device__ size_t carve_chain(ChainSmem& c, unsigned char* base,
   c.dlru = cv.take<double>(DP);
   c.ddd = cv.take<double>(DP);
   c.dwt = cv.take<double>(DP);
-  c.hpbc = cv.take<double>(D);
-  c.hop = cv.take<double>(static_cast<size_t>(D) * N_HOP_STATS);
   c.csc = cv.take<double>(N_CH + N_DK * D);
-  c.pmb = cv.take<double>(B);
-  c.bnew = cv.take<double>(B);
   c.vack = cv.take<double>(1);
-  c.t0 = cv.take<double>(1);
-  c.t_row = cv.take<double>(1);
   c.emit0 = cv.take<double>(Q);
   c.emit1 = cv.take<double>(Q);
-  c.klass = cv.take<double>(Q);
-  c.commit = cv.take<double>(Q);
+  c.wcommit = cv.take<double>(P);
   c.dtag = cv.take<int>(DP);
   c.dver = cv.take<int>(DP);
   c.pos0 = cv.take<int>(Q);
@@ -357,18 +372,18 @@ __host__ __device__ size_t carve_chain(ChainSmem& c, unsigned char* base,
   c.addr1 = cv.take<int>(Q);
   c.ver0 = cv.take<int>(Q);
   c.ver1 = cv.take<int>(Q);
-  c.slot = cv.take<int>(Q);
-  c.elist = cv.take<int>(P);
+  c.wver = cv.take<int>(P);
+  c.waddr = cv.take<int>(P);
   c.bcnt = cv.take<int>(B);
-  c.n0 = cv.take<int>(1);
-  c.n1 = cv.take<int>(1);
+  c.bnew = cv.take<unsigned long long>(B);
   c.dstate = cv.take<signed char>(DP);
   c.downer = cv.take<signed char>(DP);
   c.ohop0 = cv.take<signed char>(Q);
   c.ohop1 = cv.take<signed char>(Q);
   c.own0 = cv.take<signed char>(Q);
   c.own1 = cv.take<signed char>(Q);
-  c.flag = cv.take<signed char>(Q);
+  c.wflag = cv.take<signed char>(P);
+  c.wown = cv.take<signed char>(P);
   return cv.off;
 }
 
@@ -381,15 +396,25 @@ __device__ __forceinline__ ChainSmem rebase_chain(ChainSmem c,
   return c;
 }
 
-// One packet list: active packets in wire order.
-struct Pkts {
-  int *pos, *oslot, *addr, *ver, *n;
-  double* emit;
-  signed char *ohop, *owner;
+// One packet of a list, in a lane's registers.
+struct Pkt {
+  double emit;
+  int pos, oslot, addr, ver, ohop;
+  signed char owner;
 };
 
-// Per-packet outcome bits of one row (ChainSmem::flag).
-constexpr int F_CO = 1, F_PLACED = 2, F_GATE = 4;
+// One packet list: active packets in wire order.
+struct Pkts {
+  int *pos, *oslot, *addr, *ver;
+  double* emit;
+  signed char *ohop, *owner;
+  __device__ Pkt at(int q) const {
+    return Pkt{emit[q], pos[q], oslot[q], addr[q], ver[q], ohop[q], owner[q]};
+  }
+};
+
+// The writer of a slot (ChainSmem::wflag): a coalesce or an allocation.
+constexpr int F_CO = 1, F_PLACED = 2;
 
 // The reference's commit-latency sum is an f64 sum over the Q packets of
 // a batch, in XLA's CPU order (chain.py::xla_sum): chunks summed left to
@@ -403,8 +428,11 @@ struct ChunkSum {
     const int r = Q - 32 * m;
     first = Q <= 32 ? Q : (r + 1) / 2;
   }
-  __host__ __device__ void add(int pos, double v) {
-    const int ch = pos < first ? 0 : 1 + min((pos - first) / 32, m);
+  __host__ __device__ int chunk_of(int pos) const {
+    return pos < first ? 0 : 1 + min((pos - first) / 32, m);
+  }
+  // the addend v at a position of chunk ch, after those before it
+  __host__ __device__ void add_in(int ch, double v) {
     if (ch != chunk) {
       total += part;
       part = 0.0;
@@ -412,14 +440,54 @@ struct ChunkSum {
     }
     part += v;
   }
+  __host__ __device__ void add(int pos, double v) { add_in(chunk_of(pos), v); }
   __host__ __device__ double sum() const { return total + part; }
 };
 
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+// The k-th (from 0) set bit of m, which has more than k.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
+  int base = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      base += w;
+    }
+  }
+  return base;
+}
+
+// The largest v over lanes 0 .. cnt-1 (the others hold -INF), on every
+// lane: the butterfly's rounds stop at the first power of two >= cnt.
+__device__ __forceinline__ double warp_max_n(double v, int cnt) {
+  for (int off = 1; off < cnt; off <<= 1)
+    v = fmax(v, __shfl_xor_sync(FULL, v, off));
+  return __shfl_sync(FULL, v, 0);
+}
+
 // The chain's forwarding for one cell: forward_chain, its _place and
 // _pm_land, and deep_read (engine/chain.py), over the deep rows in
-// shared memory.  Every lane calls every method together; sequential
-// per-packet work runs on lane 0 between __syncwarp()s, per-slot work on
-// the owning lanes.  `pm_ver` is the cell's durable-version row (global).
+// shared memory.  Every lane calls every method together.  A batch is
+// walked in tiles of 32 packets, packet base + l on lane l, and each
+// per-packet recurrence of the reference is a warp operation on the
+// tile: the FIFO service's running max a shuffle scan, the allocation
+// ranks and the bypass list a ballot prefix count, the coalesce matches
+// a ballot per packet or a shuffle per Dirty slot (the shorter loop),
+// each slot's writer staged in shared memory for the owning lane, the
+// per-bank burst order at PM a ballot per bank present; what crosses a
+// tile is carried.  A batch of at most one packet is held by every lane
+// and needs none of this.  Per-slot work runs on the owning lanes.  Only
+// the commit-latency sum stays in order, packet by packet (its order is
+// the reference's).  Lane j holds row j's PBC clock, lane l the deep
+// rows' telemetry value l, and lane b bank b's PM clock during a
+// forward, so none of them passes through shared memory.  `pm_ver` is
+// the cell's durable-version row (global).
 template <int SPL, int D>
 struct Chain {
   ChainSmem c;
@@ -427,200 +495,401 @@ struct Chain {
   Banks bank_of;
   double crash, n_sw, hop_ns, link_ns, pbc_occ, pbc_proc, w_occ, nvm_write;
   int* pm_ver;
+  int live_rows, pbe[D > 0 ? D : 1];  // rows of switches 2 .. n_sw; capacities
+  double hpbc_r = 0.0, hop_r = 0.0, pmb_r = 0.0;
+#ifdef CELL_SCAN_PROFILE
+  Prof* prof;
+#endif
 
   __device__ double deep(int key, int j) const { return c.csc[N_CH + key * D + j]; }
   __device__ int idx(int j, int s) const { return j * P + s; }
   __device__ Pkts list(int which) const {
-    return which == 0 ? Pkts{c.pos0, c.oslot0, c.addr0, c.ver0, c.n0,
-                             c.emit0, c.ohop0, c.own0}
-                      : Pkts{c.pos1, c.oslot1, c.addr1, c.ver1, c.n1,
-                             c.emit1, c.ohop1, c.own1};
+    return which == 0 ? Pkts{c.pos0, c.oslot0, c.addr0, c.ver0, c.emit0,
+                             c.ohop0, c.own0}
+                      : Pkts{c.pos1, c.oslot1, c.addr1, c.ver1, c.emit1,
+                             c.ohop1, c.own1};
+  }
+  // telemetry value k of deep row j (hop j + 2) += v
+  __device__ void hop_add(int j, int k, double v) {
+    if (lane == j * N_HOP_STATS + k) hop_r += v;
   }
 
-  // _pm_land at switch `pos_sw`: the list lands at PM (per-bank burst
-  // order, the pm_busy scratch c.pmb); the acks of the batch's last
-  // block (`last`, >= 1) go to deep row last-1.  Returns the writes.
-  __device__ double land(const Pkts& b, int pos_sw, int last) {
-    const int n = *b.n;
-    if (lane == 0) {
-      const double rem = fmax(n_sw - static_cast<double>(pos_sw), 0.0);
-      const double path_down = link_ns + rem * hop_ns;
-      for (int k = 0; k < B; ++k) {
-        c.bcnt[k] = 0;
-        c.bnew[k] = 0.0;
+  // _pm_land at switch `pos_sw`: the list's n packets land at PM
+  // (per-bank burst order, the banks' clocks on lanes < B); the acks of
+  // the batch's last block (`last`, >= 1) go to deep row last-1.
+  // Returns the writes.
+  __device__ double land(const Pkts& b, int n, int pos_sw, int last) {
+    const double rem = fmax(n_sw - static_cast<double>(pos_sw), 0.0);
+    const double path_down = link_ns + rem * hop_ns;
+    const bool tiled = n > 32;  // ranks carried from tile to tile
+    Pkt pk = b.at(lane < n ? lane : 0);
+    if (n == 1) {  // one packet, held by every lane
+      const int bk = bank_of(pk.addr);
+      const double start =
+          fmax(__shfl_sync(FULL, pmb_r, bk), pk.emit + path_down) +
+          static_cast<double>(0) * w_occ;
+      const double path_up =
+          link_ns + fmax(n_sw - static_cast<double>(pk.ohop + 1), 0.0) * hop_ns;
+      const double dd_val = start + nvm_write + path_up;
+      if (lane == 0) {
+        if (dd_val <= crash && pk.addr >= 0 && pk.addr < n_track)
+          atomicMax(&pm_ver[clampi(pk.addr, 0, A - 1)], pk.ver);
+        if (pk.ohop == last) c.ddd[idx(last - 1, pk.oslot)] = dd_val;
       }
-      for (int q = 0; q < n; ++q) {
-        const double arr = b.emit[q] + path_down;
-        const int bk = bank_of(b.addr[q]);
-        const int rank_b = c.bcnt[bk]++;
-        const double start =
-            fmax(c.pmb[bk], arr) + static_cast<double>(rank_b) * w_occ;
-        const double path_up =
-            link_ns + fmax(n_sw - static_cast<double>(b.ohop[q] + 1), 0.0) *
-                          hop_ns;
-        const double dd_val = start + nvm_write + path_up;
-        c.bnew[bk] = fmax(c.bnew[bk], start + w_occ);
-        const int ad = b.addr[q];
+      const double end = start + w_occ;
+      if (lane < B)
+        pmb_r = fmax(pmb_r, lane == bk ? (end > 0.0 ? end : 0.0) : 0.0);
+      PROF(SEC_C_LAND);
+      return 1.0;
+    }
+    for (int base = 0; base < n; base += 32) {
+      const int q = base + lane;
+      const bool act = q < n;
+      const int ad = pk.addr, ver = pk.ver, oslot = pk.oslot, ohop = pk.ohop;
+      const double arr = pk.emit + path_down;
+      const int bk = bank_of(ad);
+      // rank_b: the packets of the same bank before this one, a ballot
+      // per bank present (B <= 32)
+      unsigned same = 0;
+      for (unsigned pres = __reduce_or_sync(FULL, act ? 1u << bk : 0u); pres;
+           pres &= pres - 1) {
+        const int bq = __ffs(pres) - 1;
+        const unsigned m = __ballot_sync(FULL, act && bk == bq);
+        if (bk == bq) same = m;
+      }
+      int rank_b = __popc(same & lanes_below(lane));
+      if (tiled) rank_b += c.bcnt[bk];
+      const double start = fmax(__shfl_sync(FULL, pmb_r, bk), arr) +
+                           static_cast<double>(rank_b) * w_occ;
+      const double path_up =
+          link_ns + fmax(n_sw - static_cast<double>(ohop + 1), 0.0) * hop_ns;
+      const double dd_val = start + nvm_write + path_up;
+      if (act) {
+        // the bank's new clock: the latest burst end, as ordered f64 bits
+        // of a value >= +0 (the reference's max starts from 0.0)
+        const double end = start + w_occ;
+        atomicMax(&c.bnew[bk], static_cast<unsigned long long>(
+                                   __double_as_longlong(end > 0.0 ? end : 0.0)));
         if (dd_val <= crash && ad >= 0 && ad < n_track)
-          atomicMax(&pm_ver[clampi(ad, 0, A - 1)], b.ver[q]);
-        if (b.ohop[q] == last) c.ddd[idx(last - 1, b.oslot[q])] = dd_val;
+          atomicMax(&pm_ver[clampi(ad, 0, A - 1)], ver);
+        // an origin slot is named once per origin row in a batch
+        if (ohop == last) c.ddd[idx(last - 1, oslot)] = dd_val;
       }
-      for (int k = 0; k < B; ++k) c.pmb[k] = fmax(c.pmb[k], c.bnew[k]);
+      if (tiled) {
+        __syncwarp();
+        if (act && lane == 31 - __clz(same)) c.bcnt[bk] = rank_b + 1;
+        __syncwarp();
+        pk = b.at(q + 32 < n ? q + 32 : 0);
+      }
     }
     __syncwarp();
+    if (lane < B) {
+      pmb_r = fmax(pmb_r, __longlong_as_double(
+                              static_cast<long long>(c.bnew[lane])));
+      c.bnew[lane] = 0ull;
+      if (tiled) c.bcnt[lane] = 0;
+    }
+    PROF(SEC_C_LAND);
     return static_cast<double>(n);
   }
 
-  // _place into row j of list `b` (Q packets in the full batch), its own
-  // drain-down, and the next list `nx`.  Row 0's acks go to the hop-1 dd
-  // sink (`dd1`, or the single slot `*dd1` when `single`).
-  __device__ void place(int j, int scheme, const Pkts& b, int Q,
-                        const Pkts& nx, double* dd1, bool single,
-                        long long& lookups) {
-    const int n = *b.n;
+  // fifo_service for the packets of one tile (packet q on this lane,
+  // cnt of the tile's lanes active): start_q = occ*q + max(busy,
+  // cummax(arr - occ*rank)), the running max a shuffle scan carried in
+  // `run` from the tiles before.
+  __device__ double fifo_start(double emit, bool act, int q, int cnt,
+                               double busy, double& run) const {
+    const double rank = static_cast<double>(q);
+    const double arr = emit + hop_ns;
+    double x = act ? arr - pbc_occ * rank : -INF;
+    for (int d = 1; d < cnt; d <<= 1) {
+      const double y = __shfl_up_sync(FULL, x, d);
+      if (lane >= d) x = fmax(x, y);
+    }
+    x = fmax(run, x);
+    if (cnt == 32) run = __shfl_sync(FULL, x, 31);  // on to the next tile
+    return pbc_occ * rank + fmax(x, busy);
+  }
+
+  // _place of the list's n packets (Q in the full batch) into row j, its
+  // own drain-down, and the next list `nx`; returns the next list's
+  // count.  Row 0's acks go to the hop-1 dd sink (`dd1`, or the single
+  // slot `*dd1` when `single`).
+  __device__ int place(int j, int scheme, const Pkts& b, int n, int Q,
+                       const Pkts& nx, double* dd1, bool single,
+                       long long& lookups) {
     const double tag_j = deep(DK_TAG, j), data_j = deep(DK_DATA, j);
     const int pbe_j = static_cast<int>(deep(DK_PBE, j));
-    // fifo_service: start_q = occ*rank_q + max(busy, cummax(arr - occ*rank))
-    if (lane == 0) {
-      const double busy = c.hpbc[j];
-      double run = -INF, busy_after = busy, t0 = INF;
-      for (int q = 0; q < n; ++q) {
-        const double rank = static_cast<double>(q);
-        const double arr = b.emit[q] + hop_ns;
-        run = fmax(run, arr - pbc_occ * rank);
-        const double start = pbc_occ * rank + fmax(run, busy);
-        const double klass = start + pbc_proc + tag_j;
-        c.klass[q] = klass;
-        c.commit[q] = klass + data_j;
-        busy_after = fmax(busy_after, start + pbc_occ);
-        t0 = fmin(t0, klass);
-      }
-      c.hpbc[j] = busy_after;
-      // lazy free observed once, at the batch head
-      *c.t0 = n > 0 ? t0 : -INF;
-    }
-    __syncwarp();
-    const double t0 = *c.t0;
-    signed char st0[SPL];
-    int tg[SPL];
-    bool emp[SPL];
+    const double busy = __shfl_sync(FULL, hpbc_r, j);
+    // the batch's first tile, and the row as the batch finds it
+    Pkt pk = b.at(lane < n ? lane : 0);
+    const double emit0 = b.emit[0];
+    signed char v0[SPL], own0[SPL];
+    int tg[SPL], dv[SPL];
+    double ddv[SPL], lru0[SPL], wt0[SPL];
+    bool dirty0[SPL];
 #pragma unroll
     for (int jj = 0; jj < SPL; ++jj) {
-      const int s = lane + 32 * jj, sp = s < P ? s : 0;
-      const int v = c.dstate[idx(j, sp)];
-      st0[jj] = static_cast<signed char>(
-          (v == DRAIN && c.ddd[idx(j, sp)] <= t0) ? EMPTY : v);
-      tg[jj] = c.dtag[idx(j, sp)];
-      emp[jj] = s < pbe_j && st0[jj] == EMPTY;
+      const int s = lane + 32 * jj, i = idx(j, s < P ? s : 0);
+      v0[jj] = c.dstate[i];
+      tg[jj] = c.dtag[i];
+      ddv[jj] = c.ddd[i];
+      dv[jj] = c.dver[i];
+      own0[jj] = c.downer[i];
+      lru0[jj] = c.dlru[i];
+      wt0[jj] = c.dwt[i];
+      dirty0[jj] = s < pbe_j && v0[jj] == DIRTY;
     }
-    // coalesce matches: the tat_match routine over the row, a packet at
-    // a time (each hop holds at most one Dirty entry per line)
-    for (int q = 0; q < n; ++q) {
-      const int ad = b.addr[q];
-      bool hit[SPL];
-#pragma unroll
-      for (int jj = 0; jj < SPL; ++jj)
-        hit[jj] = lane + 32 * jj < pbe_j && tg[jj] == ad && st0[jj] == DIRTY;
-      const int co = tat_first(hit, tiles);
-      ++lookups;
-      if (lane == 0) {
-        c.slot[q] = co;
-        c.flag[q] = co >= 0 ? F_CO : 0;
+    // lazy free observed once, at the batch head: the least classify
+    // time.  While pbc_occ >= 0 the FIFO's starts never decrease (each is
+    // a sum of two non-decreasing terms, rounded monotonically), so that
+    // is packet 0's, evaluated here as its own lane evaluates it.
+    double run0 = -INF;
+    const double start0 = fifo_start(emit0, true, 0, 1, busy, run0);
+    double t0 = -INF;
+    if (n > 0) {
+      if (pbc_occ >= 0.0) {
+        t0 = start0 + pbc_proc + tag_j;
+      } else {
+        double run = -INF, mn = INF;
+        for (int base = 0; base < n; base += 32) {
+          const int q = base + lane;
+          const bool act = q < n;
+          const double st = fifo_start(b.emit[act ? q : 0], act, q,
+                                       min(n - base, 32), busy, run);
+          mn = fmin(mn, act ? st + pbc_proc + tag_j : INF);
+        }
+        for (int off = 16; off > 0; off >>= 1)
+          mn = fmin(mn, __shfl_xor_sync(FULL, mn, off));
+        t0 = mn;
       }
     }
-    // Empty slots by rank: elist[e] = the e-th Empty slot
+    // the Empty slots after the lazy free, by rank (a mask per tile)
+    signed char st0[SPL];
+    unsigned emask[SPL];
     int n_empty = 0;
 #pragma unroll
     for (int jj = 0; jj < SPL; ++jj) {
-      if (jj >= tiles) break;
-      const unsigned bits = __ballot_sync(FULL, emp[jj]);
-      if (emp[jj]) c.elist[n_empty + __popc(bits & ((1u << lane) - 1u))] =
-          lane + 32 * jj;
-      n_empty += __popc(bits);
+      const int s = lane + 32 * jj;
+      st0[jj] = static_cast<signed char>(
+          (v0[jj] == DRAIN && ddv[jj] <= t0) ? EMPTY : v0[jj]);
+      emask[jj] = jj < tiles ? __ballot_sync(FULL, s < pbe_j && st0[jj] == EMPTY)
+                             : 0u;
+      n_empty += __popc(emask[jj]);
     }
-    __syncwarp();
-    if (lane == 0) {
-      int arank = 0, nb = 0, ended_cnt = 0, co_cnt = 0, by_cnt = 0;
-      ChunkSum fwd_sum(Q);
-      double t_row = -INF;
-      for (int q = 0; q < n; ++q) {
-        int f = c.flag[q];
-        if (!(f & F_CO)) {
-          const bool placed = arank < n_empty;
-          c.slot[q] = placed ? c.elist[arank] : -1;
-          f |= placed ? F_PLACED : 0;
-          ++arank;
+    auto empty_slot = [&](int e) {  // the e-th Empty slot (e < n_empty)
+      int s = -1;
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) {
+        const int cnt = __popc(emask[jj]);
+        if (s < 0 && e < cnt) s = 32 * jj + nth_set_bit(emask[jj], e);
+        e -= cnt;
+      }
+      return s;
+    };
+    PROF(SEC_C_FIFO);
+    // the batch's outcome: each lane's slots' writers (wf: F_CO or
+    // F_PLACED, 0 for none), the row's telemetry and clocks, and the
+    // bypass list's length
+    int wf[SPL], wv[SPL], wa[SPL];
+    signed char wo[SPL];
+    double wc[SPL];
+    int nb = 0, n_ended = 0, n_co = 0, n_by = 0;
+    ChunkSum fwd_sum(Q);
+    double busy_after = busy, t_row = 0.0;
+    if (n <= 1) {
+      // at most one packet, held by every lane: the reference's
+      // expressions for it need no warp operation but the match
+      const bool one = n == 1;
+      const double start = start0;
+      const double klass = start + pbc_proc + tag_j;
+      const double cm = klass + data_j;
+      bool hit[SPL];
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) hit[jj] = dirty0[jj] && tg[jj] == pk.addr;
+      const int co = one ? tat_first(hit, tiles) : -1;
+      const bool placed = one && co < 0 && n_empty > 0;
+      const bool ended = co >= 0 || placed;
+      int slot = co;
+#pragma unroll
+      for (int jj = SPL - 1; jj >= 0; --jj)  // the first Empty slot
+        if (placed && emask[jj]) slot = 32 * jj + __ffs(emask[jj]) - 1;
+      const bool gate = one && cm <= crash;
+      n_ended = ended && gate;
+      n_co = co >= 0 && gate;
+      n_by = !ended && gate;
+      if (ended && gate) fwd_sum.add(pk.pos, cm - pk.emit);
+      if (one) busy_after = fmax(busy, start + pbc_occ);
+      t_row = fmax(ended && gate ? cm : -INF, 0.0);
+      if (lane == 0 && ended && pk.ohop == j) {
+        const double dd_val =
+            cm + (static_cast<double>(j + 2) -
+                  (static_cast<double>(pk.ohop) + 1.0)) * hop_ns;
+        if (j == 0)
+          dd1[single ? 0 : pk.oslot] = dd_val;
+        else
+          c.ddd[idx(j - 1, pk.oslot)] = dd_val;
+      }
+      if (one && !ended) {
+        if (lane == 0) {
+          nx.pos[0] = pk.pos;
+          nx.oslot[0] = pk.oslot;
+          nx.addr[0] = pk.addr;
+          nx.ver[0] = pk.ver;
+          nx.owner[0] = pk.owner;
+          nx.ohop[0] = static_cast<signed char>(pk.ohop);
+          nx.emit[0] = klass;
         }
-        const double cm = c.commit[q];
-        const bool gate = cm <= crash;
-        f |= gate ? F_GATE : 0;
-        c.flag[q] = static_cast<signed char>(f);
-        const bool ended = f & (F_CO | F_PLACED);
-        if (ended && gate) {
-          ++ended_cnt;
-          fwd_sum.add(b.pos[q], cm - b.emit[q]);
-          t_row = fmax(t_row, cm);
+        nb = 1;
+      }
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) {
+        wf[jj] = ended && gate && lane + 32 * jj == slot
+                     ? (co >= 0 ? F_CO : F_PLACED) : 0;
+        wv[jj] = pk.ver;
+        wa[jj] = pk.addr;
+        wo[jj] = pk.owner;
+        wc[jj] = cm;
+      }
+      lookups += n;
+      PROF(SEC_C_ALLOC);
+    } else {
+      // a tile at a time
+      double run = -INF, ba = -INF, tr = -INF;
+      int a_carry = 0;
+      for (int base = 0; base < n; base += 32) {
+        const int q = base + lane, cnt = min(n - base, 32);
+        const bool act = q < n;
+        const double emit = pk.emit;
+        const int ad = pk.addr, ver = pk.ver, pos = pk.pos, oslot = pk.oslot;
+        const int ohop = pk.ohop;
+        const signed char own = pk.owner;
+        const double start = fifo_start(emit, act, q, cnt, busy, run);
+        const double klass = start + pbc_proc + tag_j;
+        const double cm = klass + data_j;
+        if (act) ba = fmax(ba, start + pbc_occ);
+        PROF(SEC_C_FIFO);
+        // coalesce match: the lowest Dirty slot holding the line, every
+        // packet at once
+        const int co = tat_first_each(ad, tg, dirty0, tiles);
+        PROF(SEC_C_MATCH);
+        // allocation: the e-th packet that did not coalesce takes the e-th
+        // Empty slot, if there is one
+        const bool alloc = act && co < 0;
+        const unsigned am = __ballot_sync(FULL, alloc);
+        const int arank = a_carry + __popc(am & lanes_below(lane));
+        a_carry += __popc(am);
+        const bool placed = alloc && arank < n_empty;
+        const bool ended = act && (co >= 0 || placed);
+        const int slot = co >= 0 ? co : (placed ? empty_slot(arank) : -1);
+        const bool gate = act && cm <= crash;
+        const unsigned gm = __ballot_sync(FULL, ended && gate);
+        n_ended += __popc(gm);
+        n_co += __popc(__ballot_sync(FULL, co >= 0 && gate));
+        n_by += __popc(__ballot_sync(FULL, !ended && gate));
+        if (ended && gate) tr = fmax(tr, cm);
+        // the commit-latency sum, in list order
+        const int ch = fwd_sum.chunk_of(pos);
+        const double lat = cm - emit;
+        for (unsigned bits = gm; bits; bits &= bits - 1) {
+          const int l = __ffs(bits) - 1;
+          fwd_sum.add_in(__shfl_sync(FULL, ch, l), __shfl_sync(FULL, lat, l));
         }
-        co_cnt += (f & F_CO) && gate;
-        by_cnt += !ended && gate;
-        // the acks of the batch's last block (row 0: the hop-1 origins)
-        if (ended && b.ohop[q] == j) {
+        // the acks of the batch's last block (row 0: the hop-1 origins; an
+        // origin slot is named once per origin row in a batch)
+        if (ended && ohop == j) {
           const double dd_val =
               cm + (static_cast<double>(j + 2) -
-                    (static_cast<double>(b.ohop[q]) + 1.0)) * hop_ns;
+                    (static_cast<double>(ohop) + 1.0)) * hop_ns;
           if (j == 0)
-            dd1[single ? 0 : b.oslot[q]] = dd_val;
+            dd1[single ? 0 : oslot] = dd_val;
           else
-            c.ddd[idx(j - 1, b.oslot[q])] = dd_val;
+            c.ddd[idx(j - 1, oslot)] = dd_val;
         }
-        if (!ended) {  // bypass: on toward the next switch
-          nx.pos[nb] = b.pos[q];
-          nx.oslot[nb] = b.oslot[q];
-          nx.addr[nb] = b.addr[q];
-          nx.ver[nb] = b.ver[q];
-          nx.owner[nb] = b.owner[q];
-          nx.ohop[nb] = b.ohop[q];
-          nx.emit[nb] = c.klass[q];
-          ++nb;
+        // bypass: on toward the next switch, in list order
+        const bool by = act && !ended;
+        const unsigned bm = __ballot_sync(FULL, by);
+        if (by) {
+          const int o = nb + __popc(bm & lanes_below(lane));
+          nx.pos[o] = pos;
+          nx.oslot[o] = oslot;
+          nx.addr[o] = ad;
+          nx.ver[o] = ver;
+          nx.owner[o] = own;
+          nx.ohop[o] = static_cast<signed char>(ohop);
+          nx.emit[o] = klass;
         }
+        nb += __popc(bm);
+        PROF(SEC_C_ALLOC);
+        // each slot's writer, staged for the owning lane.  A slot has one:
+        // allocations take distinct Empty slots, and only packets of one
+        // line could coalesce into one, but a batch never repeats a line
+        // (every hop holds at most one Dirty entry per line, and a packet
+        // bypasses a row only when it holds none for its line)
+        if (ended && gate) {
+          c.wflag[slot] = static_cast<signed char>(co >= 0 ? F_CO : F_PLACED);
+          c.wver[slot] = ver;
+          c.waddr[slot] = ad;
+          c.wown[slot] = own;
+          c.wcommit[slot] = cm;
+        }
+        if (base + 32 < n) pk = b.at(q + 32 < n ? q + 32 : 0);
+        PROF(SEC_C_WRITER);
       }
-      double* hs = c.hop + j * N_HOP_STATS;
-      hs[H_FWD_CNT] += static_cast<double>(ended_cnt);
-      hs[H_FWD_SUM] += fwd_sum.sum();
-      hs[H_COALESCES] += static_cast<double>(co_cnt);
-      hs[H_BYPASS] += static_cast<double>(by_cnt);
-      *c.t_row = fmax(t_row, 0.0);
-      *nx.n = nb;
+      lookups += n;
+      __syncwarp();
+      // each lane's slots take their staged writers
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) {
+        const int s = lane + 32 * jj, sp = s < P ? s : 0;
+        wf[jj] = s < P ? c.wflag[sp] : 0;
+        wv[jj] = c.wver[sp];
+        wa[jj] = c.waddr[sp];
+        wo[jj] = c.wown[sp];
+        wc[jj] = c.wcommit[sp];
+        if (wf[jj]) c.wflag[sp] = 0;
+      }
+      const int cnt0 = min(n, 32);
+      busy_after = fmax(busy, warp_max_n(ba, cnt0));
+      t_row = fmax(warp_max_n(tr, cnt0), 0.0);
     }
-    __syncwarp();
-    // the row after the batch: each lane's slots take their writer packet
+    // the row after the batch
     signed char st1[SPL], own1[SPL];
     int tag1[SPL], ver1[SPL];
     double lru1[SPL], wt1[SPL];
     bool dirty[SPL];
 #pragma unroll
     for (int jj = 0; jj < SPL; ++jj) {
-      const int s = lane + 32 * jj, sp = s < P ? s : 0, i = idx(j, sp);
-      int w = -1;
-      for (int q = 0; q < n; ++q)
-        if (c.slot[q] == s && (c.flag[q] & F_GATE)) w = q;
-      const bool upd = w >= 0;
-      const bool al = upd && (c.flag[w] & F_PLACED);
-      const bool co_upd = upd && (c.flag[w] & F_CO);
-      const int ver_in = upd ? b.ver[w] : 0;
-      const int dv = c.dver[i];
-      tag1[jj] = al ? b.addr[w] : tg[jj];
+      const int s = lane + 32 * jj;
+      const bool upd = wf[jj] != 0;
+      const bool al = wf[jj] == F_PLACED;
+      const bool co_upd = wf[jj] == F_CO;
+      const int ver_in = upd ? wv[jj] : 0;
+      tag1[jj] = al ? wa[jj] : tg[jj];
       st1[jj] = al ? static_cast<signed char>(DIRTY) : st0[jj];
-      ver1[jj] = al ? ver_in : (co_upd ? max(ver_in, dv) : dv);
-      const bool keep_owner = co_upd && dv > ver_in;
-      own1[jj] = (upd && !keep_owner) ? b.owner[w] : c.downer[i];
-      lru1[jj] = upd ? c.commit[w] : c.dlru[i];
-      wt1[jj] = upd ? c.commit[w] : c.dwt[i];
+      ver1[jj] = al ? ver_in : (co_upd ? max(ver_in, dv[jj]) : dv[jj]);
+      const bool keep_owner = co_upd && dv[jj] > ver_in;
+      own1[jj] = (upd && !keep_owner) ? wo[jj] : own0[jj];
+      lru1[jj] = upd ? wc[jj] : lru0[jj];
+      wt1[jj] = upd ? wc[jj] : wt0[jj];
       dirty[jj] = s < pbe_j && st1[jj] == DIRTY;
     }
+    if (lane == j) hpbc_r = busy_after;
+    hop_add(j, H_FWD_CNT, static_cast<double>(n_ended));
+    hop_add(j, H_FWD_SUM, fwd_sum.sum());
+    hop_add(j, H_COALESCES, static_cast<double>(n_co));
+    hop_add(j, H_BYPASS, static_cast<double>(n_by));
+    PROF(SEC_C_WRITER);
     // this hop's own drain-down: PB forwards every Dirty entry, PB_RF
     // its threshold/preset count, in LRU order (ties to the lower slot)
-    const double dirty_cnt = static_cast<double>(warp_count(dirty, tiles));
+    unsigned dbits[SPL];
+    int n_dirty = 0;
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj) {
+      dbits[jj] = jj < tiles ? __ballot_sync(FULL, dirty[jj]) : 0u;
+      n_dirty += __popc(dbits[jj]);
+    }
+    const double dirty_cnt = static_cast<double>(n_dirty);
     const double k =
         scheme == 1 ? dirty_cnt
                     : (dirty_cnt >= deep(DK_THR, j) ? dirty_cnt - deep(DK_PRE, j)
@@ -630,9 +899,8 @@ struct Chain {
     for (int jj = 0; jj < SPL; ++jj) rank[jj] = 0;
 #pragma unroll
     for (int jq = 0; jq < SPL; ++jq) {
-      if (jq >= tiles) break;
-      for (unsigned bits = __ballot_sync(FULL, dirty[jq]); bits;
-           bits &= bits - 1) {
+      if (n_dirty < 2) break;  // a lone Dirty entry ranks 0
+      for (unsigned bits = dbits[jq]; bits; bits &= bits - 1) {
         const int l = __ffs(bits) - 1, q = 32 * jq + l;
         const double kq = __shfl_sync(FULL, lru1[jq], l);
 #pragma unroll
@@ -647,9 +915,6 @@ struct Chain {
     for (int jj = 0; jj < SPL; ++jj)
       drain[jj] = dirty[jj] && static_cast<double>(rank[jj]) < k;
     const int n_drain = warp_count(drain, tiles);
-    const double t_row = *c.t_row;
-    const int nb = *nx.n;
-    __syncwarp();
 #pragma unroll
     for (int jj = 0; jj < SPL; ++jj) {
       const int s = lane + 32 * jj;
@@ -674,60 +939,78 @@ struct Chain {
       }
     }
     __syncwarp();
-    if (lane == 0) *nx.n = nb + n_drain;
-    __syncwarp();
+    PROF(SEC_C_DRANK);
+    return nb + n_drain;
   }
 
-  // forward_chain: list 0 holds the batch (Q0 packets in the full
-  // batch); returns the PM writes.
-  __device__ double forward(int scheme, int Q0, double* dd1, bool single,
-                            long long& lookups) {
-    int cur = 0, Q = Q0;
+  // forward_chain: list 0 holds the batch's n packets (Q0 in the full
+  // batch), placed into the live rows; the rest land at PM from the
+  // first row past the depth.  Returns the PM writes.
+  __device__ double forward(int scheme, int Q0, int n, double* dd1,
+                            bool single, long long& lookups) {
+    int cur = 0, Q = Q0, j = 0;
 #pragma unroll 1
-    for (int j = 0; j < D; ++j) {
-      if (!(static_cast<double>(j) + 2.0 <= n_sw))
-        return land(list(cur), j + 1, j);
-      place(j, scheme, list(cur), Q, list(1 - cur), dd1, single, lookups);
+    for (; j < live_rows; ++j) {
+      n = place(j, scheme, list(cur), n, Q, list(1 - cur), dd1, single,
+                lookups);
       cur = 1 - cur;
       Q += P;
     }
-    return land(list(cur), D + 1, D);
+    return land(list(cur), n, j + 1, j);
   }
 
-  // deep_read: the shallowest live row holding a visible servable entry
-  // for `addr` at t.  Returns the row (or -1), with the slot and the
-  // response time.
-  __device__ int read(int addr, double t, double ow_cpu_sw1,
-                      double fwd_margin, double pbc_read_ns, int& slot,
-                      double& resp, long long& lookups) {
-#pragma unroll 1
+  // deep_read, in two parts: probe reads, with no branch, which of each
+  // lane's slots of the live deep rows hold `addr` (bit j SPL + jj: slot
+  // lane + 32 jj of row j; none without a chain); pick, when some row
+  // does, evaluates their visibility and service at t and takes the
+  // warp's least tat_first_key: the shallowest row holding a visible
+  // servable entry for `addr`, its first Dirty one, else its first late
+  // Drain.
+  __device__ unsigned probe(int addr) const {
+    unsigned tm = 0;
+#pragma unroll
     for (int j = 0; j < D; ++j) {
-      if (!(static_cast<double>(j) + 2.0 <= n_sw)) return -1;
-      const int pbe_j = static_cast<int>(deep(DK_PBE, j));
-      const double arr =
-          t + ow_cpu_sw1 + static_cast<double>(j + 1) * hop_ns;
-      bool sv[SPL], sd[SPL];
 #pragma unroll
       for (int jj = 0; jj < SPL; ++jj) {
-        const int s = lane + 32 * jj, sp = s < P ? s : 0, i = idx(j, sp);
-        const int v = c.dstate[i];
-        const bool live = s < pbe_j && c.dtag[i] == addr && v != EMPTY &&
-                          c.dwt[i] <= t;
-        sv[jj] = live && (v == DIRTY ||
-                          (v == DRAIN && c.ddd[i] > arr + fwd_margin));
-        sd[jj] = sv[jj] && v == DIRTY;
-      }
-      const int i_sd = tat_first(sd, tiles);
-      const int i_sv = i_sd >= 0 ? i_sd : tat_first(sv, tiles);
-      lookups += i_sd >= 0 ? 1 : 2;
-      if (i_sv >= 0) {
-        slot = i_sv;
-        resp = arr + pbc_read_ns + deep(DK_TAG, j) + deep(DK_DATA, j) +
-               ow_cpu_sw1 + static_cast<double>(j + 1) * hop_ns;
-        return j;
+        const int s = lane + 32 * jj;
+        const int tg = c.dtag[idx(j, s < P ? s : 0)];
+        if (j < live_rows && s < pbe[j] && tg == addr)
+          tm |= 1u << (j * SPL + jj);
       }
     }
-    return -1;
+    return tm;
+  }
+  // Returns the row (or -1), with the slot and the response time.
+  __device__ int pick(unsigned tm, double t, double ow_cpu_sw1,
+                      double fwd_margin, double pbc_read_ns, int& slot,
+                      double& resp, long long& lookups) const {
+    lookups += 1;
+    if (!__any_sync(FULL, tm != 0)) return -1;
+    int key = TAT_NO_KEY;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const double arr =
+          t + ow_cpu_sw1 + static_cast<double>(j + 1) * hop_ns;
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) {
+        if ((tm >> (j * SPL + jj)) & 1u) {
+          const int s = lane + 32 * jj, i = idx(j, s);
+          const int v = c.dstate[i];
+          const bool sv = v != EMPTY && c.dwt[i] <= t &&
+                          (v == DIRTY ||
+                           (v == DRAIN && c.ddd[i] > arr + fwd_margin));
+          if (sv) key = min(key, tat_key(j, v != DIRTY, s));
+        }
+      }
+    }
+    key = tat_first_key(key);
+    if (key == TAT_NO_KEY) return -1;
+    const int j = tat_key_table(key);
+    slot = tat_key_slot(key);
+    const double arr = t + ow_cpu_sw1 + static_cast<double>(j + 1) * hop_ns;
+    resp = arr + pbc_read_ns + deep(DK_TAG, j) + deep(DK_DATA, j) +
+           ow_cpu_sw1 + static_cast<double>(j + 1) * hop_ns;
+    return j;
   }
 };
 
@@ -839,8 +1122,11 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
       ch.c.downer[i] = 0;
       ch.c.dwt[i] = 0.0;
     }
-    for (int i = lane; i < D; i += 32) ch.c.hpbc[i] = 0.0;
-    for (int i = lane; i < D * N_HOP_STATS; i += 32) ch.c.hop[i] = 0.0;
+    for (int i = lane; i < P; i += 32) ch.c.wflag[i] = 0;
+    for (int i = lane; i < B; i += 32) {
+      ch.c.bnew[i] = 0ull;
+      ch.c.bcnt[i] = 0;
+    }
     for (int i = lane; i < N_CH + N_DK * D; i += 32)
       ch.c.csc[i] = a.chain_table[static_cast<size_t>(cf) * (N_CH + N_DK * D) + i];
   }
@@ -884,6 +1170,12 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     ch.nvm_write = sc[K_NVM_WRITE];
     ch.pm_ver = pm_ver;
     is_chain = ch.n_sw >= 2.0;
+    ch.live_rows = 0;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      ch.live_rows += static_cast<double>(j) + 2.0 <= ch.n_sw;
+      ch.pbe[j] = static_cast<int>(ch.deep(DK_PBE, j));
+    }
   }
   // the read path's config scalars, in registers for the whole cell
   // (pbc_read_tag is the reference's own sum pbc_read_ns + tag_ns)
@@ -897,9 +1189,11 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
 
   long long steps = 0, lookups = 0;
 #ifdef CELL_SCAN_PROFILE
-  long long prof_acc[N_SEC] = {}, prof_ops[N_OPS] = {};
+  Prof prof{};
+  long long prof_ops[N_OPS] = {};
   const long long prof_t0 = clock64();
-  long long prof_t = prof_t0;
+  prof.t = prof_t0;
+  if constexpr (D > 0) ch.prof = &prof;
 #endif
   for (;;) {
     // ---- issue-time merge: the core whose next op issues first ---------
@@ -965,6 +1259,10 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         m.clock[c] = t + sc[K_DRAM_NS];
       }
     } else if (op == OP_PM_READ) {
+      // the deep rows' tag matches, loaded first so that hop 1's lookup
+      // covers their latency
+      unsigned deep_tm = 0;
+      if constexpr (D > 0) deep_tm = ch.probe(addr);
       const int bank = bank_of(addr);
       const double pm_start_dir = fmax(m.pm_busy[bank], t + rd.ow_cpu_pm);
       const double resp_dir = pm_start_dir + rd.nvm_read + rd.ow_cpu_pm;
@@ -1027,10 +1325,12 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         int deep_row = -1, deep_slot = 0;
         double resp_deep = 0.0;
         if constexpr (D > 0) {
-          if (is_chain && !has)
-            deep_row = ch.read(addr, t, rd.ow_cpu_sw1, rd.fwd_margin,
-                               sc[K_PBC_READ], deep_slot, resp_deep,
-                               lookups);
+          if (is_chain && !has) {
+            PROF(SEC_READ);
+            deep_row = ch.pick(deep_tm, t, rd.ow_cpu_sw1, rd.fwd_margin,
+                               sc[K_PBC_READ], deep_slot, resp_deep, lookups);
+            PROF(SEC_C_READ);
+          }
         }
         const bool deep_hit = deep_row >= 0;
         const double resp =
@@ -1053,10 +1353,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           if (hit) m.lru[idx] = t;
           m.hop[H_READ_HITS] += hit ? 1.0 : 0.0;
           if constexpr (D > 0) {
-            if (deep_hit) {
-              ch.c.dlru[deep_row * P + deep_slot] = t;
-              ch.c.hop[deep_row * N_HOP_STATS + H_READ_HITS] += 1.0;
-            }
+            if (deep_hit) ch.c.dlru[deep_row * P + deep_slot] = t;
           }
           st_row[S_READ_SUM] += resp - t;
           st_row[S_READ_CNT] += 1.0;
@@ -1065,6 +1362,9 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           m.clock[c] = resp;
           m.pm_busy[bank] = pmb;
           m.pbc[0] = pbc_new;
+        }
+        if constexpr (D > 0) {
+          if (deep_hit) ch.hop_add(deep_row, H_READ_HITS, 1.0);
         }
         PROF(SEC_READ);
       }
@@ -1200,28 +1500,31 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         // switch chain, victim leg: the victim packet travels the chain
         // first (it leaves the PBC at pbc_start), and the slot frees at
         // its downstream ack; the chain works on its own copy of the
-        // banks' clocks (ch.c.pmb), as the PM path below reads the
-        // machine's
+        // banks' clocks (ch.pmb_r, bank b's on lane b), as the PM path
+        // below reads the machine's
         double vic_wait = victim_dd, pmw_v = 0.0, vack = 0.0;
         if constexpr (D > 0) {
           if (is_chain) {
-            for (int b = lane; b < B; b += 32) ch.c.pmb[b] = m.pm_busy[b];
-            if (lane == 0) {
-              *ch.c.vack = m.dd[victim_idx];
-              const Pkts b0 = ch.list(0);
-              b0.pos[0] = 0;
-              b0.oslot[0] = victim_idx;
-              b0.addr[0] = vic_tag;
-              b0.ver[0] = vic_ver;
-              b0.owner[0] = m.owner[victim_idx];
-              b0.ohop[0] = 0;
-              b0.emit[0] = pbc_start;
-              *b0.n = 1;
+            ch.pmb_r = lane < B ? m.pm_busy[lane] : 0.0;  // B <= 32
+            if (vic_emit) {
+              PROF(SEC_SELECT);
+              if (lane == 0) {
+                *ch.c.vack = m.dd[victim_idx];
+                const Pkts b0 = ch.list(0);
+                b0.pos[0] = 0;
+                b0.oslot[0] = victim_idx;
+                b0.addr[0] = vic_tag;
+                b0.ver[0] = vic_ver;
+                b0.owner[0] = m.owner[victim_idx];
+                b0.ohop[0] = 0;
+                b0.emit[0] = pbc_start;
+              }
+              __syncwarp();
+              PROF(SEC_C_BATCH);
+              pmw_v = ch.forward(scheme, 1, 1, ch.c.vack, true, lookups);
+              vack = *ch.c.vack;
+              vic_wait = vack;
             }
-            __syncwarp();
-            if (vic_emit) pmw_v = ch.forward(scheme, 1, ch.c.vack, true, lookups);
-            vack = *ch.c.vack;
-            if (vic_emit) vic_wait = vack;
           }
         }
         const int slot =
@@ -1442,6 +1745,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         double pmw_c = 0.0;
         if constexpr (D > 0) {
           if (is_chain) {
+            PROF(SEC_WRITE);
             bool pol[SPL];
             int pol_rank[SPL];
 #pragma unroll
@@ -1479,10 +1783,11 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
                 b0.emit[o] = t_written;
               }
             }
-            if (lane == 0) *b0.n = n_pol;
             __syncwarp();  // the hop-1 columns and the batch are written
-            if (n_pol > 0) pmw_c = ch.forward(scheme, P, m.dd, false, lookups);
-            if (lane < B) m.pm_busy[lane] = ch.c.pmb[lane];
+            PROF(SEC_C_BATCH);
+            if (n_pol > 0)
+              pmw_c = ch.forward(scheme, P, n_pol, m.dd, false, lookups);
+            if (lane < B) m.pm_busy[lane] = ch.pmb_r;
           }
         }
         if (!is_chain && lane < B)
@@ -1556,9 +1861,9 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
 #ifdef CELL_SCAN_PROFILE
   if (lane == 0) {
     long long* row = g_prof + static_cast<size_t>(cell) * N_PROF;
-    for (int k = 0; k < N_SEC; ++k) row[k] = prof_acc[k];
+    for (int k = 0; k < N_SEC; ++k) row[k] = prof.acc[k];
     for (int k = 0; k < N_OPS; ++k) row[N_SEC + k] = prof_ops[k];
-    row[N_PROF - 1] = prof_t - prof_t0;
+    row[N_PROF - 1] = prof.t - prof_t0;
   }
 #endif
 
@@ -1700,8 +2005,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     double* hop_out =
         a.hop_stats + static_cast<size_t>(cell) * (D + 1) * N_HOP_STATS;
     for (int k = lane; k < N_HOP_STATS; k += 32) hop_out[k] = m.hop[k];
-    for (int k = lane; k < D * N_HOP_STATS; k += 32)
-      hop_out[N_HOP_STATS + k] = ch.c.hop[k];
+    if (lane < D * N_HOP_STATS) hop_out[N_HOP_STATS + lane] = ch.hop_r;
     if (lane == 0) {
       a.runtime[cell] = rt;
       a.n_recov[cell] = n_rec;

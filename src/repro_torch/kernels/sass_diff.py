@@ -6,7 +6,9 @@ Card-only tool (it needs ``nvcc`` and ``cuobjdump``): builds
 <rev>:src/repro_torch/kernels/csrc/cell_scan.cu > old.cu``) to cubins with
 the package's flags, and compares the SASS of the current
 ``cell_scan_kernel<SPL, 0>`` (no switch chain) with the other source's
-``cell_scan_kernel<SPL>`` for SPL = 1, 2, 4, instruction by instruction:
+``cell_scan_kernel<SPL, 0>`` (or ``cell_scan_kernel<SPL>``, from before
+the chain's template parameter) for SPL = 1, 2, 4, instruction by
+instruction:
 
     PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu
 
@@ -59,7 +61,8 @@ def main(other: str) -> int:
     same = True
     for spl in (1, 2, 4):
         o = next(v for k, v in old.items()
-                 if f"cell_scan_kernelILi{spl}EE" in k)
+                 if f"cell_scan_kernelILi{spl}ELi0EE" in k
+                 or f"cell_scan_kernelILi{spl}EE" in k)
         n = next(v for k, v in new.items()
                  if f"cell_scan_kernelILi{spl}ELi0EE" in k)
         ops = difflib.SequenceMatcher(

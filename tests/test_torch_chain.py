@@ -280,10 +280,11 @@ def test_pbe_per_hop_syncs_hop1_capacity():
 
 def test_chain_ref_datum_holds_the_reference_shape():
     """``testdata/chain_ref.json``, the datum chip_smoke.py phase 8 holds
-    the kernel against: Fig. 1's 21 cells at 2000 pairs and the 14
-    depth-3 PB/PB_RF cells of the chained paper grid, each row of the
-    engine's width, survivors summing to the recovery count; two NoPB
-    Fig. 1 cells also through the port's eager engine."""
+    the kernel against: Fig. 1's 21 cells at 2000 pairs and all 63 cells
+    of the chained paper grid (7 workloads x NoPB/PB/PB_RF x n_switches
+    2-4), each row of the engine's width, one hop row per switch,
+    survivors summing to the recovery count; two NoPB Fig. 1 cells also
+    through the port's eager engine."""
     import json
     import os
 
@@ -298,6 +299,9 @@ def test_chain_ref_datum_holds_the_reference_shape():
             for (s, n, c), _ in plan]
     assert sorted(d["fig1"]) == sorted(keys)
     assert sorted(d["grid_b"]) == sorted(P.WORKLOADS)
+    grid_keys = [f"{s.name}/{n}" for n in (2, 3, 4) for s in P.Scheme]
+    assert all(sorted(by) == sorted(grid_keys)
+               for by in d["grid_b"].values())
     cells = list(d["fig1"].items()) + [
         (f"{w}/{s}", c) for w, by in d["grid_b"].items()
         for s, c in by.items()]
@@ -306,8 +310,9 @@ def test_chain_ref_datum_holds_the_reference_shape():
         assert all(len(r) == N_HOP_STATS for r in c["hop_stats"]), key
         assert len(c["hop_stats"]) == len(c["hop_recovery"]), key
         assert sum(c["hop_recovery"]) == c["recovery_entries"], key
-    assert all(len(by["PB"]["hop_stats"]) == 3
-               for by in d["grid_b"].values())
+    assert all(len(c["hop_stats"]) == (0 if k.startswith("NOPB/")
+                                       else int(k.split("/")[1]))
+               for by in d["grid_b"].values() for k, c in by.items())
     tr = fig1_trace(P, n_ops=2000)
     for n_sw in (0, 4):
         r = P.simulate(tr, P.PCSConfig(scheme=P.Scheme.NOPB,

@@ -72,6 +72,27 @@ extern "C" int cell_scan_launch(
     emu_spl<MAX_SPL>(a, n_cells, n_deep);
   return 0;
 }
+// the chain's warp primitives on one emulated warp: lane l's __clz of
+// masks[l], the warp's __reduce_or_sync of masks, lane l's
+// tat_first_each answer for req[l] over a table of 64 slots (tag, live;
+// slot 32 j + l on lane l), nth_set_bit(masks[l], ks[l]), and
+// tat_first_key over lane l's keys[l]
+extern "C" void warp_primitives(const int* req, const int* tag,
+                                const int* live, const unsigned* masks,
+                                const int* ks, const int* keys, int* clz,
+                                unsigned* ored, int* first, int* nth,
+                                int* least) {
+  emu_run(1, [&] {
+    const int l = threadIdx.x;
+    clz[l] = __clz(masks[l]);
+    ored[l] = __reduce_or_sync(FULL, masks[l]);
+    const int tg[2] = {tag[l], tag[32 + l]};
+    const bool lv[2] = {live[l] != 0, live[32 + l] != 0};
+    first[l] = tat_first_each(req[l], tg, lv, 2);
+    nth[l] = nth_set_bit(masks[l], ks[l]);
+    least[l] = tat_first_key(keys[l]);
+  });
+}
 // the chain's commit-latency sum over (position, value) addends of a
 // batch of Q packets
 extern "C" double chunk_sum(int Q, int n, const int* pos, const double* v) {
@@ -321,6 +342,7 @@ def _cases():
                                          tr.gaps, lengths))
     # more cores than lanes: a lane owns cores lane, lane + 32
     many = [P.fuzz_trace(7, n_cores=40, n_slots=100, n_tenants=2)[0]]
+    deep_rf = P.PBPolicy(drain=P.DrainPolicy(threshold=0.95, preset=0.05))
     chain_fz = [P.fuzz_trace(seed, n_cores=3, n_slots=50, n_addrs=6,
                              p_persist=0.7)[0] for seed in (0, 1)]
     return {
@@ -371,18 +393,137 @@ def _cases():
                                                n_switches=3)
                                    for s in (S.PB, S.PB_RF)
                                    for n in (40, 70)], 0),
+        # batches of more than 32 packets (the kernel's scans, ranks and
+        # bypass list carried from tile to tile): a PB_RF drain-down from
+        # 95 % to 5 % fill, narrow deep rows that most packets bypass;
+        # SPL 2 (n_pbe 40) and SPL 4 (70, 128)
+        "chain_long_spl2": ([_synth(0, 300)],
+                            [P.PCSConfig(scheme=S.PB_RF, n_pbe=40,
+                                         n_switches=d, policy=deep_rf,
+                                         pbe_per_hop=hp)
+                             for d, hp in ((3, None), (4, (40, 4, 4, 4)))]
+                            + [P.PCSConfig(scheme=S.PB, n_pbe=40,
+                                           n_switches=4)], 0),
+        "chain_long_spl4": ([_synth(0, 300)],
+                            [P.PCSConfig(scheme=S.PB_RF, n_pbe=n,
+                                         n_switches=d, policy=deep_rf,
+                                         pbe_per_hop=hp)
+                             for n, d, hp in ((70, 3, (70, 8, 4)),
+                                              (70, 4, None),
+                                              (128, 4, (128, 128, 8, 4)))],
+                            0),
+        # every line on PM bank 0 of 3 (the modulo path of bank_of)
+        "chain_bank": ([_synth(1, 100, stride=3)],
+                       [P.PCSConfig(scheme=s, n_pbe=40, n_switches=4,
+                                    pm_banks=3, policy=pol, pbe_per_hop=hp)
+                        for s, pol, hp in ((S.PB_RF, deep_rf, (40, 4, 4, 4)),
+                                           (S.PB_RF, deep_rf, None),
+                                           (S.PB, P.PBPolicy(), None))], 0),
+        # power lost while a batch is in flight: some of its commits (at
+        # a deep row) or PM landings fall before the crash, some after
+        "chain_gate": ([_synth(0, 300)],
+                       [P.PCSConfig(scheme=S.PB_RF, n_pbe=40, n_switches=d,
+                                    policy=deep_rf, pbe_per_hop=hp)
+                        .with_crash(t)
+                        for d, hp, ts in ((4, (40, 8, 4, 4),
+                                           (14e3, 26e3, 38e3)),
+                                          (3, None, (14e3, 22e3, 54e3)))
+                        for t in ts], 64),
+        # five lines on three cores: the deep rows coalesce again and
+        # again, and a packet meets many Dirty entries of its row
+        "chain_dup": ([_synth(2, 5, n_cores=3, L=150, gap=30.0,
+                              p_read=0.3)],
+                      [P.PCSConfig(scheme=s, n_pbe=hp[0], n_switches=4,
+                                   pbe_per_hop=hp, policy=pol)
+                       for s, pol in ((S.PB, P.PBPolicy()),
+                                      (S.PB_RF, deep_rf))
+                       for hp in ((4, 1, 1, 1), (4, 4, 4, 4))], 16),
     }
+
+
+def _synth(seed, n_addrs, *, stride=1, n_cores=2, L=200, gap=40.0,
+           p_read=0.2):
+    """Persists (and a share of PM reads) to random lines of
+    ``stride * range(n_addrs)``, ``gap`` ns apart on every core."""
+    rng = np.random.default_rng(seed)
+    ops = np.where(rng.random((n_cores, L)) < p_read, int(P.Op.PM_READ),
+                   int(P.Op.PERSIST)).astype(np.int32)
+    addrs = (stride * rng.integers(0, n_addrs, (n_cores, L))).astype(np.int32)
+    return P.trace_from_arrays(f"synth{seed}", ops, addrs,
+                               np.full((n_cores, L), gap, np.float32),
+                               np.full(n_cores, L, np.int32))
+
+
+# What each case must reach in the eager chain (see _chain_batches).
+REACH = {
+    "chain_long_spl2": lambda r: r["place"] > 32 and r["land"] > 32,
+    "chain_long_spl4": lambda r: r["place"] > 64 and r["land"] > 64,
+    "chain_bank": lambda r: r["bank"] > 32,
+    "chain_gate": lambda r: r["place_split"] > 0 and r["land_split"] > 0,
+    "chain_dup": lambda r: r["coalesces"] > 0,
+}
+
+
+@pytest.fixture
+def chain_batches(monkeypatch):
+    """What the eager chain's batches held: the most active packets at a
+    deep row and at PM, the most on one PM bank, the batches whose commit
+    gate fell between their packets (at a row, at PM), the deep-row
+    coalesces, and the batches that named a line twice (none can: every
+    hop holds at most one Dirty entry per line, and a packet bypasses a
+    row only when it holds none for its line)."""
+    from repro_torch.core.engine import chain, channels
+    r = dict(place=0, land=0, bank=0, place_split=0, land_split=0,
+             coalesces=0, repeats=0)
+    place, land = chain._place, chain._pm_land
+
+    def seen(batch):
+        a = batch.addr[batch.active].tolist()
+        r["repeats"] += len(a) != len(set(a))
+        return len(a)
+
+    def _place(sc, j, scheme, rows, hpbc_j, batch, hop_stats):
+        out = place(sc, j, scheme, rows, hpbc_j, batch, hop_stats)
+        r["place"] = max(r["place"], seen(batch))
+        starts, _ = channels.fifo_service(hpbc_j, batch.emit + sc["hop_ns"],
+                                          batch.active, sc["pbc_occ_ns"])
+        cm = (starts + sc["pbc_proc_ns"] + sc["deep_tag"][j]
+              + sc["deep_data"][j])[out[4] & batch.active]
+        r["place_split"] += bool((cm <= sc["crash_at"]).any()) \
+            and bool((cm > sc["crash_at"]).any())
+        r["coalesces"] += int(out[2][j + 1, 2] - hop_stats[j + 1, 2])
+        return out
+
+    def _land(sc, pos, batch, pm_busy, pm_ver, n_banks, n_track):
+        out = land(sc, pos, batch, pm_busy, pm_ver, n_banks, n_track)
+        if seen(batch):
+            r["land"] = max(r["land"], int(batch.active.sum()))
+            banks = torch.remainder(batch.addr[batch.active], n_banks)
+            r["bank"] = max(r["bank"], int(torch.bincount(banks).max()))
+            dd = out[2][batch.active]
+            r["land_split"] += bool((dd <= sc["crash_at"]).any()) \
+                and bool((dd > sc["crash_at"]).any())
+        return out
+    monkeypatch.setattr(chain, "_place", _place)
+    monkeypatch.setattr(chain, "_pm_land", _land)
+    return r
 
 
 @pytest.mark.parametrize("case", ["schemes", "crash", "tenants", "slots",
                                   "short_cores", "many_cores", "chain_d1",
-                                  "chain_d2", "chain_d3", "chain_wide"])
-def test_emulated_cell_scan_equals_eager_scan_cell(libs, case):
+                                  "chain_d2", "chain_d3", "chain_wide",
+                                  "chain_long_spl2", "chain_long_spl4",
+                                  "chain_bank", "chain_gate", "chain_dup"])
+def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
+                                                   case):
     traces, configs, track = _cases()[case]
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
     args, kw = grid.cell_inputs(traces, configs, [p[0] for p in pairs],
                                 [p[1] for p in pairs], track_addrs=track)
     want = cs.cell_scan(*args, **kw)
+    assert chain_batches["repeats"] == 0
+    if case in REACH:
+        assert REACH[case](chain_batches), chain_batches
     got = cs._empty_out(len(pairs), kw["n_tenants_max"], max(track, 1),
                         kw["n_deep_max"], "cpu")
     assert cs.launch(libs["cell_scan"], list(args), got,
@@ -398,6 +539,39 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, case):
         assert float(want.hop_stats[:, 1:, 1].sum()) > 0
         if track:
             assert float(want.recov_h[:, 1:].sum()) > 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_emulated_warp_primitives(libs, seed):
+    """The emulation of __clz and __reduce_or_sync, and the chain's
+    tat_first_each (the lowest live slot with the lane's tag, or -1),
+    nth_set_bit and tat_first_key (the least key over the warp), against
+    their definitions."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(0, 12, 32).astype(np.int32)
+    tag = rng.integers(0, 12, 64).astype(np.int32)
+    live = (rng.random(64) < 0.5).astype(np.int32)
+    masks = rng.integers(1, 1 << 32, 32, dtype=np.uint64).astype(np.uint32)
+    masks[:3] = (1, 1 << 31, 0)
+    ks = np.array([rng.integers(0, max(bin(int(m)).count("1"), 1))
+                   for m in masks], np.int32)
+    keys = np.where(rng.random(32) < 0.7, 0x7fffffff,
+                    rng.integers(0, 3 << 8, 32)).astype(np.int32)
+    ored = np.zeros(32, np.uint32)
+    clz, first, nth, least = (np.zeros(32, np.int32) for _ in range(4))
+    fn = libs["cell_scan"].warp_primitives
+    fn.argtypes = [ctypes.c_void_p] * 11
+    fn(*(a.ctypes.data for a in (req, tag, live, masks, ks, keys, clz,
+                                 ored, first, nth, least)))
+    assert (ored == np.bitwise_or.reduce(masks)).all()
+    assert (least == keys.min()).all()
+    for lane in range(32):
+        assert clz[lane] == 32 - int(masks[lane]).bit_length()
+        hits = [s for s in range(64) if live[s] and tag[s] == req[lane]]
+        assert first[lane] == (hits[0] if hits else -1)
+        bits = [b for b in range(32) if int(masks[lane]) >> b & 1]
+        if bits:
+            assert nth[lane] == bits[ks[lane]]
 
 
 @pytest.mark.parametrize("q", [9, 32, 48, 64, 80, 130, 384])

@@ -3,15 +3,15 @@
 //
 // A block is one warp of 32 std::threads unless the launcher asks for
 // more (whole warps); blocks run one after another.  Warp intrinsics
-// (__shfl_*_sync, __ballot_sync, __any_sync, __reduce_min_sync) exchange
-// values through a shared slot array between two waits on the block's
-// barrier, so every thread of the block must reach them together, as in
-// the port's kernels; __syncwarp/__syncthreads are a barrier wait, so a
-// missing sync between a write and another thread's read shows up as a
-// real race.  emu_warpgroup_sync waits for the caller's 128 threads only
-// (the warpgroup products of hopper.cuh).  Blocks run in blockIdx order,
-// so a kernel that chains its blocks through global flags finds each
-// flag it waits on already set.
+// (__shfl_*_sync, __ballot_sync, __any_sync, __reduce_{min,or}_sync)
+// exchange values through a shared slot array between two waits on the
+// block's barrier, so every thread of the block must reach them
+// together, as in the port's kernels; __syncwarp and
+// __syncthreads are a barrier wait, so a missing sync between a write and
+// another thread's read shows up as a real race.  emu_warpgroup_sync
+// waits for the caller's 128 threads only (the warpgroup products of
+// hopper.cuh).  Blocks run in blockIdx order, so a kernel that chains its
+// blocks through global flags finds each flag it waits on already set.
 // Dynamic shared memory is a global array that the including file
 // defines under the kernel's own extern name.
 #pragma once
@@ -148,7 +148,27 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) {
   g_warp->bar->arrive_and_wait();
   return m;
 }
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  g_warp->slots[threadIdx.x] = v;
+  g_warp->bar->arrive_and_wait();
+  const unsigned base = threadIdx.x & ~31u;
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= static_cast<unsigned>(g_warp->slots[base + i]);
+  g_warp->bar->arrive_and_wait();
+  return m;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline long long __double_as_longlong(double d) {
+  long long r;
+  std::memcpy(&r, &d, sizeof r);
+  return r;
+}
+inline double __longlong_as_double(long long v) {
+  double r;
+  std::memcpy(&r, &v, sizeof r);
+  return r;
+}
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline int atomicAdd(int* p, int v) {
   std::lock_guard<std::mutex> g(g_atomic);
@@ -156,9 +176,10 @@ inline int atomicAdd(int* p, int v) {
   *p = o + v;
   return o;
 }
-inline int atomicMax(int* p, int v) {
+template <class T>
+T atomicMax(T* p, T v) {
   std::lock_guard<std::mutex> g(g_atomic);
-  const int o = *p;
+  const T o = *p;
   if (v > o) *p = v;
   return o;
 }
