@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs eight phases, each printing its own
+``build/repro_torch/``, and runs nine phases, each printing its own
 lines:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -81,6 +81,25 @@ numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA.
+
+9. (run after phase 8, before 5) fan-out fabrics through the cell
+   scan's FAB instantiation: (a) ``benchmarks/fig_fabric.py``'s grid at
+   its published size (8 tenants, one core each, 1500 persist/read pairs
+   a core; PB and PB_RF x 1/2/4/8 leaves over 16 leaf PBEs, spine 8 x
+   packed/spread x ``bp_high`` None/4, and a replica of each crashed at
+   half the op span; 52 cells, ``D = 1``, NL = 8) and (b) the 7
+   workloads at ``persist_budget=100_000``, 8 tenants, PB and PB_RF x
+   {2 leaves packed, 4 leaves spread with ``bp_high`` 4} (28 cells),
+   each through ``simulate_grid`` with its launch counts, exact against
+   ``src/repro_torch/testdata/fabric_ref.json`` (all 52 + 28 cells),
+   timed with its bounds beside the same traces under the plain 2-hop
+   chain (the ``FAB = false`` kernel); (c) the kernel against the eager
+   ``scan_cell`` (a pool of host processes) on all 52 cells of (a) at
+   fig_fabric's smoke size (150 pairs); (d) the section profile of a
+   fabric step (cholesky's 4 cells of (b)); (e) 300 fuzzed fabric crash
+   cells on the card against the port's oracle; and, given
+   ``--sass-against OLD.cu``, (f) ``repro_torch.kernels.sass_diff`` of
+   every ``FAB = false`` instantiation against ``OLD.cu``.
 
 ``python3 chip_smoke.py --against OLD.cu`` runs only a comparison of
 the package's cell scan with another ``cell_scan.cu`` (an earlier
@@ -198,19 +217,24 @@ def torch_equal(a, b) -> bool:
 
 
 def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int,
-               D: int = 0) -> float:
+               D: int = 0, NL: int = 1) -> float:
     """Bytes the cell scan must move: each trace op (op, addr, gap) and
     stream length read once, the config tables read once, every output
-    written once (D: the grid's deep-hop rows)."""
+    written once (D: the grid's deep-hop rows; NL > 1: the grid's fabric
+    leaves, whose table and per-leaf survivors the kernel moves too)."""
     from repro_torch.core.engine.state import N_HOP_STATS, N_STATS
     from repro_torch.kernels.cell_scan import (CHAIN_KEYS, DEEP_KEYS,
-                                               SC_KEYS, TENANT_KEYS)
+                                               FAB_KEYS, SC_KEYS,
+                                               TENANT_KEYS)
     inputs = sum(12 * t.total_ops + 4 * t.n_cores for t in traces)
     inputs += 8 * n_cfg * (len(SC_KEYS) + len(TENANT_KEYS) * T
                            + len(CHAIN_KEYS) + len(DEEP_KEYS) * max(D, 1))
     inputs += 4 * n_cfg + 8 * n_cells
     outputs = n_cells * (8 + 8 * T * N_STATS + 8 * (D + 1) * N_HOP_STATS
                          + 4 * A + 8 + 8 + 8 * T + 8 * (D + 1) + 8 + 8)
+    if NL > 1:
+        inputs += 8 * n_cfg * (len(FAB_KEYS) + NL + T)
+        outputs += n_cells * 8 * NL
     return float(inputs + outputs)
 
 
@@ -395,14 +419,17 @@ OP_NAMES = ("compute", "dram_read", "dram_write", "pm_read", "persist",
             "barrier")
 
 
-def profile_cells(torch, args, kw, got, sel, labels, libs=None):
+def profile_cells(torch, args, kw, got, sel, labels, libs=None,
+                  prefabric=False):
     """The section profile of a step on cells ``sel`` of the kernel's
     inputs ``args``: ``cell_scan.cu`` built with ``-DCELL_SCAN_PROFILE``
     (``_build.VARIANTS``) beside the uninstrumented build, both exact
     against ``got`` (the main path's outputs; the lookup counts too).
     ``libs``: the (uninstrumented, profile) libraries, the package's by
-    default.  Returns ``{label: {ns_per_step, total_ns_per_step, steps,
-    ops}}`` (sections with no cycles left out) and both kernel times."""
+    default (``prefabric``: libraries with the argument list from before
+    the fabric, :func:`launch_prefabric`).  Returns ``{label:
+    {ns_per_step, total_ns_per_step, steps, ops}}`` (sections with no
+    cycles left out) and both kernel times."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import cell_scan as cs
@@ -422,10 +449,13 @@ def profile_cells(torch, args, kw, got, sel, labels, libs=None):
     outs = {}
 
     def run(name, lib):
-        out = cs._empty_out(len(sel), T, A, kw["n_deep_max"], "cuda")
-        _build.check(cs.launch(lib, ins, out, max_pbe=kw["max_pbe"],
-                               pm_banks=kw["pm_banks"], n_track=kw["n_track"],
-                               n_deep=kw["n_deep_max"], stream=stream),
+        out = cs._empty_out(len(sel), T, A, kw["n_deep_max"], "cuda",
+                            kw["n_leaves_max"])
+        launch = launch_prefabric if prefabric else cs.launch
+        extra = {} if prefabric else dict(n_leaves=kw["n_leaves_max"])
+        _build.check(launch(lib, ins, out, max_pbe=kw["max_pbe"],
+                            pm_banks=kw["pm_banks"], n_track=kw["n_track"],
+                            n_deep=kw["n_deep_max"], stream=stream, **extra),
                      f"{name} launch")
         outs[name] = out
     prof_ms = cuda_ms(lambda: run("profile", prof_lib), 1)
@@ -580,26 +610,34 @@ def chain_grid_b():
 
 def same_as_datum(np, r, d, what):
     """A SimResult equal, field by field, to the one the JAX datum's
-    numbers give (runtime, stats, hop rows, recovery)."""
+    numbers give (runtime, stats — one row, or one per tenant — hop
+    rows, recovery per hop and, for a fabric, per leaf)."""
     from repro_torch.core.engine.state import result_from_stats
     hs = np.asarray([[float(x) for x in row] for row in d["hop_stats"]])
+    stats = np.asarray(d["stats"], dtype=np.float64)   # repr() strings
+    leaves = d.get("leaf_recovery_raw")
     want = result_from_stats(
-        float(d["runtime_ns"]), np.asarray([float(x) for x in d["stats"]]),
+        float(d["runtime_ns"]), stats,
         crash_at_ns=r.crash_at_ns, recovery_entries=d["recovery_entries"],
-        recovery_ns=float(d["recovery_ns"]), n_hops=len(d["hop_recovery"]),
+        recovery_ns=float(d["recovery_ns"]),
+        n_tenants=stats.shape[0] if stats.ndim == 2 else 1,
+        n_hops=len(d["hop_recovery"]),
         hop_stats=hs if len(hs) else None,
-        hop_recovery=np.asarray(d["hop_recovery"], np.int64))
+        hop_recovery=np.asarray(d["hop_recovery"], np.int64),
+        n_leaves=len(leaves) if leaves else 1,
+        leaf_recovery=np.asarray(leaves, np.int64) if leaves else None)
     for f in ("runtime_ns", "persists", "pm_reads", "read_hits",
               "coalesces", "pm_writes", "stall_ns", "pi_detours",
               "victim_drains", "acked_persists", "durable_persists",
               "recovery_entries", "recovery_ns", "slo_violations",
-              "persist_lat_ns", "read_lat_ns", "n_hops"):
+              "persist_lat_ns", "read_lat_ns", "n_hops", "n_tenants"):
         if getattr(r, f) != getattr(want, f) and not (
                 getattr(r, f) != getattr(r, f)
                 and getattr(want, f) != getattr(want, f)):    # NaN == NaN
             fail(f"{what}: {f} = {getattr(r, f)!r}, reference "
                  f"{getattr(want, f)!r}")
-    for f in ("lat_hist", "hop_stats", "hop_recovery"):
+    for f in ("lat_hist", "hop_stats", "hop_recovery", "tenant_stats",
+              "leaf_recovery"):
         a, b = getattr(r, f), getattr(want, f)
         if (a is None) != (b is None) or (a is not None and
                                           not np.array_equal(a, b)):
@@ -769,7 +807,7 @@ def phase_chains(torch, np, smem_ns):
     return out
 
 
-def chain_profile(torch, fig1, grid_b, libs=None):
+def chain_profile(torch, fig1, grid_b, libs=None, prefabric=False):
     """Phase 8d: the section profile of a chained step on Fig. 1's PB/4
     and PB_RF/4 cells and on cholesky's chained cells at n_switches 4,
     exact against the main path's outputs (``fig1``: the sweep's inputs,
@@ -778,16 +816,46 @@ def chain_profile(torch, fig1, grid_b, libs=None):
     args, kw, got, labels = fig1
     sel = [labels.index((s, 4, False)) for s in ("PB", "PB_RF")]
     pa = profile_cells(torch, args, kw, got, sel,
-                       [f"fig1/{s}/4" for s in ("PB", "PB_RF")], libs)
+                       [f"fig1/{s}/4" for s in ("PB", "PB_RF")], libs,
+                       prefabric)
     print_profile("8d", "Fig. 1's PB/4 and PB_RF/4 cells", pa)
     bargs, bkw, bgot, bpairs, names, blabels = grid_b
     sel = [k for k, (i, j) in enumerate(bpairs)
            if names[i] == "cholesky" and blabels[j][1] == 4]
     pb = profile_cells(torch, bargs, bkw, bgot, sel,
                        [f"cholesky/{blabels[bpairs[k][1]][0]}/4"
-                        for k in sel], libs)
+                        for k in sel], libs, prefabric)
     print_profile("8d", "cholesky's 3 cells at n_switches 4", pb)
     return dict(fig1=pa, cholesky_4=pb)
+
+
+def launch_prefabric(lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
+                     stream) -> int:
+    """``cell_scan_launch`` of a cell scan from before the fabric (its
+    argument list had no fabric table, per-leaf survivors or leaf count),
+    for a grid without a fabric."""
+    import ctypes
+    from repro_torch.core.engine.state import LAT_BIN_EDGES
+    import torch
+    _, C, L = ins[0].shape
+    N, T, A = out.recov_t.shape[0], out.recov_t.shape[1], \
+        out.durable_ver.shape[1]
+    edges = torch.tensor(LAT_BIN_EDGES, dtype=torch.float64, device="cuda")
+    aver = torch.empty((N, A), dtype=torch.int32, device="cuda")
+    ptrs = list(ins[:9]) + [edges, out.runtime, out.stats, out.hop_stats,
+                            out.durable_ver, out.n_recov, out.recov_ns,
+                            out.recov_t, out.steps, out.lookups, aver,
+                            ins[9], out.recov_h]
+    fn = lib.cell_scan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p]
+    rc = fn(*[x.data_ptr() for x in ptrs], N, C, L, max_pbe, pm_banks, A,
+            T, n_track, n_deep, stream)
+    if rc == 0 and n_deep == 0:
+        out.recov_h[:, 0].copy_(out.n_recov)
+    out.recov_l[:, 0].copy_(out.recov_h[:, 0])
+    return rc
 
 
 def build_against(path: str):
@@ -821,6 +889,8 @@ def compare_against(torch, np, path: str) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import cell_scan as cs
     other = build_against(path)
+    with open(path) as f:
+        other_fab = "recov_l" in f.read()
     this = (_build.library("cell_scan"), _build.library("cell_scan_profile"))
     tr, labels, configs = fig1_grid(np)
     pairs = list(range(len(configs)))
@@ -841,12 +911,18 @@ def compare_against(torch, np, path: str) -> dict:
 
         def run(which, lib):
             out = cs._empty_out(n, k["n_tenants_max"], max(k["n_track"], 1),
-                                k["n_deep_max"], "cuda")
-            _build.check(cs.launch(lib, ins, out, max_pbe=k["max_pbe"],
-                                   pm_banks=k["pm_banks"],
-                                   n_track=k["n_track"],
-                                   n_deep=k["n_deep_max"], stream=stream),
-                         f"{which} launch")
+                                k["n_deep_max"], "cuda", k["n_leaves_max"])
+            if which == "other" and not other_fab:
+                rc = launch_prefabric(lib, ins, out, max_pbe=k["max_pbe"],
+                                      pm_banks=k["pm_banks"],
+                                      n_track=k["n_track"],
+                                      n_deep=k["n_deep_max"], stream=stream)
+            else:
+                rc = cs.launch(lib, ins, out, max_pbe=k["max_pbe"],
+                               pm_banks=k["pm_banks"], n_track=k["n_track"],
+                               n_deep=k["n_deep_max"],
+                               n_leaves=k["n_leaves_max"], stream=stream)
+            _build.check(rc, f"{which} launch")
             outs[which] = out
         ms = {"other": [], "this": []}
         for which in ("other", "this", "this", "other"):
@@ -874,8 +950,9 @@ def compare_against(torch, np, path: str) -> dict:
                       for w, o in outs.items()}
     for which, libs in (("other", other), ("this", this)):
         print(f"against: section profile of {which}")
-        res[f"profile_{which}"] = chain_profile(torch, fig1[which],
-                                                grid_b[which], libs)
+        res[f"profile_{which}"] = chain_profile(
+            torch, fig1[which], grid_b[which], libs,
+            prefabric=which == "other" and not other_fab)
     res["depth1"] = depth1_profiles(torch)
     return res
 
@@ -910,6 +987,292 @@ def depth1_profiles(torch) -> dict:
                            getattr(outs["D3"], f)[:3]):
             fail(f"depth-1 cells differ between D = 0 and D = 3 on {f}")
     return res
+
+
+# ---- phase 9: fan-out fabrics ---------------------------------------------
+FAB_TENANTS, FAB_LEAVES = 8, (1, 2, 4, 8)   # benchmarks/fig_fabric.py
+FAB_TOTAL_PBE, FAB_SPINE_PBE, FAB_GAP = 16, 8, 500.0
+FAB_BP = float(FAB_SPINE_PBE // 2)
+FAB_OPS, FAB_SMOKE_OPS = 1500, 150
+
+
+def fab_topology(n_leaves, mode, bp_high=None):
+    """``benchmarks/fig_fabric._fabric``: the 16 leaf PBEs split evenly
+    over ``n_leaves``, the 8 tenants placed by ``mode``."""
+    from repro_torch.core import FabricTopology, leaf_placement
+    per = FAB_TOTAL_PBE // n_leaves
+    return FabricTopology(n_leaves, (per,) * n_leaves, FAB_SPINE_PBE,
+                          leaf_placement(FAB_TENANTS, n_leaves, mode),
+                          bp_high=bp_high)
+
+
+def fab_label(scheme, n_leaves, mode, bp_high):
+    return (f"{scheme}/l{n_leaves}/{mode}/"
+            + ("bp" if bp_high is not None else "none"))
+
+
+def fig_fabric_grid(np, n_ops):
+    """``benchmarks/fig_fabric.py``'s grid (``_probe_trace`` and ``plan``):
+    8 tenants, one core each, ``n_ops`` persist/PM-read pairs per core
+    500 ns apart over disjoint hot sets; PB and PB_RF x 1/2/4/8 leaves x
+    packed/spread x bp_high None/4 (1 leaf: packed, None only), and a
+    replica of each crashed at half the op span: 52 cells.  Returns
+    ``(trace, labels, configs)``; the labels are fabric_ref.json's
+    keys."""
+    from repro_torch.core import Op, PCSConfig, Scheme, trace_from_arrays
+    C, L = FAB_TENANTS, 2 * n_ops
+    ops = np.zeros((C, L), np.int32)
+    addrs = np.zeros((C, L), np.int32)
+    for c in range(C):
+        base = c << 16                     # disjoint per-tenant block
+        ops[c, 0::2] = int(Op.PERSIST)
+        addrs[c, 0::2] = base + np.arange(n_ops) % 64
+        ops[c, 1::2] = int(Op.PM_READ)
+        addrs[c, 1::2] = base + (1 << 10) + np.arange(n_ops)
+    tr = trace_from_arrays("fab_probe", ops, addrs,
+                           np.full((C, L), FAB_GAP, np.float32),
+                           np.full((C,), L, np.int32))
+    labels, configs = [], []
+    for key, scheme in (("pb", Scheme.PB), ("pb_rf", Scheme.PB_RF)):
+        for nl in FAB_LEAVES:
+            for mode in ("packed", "spread"):
+                if nl == 1 and mode == "spread":
+                    continue
+                for bp in ((None, FAB_BP) if nl >= 2 else (None,)):
+                    labels.append(fab_label(key, nl, mode, bp))
+                    configs.append(PCSConfig(
+                        scheme=scheme, n_cores=FAB_TENANTS,
+                        n_tenants=FAB_TENANTS,
+                        fabric=fab_topology(nl, mode, bp)))
+    crash_at = 0.5 * (2 * n_ops) * FAB_GAP
+    for lab, cfg in list(zip(labels, configs)):
+        labels.append(lab + "/crash")
+        configs.append(cfg.with_crash(crash_at))
+    return tr, labels, configs
+
+
+def fabric_grid_b():
+    """The fabric paper grid's configs: PB and PB_RF x {2 leaves packed,
+    no watermark; 4 leaves spread, bp_high 4} over the same 16 + 8 PBEs,
+    8 tenants (one per core).  Returns ``(labels, configs)``."""
+    from repro_torch.core import PCSConfig, Scheme
+    labels, configs = [], []
+    for scheme in (Scheme.PB, Scheme.PB_RF):
+        for nl, mode, bp in ((2, "packed", None), (4, "spread", FAB_BP)):
+            labels.append(fab_label(scheme.name, nl, mode, bp))
+            configs.append(PCSConfig(scheme=scheme, n_cores=FAB_TENANTS,
+                                     n_tenants=FAB_TENANTS,
+                                     fabric=fab_topology(nl, mode, bp)))
+    return labels, configs
+
+
+def fabric_timing(torch, smem_ns, traces, configs, what):
+    """The kernel over every cell of ``traces`` x ``configs`` (the inputs
+    simulate_grid stacks), timed; returns its outputs, inputs and
+    numbers."""
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.kernels import cell_scan as cs
+    pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
+    args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
+                           [p[1] for p in pairs], device="cuda")
+    got = cs.cell_scan(*args, **kw)
+    torch.cuda.synchronize()
+    reps = 3 if int(got.steps.max()) < 100_000 else 1
+    ms = cuda_ms(lambda: cs.cell_scan(*args, **kw), reps)
+    steps = int(got.steps.max())
+    bound = cell_bytes(traces, len(pairs), kw["n_tenants_max"],
+                       max(kw["n_track"], 1), len(configs), kw["n_deep_max"],
+                       kw["n_leaves_max"]) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 9 cell_scan {what} ({len(pairs)} cells, D = "
+          f"{kw['n_deep_max']}, NL = {kw['n_leaves_max']}): kernel "
+          f"{ms:.3f} ms, longest cell {steps} steps ({ms * 1e6 / steps:.1f} "
+          f"ns/step; latency bound {steps * smem_ns / 1e6:.3f} ms; bytes "
+          f"bound {bound:.6f} ms)")
+    return dict(args=args, kw=kw, got=got, pairs=pairs), dict(
+        ms=ms, steps=steps, ns_per_step=ms * 1e6 / steps, bound_ms=bound,
+        latency_bound_ms=steps * smem_ns / 1e6, cells=len(pairs))
+
+
+FAB_ORACLE = ((None, 1, None, None), ((8,), 1, "packed", None),
+              ((4, 4), 2, "packed", None), ((4, 4), 2, "spread", None),
+              ((4, 4), 2, "packed", 2.0), ((2, 2, 2, 2), 4, "spread", None))
+
+
+def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
+    """Phase 9: fan-out fabrics through the cell scan's FAB instantiation.
+    (a) fig_fabric's grid at its published size and (b) the fabric paper
+    grid through ``simulate_grid`` on the card (launch counts zeroed just
+    before and read just after), exact against ``fabric_ref.json`` (all
+    52 + 28 cells), each timed with its bounds beside the same traces
+    under the 2-hop chain with no fabric (the FAB = false kernel); (c)
+    the kernel against the eager plain version on all 52 cells of (a)
+    at fig_fabric's smoke size; (d) the section profile of a fabric step
+    (cholesky's 4 cells of (b)); (e) fuzzed fabric crash cells on the
+    card against the port's oracle; (f) with ``sass_against`` (an
+    earlier ``cell_scan.cu``), ``sass_diff`` of every FAB = false
+    instantiation against it."""
+    from repro_torch.core import PCSConfig, Scheme, simulate_grid
+    from repro_torch.kernels import cell_scan as cs
+    from repro_torch.kernels import tat_lookup as tl
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "fabric_ref.json")) as f:
+        ref = json.load(f)
+    out = {}
+
+    # (a) fig_fabric at its published size
+    tr, labels, configs = fig_fabric_grid(np, FAB_OPS)
+    cs.launches = tl.launches = 0
+    t0 = time.time()
+    cells = simulate_grid([tr], configs)[0]          # default device: CUDA
+    wall_a = time.time() - t0
+    counts_a = dict(cell_scan=cs.launches, tat_lookup=tl.launches)
+    if counts_a["cell_scan"] < 1:
+        fail(f"fabric figure did not run through the kernel: {counts_a}")
+    for lab, r in zip(labels, cells):
+        same_as_datum(np, r, ref["fig"][lab], f"fabric figure {lab}")
+        if lab.endswith("/crash"):
+            leaf = (None if r.leaf_recovery is None
+                    else r.leaf_recovery.tolist())
+            print(f"phase 9a fig_fabric {lab}: leaf_recovery {leaf}, "
+                  f"hop_recovery {r.hop_recovery.tolist()}")
+        else:
+            print(f"phase 9a fig_fabric {lab}: persist "
+                  f"{r.persist_lat_ns:.1f} ns (p99 "
+                  f"{r.persist_lat_pct(0.99):.0f}), runtime "
+                  f"{r.runtime_ns:.1f} ns, coalesces {r.coalesces}, "
+                  f"pm_writes {r.pm_writes}")
+    print(f"phase 9a simulate_grid (fig_fabric, 52 cells) wall "
+          f"{wall_a:.3f} s; launches {json.dumps(counts_a)}; exact against "
+          f"fabric_ref.json on all 52 cells")
+    ins_a, num_a = fabric_timing(torch, smem_ns, [tr], configs,
+                                 "fig_fabric")
+    chain_cfgs = [PCSConfig(scheme=c.scheme, n_cores=FAB_TENANTS,
+                            n_tenants=FAB_TENANTS, n_switches=2,
+                            pbe_per_hop=(FAB_TOTAL_PBE, FAB_SPINE_PBE),
+                            crash_at_ns=c.crash_at_ns)
+                  for c in configs if c.fabric.n_leaves == 1]
+    _, ctl_a = fabric_timing(torch, smem_ns, [tr], chain_cfgs,
+                             "fig_fabric's trace, 2-hop chain control")
+    out["fig"] = dict(num_a, counts=counts_a, wall_s=wall_a,
+                      chain_control=ctl_a,
+                      persist_ns={lab: r.persist_lat_ns
+                                  for lab, r in zip(labels, cells)
+                                  if not lab.endswith("/crash")},
+                      leaf_recovery={lab: r.leaf_recovery.tolist()
+                                     for lab, r in zip(labels, cells)
+                                     if r.leaf_recovery is not None
+                                     and lab.endswith("/crash")})
+
+    # (b) the fabric paper grid
+    blabels, bconfigs = fabric_grid_b()
+    names = [t.name for t in paper_traces]
+    cs.launches = tl.launches = 0
+    t0 = time.time()
+    bcells = simulate_grid(paper_traces, bconfigs)
+    wall_b = time.time() - t0
+    counts_b = dict(cell_scan=cs.launches, tat_lookup=tl.launches)
+    if counts_b["cell_scan"] < 1:
+        fail(f"fabric paper grid did not run through the kernel: "
+             f"{counts_b}")
+    for i, n in enumerate(names):
+        for j, lab in enumerate(blabels):
+            same_as_datum(np, bcells[i][j], ref["grid_b"][n][lab],
+                          f"fabric paper grid {n}/{lab}")
+    print(f"phase 9b simulate_grid (7 workloads x PB/PB_RF x 2 fabrics, "
+          f"budget 100000, 28 cells) wall {wall_b:.3f} s; launches "
+          f"{json.dumps(counts_b)}; exact against fabric_ref.json on all "
+          f"28 cells")
+    for i, n in enumerate(names):
+        print(f"phase 9b {n}: " + ", ".join(
+            f"{lab} runtime {bcells[i][j].runtime_ns:.0f} ns persist "
+            f"{bcells[i][j].persist_lat_ns:.1f} ns"
+            for j, lab in enumerate(blabels)))
+    ins_b, num_b = fabric_timing(torch, smem_ns, paper_traces, bconfigs,
+                                 "fabric paper grid")
+    bchain = [PCSConfig(scheme=s, n_cores=FAB_TENANTS, n_tenants=FAB_TENANTS,
+                        n_switches=2,
+                        pbe_per_hop=(FAB_TOTAL_PBE, FAB_SPINE_PBE))
+              for s in (Scheme.PB, Scheme.PB_RF)]
+    _, ctl_b = fabric_timing(torch, smem_ns, paper_traces, bchain,
+                             "paper traces, 8 tenants, 2-hop chain control")
+    out["grid_b"] = dict(num_b, counts=counts_b, wall_s=wall_b,
+                         chain_control=ctl_b)
+
+    # (c) the kernel against the eager plain version at the smoke size
+    str_, slabels, sconfigs = fig_fabric_grid(np, FAB_SMOKE_OPS)
+    ins_c, num_c = fabric_timing(torch, smem_ns, [str_], sconfigs,
+                                 "fig_fabric at its smoke size")
+    sel = list(range(len(sconfigs)))
+    plain, plain_s, pool_s = eager_cells(torch, ins_c["args"], ins_c["kw"],
+                                         sel)
+    err = compare_outputs(plain, ins_c["got"], "fig_fabric smoke size")
+    scells = simulate_grid([str_], sconfigs)[0]
+    for lab, r in zip(slabels, scells):
+        same_as_datum(np, r, ref["fig_smoke"][lab], f"fabric smoke {lab}")
+    print(f"phase 9c cell_scan on fig_fabric's 52 cells at its smoke size "
+          f"({FAB_SMOKE_OPS} pairs a core): exact against the eager "
+          f"scan_cell ({plain_s:.1f} s of cells, {pool_s:.1f} s wall over "
+          f"a pool) and fabric_ref.json")
+    out["smoke"] = dict(num_c, plain_s=plain_s, pool_s=pool_s,
+                        max_abs_err=err)
+
+    # (d) the section profile of a fabric step: cholesky's 4 cells of (b)
+    i = names.index("cholesky")
+    psel = [k for k, (ti, j) in enumerate(ins_b["pairs"]) if ti == i]
+    prof = profile_cells(torch, ins_b["args"], ins_b["kw"], ins_b["got"],
+                         psel, [f"cholesky/{blabels[ins_b['pairs'][k][1]]}"
+                                for k in psel])
+    print_profile("9d", "cholesky's 4 fabric cells", prof)
+    out["profile"] = prof
+
+    # (e) fuzzed fabric crash cells against the port's oracle
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_crash_driver import assert_cell_matches, oracle_replay
+    from repro_torch.core import (FabricTopology, fuzz_crash_ns, fuzz_trace,
+                                  leaf_placement, tenant_ids)
+    n_cells = 0
+    t0 = time.time()
+    fabs = [None if lp is None else FabricTopology(
+        nl, lp, 4, (0,) * 4 if mode is None
+        else leaf_placement(4, nl, mode), bp_high=bp)
+        for lp, nl, mode, bp in FAB_ORACLE]
+    for seed in range(5):
+        ftr, sched = fuzz_trace(seed, n_cores=4, n_slots=50, n_addrs=6,
+                                n_tenants=4, p_persist=0.7)
+        plan = [(s, k, f) for s in (Scheme.PB, Scheme.PB_RF)
+                for k in (0, 11, 23, 36, 50) for f in fabs]
+        fcfg = [(PCSConfig(scheme=s, n_pbe=8, n_cores=4, n_tenants=4,
+                           n_switches=2, pbe_per_hop=(8, 4)) if f is None
+                 else PCSConfig(scheme=s, n_cores=4, n_tenants=4, fabric=f)
+                 ).with_crash(fuzz_crash_ns(k)) for s, k, f in plan]
+        fres = simulate_grid([ftr], fcfg, max_pbe=8, track_addrs=6)[0]
+        ct = tenant_ids(ftr.lengths, 4)
+        for (s, k, f), r in zip(plan, fres):
+            kw = (dict(n_switches=2, pbe_per_hop=(8, 4)) if f is None
+                  else dict(fabric=f))
+            try:
+                assert_cell_matches(r, oracle_replay(
+                    sched, k, s, 8, core_tenant=ct, n_tenants=4, **kw), 6,
+                    label=(seed, s.name, k, None if f is None
+                           else (f.n_leaves, f.placement, f.bp_high)))
+            except AssertionError as e:
+                fail(f"fabric oracle differential: {e}")
+            n_cells += 1
+    print(f"phase 9e {n_cells} fuzzed fabric crash cells (PB/PB_RF x the "
+          f"2-hop chain, 1-leaf, 2-leaf packed/spread/watermarked and "
+          f"4-leaf topologies x 5 crash points x 5 seeds) on the card agree "
+          f"with the port's oracle (durable versions, counts, per-tenant, "
+          f"per-hop and per-leaf survivors) in {time.time() - t0:.1f} s")
+    out["oracle_cells"] = n_cells
+    out["max_abs_err"] = err
+
+    # (f) every FAB = false instantiation against an earlier source
+    if sass_against:
+        from repro_torch.kernels import sass_diff
+        if sass_diff.main(sass_against) != 0:
+            fail(f"FAB = false SASS differs from {sass_against}")
+        out["sass_identical"] = True
+    return out
 
 
 # ---- the model side: flash_attention, ssd_scan, serving ----------------
@@ -1607,6 +1970,11 @@ def main() -> int:
         print(json.dumps({"against": compare_against(torch, np,
                                                      sys.argv[2])}))
         return 0
+    sass_against = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--sass-against":
+        sass_against = sys.argv[2]
+    elif len(sys.argv) != 1:
+        fail(f"unknown arguments {sys.argv[1:]}")
     t0 = time.time()
     sources = _build.SOURCES + ("smem_probe",) + tuple(_build.VARIANTS)
     _build.build_all(sources)           # one nvcc per source, all at once
@@ -1622,6 +1990,7 @@ def main() -> int:
     main_path = phase_main_path(torch, np, smem_ns, traces, configs, full)
     scan_profile = phase_cell_scan_profile(torch, traces, configs, full)
     chains = phase_chains(torch, np, smem_ns)
+    fab = phase_fabric(torch, np, smem_ns, traces, sass_against)
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
@@ -1693,6 +2062,51 @@ def main() -> int:
                  k: {c: v["ns_per_step"] for c, v in p["cells"].items()}
                  for k, p in chains["profile"].items()},
              oracle_cells=chains["oracle_cells"]),
+        dict(name="cell_scan_fabric", route="cuda",
+             source="src/repro_torch/kernels/csrc/cell_scan.cu",
+             replaces="src/repro/core/engine/step.py:102",
+             entry="cell_scan_launch with n_leaves > 1 (the FAB "
+                   "instantiation: engine/fabric.py's leaf windows, "
+                   "per-leaf PBC clocks, spine backpressure, per-leaf "
+                   "recovery)",
+             launches=fab["fig"]["counts"]["cell_scan"],
+             main_path="phase 9a: simulate_grid over fig_fabric's grid at "
+                       "its published size (52 cells, D = 1, NL = 8); "
+                       "phase 9b launched it once more over the fabric "
+                       "paper grid",
+             launches_fabric_grid=fab["grid_b"]["counts"]["cell_scan"],
+             max_abs_err=fab["max_abs_err"], ms=fab["fig"]["ms"],
+             plain_ms=fab["smoke"]["plain_s"] * 1e3,
+             plain_note="the eager scan_cell's seconds summed over "
+                        "fig_fabric's 52 cells at its smoke size (150 "
+                        "pairs a core; run on the host, a pool of "
+                        "processes); the kernel on the same cells: "
+                        "smoke_ms",
+             smoke_ms=fab["smoke"]["ms"],
+             bound_ms=fab["fig"]["bound_ms"], bound_by="bytes",
+             library_ms=None,
+             shape="fig_fabric: 8 tenants x 1500 persist/read pairs, "
+                   "PB/PB_RF x 1/2/4/8 leaves x packed/spread x bp_high "
+                   "None/4, and crashed",
+             fig_steps=fab["fig"]["steps"],
+             fig_ns_per_step=fab["fig"]["ns_per_step"],
+             fig_latency_bound_ms=fab["fig"]["latency_bound_ms"],
+             fig_chain_control=fab["fig"]["chain_control"],
+             fig_wall_s=fab["fig"]["wall_s"],
+             fig_persist_ns=fab["fig"]["persist_ns"],
+             fig_leaf_recovery=fab["fig"]["leaf_recovery"],
+             fabric_grid_ms=fab["grid_b"]["ms"],
+             fabric_grid_steps=fab["grid_b"]["steps"],
+             fabric_grid_ns_per_step=fab["grid_b"]["ns_per_step"],
+             fabric_grid_bound_ms=fab["grid_b"]["bound_ms"],
+             fabric_grid_latency_bound_ms=fab["grid_b"]["latency_bound_ms"],
+             fabric_grid_chain_control=fab["grid_b"]["chain_control"],
+             fabric_grid_wall_s=fab["grid_b"]["wall_s"],
+             fabric_section_ns_per_step={
+                 c: v["ns_per_step"]
+                 for c, v in fab["profile"]["cells"].items()},
+             oracle_cells=fab["oracle_cells"],
+             sass_identical=fab.get("sass_identical")),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",

@@ -1,10 +1,11 @@
-"""Timed PCS engine, torch port of ``repro.core.engine`` (switch chains;
-no fabric, schedules or macro-steps yet).
+"""Timed PCS engine, torch port of ``repro.core.engine`` (switch chains
+and fan-out fabrics; no schedules or macro-steps yet).
 
   * ``state``    — machine state, stats layout, config lowering
   * ``channels`` — PM bank + PBC resource model (next-free scalars)
   * ``policy``   — allocation, victim selection, drain policies
   * ``chain``    — switch-chain forwarding through the deep-hop rows
+  * ``fabric``   — fan-out fabric leaf windows and spine backpressure
   * ``handlers`` — per-op handlers, Python-branched on op and scheme
   * ``step``     — issue-time merge loop: the eager ``scan_cell``, the
                    plain version of the cell-scan kernel
@@ -13,7 +14,8 @@ no fabric, schedules or macro-steps yet).
 """
 from repro_torch.core.engine.grid import (  # noqa: F401
     simulate, simulate_cells, simulate_grid, simulate_sweep)
+from repro_torch.core.engine import fabric  # noqa: F401
 from repro_torch.core.engine.state import SimResult  # noqa: F401
 
-__all__ = ["SimResult", "simulate", "simulate_cells", "simulate_grid",
-           "simulate_sweep"]
+__all__ = ["SimResult", "fabric", "simulate", "simulate_cells",
+           "simulate_grid", "simulate_sweep"]

@@ -13,8 +13,10 @@ pair); ``simulate`` and ``simulate_sweep`` are thin wrappers over the
 same path.
 
 Scope of the port so far: switch chains (up to the kernel's
-``MAX_DEEP + 1`` switches), no fabric, one schedule epoch and no
-macro-stepping.  Configs outside it raise ``NotImplementedError``.
+``MAX_DEEP + 1`` switches) and fan-out fabrics (up to the kernel's
+``MAX_LEAVES`` leaves), one schedule epoch (no ``Schedule`` knob, a
+fabric placement included) and no macro-stepping.  Configs outside it
+raise ``NotImplementedError``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, and
 raise where there is no CUDA.
 """
@@ -42,8 +44,6 @@ def check_scope(configs: Sequence[PCSConfig], macro: bool) -> None:
             "macro-stepping is not ported; run with macro=False (results "
             "are identical)")
     for c in configs:
-        if c.fabric is not None:
-            raise NotImplementedError("fabric topologies are not ported")
         if c.n_epochs > 1:
             raise NotImplementedError("Schedule knobs are not ported")
 
@@ -85,9 +85,13 @@ def cell_inputs(traces, configs, cell_trace, cell_cfg, *, max_pbe=None,
     # them (a deep NOPB chain is pure wire), and a depth-<=1-only grid
     # carries none (n_deep == 0)
     n_deep = max(max((len(c.hop_pbes) - 1 for c in configs), default=0), 0)
-    scs = [scalars_from_config(c, n_tenants_max, n_deep) for c in configs]
-    sc_table, ten_table, chain_table = cs.pack_configs(scs, n_tenants_max,
-                                                       device)
+    # so is the fabric's leaf axis: 1 (no multi-leaf fabric in the grid)
+    # carries no leaf clock and runs no fabric branch
+    n_leaves = max((c.fabric.n_leaves if c.fabric is not None else 1
+                    for c in configs), default=1)
+    scs = [scalars_from_config(c, n_tenants_max, n_deep, n_leaves)
+           for c in configs]
+    tables = cs.pack_configs(scs, n_tenants_max, device)
     ops, addrs, gaps, lengths = (torch.from_numpy(a).to(device)
                                  for a in _stack_traces(traces))
     schemes = torch.tensor([int(c.scheme) for c in configs],
@@ -96,10 +100,10 @@ def cell_inputs(traces, configs, cell_trace, cell_cfg, *, max_pbe=None,
     def idx(v):
         return torch.tensor(list(v), dtype=torch.int32, device=device)
     args = (ops, addrs, gaps, lengths, idx(cell_trace), idx(cell_cfg),
-            schemes, sc_table, ten_table, chain_table)
+            schemes) + tables
     return args, dict(max_pbe=max_pbe, pm_banks=banks.pop(),
                       n_track=track_addrs, n_tenants_max=n_tenants_max,
-                      n_deep_max=n_deep)
+                      n_deep_max=n_deep, n_leaves_max=n_leaves)
 
 
 def _run(traces, configs, cell_trace, cell_cfg, *, max_pbe, track_addrs,
@@ -112,6 +116,7 @@ def _run(traces, configs, cell_trace, cell_cfg, *, max_pbe, track_addrs,
     results = []
     for k, j in enumerate(cell_cfg):
         cfg = configs[j]
+        fab = cfg.fabric
         results.append(result_from_stats(
             float(host.runtime[k]), host.stats[k],
             crash_at_ns=cfg.crash_at_ns,
@@ -123,7 +128,9 @@ def _run(traces, configs, cell_trace, cell_cfg, *, max_pbe, track_addrs,
             tenant_recovery=host.recov_t[k],
             n_hops=len(cfg.hop_pbes),
             hop_stats=host.hop_stats[k],
-            hop_recovery=host.recov_h[k]))
+            hop_recovery=host.recov_h[k],
+            n_leaves=fab.n_leaves if fab is not None else 1,
+            leaf_recovery=host.recov_l[k]))
     return results
 
 

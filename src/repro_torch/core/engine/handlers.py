@@ -14,10 +14,13 @@ included) and stored per entry; any later event observes Drain->Empty
 transitions whose ack time has passed (``policy.lazy_free``).  Under a
 switch chain (``n_switches >= 2``) a hop-1 drain is acked by hop 2's
 persistent cells instead, and the reads pass every deeper switch's PBCS
-(``engine.chain``).
+(``engine.chain``).  Under a fan-out fabric (``engine.fabric``) a
+tenant's reads and persists see only its own leaf's hop-1 slot window
+and queue at its own leaf's PBC clock (``lpbc``), and the spine's Dirty
+occupancy can defer a leaf's drain-down.
 
-Scope: switch chains, no fabric, one epoch; the grid front-end rejects
-configs that would need more.
+Scope: switch chains and fan-out fabrics, one epoch; the grid front-end
+rejects configs that would need more.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from repro_torch.core.engine import chain, channels, policy
+from repro_torch.core.engine import chain, channels, fabric, policy
+from repro_torch.core.params import spine_defer
 from repro_torch.core.engine.state import (DIRTY, DRAIN, INF, H_COALESCES,
                                            H_FWD_CNT, H_FWD_SUM, H_READ_HITS,
                                            MachineState, S_ACKED,
@@ -80,6 +84,30 @@ def _f64(x):
     return x.to(torch.float64)
 
 
+def _leaf_window(ctx: StepCtx, st: MachineState):
+    """The issuing tenant's hop-1 view: ``(leaf, slot mask, PBC clock)``.
+
+    Under a multi-leaf fabric grid (``NL > 0``) the op enters its
+    tenant's own leaf switch — only that leaf's slot window is visible,
+    and that leaf's PBC front serves it; otherwise (leaf None) the
+    global window and the single ``pbc_busy`` clock.
+    """
+    if not fabric.has_fabric(st):
+        return None, ctx.slot_active, st.pbc_busy
+    sc = ctx.sc
+    my_leaf = fabric.leaf_of_tenant(sc, ctx.tenant)
+    leaf_act = ctx.slot_active & fabric.leaf_mask(
+        sc, fabric.slot_leaf(sc, ctx.slot_ids), my_leaf)
+    return my_leaf, leaf_act, st.lpbc[my_leaf]
+
+
+def _pbc_cols(st: MachineState, my_leaf, pbc_new) -> dict:
+    """The PBC clock written back where :func:`_leaf_window` read it."""
+    if my_leaf is None:
+        return dict(pbc_busy=pbc_new)
+    return dict(lpbc=_set(st.lpbc, my_leaf.long(), pbc_new))
+
+
 # ---------------------------------------------------------------- volatile
 def handle_compute(ctx: StepCtx, st: MachineState) -> MachineState:
     return st._replace(clock=_set(st.clock, ctx.c, ctx.t))
@@ -123,10 +151,11 @@ def _read_via_pb(ctx: StepCtx, st: MachineState) -> MachineState:
     resp_dir = pm_start_dir + sc["nvm_read"] + ow
 
     state0 = policy.lazy_free(st.state, st.dd, t)
-    has, idx = policy.pb_lookup(st.tag, state0, ctx.slot_active, addr)
+    my_leaf, leaf_act, pbc_prev = _leaf_window(ctx, st)
+    has, idx = policy.pb_lookup(st.tag, state0, leaf_act, addr)
     # PI-buffer path: wait for the PBC (head-of-line blocking)
     arr = t + sc["ow_cpu_sw1"]
-    pbc_start = channels.pbc_start(st.pbc_busy, arr,
+    pbc_start = channels.pbc_start(pbc_prev, arr,
                                    sc["pbc_read_ns"] + sc["tag_ns"])
     st_i = state0[idx]
     dd_i = st.dd[idx]
@@ -161,8 +190,8 @@ def _read_via_pb(ctx: StepCtx, st: MachineState) -> MachineState:
             pm_start_dir + sc["nvm_r_occ"])
     pm_busy2 = _set(st.pm_busy, bank, pmb)
     pbc_busy2 = torch.where(
-        has, channels.pbc_hold(st.pbc_busy, arr, sc["pbc_read_occ"]),
-        st.pbc_busy)
+        has, channels.pbc_hold(pbc_prev, arr, sc["pbc_read_occ"]),
+        pbc_prev)
     lru2 = _set(st.lru, idx, torch.where(hit, t, st.lru[idx]))
     hop_stats = st.hop_stats.clone()
     hop_stats[0, H_READ_HITS] += _f64(hit)
@@ -174,8 +203,9 @@ def _read_via_pb(ctx: StepCtx, st: MachineState) -> MachineState:
         torch.stack([resp - t, torch.ones_like(resp), _f64(hit | deep_hit),
                      _f64(has)]))
     return st._replace(clock=_set(st.clock, ctx.c, resp), state=state0,
-                       lru=lru2, dlru=dlru, pm_busy=pm_busy2,
-                       pbc_busy=pbc_busy2, stats=stats, hop_stats=hop_stats)
+                       lru=lru2, dlru=dlru, pm_busy=pm_busy2, stats=stats,
+                       hop_stats=hop_stats,
+                       **_pbc_cols(st, my_leaf, pbc_busy2))
 
 
 def handle_pm_read(ctx: StepCtx, st: MachineState) -> MachineState:
@@ -193,12 +223,14 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
     crash = sc["crash_at"]
     bank = channels.bank_of(addr, ctx.n_banks)
     arr = t + sc["ow_cpu_sw1"]
-    pbc_prev = st.pbc_busy
+    # Fabric: lookup/alloc/victim/drain are scoped to the tenant's leaf
+    # window and its leaf's PBC front serves the packet (a chain cell in
+    # a fabric grid keeps the global window: the n_leaves < 2 bypass)
+    my_leaf, leaf_act, pbc_prev = _leaf_window(ctx, st)
     pbc_start = channels.pbc_start(pbc_prev, arr,
                                    sc["pbc_proc_ns"] + sc["tag_ns"])
     state1 = policy.lazy_free(st.state, st.dd, pbc_start)
-    has_dirty, idx = policy.coalesce_lookup(st.tag, state1, ctx.slot_active,
-                                            addr)
+    has_dirty, idx = policy.coalesce_lookup(st.tag, state1, leaf_act, addr)
 
     # durability tracking: this persist's per-address version number
     A = st.aver.shape[0]
@@ -211,10 +243,11 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
     is_coalesce = has_dirty & is_rf
     # Allocation is policy-driven (AllocPolicy lowering): per-tenant
     # occupancy feeds the quota gate and the weighted victim selection.
+    # (The occupancy counts the whole hop-1 PB, as the reference's does.)
     occ = policy.tenant_occupancy(state1, ctx.slot_active, st.owner,
                                   st.stats.shape[0])
     (any_empty, empty_idx, any_dirty, victim_idx,
-     earliest_idx) = policy.select_slot(sc, state1, ctx.slot_active,
+     earliest_idx) = policy.select_slot(sc, state1, leaf_act,
                                         st.lru, st.dd, st.owner,
                                         ctx.tenant, occ)
 
@@ -297,12 +330,23 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
     # the writer takes ownership (a cross-tenant coalesce included)
     owner3 = _set(st.owner, wslot, ctx.tenant.to(st.owner.dtype))
 
+    # Backpressure-aware drain scheduling (fabric): while the spine PB's
+    # Dirty occupancy — measured after this op's victim leg landed — is
+    # at/above bp_high, the leaf's threshold/low-water drain-down defers.
+    # Non-fabric configs lower bp_high = INF (never defer); victim drains
+    # and PB's drain-immediate are exempt.
+    defer = None
+    if st.dtag.shape[0] > 0 and my_leaf is not None:
+        dstate0 = rows_v["dstate"][0] if is_chain else st.dstate[0]
+        defer = spine_defer(fabric.spine_live(sc, dstate0, ctx.slot_ids),
+                            sc["bp_high"])
+
     if is_rf:
         state4, dd4, pm_busy2, policy_writes = \
             policy.drain_threshold_preset(
-                sc, ctx.n_banks, ctx.slot_active, t_written, state3, tag3,
+                sc, ctx.n_banks, leaf_act, t_written, state3, tag3,
                 lru3, dd3, pm_busy1, owner=owner3, tenant=ctx.tenant,
-                tight=tight)
+                tight=tight, defer=defer)
     else:
         state4, dd4, pm_busy2, policy_writes = policy.drain_immediate(
             sc, bank, ctx.slot_ids, wslot, t_written, state3, dd3, pm_busy1)
@@ -407,8 +451,8 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
     return st._replace(clock=_set(st.clock, ctx.c, ack), tag=tag5,
                        state=state5, lru=lru5, dd=dd5, ver=ver5,
                        owner=owner5, aver=aver3, pm_ver=pm_ver3,
-                       pm_busy=pm_busy3, pbc_busy=pbc_free, stats=stats,
-                       hop_stats=hop_stats, **chain_cols)
+                       pm_busy=pm_busy3, stats=stats, hop_stats=hop_stats,
+                       **_pbc_cols(st, my_leaf, pbc_free), **chain_cols)
 
 
 def _persist_direct(ctx: StepCtx, st: MachineState) -> MachineState:
@@ -477,21 +521,24 @@ def recovery_snapshot(st: MachineState, scheme: int, sc, slot_active,
     newest version held at any surviving hop (or PM).  Returns
     ``(durable_ver (A,) i32, n_recovered f64, recovery_ns f64,
     recovered_per_tenant (T,) f64, recovered_per_hop (D+1,) f64,
-    recovered_per_leaf (1,) f64)``; the last three attribute each
-    surviving entry to its owning tenant, to the hop holding it, and to
-    the one leaf (hop 1) of a chain.
+    recovered_per_leaf (max(NL,1),) f64)``; the last three attribute
+    each surviving entry to its owning tenant, to the hop holding it,
+    and — for hop 1 — to the leaf switch holding it (a chain's one hop-1
+    switch is leaf 0; the spine's survivors are ``per_hop[1]``).
     """
     crash = sc["crash_at"]
     A = st.pm_ver.shape[0]
     T = st.stats.shape[0]
     D, P = st.dtag.shape
+    NL = st.lpbc.shape[0]
     dev = st.stats.device
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     zero_t = torch.zeros((T,), dtype=torch.float64, device=dev)
+    zero_l = torch.zeros((max(NL, 1),), dtype=torch.float64, device=dev)
     if scheme == 0:
         return (st.pm_ver, zero, zero, zero_t,
                 torch.zeros((D + 1,), dtype=torch.float64, device=dev),
-                zero.reshape(1))
+                zero_l)
     surviving = policy.surviving_entries(st.state, st.dd, slot_active, crash)
     in_range = surviving & (st.tag >= 0) & (st.tag < n_track)
     dv = st.pm_ver.scatter_reduce(0, torch.clamp(st.tag, 0, A - 1).long(),
@@ -504,6 +551,11 @@ def recovery_snapshot(st: MachineState, scheme: int, sc, slot_active,
     n = surv.sum()
     per_hop = [n]
     slot_ids = torch.arange(P, device=dev)
+    if fabric.has_fabric(st):
+        per_leaf = zero_l.index_add(
+            0, fabric.slot_leaf(sc, slot_ids).long(), surv)
+    else:
+        per_leaf = n.reshape(1)
     for j in range(D):
         row_live = float(j) + 2.0 <= float(sc["n_switches"])
         sa = slot_ids < sc["deep_pbe"][j].to(torch.int32)
@@ -524,4 +576,4 @@ def recovery_snapshot(st: MachineState, scheme: int, sc, slot_active,
     per_hop = torch.stack(per_hop)
     n_total = per_hop.sum()
     cost = policy.recovery_burst_cost(sc, per_bank, n_total)
-    return dv, n_total, cost, per_t, per_hop, n.reshape(1)
+    return dv, n_total, cost, per_t, per_hop, per_leaf

@@ -141,7 +141,7 @@ def recovery_burst_cost(sc, per_bank, n):
 
 def drain_threshold_preset(sc, n_banks, slot_active, t_written,
                            state3, tag3, lru3, dd3, pm_busy1, *,
-                           owner, tenant, tight=None):
+                           owner, tenant, tight=None, defer=None):
     """PB_RF: threshold/preset drain-down over LRU Dirty entries.
 
     Tensor twin of :func:`rf_drain_count` plus the per-bank burst
@@ -149,8 +149,10 @@ def drain_threshold_preset(sc, n_banks, slot_active, t_written,
     the bank's write occupancy, overlapping across banks.  A
     tenant-scoped drain (``sc["drain_scope"]``) sees only the issuing
     tenant's Dirty entries and its own counts; ``tight`` (the serving-SLO
-    override) drains with threshold 1 / preset 0.  The LRU rank is the
-    stable-sort rank, so equal stamps order by slot index.  Returns
+    override) drains with threshold 1 / preset 0; ``defer`` (the
+    fabric's spine backpressure, or None to skip) defers the whole
+    drain-down (``k = 0``) while the spine is congested.  The LRU rank is
+    the stable-sort rank, so equal stamps order by slot index.  Returns
     (state4, dd4, pm_busy2, policy_writes).
     """
     B = n_banks
@@ -172,6 +174,8 @@ def drain_threshold_preset(sc, n_banks, slot_active, t_written,
                                       dirty_cnt.to(torch.float64)),
                         0.0)
     k = torch.maximum(k_thresh, k_low)
+    if defer is not None:
+        k = torch.where(defer, 0.0, k)
     key = torch.where(dirty_mask, lru3, INF)
     rank = torch.argsort(torch.argsort(key, stable=True),
                          stable=True).to(torch.float64)

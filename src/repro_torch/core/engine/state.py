@@ -4,19 +4,23 @@ Port of ``repro.core.engine.state``.  The scan carry of the timed
 engine is one :class:`MachineState` of tensors: per-core clocks and
 trace cursors, the PB tables (TAT tags, ST states, LRU stamps, in-flight
 drain-ack times), the deep-hop PB tables of a switch chain, the resource
-next-free times (PM banks, PBC, deep-hop PBCs) and the statistics
-accumulators behind Figs. 1 and 5-8.
+next-free times (PM banks, PBC, deep-hop PBCs, the leaf switches' PBCs
+of a fan-out fabric) and the statistics accumulators behind Figs. 1 and
+5-8.
 
 Every latency parameter, the live PBE bound, the drain thresholds, the
-scheme id, the tenant count and the switch-chain depth with its per-hop
-capacities are per-config scalars/vectors (:func:`scalars_from_config`),
+scheme id, the tenant count, the switch-chain depth with its per-hop
+capacities and the fabric's leaf windows are per-config scalars/vectors
+(:func:`scalars_from_config`),
 so one grid of mixed configs runs through one cell-scan kernel launch.
 Statistics are accumulated per tenant — ``stats`` is ``(T, N_STATS)`` —
 and the global :class:`SimResult` is the sum over tenants, bit-exact for
 single-tenant configs.
 
-The fabric columns of the reference carry are not part of the port yet:
-the grid front-end rejects configs that would need them.
+The fabric's per-leaf PBC clocks (``lpbc``) carry ``NL`` entries, ``NL =
+n_leaves_max`` when the grid holds a multi-leaf fabric, else 0 (no
+fabric branch runs).  Epoch schedules are not part of the port yet: the
+grid front-end rejects configs that would need them.
 """
 from __future__ import annotations
 
@@ -209,6 +213,10 @@ class MachineState(NamedTuple):
                             #             (crash gate + read visibility)
     hpbc: torch.Tensor      # (D,)   f64  deep-hop PBC next-free times
     hop_stats: torch.Tensor  # (D + 1, N_HOP_STATS) f64 per-switch telemetry
+    # ---- fabric (fan-out) columns, NL = n_leaves_max when > 1 else 0 ----
+    # Each leaf switch owns its own PBC front; NL == 0 (no multi-leaf
+    # fabric in the grid) keeps the single ``pbc_busy`` clock.
+    lpbc: torch.Tensor      # (NL,)  f64  per-leaf PBC next-free times
 
 
 _STATE_DTYPES = dict(
@@ -219,16 +227,19 @@ _STATE_DTYPES = dict(
     blocked=torch.bool, bcount=torch.int16, stats=torch.float64,
     dtag=torch.int32, dstate=torch.int8, dlru=torch.float64,
     ddd=torch.float64, dver=torch.int32, downer=torch.int8,
-    dwt=torch.float64, hpbc=torch.float64, hop_stats=torch.float64)
+    dwt=torch.float64, hpbc=torch.float64, hop_stats=torch.float64,
+    lpbc=torch.float64)
 DEEP_FIELDS = ("dtag", "dstate", "dlru", "ddd", "dver", "downer", "dwt")
 
 
 def init_state(n_cores: int, max_pbe: int, pm_banks: int,
                n_track: int = 0, n_tenants_max: int = 1,
-               n_deep_max: int = 0, *, device="cpu") -> MachineState:
+               n_deep_max: int = 0, n_leaves_max: int = 1, *,
+               device="cpu") -> MachineState:
     A = max(n_track, 1)
     T = max(n_tenants_max, 1)
     D = max(n_deep_max, 0)
+    NL = n_leaves_max if n_leaves_max > 1 else 0
     if T > 127:
         raise ValueError("n_tenants_max exceeds the int8 owner column")
     shapes = dict(clock=(n_cores,), ptr=(n_cores,), tag=(max_pbe,),
@@ -236,7 +247,7 @@ def init_state(n_cores: int, max_pbe: int, pm_banks: int,
                   ver=(max_pbe,), owner=(max_pbe,), aver=(A,), pm_ver=(A,),
                   pm_busy=(pm_banks,), pbc_busy=(), blocked=(n_cores,),
                   bcount=(T,), stats=(T, N_STATS), hpbc=(D,),
-                  hop_stats=(D + 1, N_HOP_STATS),
+                  hop_stats=(D + 1, N_HOP_STATS), lpbc=(NL,),
                   **{k: (D, max_pbe) for k in DEEP_FIELDS})
     st = {k: torch.zeros(shapes[k], dtype=_STATE_DTYPES[k], device=device)
           for k in MachineState._fields}
@@ -249,11 +260,13 @@ def init_state(n_cores: int, max_pbe: int, pm_banks: int,
 
 def state_from_numpy(*, device="cpu", **arrays) -> MachineState:
     """Build a :class:`MachineState` from numpy arrays (one per field),
-    cast to the packing contract's dtypes.  The deep-hop columns may be
-    left out: they then default to a chain-free machine (no deep row)."""
+    cast to the packing contract's dtypes.  The deep-hop and fabric
+    columns may be left out: they then default to a chain-free,
+    fabric-free machine (no deep row, no leaf clock)."""
     P = np.asarray(arrays.get("tag", ())).shape[0]
     defaults = {k: np.zeros((0, P)) for k in DEEP_FIELDS}
     defaults["hpbc"] = np.zeros((0,))
+    defaults["lpbc"] = np.zeros((0,))
     arrays = {**defaults, **arrays}
     missing = set(MachineState._fields) - set(arrays)
     if missing:

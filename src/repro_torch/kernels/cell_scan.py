@@ -8,9 +8,12 @@ version is the eager :func:`repro_torch.core.engine.step.scan_cell`.
 ``csrc/cell_scan.cu`` runs one block of one warp per (trace, config)
 cell and every cell of a grid in one launch; the scheme is read per
 cell.  Switch chains of up to ``MAX_DEEP + 1`` switches run through the
-deep-hop rows of the kernel's ``D = n_deep_max`` instantiation; a deeper
-grid raises.  The carry lives in shared memory; lanes own PBE slots, and every
-``argmin`` is a warp reduction that breaks ties to the lowest index.
+deep-hop rows of the kernel's ``D = n_deep_max`` instantiation, and a
+grid that holds a fan-out fabric of up to ``MAX_LEAVES`` leaves through
+its ``FAB`` instantiation (leaf windows, per-leaf PBC clocks, spine
+backpressure, per-leaf recovery); a deeper or wider grid raises.  The
+carry lives in shared memory; lanes own PBE slots, and every ``argmin``
+is a warp reduction that breaks ties to the lowest index.
 The PB lookups call the ``tat_lookup`` kernel's match routine
 (``csrc/tat_match.cuh``).  What bounds it: each cell is a chain of
 dependent steps (up to 379 029 for the paper's cholesky at
@@ -45,12 +48,17 @@ TENANT_KEYS = ("quota", "share", "t_threshold", "t_preset")
 # (len(CHAIN_KEYS) + len(DEEP_KEYS) * D1,) row per config (enum ChKey).
 CHAIN_KEYS = ("n_switches", "hop_ns", "link_ns")
 DEEP_KEYS = ("deep_pbe", "deep_thr", "deep_pre", "deep_tag", "deep_data")
+# The fabric: per-config scalars, then the NL1 = max(n_leaves_max, 1)
+# leaf bases and the T tenants' leaves, flat in one
+# (len(FAB_KEYS) + NL1 + T,) row per config (enum FabKey).
+FAB_KEYS = ("n_leaves", "bp_high")
 
 MAX_PBE = 128           # 4 slots per lane
 MAX_CORES = 1024
 MAX_TENANTS = 127       # int8 owner column
 MAX_BANKS = 32          # one PM bank per lane
 MAX_DEEP = 3            # deep-hop rows: switch chains up to 4 switches
+MAX_LEAVES = 32         # fabric leaves (per-leaf clocks and survivors)
 
 launches = 0
 
@@ -66,6 +74,7 @@ class CellScanOut(NamedTuple):
     recov_ns: torch.Tensor     # (N,)  f64
     recov_t: torch.Tensor      # (N, T) f64
     recov_h: torch.Tensor      # (N, D + 1) f64 survivors per hop
+    recov_l: torch.Tensor      # (N, NL1) f64 hop-1 survivors per leaf
     steps: torch.Tensor        # (N,)  i64 executed (valid) steps
     lookups: torch.Tensor      # (N,)  i64 match-routine calls (kernel only;
                                #       0 on the plain path)
@@ -73,8 +82,9 @@ class CellScanOut(NamedTuple):
 
 def pack_configs(scs: Sequence[dict], n_tenants_max: int, device):
     """Stack per-config ``scalars_from_config`` dicts into the kernel's
-    ``(K, len(SC_KEYS))``, ``(K, len(TENANT_KEYS), T)`` and
-    ``(K, len(CHAIN_KEYS) + len(DEEP_KEYS) * D1)`` f64 tables."""
+    ``(K, len(SC_KEYS))``, ``(K, len(TENANT_KEYS), T)``,
+    ``(K, len(CHAIN_KEYS) + len(DEEP_KEYS) * D1)`` and
+    ``(K, len(FAB_KEYS) + NL1 + T)`` f64 tables."""
     sc_table = torch.stack([torch.stack([sc[k].reshape(()) for k in SC_KEYS])
                             for sc in scs]).to(device)
     ten_table = torch.stack([
@@ -84,30 +94,41 @@ def pack_configs(scs: Sequence[dict], n_tenants_max: int, device):
         torch.cat([torch.stack([sc[k].reshape(()) for k in CHAIN_KEYS])]
                   + [sc[k].reshape(-1) for k in DEEP_KEYS])
         for sc in scs]).to(device)
-    return sc_table, ten_table, chain_table
+    fab_table = torch.stack([
+        torch.cat([torch.stack([sc[k].reshape(()) for k in FAB_KEYS]),
+                   sc["leaf_base"].reshape(-1),
+                   sc["leaf_of_t"].reshape(n_tenants_max)])
+        for sc in scs]).to(device)
+    return sc_table, ten_table, chain_table, fab_table
 
 
-def _config_view(sc_table, ten_table, chain_table, j):
+def _config_view(sc_table, ten_table, chain_table, fab_table, j):
     row = {k: sc_table[j, i] for i, k in enumerate(SC_KEYS)}
     row.update({k: ten_table[j, i] for i, k in enumerate(TENANT_KEYS)})
     row.update({k: chain_table[j, i] for i, k in enumerate(CHAIN_KEYS)})
     deep = chain_table[j, len(CHAIN_KEYS):].reshape(len(DEEP_KEYS), -1)
     row.update({k: deep[i] for i, k in enumerate(DEEP_KEYS)})
+    row.update({k: fab_table[j, i] for i, k in enumerate(FAB_KEYS)})
+    nl1 = fab_table.shape[1] - len(FAB_KEYS) - ten_table.shape[2]
+    row["leaf_base"] = fab_table[j, len(FAB_KEYS):len(FAB_KEYS) + nl1]
+    row["leaf_of_t"] = fab_table[j, len(FAB_KEYS) + nl1:]
     return row
 
 
 def cell_scan_ref(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-                  sc_table, ten_table, chain_table, *, max_pbe, pm_banks,
-                  n_track, n_tenants_max, n_deep_max=0) -> CellScanOut:
+                  sc_table, ten_table, chain_table, fab_table, *, max_pbe,
+                  pm_banks, n_track, n_tenants_max, n_deep_max=0,
+                  n_leaves_max=1) -> CellScanOut:
     """Plain version: the eager ``scan_cell`` over every cell in turn."""
     from repro_torch.core.engine.step import scan_cell
     rows = []
     for tr, cf in zip(cell_trace.tolist(), cell_cfg.tolist()):
         rows.append(scan_cell(
             ops[tr], addrs[tr], gaps[tr], lengths[tr], int(schemes[cf]),
-            _config_view(sc_table, ten_table, chain_table, cf),
+            _config_view(sc_table, ten_table, chain_table, fab_table, cf),
             max_pbe=max_pbe, pm_banks=pm_banks, n_track=n_track,
-            n_tenants_max=n_tenants_max, n_deep_max=n_deep_max))
+            n_tenants_max=n_tenants_max, n_deep_max=n_deep_max,
+            n_leaves_max=n_leaves_max))
     dev = ops.device
 
     def col(k, dtype=None):
@@ -116,15 +137,17 @@ def cell_scan_ref(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
     return CellScanOut(
         runtime=col(0), stats=col(1), hop_stats=col(6),
         durable_ver=col(2, torch.int32), n_recov=col(3), recov_ns=col(4),
-        recov_t=col(5), recov_h=col(7), steps=col(9, torch.int64),
+        recov_t=col(5), recov_h=col(7), recov_l=col(8),
+        steps=col(9, torch.int64),
         lookups=torch.zeros((len(rows),), dtype=torch.int64, device=dev))
 
 
 def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-           sc_table, ten_table, chain_table, max_pbe, pm_banks, n_track,
-           n_tenants_max, n_deep_max):
+           sc_table, ten_table, chain_table, fab_table, max_pbe, pm_banks,
+           n_track, n_tenants_max, n_deep_max, n_leaves_max):
     K, C, L = ops.shape
     n_chain = len(CHAIN_KEYS) + len(DEEP_KEYS) * max(n_deep_max, 1)
+    n_fab = len(FAB_KEYS) + max(n_leaves_max, 1) + n_tenants_max
     want = dict(ops=(ops, torch.int32, (K, C, L)),
                 addrs=(addrs, torch.int32, (K, C, L)),
                 gaps=(gaps, torch.float32, (K, C, L)),
@@ -137,6 +160,8 @@ def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
                             n_tenants_max)),
                 chain_table=(chain_table, torch.float64,
                              (sc_table.shape[0], n_chain)),
+                fab_table=(fab_table, torch.float64,
+                           (sc_table.shape[0], n_fab)),
                 cell_trace=(cell_trace, torch.int32, cell_trace.shape),
                 cell_cfg=(cell_cfg, torch.int32, cell_trace.shape))
     for name, (x, dtype, shape) in want.items():
@@ -164,42 +189,52 @@ def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
         raise ValueError(f"cell_scan: n_deep_max={n_deep_max} outside [0, "
                          f"{MAX_DEEP}]: the kernel takes switch chains of "
                          f"up to {MAX_DEEP + 1} switches")
+    if not 1 <= n_leaves_max <= MAX_LEAVES:
+        raise ValueError(f"cell_scan: n_leaves_max={n_leaves_max} outside "
+                         f"[1, {MAX_LEAVES}]: the kernel takes fabrics of "
+                         f"up to {MAX_LEAVES} leaves")
+    if n_leaves_max > 1 and n_deep_max < 1:
+        raise ValueError("cell_scan: a fabric grid needs its spine's deep "
+                         "row (n_deep_max >= 1)")
 
 
 def cell_scan(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-              sc_table, ten_table, chain_table, *, max_pbe: int,
+              sc_table, ten_table, chain_table, fab_table, *, max_pbe: int,
               pm_banks: int, n_track: int, n_tenants_max: int,
-              n_deep_max: int = 0) -> CellScanOut:
+              n_deep_max: int = 0, n_leaves_max: int = 1) -> CellScanOut:
     """Run cells ``k = 0..N-1``: trace ``cell_trace[k]`` of the stacked
     ``(K, C, L)`` traces under config ``cell_cfg[k]`` of the packed
-    tables (:func:`pack_configs`), with ``n_deep_max`` deep-hop rows."""
+    tables (:func:`pack_configs`), with ``n_deep_max`` deep-hop rows and
+    ``n_leaves_max`` fabric leaves."""
     global launches
     _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-           sc_table, ten_table, chain_table, max_pbe, pm_banks, n_track,
-           n_tenants_max, n_deep_max)
+           sc_table, ten_table, chain_table, fab_table, max_pbe, pm_banks,
+           n_track, n_tenants_max, n_deep_max, n_leaves_max)
     kw = dict(max_pbe=max_pbe, pm_banks=pm_banks, n_track=n_track,
-              n_tenants_max=n_tenants_max, n_deep_max=n_deep_max)
+              n_tenants_max=n_tenants_max, n_deep_max=n_deep_max,
+              n_leaves_max=n_leaves_max)
     if ops.device.type == "cpu":
         return cell_scan_ref(ops, addrs, gaps, lengths, cell_trace,
                              cell_cfg, schemes, sc_table, ten_table,
-                             chain_table, **kw)
+                             chain_table, fab_table, **kw)
     if ops.device.type != "cuda":
         raise ValueError(f"cell_scan: unsupported device {ops.device}")
     ins = [x.contiguous() for x in (ops, addrs, gaps, lengths, cell_trace,
                                     cell_cfg, schemes, sc_table, ten_table,
-                                    chain_table)]
+                                    chain_table, fab_table)]
     out = _empty_out(cell_trace.shape[0], n_tenants_max, max(n_track, 1),
-                     n_deep_max, ops.device)
+                     n_deep_max, ops.device, n_leaves_max)
     if cell_trace.shape[0] > 0:
         rc = launch(_build.library("cell_scan"), ins, out, max_pbe=max_pbe,
                     pm_banks=pm_banks, n_track=n_track, n_deep=n_deep_max,
+                    n_leaves=n_leaves_max,
                     stream=torch.cuda.current_stream(ops.device).cuda_stream)
         _build.check(rc, "cell_scan launch")
         launches += 1
     return out
 
 
-def _empty_out(N, T, A, D, dev) -> CellScanOut:
+def _empty_out(N, T, A, D, dev, n_leaves=1) -> CellScanOut:
     from repro_torch.core.engine.state import N_HOP_STATS, N_STATS
 
     def empty(shape, dtype=torch.float64):
@@ -209,14 +244,17 @@ def _empty_out(N, T, A, D, dev) -> CellScanOut:
         hop_stats=empty((N, D + 1, N_HOP_STATS)),
         durable_ver=empty((N, A), torch.int32), n_recov=empty((N,)),
         recov_ns=empty((N,)), recov_t=empty((N, T)), recov_h=empty((N, D + 1)),
+        recov_l=empty((N, max(n_leaves, 1))),
         steps=empty((N,), torch.int64), lookups=empty((N,), torch.int64))
 
 
 def launch(lib, ins, out: CellScanOut, *, max_pbe, pm_banks, n_track,
-           n_deep, stream) -> int:
+           n_deep, stream, n_leaves=1) -> int:
     """Call ``cell_scan_launch`` of ``lib`` on contiguous inputs ``ins``
     (the order of :func:`cell_scan`'s tensor arguments) and the
-    preallocated ``out``; returns the C entry point's error code."""
+    preallocated ``out``; returns the C entry point's error code.
+    ``n_leaves > 1`` (the grid holds a multi-leaf fabric) launches the
+    kernel's fabric instantiation."""
     from repro_torch.core.engine.state import LAT_BIN_EDGES
     ops = ins[0]
     _, C, L = ops.shape
@@ -226,19 +264,24 @@ def launch(lib, ins, out: CellScanOut, *, max_pbe, pm_banks, n_track,
                          device=ops.device)
     aver = torch.empty((N, A), dtype=torch.int32, device=ops.device)
     # the kernel's argument order: the depth-1 inputs, bin edges, the
-    # depth-1 outputs, the issued-version scratch ``aver``, then the
-    # chain's table and per-hop survivors
+    # depth-1 outputs, the issued-version scratch ``aver``, the chain's
+    # table and per-hop survivors, then the fabric's table and per-leaf
+    # survivors
     ptrs = list(ins[:9]) + [edges] + [out.runtime, out.stats, out.hop_stats,
                                       out.durable_ver, out.n_recov,
                                       out.recov_ns, out.recov_t, out.steps,
-                                      out.lookups, aver, ins[9], out.recov_h]
+                                      out.lookups, aver, ins[9], out.recov_h,
+                                      ins[10], out.recov_l]
     fn = lib.cell_scan_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     rc = fn(*[x.data_ptr() for x in ptrs], N, C, L, max_pbe, pm_banks, A,
-            T, n_track, n_deep, stream)
+            T, n_track, n_deep, n_leaves, stream)
     if rc == 0 and n_deep == 0:
         # without a chain the one hop's survivors are the recovery count
         out.recov_h[:, 0].copy_(out.n_recov)
+    if rc == 0 and n_leaves <= 1:
+        # without a fabric hop 1 is the one leaf
+        out.recov_l[:, 0].copy_(out.recov_h[:, 0])
     return rc

@@ -7,12 +7,14 @@
 // keeps that code's form and order (f64 adds, maxes and products, built
 // with -fmad=false), so the two agree bit for bit.
 //
-// Scope: switch chains of up to MAX_DEEP + 1 = 4 switches, no fabric,
-// one schedule epoch — the handler and policy bodies with tenants,
-// PBPolicy quotas and weighted victims, the SLO drain tightening, the
-// crash gate and durability tracking, and the deep-hop rows of
-// engine/chain.py (the template's D, the grid's deep-row count; D = 0
-// compiles every chain statement out).
+// Scope: switch chains of up to MAX_DEEP + 1 = 4 switches and fan-out
+// fabrics of up to MAX_LEAVES leaves, one schedule epoch — the handler
+// and policy bodies with tenants, PBPolicy quotas and weighted victims,
+// the SLO drain tightening, the crash gate and durability tracking, the
+// deep-hop rows of engine/chain.py (the template's D, the grid's
+// deep-row count; D = 0 compiles every chain statement out), and the
+// fabric of engine/fabric.py (the template's FAB, set when the grid holds
+// a multi-leaf fabric; FAB = false compiles every fabric statement out).
 //
 // Design: one block of one warp per (trace, config) cell; every cell of
 // a grid in one launch, with the scheme read per cell.  The machine
@@ -271,8 +273,9 @@ struct Carver {
   }
 };
 
+// NL: the PBC clocks, one per leaf switch of a fabric grid (else 1).
 __host__ __device__ size_t carve(Smem& m, unsigned char* base, int C, int P,
-                                 int B, int T) {
+                                 int B, int T, int NL = 1) {
   Carver cv{base, 0};
   m.clock = cv.take<double>(C);
   m.lru = cv.take<double>(P);
@@ -280,7 +283,7 @@ __host__ __device__ size_t carve(Smem& m, unsigned char* base, int C, int P,
   m.pm_busy = cv.take<double>(B);
   m.stats = cv.take<double>(static_cast<size_t>(T) * N_STATS);
   m.hop = cv.take<double>(N_HOP_STATS);
-  m.pbc = cv.take<double>(1);
+  m.pbc = cv.take<double>(NL);
   m.sc = cv.take<double>(N_SC);
   m.ten = cv.take<double>(static_cast<size_t>(N_TEN) * T);
   m.occ = cv.take<double>(T);
@@ -394,6 +397,25 @@ __device__ __forceinline__ ChainSmem rebase_chain(ChainSmem c,
   CHAIN_FIELDS(REBASE)
 #undef REBASE
   return c;
+}
+
+// ---- the fan-out fabric (engine/fabric.py) -------------------------------
+// Leaf i of a fabric owns the hop-1 slots from its base on; a lane keeps
+// its slots' leaves in registers, and the tenants' leaves (lof) wait in
+// shared memory after the chain's arrays.  The fabric table's row per
+// config: FAB_KEYS, then the NL leaf bases, then the T tenants' leaves.
+enum FabKey { F_N_LEAVES, F_BP_HIGH, N_FK };
+constexpr int MAX_LEAVES = 32;
+
+struct FabSmem {
+  int* lof;  // (T,) tenant t's leaf switch
+};
+
+__host__ __device__ size_t carve_fab(FabSmem& f, unsigned char* base,
+                                     size_t off, int T) {
+  Carver cv{base, off};
+  f.lof = cv.take<int>(T);
+  return cv.off;
 }
 
 // One packet of a list, in a lane's registers.
@@ -1041,6 +1063,11 @@ struct Args {
   const double* chain_table;  // (Kc, N_CH + N_DK * D)
   double* recov_h;            // (N, D + 1) survivors per hop
   ChainSmem clay;             // the chain's carve-up: byte offsets
+  // ---- the fabric (FAB instantiations only) ----
+  const double* fab_table;    // (Kc, N_FK + NL + T)
+  double* recov_l;            // (N, NL) hop-1 survivors per leaf
+  FabSmem flay;               // the fabric's carve-up: byte offsets
+  int NL;                     // leaves: the grid's max(n_leaves, 1)
 };
 
 }  // namespace
@@ -1048,8 +1075,13 @@ struct Args {
 // SPL: PBE slots per lane (slot s = lane + 32 j, j < SPL), the fewest
 // that hold max_pbe, so that a small PB keeps one slot a lane.  D: the
 // grid's deep-hop rows (0: no switch chain; every `if constexpr (D > 0)`
-// below is then compiled out).
-template <int SPL, int D>
+// below is then compiled out).  FAB: the grid holds a multi-leaf fabric
+// (instantiated with D >= 1 only: its spine is deep row 0); a tenant's
+// hop-1 lookups, allocation, victim and drain-down see its leaf's slot
+// window, its leaf's PBC clock serves it (m.pbc holds one a leaf), the
+// spine's Dirty occupancy can defer a PB_RF drain-down, and recovery
+// counts hop-1 survivors per leaf.  FAB = false compiles all of it out.
+template <int SPL, int D, bool FAB>
 __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem m = rebase(a.lay, smem_raw);
@@ -1129,6 +1161,31 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     }
     for (int i = lane; i < N_CH + N_DK * D; i += 32)
       ch.c.csc[i] = a.chain_table[static_cast<size_t>(cf) * (N_CH + N_DK * D) + i];
+  }
+  // the fabric: every leaf's PBC clock starts free, the tenants' leaves
+  // in smem, and each lane's slots' leaves (fabric.slot_leaf: the bases
+  // at or below the slot, minus one) and the n_leaves < 2 bypass in
+  // registers
+  FabSmem fs{};
+  int sl[SPL];
+  bool fab_bypass = true;
+  double bp_high = INF;
+  if constexpr (FAB) {
+    const int NL = a.NL;
+    const double* fr = a.fab_table + static_cast<size_t>(cf) * (N_FK + NL + T);
+    fs.lof = reinterpret_cast<int*>(smem_raw + reinterpret_cast<size_t>(a.flay.lof));
+    for (int i = lane; i < NL; i += 32) m.pbc[i] = 0.0;
+    for (int t = lane; t < T; t += 32)
+      fs.lof[t] = static_cast<int>(fr[N_FK + NL + t]);
+    fab_bypass = fr[F_N_LEAVES] < 2.0;
+    bp_high = fr[F_BP_HIGH];
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      const double sd = static_cast<double>(lane + 32 * j);
+      int below = 0;
+      for (int k = 0; k < NL; ++k) below += sd >= fr[N_FK + k];
+      sl[j] = clampi(below - 1, 0, NL - 1);
+    }
   }
   __syncwarp();
 
@@ -1235,6 +1292,15 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     const int addr = m.caddr[c];
     const int tid = m.tids[c];
     const int n_live_t = m.lpt[tid];
+    // the fabric: the issuing tenant's leaf, whose PBC clock serves the
+    // op (0 without a fabric), and its slot window (fabric.leaf_mask)
+    int my_leaf = 0;
+    bool lm[SPL];
+    if constexpr (FAB) {
+      my_leaf = fs.lof[tid];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) lm[j] = fab_bypass || sl[j] == my_leaf;
+    }
     double* st_row = stats + static_cast<size_t>(tid) * N_STATS;
     // core c's next trace entry, read now for the end of the step (lane
     // 0's copies, one group a step: the entry was issued RING - 1 or
@@ -1278,7 +1344,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
       } else {
         // PB/PB_RF: read forwarding through the PI buffer.
         const double arr = t + rd.ow_cpu_sw1;
-        const double pbc_prev = m.pbc[0];
+        const double pbc_prev = m.pbc[my_leaf];
         const double pbc_start = fmax(pbc_prev, arr) + rd.pbc_read_tag;
         // s0: the lazily freed state at t (policy.lazy_free) of this
         // lane's slots; each lane also decides whether its slot would
@@ -1292,7 +1358,8 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           const double ddv = m.dd[sp];
           const int st = (v == DRAIN && ddv <= t) ? EMPTY : v;
           s0[j] = static_cast<signed char>(s < P ? st : EMPTY);
-          const bool tm = s < n_pbe && tg == addr;
+          bool tm = s < n_pbe && tg == addr;
+          if constexpr (FAB) tm = tm && lm[j];
           hit_d[j] = tm && st == DIRTY;
           hit_l[j] = tm && st != EMPTY;
           serves[j] = (st == DIRTY) ||
@@ -1361,7 +1428,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           st_row[S_PI_DETOURS] += has ? 1.0 : 0.0;
           m.clock[c] = resp;
           m.pm_busy[bank] = pmb;
-          m.pbc[0] = pbc_new;
+          m.pbc[my_leaf] = pbc_new;
         }
         if constexpr (D > 0) {
           if (deep_hit) ch.hop_add(deep_row, H_READ_HITS, 1.0);
@@ -1400,7 +1467,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         // ---- shared PB persist core (handlers._persist_with_buffer) ----
         const bool is_rf = scheme == 2;
         const double arr = t + sc[K_OW_CPU_SW1];
-        const double pbc_prev = m.pbc[0];
+        const double pbc_prev = m.pbc[my_leaf];
         const double pbc_start =
             fmax(pbc_prev, arr) + (sc[K_PBC_PROC] + sc[K_TAG_NS]);
         // st1: the lazily freed state at pbc_start of this lane's slots
@@ -1414,6 +1481,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           const int st = (v == DRAIN && ddv <= pbc_start) ? EMPTY : v;
           st1[j] = static_cast<signed char>(s < P ? st : EMPTY);
           hit_d[j] = s < n_pbe && tg == addr && st == DIRTY;
+          if constexpr (FAB) hit_d[j] = hit_d[j] && lm[j];
         }
         // policy.coalesce_lookup: the first Dirty match
         const int i_dirty = tat_first(hit_d, tiles);
@@ -1423,7 +1491,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         const bool is_coalesce = is_rf && has_dirty;
         PROF(SEC_LOOKUP);
         // tenant_occupancy: live entries per owning tenant, a ballot per
-        // tile and tenant
+        // tile and tenant (over the whole hop-1 PB, a fabric's too)
         int own1[SPL];
 #pragma unroll
         for (int j = 0; j < SPL; ++j) {
@@ -1447,7 +1515,9 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
 #pragma unroll
         for (int j = 0; j < SPL; ++j) {
           const int s = lane + 32 * j;
-          if (s < n_pbe && st1[j] == DIRTY) {
+          bool act = s < n_pbe;
+          if constexpr (FAB) act = act && lm[j];
+          if (act && st1[j] == DIRTY) {
             const int o = clampi(m.owner[s], 0, T - 1);
             any_hot |= m.occ[o] >= m.ten[T_SHARE * T + o];
           }
@@ -1460,7 +1530,8 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         for (int j = 0; j < SPL; ++j) {
           const int s = lane + 32 * j;
           if (s < P) {
-            const bool act = s < n_pbe;
+            bool act = s < n_pbe;
+            if constexpr (FAB) act = act && lm[j];
             const bool own = m.owner[s] == tid;
             const bool empty_m = act && st1[j] == EMPTY && !over_quota;
             const bool dirty_all = act && st1[j] == DIRTY;
@@ -1596,7 +1667,8 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
 #pragma unroll
           for (int j = 0; j < SPL; ++j) {
             const int s = lane + 32 * j;
-            const bool act = s < n_pbe;
+            bool act = s < n_pbe;
+            if constexpr (FAB) act = act && lm[j];
             const bool in_scope = scoped ? own3[j] == tid : true;
             dmask[j] = st3[j] == DIRTY && act && in_scope;
             emask[j] = st3[j] == EMPTY && act;
@@ -1613,7 +1685,21 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           const double k_low = static_cast<double>(ecnt) <= sc[K_EMPTY_SLACK]
                                    ? fmin(sc[K_LOW_WATER], dirty_cnt)
                                    : 0.0;
-          const double k = fmax(k_thresh, k_low);
+          double k = fmax(k_thresh, k_low);
+          if constexpr (FAB) {
+            // spine backpressure (fabric.spine_live, params.spine_defer):
+            // the spine's Dirty entries inside its capacity, after this
+            // op's victim leg landed; at or above bp_high the drain-down
+            // defers
+            bool sp[SPL];
+#pragma unroll
+            for (int j = 0; j < SPL; ++j) {
+              const int s = lane + 32 * j;
+              sp[j] = s < ch.pbe[0] && ch.c.dstate[ch.idx(0, s < P ? s : 0)] == DIRTY;
+            }
+            const double sp_live = static_cast<double>(warp_count(sp, tiles));
+            k = sp_live >= bp_high ? 0.0 : k;
+          }
           // stable-sort rank of the LRU key among the Dirty-masked
           // slots: #{q: key_q < key_s or (key_q == key_s and q < s)};
           // the others key INF and never count.  Lanes walk the masked
@@ -1811,7 +1897,7 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           st_row[S_ACKED] += ack <= crash ? 1.0 : 0.0;
           st_row[S_DURABLE] += commit ? 1.0 : 0.0;
           st_row[S_LAT_HIST0 + hist] += 1.0;
-          m.pbc[0] = pbc_free;
+          m.pbc[my_leaf] = pbc_free;
           m.clock[c] = ack;
         }
         PROF(SEC_STATS);
@@ -1939,6 +2025,10 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     if (scheme == 0) {
       for (int tt = lane; tt < T; tt += 32) rec_t[tt] = 0.0;
       for (int h = lane; h <= D; h += 32) rec_h[h] = 0.0;
+      if constexpr (FAB) {
+        for (int l = lane; l < a.NL; l += 32)
+          a.recov_l[static_cast<size_t>(cell) * a.NL + l] = 0.0;
+      }
     } else {
       // the union over the chain's hops: hop 1's survivors, then each
       // deep row's under the same rule (a Drain entry survives iff its
@@ -1967,6 +2057,17 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         const int nh = warp_count(surv[h], tiles);
         n_all += nh;
         if (lane == 0) rec_h[h] = static_cast<double>(nh);
+      }
+      if constexpr (FAB) {
+        // hop 1's survivors per leaf switch (by slot_leaf)
+        double* rec_l = a.recov_l + static_cast<size_t>(cell) * a.NL;
+        for (int l = 0; l < a.NL; ++l) {
+          bool mine[SPL];
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) mine[j] = surv[0][j] && sl[j] == l;
+          const int cnt = warp_count(mine, tiles);
+          if (lane == 0) rec_l[l] = static_cast<double>(cnt);
+        }
       }
       for (int tt = 0; tt < T; ++tt) {
         int cnt = 0;
@@ -2018,27 +2119,39 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
 
 // ---- host entry point -------------------------------------------------
 // n_deep (the grid's deep-hop rows, the D of the instantiation) is
-// bounded by MAX_DEEP: chains of up to MAX_DEEP + 1 switches.
+// bounded by MAX_DEEP: chains of up to MAX_DEEP + 1 switches.  n_leaves
+// (the grid's most fabric leaves) above 1 selects the FAB instantiation,
+// which needs the spine's deep row.
 constexpr int MAX_DEEP = 3;
 
+template <int SPL, int D, bool FAB>
+static int run_one(Args& a, int n_cells, size_t smem, cudaStream_t stream) {
+  const auto kernel = cell_scan_kernel<SPL, D, FAB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<n_cells, 32, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SPL, int D>
+static int run_d(Args& a, int n_cells, bool fab, size_t smem,
+                 cudaStream_t stream) {
+  return fab ? run_one<SPL, D, true>(a, n_cells, smem, stream)
+             : run_one<SPL, D, false>(a, n_cells, smem, stream);
+}
+
 template <int SPL>
-static int run_spl(Args& a, int n_cells, int n_deep, size_t smem,
+static int run_spl(Args& a, int n_cells, int n_deep, bool fab, size_t smem,
                    cudaStream_t stream) {
-  auto run = [&](auto kernel) {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kernel<<<n_cells, 32, smem, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  };
   switch (n_deep) {
-    case 0: return run(cell_scan_kernel<SPL, 0>);
-    case 1: return run(cell_scan_kernel<SPL, 1>);
-    case 2: return run(cell_scan_kernel<SPL, 2>);
-    case 3: return run(cell_scan_kernel<SPL, 3>);
+    case 0: return run_one<SPL, 0, false>(a, n_cells, smem, stream);
+    case 1: return run_d<SPL, 1>(a, n_cells, fab, smem, stream);
+    case 2: return run_d<SPL, 2>(a, n_cells, fab, smem, stream);
+    case 3: return run_d<SPL, 3>(a, n_cells, fab, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2050,20 +2163,26 @@ extern "C" int cell_scan_launch(
     const double* lat_edges, double* runtime, double* stats,
     double* hop_stats, int* durable_ver, double* n_recov,
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
-    int* aver, const double* chain_table, double* recov_h, int n_cells,
-    int C, int L, int P, int B, int A, int T, int n_track, int n_deep,
+    int* aver, const double* chain_table, double* recov_h,
+    const double* fab_table, double* recov_l, int n_cells, int C, int L,
+    int P, int B, int A, int T, int n_track, int n_deep, int n_leaves,
     cudaStream_t stream) {
+  const bool fab = n_leaves > 1;
+  const int NL = fab ? n_leaves : 1;
   Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
-         C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {}};
-  if (n_deep < 0 || n_deep > MAX_DEEP)
+         C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
+         fab_table, recov_l, {}, NL};
+  if (n_deep < 0 || n_deep > MAX_DEEP || n_leaves < 1 ||
+      n_leaves > MAX_LEAVES || (fab && n_deep < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = carve(a.lay, nullptr, C, P, B, T);
+  size_t smem = carve(a.lay, nullptr, C, P, B, T, NL);
   if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
-  if (P <= 32) return run_spl<1>(a, n_cells, n_deep, smem, stream);
-  if (P <= 64) return run_spl<2>(a, n_cells, n_deep, smem, stream);
-  return run_spl<MAX_SPL>(a, n_cells, n_deep, smem, stream);
+  if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
+  if (P <= 32) return run_spl<1>(a, n_cells, n_deep, fab, smem, stream);
+  if (P <= 64) return run_spl<2>(a, n_cells, n_deep, fab, smem, stream);
+  return run_spl<MAX_SPL>(a, n_cells, n_deep, fab, smem, stream);
 }
 
 #ifdef CELL_SCAN_PROFILE

@@ -1,20 +1,23 @@
-"""Compare the cell scan's chain-free machine code with another source's.
+"""Compare the cell scan's fabric-free machine code with another source's.
 
 Card-only tool (it needs ``nvcc`` and ``cuobjdump``): builds
 ``csrc/cell_scan.cu`` and the ``cell_scan.cu`` given on the command line
 (for example an earlier revision's, saved with ``git show
 <rev>:src/repro_torch/kernels/csrc/cell_scan.cu > old.cu``) to cubins with
-the package's flags, and compares the SASS of the current
-``cell_scan_kernel<SPL, 0>`` (no switch chain) with the other source's
-``cell_scan_kernel<SPL, 0>`` (or ``cell_scan_kernel<SPL>``, from before
-the chain's template parameter) for SPL = 1, 2, 4, instruction by
-instruction:
+the package's flags, and compares the SASS of every ``FAB = false``
+instantiation of the current ``cell_scan_kernel<SPL, D, FAB>`` (D = 0..3
+deep-hop rows) with the other source's same ``<SPL, D>`` — named
+``cell_scan_kernel<SPL, D, false>``, ``cell_scan_kernel<SPL, D>`` (from
+before the fabric's template parameter) or, for D = 0,
+``cell_scan_kernel<SPL>`` (from before the chain's) — for SPL = 1, 2, 4,
+instruction by instruction:
 
     PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu
 
-Prints, per SPL, both instruction counts and the instructions that
-differ (branch targets aside, which only move when code after them
-changes length).
+Prints each build's seconds, then per (SPL, D) both instruction counts
+and the instructions that differ (branch targets aside, which only move
+when code after them changes length), and the ``FAB = true``
+instantiations' counts.
 """
 from __future__ import annotations
 
@@ -23,19 +26,23 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 from repro_torch.kernels import _build
 
 CUDA_BIN = Path("/usr/local/cuda/bin")
+MAX_DEEP = 3
 
 
 def sass(src: Path, out: Path) -> dict:
     """``{function name: [instruction, ...]}`` of ``src`` built to ``out``."""
     flags = [f for f in _build.nvcc_flags("cell_scan")
              if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    t0 = time.time()
     subprocess.run([str(CUDA_BIN / "nvcc"), *flags, f"-I{_build.CSRC}",
                     "-cubin", "-o", str(out), str(src)], check=True)
+    print(f"built {src} in {time.time() - t0:.1f} s")
     text = subprocess.run([str(CUDA_BIN / "cuobjdump"), "-sass", str(out)],
                           check=True, capture_output=True, text=True).stdout
     funcs, cur = {}, None
@@ -54,27 +61,46 @@ def _no_target(ins: str) -> str:
     return re.sub(r"0x[0-9a-f]+", "TARGET", ins) if "BRA" in ins else ins
 
 
+def _find(funcs: dict, names) -> list | None:
+    """The first function whose mangled name holds one of ``names``."""
+    for name in names:
+        for k, v in funcs.items():
+            if f"cell_scan_kernel{name}" in k:
+                return v
+    return None
+
+
 def main(other: str) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         old = sass(Path(other), Path(tmp) / "other.cubin")
         new = sass(_build.CSRC / "cell_scan.cu", Path(tmp) / "this.cubin")
     same = True
     for spl in (1, 2, 4):
-        o = next(v for k, v in old.items()
-                 if f"cell_scan_kernelILi{spl}ELi0EE" in k
-                 or f"cell_scan_kernelILi{spl}EE" in k)
-        n = next(v for k, v in new.items()
-                 if f"cell_scan_kernelILi{spl}ELi0EE" in k)
-        ops = difflib.SequenceMatcher(
-            a=[_no_target(x) for x in o], b=[_no_target(x) for x in n],
-            autojunk=False).get_opcodes()
-        diff = [op for op in ops if op[0] != "equal"]
-        same &= not diff and len(o) == len(n)
-        print(f"cell_scan_kernel SPL={spl}: other {len(o)} instructions, "
-              f"D = 0 {len(n)}, differing runs {len(diff)}"
-              + ("" if o != n or diff else "; identical"))
-        for tag, i1, i2, j1, j2 in diff[:4]:
-            print(f"  {tag}: {o[i1:i2][:4]} -> {n[j1:j2][:4]}")
+        for d in range(MAX_DEEP + 1):
+            names = [f"ILi{spl}ELi{d}ELb0EE", f"ILi{spl}ELi{d}EE"]
+            o = _find(old, names + ([f"ILi{spl}EE"] if d == 0 else []))
+            n = _find(new, names[:1])
+            if o is None or n is None:
+                print(f"cell_scan_kernel SPL={spl} D={d}: missing "
+                      f"(other {o is not None}, this {n is not None})")
+                same = False
+                continue
+            ops = difflib.SequenceMatcher(
+                a=[_no_target(x) for x in o], b=[_no_target(x) for x in n],
+                autojunk=False).get_opcodes()
+            diff = [op for op in ops if op[0] != "equal"]
+            same &= not diff and len(o) == len(n)
+            print(f"cell_scan_kernel SPL={spl} D={d} FAB=false: other "
+                  f"{len(o)} instructions, this {len(n)}, differing runs "
+                  f"{len(diff)}" + ("" if diff or len(o) != len(n)
+                                    else "; identical"))
+            for tag, i1, i2, j1, j2 in diff[:4]:
+                print(f"  {tag}: {o[i1:i2][:4]} -> {n[j1:j2][:4]}")
+    for spl in (1, 2, 4):
+        counts = [len(_find(new, [f"ILi{spl}ELi{d}ELb1EE"]) or [])
+                  for d in range(1, MAX_DEEP + 1)]
+        print(f"cell_scan_kernel SPL={spl} FAB=true: D = 1..{MAX_DEEP} "
+              f"{counts} instructions")
     return 0 if same else 1
 
 

@@ -47,8 +47,8 @@ def reference():
         import repro.core.engine
         import repro.kernels
         from repro.core import params, semantics, traces
-        from repro.core.engine import (channels, grid, handlers, policy,
-                                       state)
+        from repro.core.engine import (channels, fabric, grid, handlers,
+                                       policy, state)
         from repro.kernels import ref as kref
         from repro import configs
         from repro.models import attention, layers, ssm, transformer
@@ -62,7 +62,7 @@ def reference():
     try:
         yield types.SimpleNamespace(
             core=repro.core, params=params, semantics=semantics,
-            traces=traces, state=state,
+            traces=traces, state=state, fabric=fabric,
             channels=channels, policy=policy, handlers=handlers, grid=grid,
             kref=kref, ktat=ktat, kflash=kflash, kssd=kssd, layers=layers,
             attention=attention, ssm=ssm, transformer=transformer,

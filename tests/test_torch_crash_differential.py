@@ -6,8 +6,9 @@ The matrices are those of ``tests/test_crash_differential.py``: fuzzed
 multi-core persist/read/barrier interleavings (``fuzz_trace``), the
 engine crashed at a slot boundary (``crash_at_ns``) and the oracle after
 replaying the same slots, with exact agreement on the durable state
-after recovery, the event counts, the per-tenant rows and the per-hop
-survivor and telemetry rows (``tests/_torch_crash_driver.py``).  Each
+after recovery, the event counts, the per-tenant rows, the per-hop
+survivor and telemetry rows and a fabric's per-leaf survivors
+(``tests/_torch_crash_driver.py``).  Each
 matrix is parametrised by fuzz seed.  The single-core count checks of
 ``tests/test_engine_oracle.py`` close the file.
 """
@@ -17,10 +18,10 @@ import numpy as np
 import pytest
 
 from _torch_crash_driver import assert_cell_matches, oracle_replay
-from repro_torch.core import (AllocPolicy, DrainPolicy, Op, PBPolicy,
-                              PCSConfig, Scheme, fuzz_crash_ns, fuzz_trace,
-                              simulate, simulate_grid, tenant_ids,
-                              trace_from_arrays)
+from repro_torch.core import (AllocPolicy, DrainPolicy, FabricTopology, Op,
+                              PBPolicy, PCSConfig, Scheme, fuzz_crash_ns,
+                              fuzz_trace, leaf_placement, simulate,
+                              simulate_grid, tenant_ids, trace_from_arrays)
 from repro_torch.core.semantics import EventKind, PersistentBuffer
 
 SCHEMES = [Scheme.NOPB, Scheme.PB, Scheme.PB_RF]
@@ -148,6 +149,58 @@ def test_differential_matrix_switch_chains(seed):
                                pbe_per_hop=hp)
         assert_cell_matches(cells[j], oracle, N_ADDRS,
                             label=("CHAIN", seed, scheme.name, d, hp, k))
+
+
+def _fabrics(n_tenants):
+    """The fabric matrix's topologies (sum(leaf_pbe) == 8, spine 4): the
+    explicit 2-hop chain, the 1-leaf fabric, 2 leaves packed and spread,
+    2 leaves with a backpressure watermark, and 4 leaves."""
+    return [None,
+            FabricTopology(1, (8,), 4, (0,) * n_tenants),
+            FabricTopology(2, (4, 4), 4,
+                           leaf_placement(n_tenants, 2, "packed")),
+            FabricTopology(2, (4, 4), 4,
+                           leaf_placement(n_tenants, 2, "spread")),
+            FabricTopology(2, (4, 4), 4,
+                           leaf_placement(n_tenants, 2, "packed"),
+                           bp_high=2.0),
+            FabricTopology(4, (2, 2, 2, 2), 4,
+                           leaf_placement(n_tenants, 4, "spread"))]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_differential_matrix_fabric(seed):
+    """Fan-out fabrics (leaves + spine) against the leaf-aware oracle:
+    PB/PB_RF x the six topologies x 5 crash points, one grid per seed (60
+    cells a seed), with exact agreement on the durable state, the
+    per-tenant and per-hop rows and the per-leaf survivors."""
+    n_tenants = n_cores = 4
+    tr, sched = fuzz_trace(seed, n_cores=n_cores, n_slots=N_SLOTS,
+                           n_addrs=N_ADDRS, n_tenants=n_tenants,
+                           p_persist=0.7)
+    plan = [(s, k, fab) for s in (Scheme.PB, Scheme.PB_RF)
+            for k in (0, 11, 23, 36, N_SLOTS) for fab in _fabrics(n_tenants)]
+    configs = [
+        (PCSConfig(scheme=s, n_pbe=8, n_cores=n_cores, n_tenants=n_tenants,
+                   n_switches=2, pbe_per_hop=(8, 4))
+         if fab is None else
+         PCSConfig(scheme=s, n_cores=n_cores, n_tenants=n_tenants,
+                   fabric=fab)).with_crash(fuzz_crash_ns(k))
+        for s, k, fab in plan]
+    cells = _grid([tr], configs, 8)[0]
+    core_tenant = tenant_ids(tr.lengths, n_tenants)
+    for j, (scheme, k, fab) in enumerate(plan):
+        kw = (dict(n_switches=2, pbe_per_hop=(8, 4)) if fab is None
+              else dict(fabric=fab))
+        oracle = oracle_replay(sched, k, scheme, 8, core_tenant=core_tenant,
+                               n_tenants=n_tenants, **kw)
+        assert_cell_matches(cells[j], oracle, N_ADDRS,
+                            label=("FAB", seed, scheme.name, k,
+                                   None if fab is None else
+                                   (fab.n_leaves, fab.placement,
+                                    fab.bp_high)))
+        want_leaf = fab is not None and fab.n_leaves >= 2
+        assert (cells[j].leaf_recovery is not None) == want_leaf
 
 
 # ---- single-core counts (tests/test_engine_oracle.py) --------------------

@@ -101,18 +101,24 @@ def test_paper_grid_ref_datum_holds_the_reference_shape():
 OUT_OF_SCOPE = [
     dict(n_switches=3, policy=P.PBPolicy(drain=P.DrainPolicy(
         threshold=P.Schedule((1e4,), (0.8, 0.5)), preset=0.25))),
-    dict(fabric=P.FabricTopology()),
+    # a fabric whose placement moves tenants between leaves mid-run
+    dict(fabric=P.FabricTopology(2, (8, 8), 8,
+                                 P.Schedule((1e4,), ((0,), (1,))))),
     dict(policy=P.PBPolicy(drain=P.DrainPolicy(
         threshold=P.Schedule((1e4,), (0.8, 0.5)),
         preset=P.Schedule((1e4,), (0.6, 0.25))))),
 ]
 
 
-@pytest.mark.parametrize("kw", OUT_OF_SCOPE + ["macro"])
+@pytest.mark.parametrize("kw", OUT_OF_SCOPE + ["macro", "macro_fabric"])
 def test_out_of_scope_configs_raise(kw):
     tr = P.make_trace("radiosity", persist_budget=20)
     if kw == "macro":
         cfg, call = P.PCSConfig(scheme=P.Scheme.PB), dict(macro=True)
+    elif kw == "macro_fabric":
+        cfg = P.PCSConfig(scheme=P.Scheme.PB_RF, n_tenants=2,
+                          fabric=P.FabricTopology(2, (8, 8), 8, (0, 1)))
+        call = dict(macro=True)
     else:
         cfg, call = P.PCSConfig(scheme=P.Scheme.PB_RF, **kw), {}
     with pytest.raises(NotImplementedError):

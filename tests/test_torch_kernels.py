@@ -102,7 +102,7 @@ def test_cell_scan_wrapper_cpu_runs_eager_scan_cell():
     assert out.lookups.eq(0).all()
     for k, (i, j) in enumerate(pairs):
         t = traces[i]
-        sc = cs._config_view(args[7], args[8], args[9], j)
+        sc = cs._config_view(args[7], args[8], args[9], args[10], j)
         want = scan_cell(torch.from_numpy(t.ops), torch.from_numpy(t.addrs),
                          torch.from_numpy(t.gaps),
                          torch.from_numpy(t.lengths), int(configs[j].scheme),
@@ -115,7 +115,8 @@ def test_cell_scan_wrapper_cpu_runs_eager_scan_cell():
 
 
 @pytest.mark.parametrize("bad", ["ops_dtype", "gaps_dtype", "max_pbe",
-                                 "banks", "cfg_shape", "device_mix"])
+                                 "banks", "cfg_shape", "device_mix",
+                                 "leaves", "fab_shape"])
 def test_cell_scan_wrapper_raises_on_what_it_does_not_take(bad):
     _, _, _, (args, kw) = _grid_inputs(budget=40)
     args, kw = list(args), dict(kw)
@@ -129,6 +130,10 @@ def test_cell_scan_wrapper_raises_on_what_it_does_not_take(bad):
         kw["pm_banks"] = cs.MAX_BANKS + 1
     elif bad == "cfg_shape":
         args[7] = args[7][:, :-1]
+    elif bad == "leaves":
+        kw["n_leaves_max"] = cs.MAX_LEAVES + 1
+    elif bad == "fab_shape":
+        args[10] = args[10][:, :-1]
     else:
         args[3] = args[3].to("meta")
     with pytest.raises(ValueError):
@@ -137,18 +142,24 @@ def test_cell_scan_wrapper_raises_on_what_it_does_not_take(bad):
 
 def test_pack_configs_columns_follow_sc_keys():
     from repro_torch.core.engine.state import scalars_from_config
+    from repro_torch.core import FabricTopology
     cfgs = [PCSConfig(scheme=Scheme.PB, crash_at_ns=77.0),
-            PCSConfig(scheme=Scheme.PB_RF, n_tenants=2)]
-    scs = [scalars_from_config(c, 2) for c in cfgs]
-    sct, tent, cht = cs.pack_configs(scs, 2, "cpu")
-    assert sct.shape == (2, len(cs.SC_KEYS))
-    assert tent.shape == (2, len(cs.TENANT_KEYS), 2)
-    assert cht.shape == (2, len(cs.CHAIN_KEYS) + len(cs.DEEP_KEYS))
+            PCSConfig(scheme=Scheme.PB_RF, n_tenants=2),
+            PCSConfig(scheme=Scheme.PB_RF, n_tenants=2,
+                      fabric=FabricTopology(3, (2, 5, 1), 4, (2, 0),
+                                            bp_high=3.0))]
+    scs = [scalars_from_config(c, 2, 1, 3) for c in cfgs]
+    sct, tent, cht, fabt = cs.pack_configs(scs, 2, "cpu")
+    assert sct.shape == (3, len(cs.SC_KEYS))
+    assert tent.shape == (3, len(cs.TENANT_KEYS), 2)
+    assert cht.shape == (3, len(cs.CHAIN_KEYS) + len(cs.DEEP_KEYS))
+    assert fabt.shape == (3, len(cs.FAB_KEYS) + 3 + 2)
     for j, sc in enumerate(scs):
         for i, k in enumerate(cs.SC_KEYS):
             assert float(sct[j, i]) == float(sc[k])
         for i, k in enumerate(cs.TENANT_KEYS):
             assert torch.equal(tent[j, i], sc[k])
-        view = cs._config_view(sct, tent, cht, j)
-        for k in cs.CHAIN_KEYS + cs.DEEP_KEYS:
+        view = cs._config_view(sct, tent, cht, fabt, j)
+        for k in (cs.CHAIN_KEYS + cs.DEEP_KEYS + cs.FAB_KEYS
+                  + ("leaf_base", "leaf_of_t")):
             assert torch.equal(view[k].reshape(-1), sc[k].reshape(-1)), k

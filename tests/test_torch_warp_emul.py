@@ -36,13 +36,22 @@ EMUL = Path(__file__).resolve().parent / "warp_emul"
 
 CELL_SCAN_LAUNCH = r'''
 alignas(16) unsigned char smem_raw[1 << 20];
+template <int SPL, int D>
+static void emu_d(Args& a, int n_cells, bool fab) {
+  if (fab)
+    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, true>(a); });
+  else
+    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, false>(a); });
+}
 template <int SPL>
-static void emu_spl(Args& a, int n_cells, int n_deep) {
+static void emu_spl(Args& a, int n_cells, int n_deep, bool fab) {
   switch (n_deep) {
-    case 0: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 0>(a); }); break;
-    case 1: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 1>(a); }); break;
-    case 2: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 2>(a); }); break;
-    case 3: emu_run(n_cells, [&] { cell_scan_kernel<SPL, 3>(a); }); break;
+    case 0:
+      emu_run(n_cells, [&] { cell_scan_kernel<SPL, 0, false>(a); });
+      break;
+    case 1: emu_d<SPL, 1>(a, n_cells, fab); break;
+    case 2: emu_d<SPL, 2>(a, n_cells, fab); break;
+    case 3: emu_d<SPL, 3>(a, n_cells, fab); break;
   }
 }
 extern "C" int cell_scan_launch(
@@ -52,24 +61,31 @@ extern "C" int cell_scan_launch(
     const double* lat_edges, double* runtime, double* stats,
     double* hop_stats, int* durable_ver, double* n_recov,
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
-    int* aver, const double* chain_table, double* recov_h, int n_cells,
-    int C, int L, int P, int B, int A, int T, int n_track, int n_deep,
+    int* aver, const double* chain_table, double* recov_h,
+    const double* fab_table, double* recov_l, int n_cells, int C, int L,
+    int P, int B, int A, int T, int n_track, int n_deep, int n_leaves,
     cudaStream_t) {
+  const bool fab = n_leaves > 1;
+  const int NL = fab ? n_leaves : 1;
   Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
-         C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {}};
-  if (n_deep < 0 || n_deep > 3) return 1;
-  size_t smem = carve(a.lay, nullptr, C, P, B, T);
+         C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
+         fab_table, recov_l, {}, NL};
+  if (n_deep < 0 || n_deep > 3 || n_leaves < 1 || n_leaves > MAX_LEAVES ||
+      (fab && n_deep < 1))
+    return 1;
+  size_t smem = carve(a.lay, nullptr, C, P, B, T, NL);
   if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
+  if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
   if (smem > sizeof(smem_raw)) return 1;
   wg::emu_smem_base = smem_raw;
   if (P <= 32)
-    emu_spl<1>(a, n_cells, n_deep);
+    emu_spl<1>(a, n_cells, n_deep, fab);
   else if (P <= 64)
-    emu_spl<2>(a, n_cells, n_deep);
+    emu_spl<2>(a, n_cells, n_deep, fab);
   else
-    emu_spl<MAX_SPL>(a, n_cells, n_deep);
+    emu_spl<MAX_SPL>(a, n_cells, n_deep, fab);
   return 0;
 }
 // the chain's warp primitives on one emulated warp: lane l's __clz of
@@ -345,6 +361,8 @@ def _cases():
     deep_rf = P.PBPolicy(drain=P.DrainPolicy(threshold=0.95, preset=0.05))
     chain_fz = [P.fuzz_trace(seed, n_cores=3, n_slots=50, n_addrs=6,
                              p_persist=0.7)[0] for seed in (0, 1)]
+    fab_fz = [P.fuzz_trace(seed, n_cores=4, n_slots=50, n_addrs=6,
+                           n_tenants=4, p_persist=0.7)[0] for seed in (0, 1)]
     return {
         "schemes": (small, [P.PCSConfig(scheme=s) for s in S], 0),
         "crash": (small, [P.PCSConfig(scheme=s).with_crash(t)
@@ -438,7 +456,88 @@ def _cases():
                        for s, pol in ((S.PB, P.PBPolicy()),
                                       (S.PB_RF, deep_rf))
                        for hp in ((4, 1, 1, 1), (4, 4, 4, 4))], 16),
+        # fan-out fabrics (one grid per case, FAB instantiations): leaf
+        # windows beside a chain cell and a depth-1 cell sharing the grid
+        # (the n_leaves < 2 bypass), uneven and wide leaves (SPL 2)
+        "fabric_l2_packed": (fab_fz + [_fab_probe(4, 40)],
+                             [P.PCSConfig(scheme=s, n_cores=4, n_tenants=4,
+                                          fabric=f).with_crash(t)
+                              for s in (S.PB, S.PB_RF)
+                              for f in (_fab(4, (4, 4), 4, "packed"),
+                                        _fab(4, (3, 5), 2, "spread"),
+                                        _fab(4, (24, 24), 8, "packed"))
+                              for t in (2e7, 1e12)]
+                             + [P.PCSConfig(scheme=S.PB_RF, n_pbe=8,
+                                            n_cores=4, n_tenants=4,
+                                            n_switches=2,
+                                            pbe_per_hop=(8, 4)),
+                                P.PCSConfig(scheme=S.PB, n_pbe=8,
+                                            n_cores=4, n_tenants=4)], 8),
+        # spine backpressure: watermarks the spine's Dirty entries reach
+        "fabric_l4_spread_bp": (fab_fz + [_fab_probe(4, 40)],
+                                [P.PCSConfig(scheme=s, n_cores=4,
+                                             n_tenants=4, fabric=f,
+                                             policy=pol)
+                                 for s in (S.PB, S.PB_RF)
+                                 for f in (_fab(4, (2, 2, 2, 2), 4, "spread",
+                                                2.0),
+                                           _fab(4, (4, 4), 4, "packed", 1.0))
+                                 for pol in (P.PBPolicy(), deep_rf)], 8),
+        # eight leaves of 2 PBEs, one tenant a leaf
+        "fabric_l8": ([_fab_probe(8, 30)],
+                      [P.PCSConfig(scheme=s, n_cores=8, n_tenants=8,
+                                   fabric=_fab(8, (2,) * 8, 8, mode, bp))
+                       for s in (S.PB, S.PB_RF)
+                       for mode, bp in (("packed", None), ("spread", 4.0))],
+                      0),
+        # chain cells up to 4 switches and fabric cells in one grid:
+        # D = 3, NL = 4
+        "fabric_mixed": (fab_fz,
+                         [P.PCSConfig(scheme=s, n_pbe=4, n_cores=4,
+                                      n_tenants=4, n_switches=d)
+                          for s in (S.PB, S.PB_RF) for d in (2, 4)]
+                         + [P.PCSConfig(scheme=s, n_cores=4, n_tenants=4,
+                                        fabric=f)
+                            for s in (S.PB, S.PB_RF)
+                            for f in (_fab(4, (2, 2, 2, 2), 4, "spread",
+                                           2.0),
+                                      _fab(4, (8,), 4, "packed"))], 8),
+        # power lost with survivors on several leaves
+        "fabric_crash": ([_fab_probe(4, 60)],
+                         [P.PCSConfig(scheme=s, n_cores=4, n_tenants=4,
+                                      fabric=f).with_crash(t)
+                          for s in (S.PB, S.PB_RF)
+                          for f in (_fab(4, (4, 4), 4, "spread"),
+                                    _fab(4, (2, 2, 2, 2), 4, "packed", 2.0))
+                          for t in (9e3, 2.1e4, 4.4e4)], 64),
     }
+
+
+def _fab(n_tenants, leaf_pbe, spine_pbe, mode, bp_high=None):
+    """A fan-out fabric over ``leaf_pbe``'s leaves, its tenants placed by
+    ``mode`` (``leaf_placement``)."""
+    n = len(leaf_pbe)
+    return P.FabricTopology(n, leaf_pbe, spine_pbe,
+                            P.leaf_placement(n_tenants, n, mode),
+                            bp_high=bp_high)
+
+
+def _fab_probe(n_cores, n_ops, gap=500.0):
+    """``benchmarks/fig_fabric.py``'s probe trace: per core (one tenant
+    each) ``n_ops`` persists to a hot set of 64 lines of its own block,
+    each followed by a PM read of a fresh line, ``gap`` ns apart."""
+    L = 2 * n_ops
+    ops = np.zeros((n_cores, L), np.int32)
+    addrs = np.zeros((n_cores, L), np.int32)
+    for c in range(n_cores):
+        for i in range(n_ops):
+            ops[c, 2 * i] = int(P.Op.PERSIST)
+            addrs[c, 2 * i] = (c << 16) + i % 64
+            ops[c, 2 * i + 1] = int(P.Op.PM_READ)
+            addrs[c, 2 * i + 1] = (c << 16) + (1 << 10) + i
+    return P.trace_from_arrays("fab_probe", ops, addrs,
+                               np.full((n_cores, L), gap, np.float32),
+                               np.full(n_cores, L, np.int32))
 
 
 def _synth(seed, n_addrs, *, stride=1, n_cores=2, L=200, gap=40.0,
@@ -461,6 +560,7 @@ REACH = {
     "chain_bank": lambda r: r["bank"] > 32,
     "chain_gate": lambda r: r["place_split"] > 0 and r["land_split"] > 0,
     "chain_dup": lambda r: r["coalesces"] > 0,
+    "fabric_l4_spread_bp": lambda r: r["deferred"] > 0,
 }
 
 
@@ -472,10 +572,11 @@ def chain_batches(monkeypatch):
     coalesces, and the batches that named a line twice (none can: every
     hop holds at most one Dirty entry per line, and a packet bypasses a
     row only when it holds none for its line)."""
-    from repro_torch.core.engine import chain, channels
+    from repro_torch.core.engine import chain, channels, policy
     r = dict(place=0, land=0, bank=0, place_split=0, land_split=0,
-             coalesces=0, repeats=0)
+             coalesces=0, repeats=0, deferred=0)
     place, land = chain._place, chain._pm_land
+    drain = policy.drain_threshold_preset
 
     def seen(batch):
         a = batch.addr[batch.active].tolist()
@@ -504,8 +605,14 @@ def chain_batches(monkeypatch):
             r["land_split"] += bool((dd <= sc["crash_at"]).any()) \
                 and bool((dd > sc["crash_at"]).any())
         return out
+    def _drain(*args, defer=None, **kw):
+        # a drain-down the spine's backpressure held back
+        if defer is not None and bool(defer):
+            r["deferred"] += float(drain(*args, **kw)[3]) > 0
+        return drain(*args, defer=defer, **kw)
     monkeypatch.setattr(chain, "_place", _place)
     monkeypatch.setattr(chain, "_pm_land", _land)
+    monkeypatch.setattr(policy, "drain_threshold_preset", _drain)
     return r
 
 
@@ -513,7 +620,10 @@ def chain_batches(monkeypatch):
                                   "short_cores", "many_cores", "chain_d1",
                                   "chain_d2", "chain_d3", "chain_wide",
                                   "chain_long_spl2", "chain_long_spl4",
-                                  "chain_bank", "chain_gate", "chain_dup"])
+                                  "chain_bank", "chain_gate", "chain_dup",
+                                  "fabric_l2_packed", "fabric_l4_spread_bp",
+                                  "fabric_l8", "fabric_mixed",
+                                  "fabric_crash"])
 def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
                                                    case):
     traces, configs, track = _cases()[case]
@@ -525,20 +635,25 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
     if case in REACH:
         assert REACH[case](chain_batches), chain_batches
     got = cs._empty_out(len(pairs), kw["n_tenants_max"], max(track, 1),
-                        kw["n_deep_max"], "cpu")
+                        kw["n_deep_max"], "cpu", kw["n_leaves_max"])
     assert cs.launch(libs["cell_scan"], list(args), got,
                      max_pbe=kw["max_pbe"], pm_banks=kw["pm_banks"],
                      n_track=track, n_deep=kw["n_deep_max"],
-                     stream=None) == 0
+                     n_leaves=kw["n_leaves_max"], stream=None) == 0
     for f in cs.CellScanOut._fields:
         if f != "lookups":
             assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(got.lookups.sum()) > 0
-    if case.startswith("chain"):
+    if case.startswith(("chain", "fabric")):
         # the chain's rows saw commits, and its hops hold survivors
         assert float(want.hop_stats[:, 1:, 1].sum()) > 0
         if track:
             assert float(want.recov_h[:, 1:].sum()) > 0
+    if case.startswith("fabric"):
+        assert kw["n_leaves_max"] > 1
+    if case == "fabric_crash":
+        # some cell's survivors sit on at least two leaves
+        assert int(((want.recov_l > 0).sum(1) >= 2).sum()) > 0
 
 
 @pytest.mark.parametrize("seed", range(4))
