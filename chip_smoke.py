@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs nine phases, each printing its own
+``build/repro_torch/``, and runs ten phases, each printing its own
 lines:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -17,7 +17,7 @@ lines:
 2. the ``tat_lookup`` kernel against its plain version on the card, at
    the Pallas test sweep's shapes and the engine's (R=8, N=16), exact;
 3. the cell-scan kernel against the eager ``scan_cell`` (run on the
-   host) on the 7 workloads x NoPB/PB/PB_RF at ``persist_budget=2000``,
+   host, a pool of processes) on the 7 workloads x NoPB/PB/PB_RF at ``persist_budget=2000``,
    on PB/PB_RF crash cells with ``track_addrs=64``, and on the shortest
    workload's three cells of the full-size paper grid (the main path's
    own stacked inputs), exact on every output;
@@ -99,7 +99,33 @@ without CUDA.
    fabric step (cholesky's 4 cells of (b)); (e) 300 fuzzed fabric crash
    cells on the card against the port's oracle; and, given
    ``--sass-against OLD.cu``, (f) ``repro_torch.kernels.sass_diff`` of
-   every ``FAB = false`` instantiation against ``OLD.cu``.
+   every ``EP = false`` instantiation (``FAB`` both ways) against
+   ``OLD.cu``.
+
+10. (run after phase 9, before 5) epoch schedules through the cell
+    scan's EP instantiation: (a) ``benchmarks/fig_dynamic.py``'s grid at
+    its published size (raytrace on 4 cores re-timed by
+    ``DiurnalArrivals`` at 0.5, 2 and 8 Mops/s a core,
+    ``persist_budget=25_000``; a 2-leaf PB_RF pool under static quotas,
+    a quota step and a placement flip at half the op span, each live and
+    crashed at 3/4 of it; 18 cells, ``E = 2``, ``D = 1``, NL = 2) through
+    ``simulate_grid`` and (b) the 7 workloads at
+    ``persist_budget=100_000``, PB and PB_RF at ``n_switches`` 2 under a
+    drain-threshold tighten and an SLO target switched on at half the
+    workload's PB/2 runtime (28 cells) through ``simulate_cells``, each
+    with its launch counts, exact against
+    ``src/repro_torch/testdata/dynamic_ref.json`` (all 18 + 28 cells),
+    with the persist tails and the crashed cells' per-leaf recovery of
+    (a), each timed with its bounds; (c) the kernel against the eager
+    ``scan_cell`` (a pool of host processes) on (a)'s 12 cells at
+    fig_dynamic's smoke size; (d) (b)'s cells as schedules of two equal
+    epochs (``E = 2``) beside the same static configs (``E = 1``): equal
+    outputs, the kernel time and ns per step of each, the section profile
+    of cholesky's cells in both, and ptxas's registers and stack frames
+    of the ``<1, 1, false, EP>`` instantiations; (e) 275 fuzzed
+    crash cells of the epoch matrix (``tests/test_crash_differential.py``)
+    on the card against the port's oracle.  ``--sass-against OLD.cu``
+    (9f) diffs every ``EP = false`` instantiation.
 
 ``python3 chip_smoke.py --against OLD.cu`` runs only a comparison of
 the package's cell scan with another ``cell_scan.cu`` (an earlier
@@ -112,6 +138,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -217,15 +244,18 @@ def torch_equal(a, b) -> bool:
 
 
 def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int,
-               D: int = 0, NL: int = 1) -> float:
+               D: int = 0, NL: int = 1, E: int = 1) -> float:
     """Bytes the cell scan must move: each trace op (op, addr, gap) and
     stream length read once, the config tables read once, every output
     written once (D: the grid's deep-hop rows; NL > 1: the grid's fabric
-    leaves, whose table and per-leaf survivors the kernel moves too)."""
+    leaves, whose table and per-leaf survivors the kernel moves too;
+    E > 1: the grid's schedule epochs, whose bounds and rows past epoch
+    0 the kernel reads)."""
     from repro_torch.core.engine.state import N_HOP_STATS, N_STATS
     from repro_torch.kernels.cell_scan import (CHAIN_KEYS, DEEP_KEYS,
-                                               FAB_KEYS, SC_KEYS,
-                                               TENANT_KEYS)
+                                               EPOCH_DEEP_KEYS,
+                                               EPOCH_SC_KEYS, FAB_KEYS,
+                                               SC_KEYS, TENANT_KEYS)
     inputs = sum(12 * t.total_ops + 4 * t.n_cores for t in traces)
     inputs += 8 * n_cfg * (len(SC_KEYS) + len(TENANT_KEYS) * T
                            + len(CHAIN_KEYS) + len(DEEP_KEYS) * max(D, 1))
@@ -235,6 +265,10 @@ def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int,
     if NL > 1:
         inputs += 8 * n_cfg * (len(FAB_KEYS) + NL + T)
         outputs += n_cells * 8 * NL
+    if E > 1:
+        n_ep = (len(EPOCH_SC_KEYS) + len(TENANT_KEYS) * T
+                + len(EPOCH_DEEP_KEYS) * max(D, 1) + T)
+        inputs += 8 * n_cfg * (E - 1) * (n_ep + 1)
     return float(inputs + outputs)
 
 
@@ -248,9 +282,9 @@ def phase_cell_scan(torch, smem_ns):
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
     args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
                            [p[1] for p in pairs], device="cpu")
-    t0 = time.time()
-    plain = cs.cell_scan(*args, **kw)
-    plain_ms = (time.time() - t0) * 1e3
+    plain, plain_s, pool_s = eager_cells(torch, args, kw,
+                                         list(range(len(pairs))))
+    plain_ms = plain_s * 1e3
     dargs = [a.cuda() for a in args]
     got = cs.cell_scan(*dargs, **kw)
     torch.cuda.synchronize()
@@ -262,7 +296,8 @@ def phase_cell_scan(torch, smem_ns):
     latency_bound = max_steps * smem_ns / 1e6
     print(f"phase 3 cell_scan grid (7 workloads x 3 schemes, budget 2000): "
           f"exact on {len(pairs)} cells, kernel {ms:.3f} ms, eager "
-          f"scan_cell {plain_ms:.1f} ms on the host, longest cell "
+          f"scan_cell {plain_s:.1f} s of cells ({pool_s:.1f} s wall over a "
+          f"pool), longest cell "
           f"{max_steps} steps ({ms * 1e6 / max_steps:.1f} ns/step; latency "
           f"bound {latency_bound:.3f} ms at one {smem_ns:.2f} ns "
           f"shared-memory round trip per step)")
@@ -281,7 +316,7 @@ def phase_cell_scan(torch, smem_ns):
     cargs, ckw = cell_inputs(crash_traces, crash_cfgs,
                              [p[0] for p in cpairs], [p[1] for p in cpairs],
                              track_addrs=64, device="cpu")
-    cplain = cs.cell_scan(*cargs, **ckw)
+    cplain = eager_cells(torch, cargs, ckw, list(range(len(cpairs))))[0]
     cgot = cs.cell_scan(*[a.cuda() for a in cargs], **ckw)
     torch.cuda.synchronize()
     err = max(err, compare_outputs(cplain, cgot, "crash cells"))
@@ -316,17 +351,14 @@ def phase_cell_scan_full(torch, traces, configs):
     torch.cuda.synchronize()
     i = min(range(len(traces)), key=lambda k: traces[k].total_ops)
     sel = [k for k, p in enumerate(pairs) if p[0] == i]
-    host = [a.cpu() for a in args]
-    host[4], host[5] = host[4][sel], host[5][sel]   # cell_trace, cell_cfg
-    t0 = time.time()
-    plain = cs.cell_scan(*host, **kw)
-    plain_s = time.time() - t0
+    plain, plain_s, pool_s = eager_cells(torch, args, kw, sel)
     sel_t = torch.tensor(sel, device="cuda")
     err = compare_outputs(plain, cs.CellScanOut(*(x[sel_t] for x in got)),
                           f"paper grid {traces[i].name}")
     print(f"phase 3 cell_scan full size: exact on the {len(sel)} cells of "
           f"{traces[i].name} ({int(plain.steps.max())} steps, eager "
-          f"scan_cell {plain_s:.1f} s on the host)")
+          f"scan_cell {plain_s:.1f} s of cells, {pool_s:.1f} s wall over a "
+          f"pool)")
     return args, kw, got, err
 
 
@@ -420,14 +452,14 @@ OP_NAMES = ("compute", "dram_read", "dram_write", "pm_read", "persist",
 
 
 def profile_cells(torch, args, kw, got, sel, labels, libs=None,
-                  prefabric=False):
+                  abi="this"):
     """The section profile of a step on cells ``sel`` of the kernel's
     inputs ``args``: ``cell_scan.cu`` built with ``-DCELL_SCAN_PROFILE``
     (``_build.VARIANTS``) beside the uninstrumented build, both exact
     against ``got`` (the main path's outputs; the lookup counts too).
     ``libs``: the (uninstrumented, profile) libraries, the package's by
-    default (``prefabric``: libraries with the argument list from before
-    the fabric, :func:`launch_prefabric`).  Returns ``{label:
+    default (``abi``: their argument list, :func:`launch_abi`).  Returns
+    ``{label:
     {ns_per_step, total_ns_per_step, steps, ops}}`` (sections with no
     cycles left out) and both kernel times."""
     import ctypes
@@ -451,11 +483,11 @@ def profile_cells(torch, args, kw, got, sel, labels, libs=None,
     def run(name, lib):
         out = cs._empty_out(len(sel), T, A, kw["n_deep_max"], "cuda",
                             kw["n_leaves_max"])
-        launch = launch_prefabric if prefabric else cs.launch
-        extra = {} if prefabric else dict(n_leaves=kw["n_leaves_max"])
-        _build.check(launch(lib, ins, out, max_pbe=kw["max_pbe"],
-                            pm_banks=kw["pm_banks"], n_track=kw["n_track"],
-                            n_deep=kw["n_deep_max"], stream=stream, **extra),
+        _build.check(launch_abi(abi, lib, ins, out, max_pbe=kw["max_pbe"],
+                                pm_banks=kw["pm_banks"],
+                                n_track=kw["n_track"],
+                                n_deep=kw["n_deep_max"],
+                                n_leaves=kw["n_leaves_max"], stream=stream),
                      f"{name} launch")
         outs[name] = out
     prof_ms = cuda_ms(lambda: run("profile", prof_lib), 1)
@@ -807,7 +839,7 @@ def phase_chains(torch, np, smem_ns):
     return out
 
 
-def chain_profile(torch, fig1, grid_b, libs=None, prefabric=False):
+def chain_profile(torch, fig1, grid_b, libs=None, abi="this"):
     """Phase 8d: the section profile of a chained step on Fig. 1's PB/4
     and PB_RF/4 cells and on cholesky's chained cells at n_switches 4,
     exact against the main path's outputs (``fig1``: the sweep's inputs,
@@ -816,27 +848,35 @@ def chain_profile(torch, fig1, grid_b, libs=None, prefabric=False):
     args, kw, got, labels = fig1
     sel = [labels.index((s, 4, False)) for s in ("PB", "PB_RF")]
     pa = profile_cells(torch, args, kw, got, sel,
-                       [f"fig1/{s}/4" for s in ("PB", "PB_RF")], libs,
-                       prefabric)
+                       [f"fig1/{s}/4" for s in ("PB", "PB_RF")], libs, abi)
     print_profile("8d", "Fig. 1's PB/4 and PB_RF/4 cells", pa)
     bargs, bkw, bgot, bpairs, names, blabels = grid_b
     sel = [k for k, (i, j) in enumerate(bpairs)
            if names[i] == "cholesky" and blabels[j][1] == 4]
     pb = profile_cells(torch, bargs, bkw, bgot, sel,
                        [f"cholesky/{blabels[bpairs[k][1]][0]}/4"
-                        for k in sel], libs, prefabric)
+                        for k in sel], libs, abi)
     print_profile("8d", "cholesky's 3 cells at n_switches 4", pb)
     return dict(fig1=pa, cholesky_4=pb)
 
 
-def launch_prefabric(lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
-                     stream) -> int:
-    """``cell_scan_launch`` of a cell scan from before the fabric (its
-    argument list had no fabric table, per-leaf survivors or leaf count),
-    for a grid without a fabric."""
+def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
+               n_leaves, stream) -> int:
+    """``cell_scan_launch`` of ``lib`` on a schedule-free grid, by the
+    argument list of the source it was built from: ``"this"`` the
+    package's (:func:`repro_torch.kernels.cell_scan.launch`),
+    ``"preepoch"`` from before the epoch schedules (no epoch table,
+    bounds or count), ``"prefabric"`` from before the fabric (nor a
+    fabric table, per-leaf survivors or leaf count; a grid without a
+    fabric)."""
     import ctypes
     from repro_torch.core.engine.state import LAT_BIN_EDGES
+    from repro_torch.kernels import cell_scan as cs
     import torch
+    if abi == "this":
+        return cs.launch(lib, ins, out, max_pbe=max_pbe, pm_banks=pm_banks,
+                         n_track=n_track, n_deep=n_deep, n_leaves=n_leaves,
+                         stream=stream)
     _, C, L = ins[0].shape
     N, T, A = out.recov_t.shape[0], out.recov_t.shape[1], \
         out.durable_ver.shape[1]
@@ -846,15 +886,19 @@ def launch_prefabric(lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
                             out.durable_ver, out.n_recov, out.recov_ns,
                             out.recov_t, out.steps, out.lookups, aver,
                             ins[9], out.recov_h]
+    ints = [N, C, L, max_pbe, pm_banks, A, T, n_track, n_deep]
+    if abi == "preepoch":
+        ptrs += [ins[10], out.recov_l]
+        ints.append(n_leaves)
     fn = lib.cell_scan_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
-    rc = fn(*[x.data_ptr() for x in ptrs], N, C, L, max_pbe, pm_banks, A,
-            T, n_track, n_deep, stream)
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] \
+        * len(ints) + [ctypes.c_void_p]
+    rc = fn(*[x.data_ptr() for x in ptrs], *ints, stream)
     if rc == 0 and n_deep == 0:
         out.recov_h[:, 0].copy_(out.n_recov)
-    out.recov_l[:, 0].copy_(out.recov_h[:, 0])
+    if rc == 0 and n_leaves <= 1:
+        out.recov_l[:, 0].copy_(out.recov_h[:, 0])
     return rc
 
 
@@ -890,7 +934,9 @@ def compare_against(torch, np, path: str) -> dict:
     from repro_torch.kernels import cell_scan as cs
     other = build_against(path)
     with open(path) as f:
-        other_fab = "recov_l" in f.read()
+        src = f.read()
+    other_abi = ("this" if "ep_table" in src else
+                 "preepoch" if "recov_l" in src else "prefabric")
     this = (_build.library("cell_scan"), _build.library("cell_scan_profile"))
     tr, labels, configs = fig1_grid(np)
     pairs = list(range(len(configs)))
@@ -912,16 +958,11 @@ def compare_against(torch, np, path: str) -> dict:
         def run(which, lib):
             out = cs._empty_out(n, k["n_tenants_max"], max(k["n_track"], 1),
                                 k["n_deep_max"], "cuda", k["n_leaves_max"])
-            if which == "other" and not other_fab:
-                rc = launch_prefabric(lib, ins, out, max_pbe=k["max_pbe"],
-                                      pm_banks=k["pm_banks"],
-                                      n_track=k["n_track"],
-                                      n_deep=k["n_deep_max"], stream=stream)
-            else:
-                rc = cs.launch(lib, ins, out, max_pbe=k["max_pbe"],
-                               pm_banks=k["pm_banks"], n_track=k["n_track"],
-                               n_deep=k["n_deep_max"],
-                               n_leaves=k["n_leaves_max"], stream=stream)
+            rc = launch_abi(other_abi if which == "other" else "this", lib,
+                            ins, out, max_pbe=k["max_pbe"],
+                            pm_banks=k["pm_banks"], n_track=k["n_track"],
+                            n_deep=k["n_deep_max"],
+                            n_leaves=k["n_leaves_max"], stream=stream)
             _build.check(rc, f"{which} launch")
             outs[which] = out
         ms = {"other": [], "this": []}
@@ -952,7 +993,7 @@ def compare_against(torch, np, path: str) -> dict:
         print(f"against: section profile of {which}")
         res[f"profile_{which}"] = chain_profile(
             torch, fig1[which], grid_b[which], libs,
-            prefabric=which == "other" and not other_fab)
+            abi=other_abi if which == "other" else "this")
     res["depth1"] = depth1_profiles(torch)
     return res
 
@@ -1066,13 +1107,16 @@ def fabric_grid_b():
     return labels, configs
 
 
-def fabric_timing(torch, smem_ns, traces, configs, what):
+def grid_timing(torch, smem_ns, traces, configs, what, phase="9",
+                pairs=None):
     """The kernel over every cell of ``traces`` x ``configs`` (the inputs
-    simulate_grid stacks), timed; returns its outputs, inputs and
-    numbers."""
+    simulate_grid stacks; ``pairs``: the (trace, config) cells
+    simulate_cells stacks instead), timed; returns its outputs, inputs
+    and numbers."""
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
-    pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
+    pairs = pairs or [(i, j) for i in range(len(traces))
+                      for j in range(len(configs))]
     args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
                            [p[1] for p in pairs], device="cuda")
     got = cs.cell_scan(*args, **kw)
@@ -1080,11 +1124,12 @@ def fabric_timing(torch, smem_ns, traces, configs, what):
     reps = 3 if int(got.steps.max()) < 100_000 else 1
     ms = cuda_ms(lambda: cs.cell_scan(*args, **kw), reps)
     steps = int(got.steps.max())
+    E = args[11].shape[1]
     bound = cell_bytes(traces, len(pairs), kw["n_tenants_max"],
                        max(kw["n_track"], 1), len(configs), kw["n_deep_max"],
-                       kw["n_leaves_max"]) / HBM_BYTES_PER_S * 1e3
-    print(f"phase 9 cell_scan {what} ({len(pairs)} cells, D = "
-          f"{kw['n_deep_max']}, NL = {kw['n_leaves_max']}): kernel "
+                       kw["n_leaves_max"], E) / HBM_BYTES_PER_S * 1e3
+    print(f"phase {phase} cell_scan {what} ({len(pairs)} cells, D = "
+          f"{kw['n_deep_max']}, NL = {kw['n_leaves_max']}, E = {E}): kernel "
           f"{ms:.3f} ms, longest cell {steps} steps ({ms * 1e6 / steps:.1f} "
           f"ns/step; latency bound {steps * smem_ns / 1e6:.3f} ms; bytes "
           f"bound {bound:.6f} ms)")
@@ -1109,7 +1154,7 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
     at fig_fabric's smoke size; (d) the section profile of a fabric step
     (cholesky's 4 cells of (b)); (e) fuzzed fabric crash cells on the
     card against the port's oracle; (f) with ``sass_against`` (an
-    earlier ``cell_scan.cu``), ``sass_diff`` of every FAB = false
+    earlier ``cell_scan.cu``), ``sass_diff`` of every EP = false
     instantiation against it."""
     from repro_torch.core import PCSConfig, Scheme, simulate_grid
     from repro_torch.kernels import cell_scan as cs
@@ -1144,15 +1189,15 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
     print(f"phase 9a simulate_grid (fig_fabric, 52 cells) wall "
           f"{wall_a:.3f} s; launches {json.dumps(counts_a)}; exact against "
           f"fabric_ref.json on all 52 cells")
-    ins_a, num_a = fabric_timing(torch, smem_ns, [tr], configs,
-                                 "fig_fabric")
+    ins_a, num_a = grid_timing(torch, smem_ns, [tr], configs,
+                               "fig_fabric")
     chain_cfgs = [PCSConfig(scheme=c.scheme, n_cores=FAB_TENANTS,
                             n_tenants=FAB_TENANTS, n_switches=2,
                             pbe_per_hop=(FAB_TOTAL_PBE, FAB_SPINE_PBE),
                             crash_at_ns=c.crash_at_ns)
                   for c in configs if c.fabric.n_leaves == 1]
-    _, ctl_a = fabric_timing(torch, smem_ns, [tr], chain_cfgs,
-                             "fig_fabric's trace, 2-hop chain control")
+    _, ctl_a = grid_timing(torch, smem_ns, [tr], chain_cfgs,
+                           "fig_fabric's trace, 2-hop chain control")
     out["fig"] = dict(num_a, counts=counts_a, wall_s=wall_a,
                       chain_control=ctl_a,
                       persist_ns={lab: r.persist_lat_ns
@@ -1187,21 +1232,21 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
             f"{lab} runtime {bcells[i][j].runtime_ns:.0f} ns persist "
             f"{bcells[i][j].persist_lat_ns:.1f} ns"
             for j, lab in enumerate(blabels)))
-    ins_b, num_b = fabric_timing(torch, smem_ns, paper_traces, bconfigs,
-                                 "fabric paper grid")
+    ins_b, num_b = grid_timing(torch, smem_ns, paper_traces, bconfigs,
+                               "fabric paper grid")
     bchain = [PCSConfig(scheme=s, n_cores=FAB_TENANTS, n_tenants=FAB_TENANTS,
                         n_switches=2,
                         pbe_per_hop=(FAB_TOTAL_PBE, FAB_SPINE_PBE))
               for s in (Scheme.PB, Scheme.PB_RF)]
-    _, ctl_b = fabric_timing(torch, smem_ns, paper_traces, bchain,
-                             "paper traces, 8 tenants, 2-hop chain control")
+    _, ctl_b = grid_timing(torch, smem_ns, paper_traces, bchain,
+                           "paper traces, 8 tenants, 2-hop chain control")
     out["grid_b"] = dict(num_b, counts=counts_b, wall_s=wall_b,
                          chain_control=ctl_b)
 
     # (c) the kernel against the eager plain version at the smoke size
     str_, slabels, sconfigs = fig_fabric_grid(np, FAB_SMOKE_OPS)
-    ins_c, num_c = fabric_timing(torch, smem_ns, [str_], sconfigs,
-                                 "fig_fabric at its smoke size")
+    ins_c, num_c = grid_timing(torch, smem_ns, [str_], sconfigs,
+                               "fig_fabric at its smoke size")
     sel = list(range(len(sconfigs)))
     plain, plain_s, pool_s = eager_cells(torch, ins_c["args"], ins_c["kw"],
                                          sel)
@@ -1266,12 +1311,364 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
     out["oracle_cells"] = n_cells
     out["max_abs_err"] = err
 
-    # (f) every FAB = false instantiation against an earlier source
+    # (f) every EP = false instantiation against an earlier source
     if sass_against:
         from repro_torch.kernels import sass_diff
         if sass_diff.main(sass_against) != 0:
-            fail(f"FAB = false SASS differs from {sass_against}")
+            fail(f"EP = false SASS differs from {sass_against}")
         out["sass_identical"] = True
+    return out
+
+
+# ---- phase 10: epoch schedules --------------------------------------------
+DYN_TENANTS = 4                        # benchmarks/fig_dynamic.py
+DYN_LEAF_PBE, DYN_SPINE_PBE = (4, 4), 4
+DYN_RATES, DYN_SMOKE_RATES = (0.5, 2.0, 8.0), (0.5, 8.0)
+DYN_BUDGET, DYN_SMOKE_BUDGET = 25_000, 150       # _shared.BUDGET // 4
+DYN_SCHEDULES = ("tighten", "slo_on")            # the scheduled paper grid
+
+
+def dynamic_configs(bound_ns, crash_ns):
+    """``benchmarks/fig_dynamic._configs``: a 2-leaf PB_RF pool (leaves of
+    4 PBEs, spine 4, 4 tenants packed), strategies static (quotas
+    2,2,2,2), quota_sched (2,2,2,2 then 4,2,1,1 from ``bound_ns``) and
+    migrate (the placement flipped to the other leaf at ``bound_ns``),
+    each live and crashed at ``crash_ns``.  Returns ``(labels,
+    configs)``; the labels are dynamic_ref.json's keys."""
+    from repro_torch.core import (AllocPolicy, FabricTopology, PBPolicy,
+                                  PCSConfig, Schedule, Scheme,
+                                  leaf_placement)
+    place0 = leaf_placement(DYN_TENANTS, 2, "packed")
+    place1 = tuple(1 - p for p in place0)
+    quota0, quota1 = (2, 2, 2, 2), (4, 2, 1, 1)
+    fab_static = FabricTopology(2, DYN_LEAF_PBE, DYN_SPINE_PBE, place0)
+    fab_migrate = FabricTopology(2, DYN_LEAF_PBE, DYN_SPINE_PBE,
+                                 Schedule((bound_ns,), (place0, place1)))
+    strategies = (
+        ("static", PBPolicy(alloc=AllocPolicy(tenant_quota=quota0)),
+         fab_static),
+        ("quota_sched", PBPolicy(alloc=AllocPolicy(
+            tenant_quota=Schedule((bound_ns,), (quota0, quota1)))),
+         fab_static),
+        ("migrate", PBPolicy(alloc=AllocPolicy(tenant_quota=quota0)),
+         fab_migrate))
+    labels, configs = [], []
+    for key, pol, fab in strategies:
+        for crashed in (False, True):
+            labels.append(key + ("/crash" if crashed else ""))
+            cfg = PCSConfig(scheme=Scheme.PB_RF, n_cores=DYN_TENANTS,
+                            n_tenants=DYN_TENANTS, policy=pol, fabric=fab)
+            configs.append(cfg.with_crash(crash_ns) if crashed else cfg)
+    return labels, configs
+
+
+def dynamic_grid(np, budget, rates):
+    """``benchmarks/fig_dynamic.run``'s grid: raytrace on 4 cores re-timed
+    under ``DiurnalArrivals(r)`` for each rate, at ``persist_budget``
+    ``budget``, x :func:`dynamic_configs` with the boundary at half and
+    the crash at 3/4 of the longest trace's op span.  The span is summed
+    exactly (``math.fsum``), where the figure sums in float32, whose last
+    bit follows the numpy version's summation order.  Returns
+    ``(traces, labels, configs, bound_ns, crash_ns)``."""
+    import math
+    from repro_torch.core import DiurnalArrivals, make_offered_load_trace
+    traces = [make_offered_load_trace("raytrace", DiurnalArrivals(r),
+                                      n_cores=DYN_TENANTS,
+                                      persist_budget=budget)
+              for r in rates]
+    span = max(math.fsum(map(float, row)) for tr in traces
+               for row in tr.gaps)
+    labels, configs = dynamic_configs(0.5 * span, 0.75 * span)
+    return traces, labels, configs, 0.5 * span, 0.75 * span
+
+
+def schedule_configs(bound_ns, tighten=(0.75, 0.375), target=(None, 450.0)):
+    """The scheduled paper grid's configs at ``n_switches=2``: PB and
+    PB_RF x tighten (the drain threshold ``tighten`` from ``bound_ns``,
+    preset 0.25) and slo_on (the latency target ``target``, that of
+    ``benchmarks/fig_slo.py`` from ``bound_ns``).  A single value in
+    place of a pair gives the static config.  Returns ``(labels,
+    configs)``."""
+    from repro_torch.core import (DrainPolicy, PBPolicy, PCSConfig,
+                                  Schedule, Scheme)
+
+    def knob(v):
+        return v if not isinstance(v, tuple) else Schedule((bound_ns,), v)
+    drains = (("tighten", DrainPolicy(threshold=knob(tighten),
+                                      preset=0.25)),
+              ("slo_on", DrainPolicy(latency_target_ns=knob(target))))
+    labels, configs = [], []
+    for s in (Scheme.PB, Scheme.PB_RF):
+        for key, drain in drains:
+            labels.append(f"{s.name}/{key}")
+            configs.append(PCSConfig(scheme=s, n_switches=2,
+                                     policy=PBPolicy(drain=drain)))
+    return labels, configs
+
+
+def ptxas_usage(name, args):
+    """ptxas's registers and stack frame of each kernel of library
+    ``name`` whose mangled template arguments start with ``args``, from
+    its build log (``-Xptxas -v``): ``{template arguments: (registers,
+    stack bytes)}``."""
+    from repro_torch.kernels import _build
+    out, fn = {}, None
+    with open(_build._lib_path(name).with_suffix(".log")) as f:
+        for line in f:
+            m = re.search(r"function '\S*cell_scan_kernel(I\w+?EE)", line)
+            if m:
+                fn = m.group(1) if m.group(1).startswith(args) else None
+                continue
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if fn and m:
+                out[fn] = [None, int(m.group(1))]
+            m = re.search(r"Used (\d+) registers", line)
+            if fn and m and fn in out:
+                out[fn][0] = int(m.group(1))
+    return out
+
+
+def paper_bounds():
+    """Each workload's schedule boundary: half its PB/2 runtime in
+    chain_ref.json's chained paper grid."""
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "chain_ref.json")) as f:
+        grid_b = json.load(f)["grid_b"]
+    return {n: 0.5 * float(v["PB/2"]["runtime_ns"]) for n, v in
+            grid_b.items()}
+
+
+EPOCH_CRASH_SLOTS = (0, 11, 23, 36, 50)
+
+
+def epoch_matrix(m=None):
+    """``tests/test_crash_differential.py``'s epoch matrix: per crash
+    slot, NoPB/PB/PB_RF x {quota step, threshold tighten, static} on 8
+    PBEs and PB/PB_RF under a placement flip, 4 tenants, the boundary
+    half a slot after slot 25.  ``m``: the package whose configs to build
+    (``repro_torch.core``; the tests pass the reference's too).  Returns
+    ``(plan, configs, policies, fabric)``; a plan entry is ``(scheme,
+    crash slot, variant)``."""
+    if m is None:
+        import repro_torch.core as m
+    bound = m.fuzz_crash_ns(25)
+    Sch = m.Schedule
+    pols = dict(
+        quota=m.PBPolicy(alloc=m.AllocPolicy(tenant_quota=Sch(
+            (bound,), ((2, 2, 2, 2), (5, 1, 1, 1))))),
+        threshold=m.PBPolicy(drain=m.DrainPolicy(
+            threshold=Sch((bound,), (0.75, 0.375)), preset=0.25)),
+        static=None)
+    place0 = m.leaf_placement(4, 2, "packed")
+    fab = m.FabricTopology(2, (4, 4), 4, Sch(
+        (bound,), (place0, tuple(1 - p for p in place0))))
+    plan = []
+    for k in EPOCH_CRASH_SLOTS:
+        plan += [(s, k, v) for s in m.Scheme for v in pols]
+        plan += [(s, k, "placement") for s in (m.Scheme.PB, m.Scheme.PB_RF)]
+    cfgs = [(m.PCSConfig(scheme=s, n_cores=4, n_tenants=4, fabric=fab)
+             if v == "placement" else
+             m.PCSConfig(scheme=s, n_pbe=8, n_cores=4, n_tenants=4,
+                         policy=pols[v])).with_crash(m.fuzz_crash_ns(k))
+            for s, k, v in plan]
+    return plan, cfgs, pols, fab
+
+
+def phase_epochs(torch, np, smem_ns, paper_traces):
+    """Phase 10: epoch schedules through the cell scan's EP instantiation.
+    (a) fig_dynamic's grid at its published size and (b) the scheduled
+    paper grid through ``simulate_grid`` / ``simulate_cells`` on the card
+    (launch counts zeroed just before and read just after), exact
+    against ``dynamic_ref.json`` (all 18 + 28 cells), each timed with its
+    bounds; (c) the kernel against the eager plain version on
+    fig_dynamic's 12 cells at its smoke size; (d) the epoch machinery's
+    cost: (b)'s cells with two equal epochs (E = 2) beside the same
+    static configs (E = 1), equal outputs, each timed and profiled; (e)
+    the epoch matrix's fuzzed crash cells on the card against the port's
+    oracle."""
+    from repro_torch.core import simulate_cells, simulate_grid
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.kernels import cell_scan as cs
+    from repro_torch.kernels import tat_lookup as tl
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "dynamic_ref.json")) as f:
+        ref = json.load(f)
+    out = {}
+
+    # (a) fig_dynamic at its published size
+    traces, labels, configs, bound, crash = dynamic_grid(np, DYN_BUDGET,
+                                                         DYN_RATES)
+    if (bound, crash) != (float(ref["fig"]["bound_ns"]),
+                          float(ref["fig"]["crash_ns"])):
+        fail(f"fig_dynamic's boundary {bound} / crash {crash} differ from "
+             f"dynamic_ref.json's")
+    cs.launches = tl.launches = 0
+    t0 = time.time()
+    cells = simulate_grid(traces, configs)           # default device: CUDA
+    wall_a = time.time() - t0
+    counts_a = dict(cell_scan=cs.launches, tat_lookup=tl.launches)
+    if counts_a["cell_scan"] < 1:
+        fail(f"fig_dynamic did not run through the kernel: {counts_a}")
+    tails, leaves = {}, {}
+    for i, r in enumerate(DYN_RATES):
+        for lab, res in zip(labels, cells[i]):
+            same_as_datum(np, res, ref["fig"]["cells"][f"{r:g}"][lab],
+                          f"fig_dynamic {r:g}/{lab}")
+            key = f"{lab}_{r:g}"
+            if lab.endswith("/crash"):
+                leaves[key] = res.leaf_recovery.tolist()
+                print(f"phase 10a fig_dynamic {r:g} Mops/s {lab}: "
+                      f"leaf_recovery {leaves[key]}")
+            else:
+                tails[key] = [res.persist_lat_p50, res.persist_lat_p95,
+                              res.persist_lat_p99]
+                print(f"phase 10a fig_dynamic {r:g} Mops/s {lab}: persist "
+                      f"P50/P95/P99 {tails[key][0]:.1f} / {tails[key][1]:.1f}"
+                      f" / {tails[key][2]:.1f} ns, runtime "
+                      f"{res.runtime_ns:.1f} ns")
+    print(f"phase 10a simulate_grid (fig_dynamic, {len(traces)} rates x "
+          f"{len(configs)} configs, boundary {bound:.1f} ns, crash "
+          f"{crash:.1f} ns) wall {wall_a:.3f} s; launches "
+          f"{json.dumps(counts_a)}; exact against dynamic_ref.json on all "
+          f"{len(traces) * len(configs)} cells")
+    _, num_a = grid_timing(torch, smem_ns, traces, configs, "fig_dynamic",
+                           "10")
+    out["fig"] = dict(num_a, counts=counts_a, wall_s=wall_a,
+                      persist_p50_p95_p99=tails, leaf_recovery=leaves)
+
+    # (b) the scheduled paper grid: 4 cells a workload, its own boundary
+    names = [t.name for t in paper_traces]
+    bounds = paper_bounds()
+    btr, bcfg, blab = [], [], []
+    for t in paper_traces:
+        if bounds[t.name] != float(ref["grid_b"][t.name]["bound_ns"]):
+            fail(f"{t.name}'s boundary differs from dynamic_ref.json's")
+        lab, cfgs = schedule_configs(bounds[t.name])
+        btr += [t] * len(cfgs)
+        bcfg += cfgs
+        blab += [(t.name, x) for x in lab]
+    cs.launches = tl.launches = 0
+    t0 = time.time()
+    bcells = simulate_cells(btr, bcfg)
+    wall_b = time.time() - t0
+    counts_b = dict(cell_scan=cs.launches, tat_lookup=tl.launches)
+    if counts_b["cell_scan"] < 1:
+        fail(f"scheduled paper grid did not run through the kernel: "
+             f"{counts_b}")
+    for (n, lab), r in zip(blab, bcells):
+        same_as_datum(np, r, ref["grid_b"][n]["cells"][lab],
+                      f"scheduled paper grid {n}/{lab}")
+    print(f"phase 10b simulate_cells (7 workloads x PB/PB_RF x tighten/"
+          f"slo_on, n_switches 2, budget 100000, {len(bcells)} cells) wall "
+          f"{wall_b:.3f} s; launches {json.dumps(counts_b)}; exact against "
+          f"dynamic_ref.json on all {len(bcells)} cells")
+    for n in names:
+        print(f"phase 10b {n}: " + ", ".join(
+            f"{lab} runtime {r.runtime_ns:.0f} ns persist "
+            f"{r.persist_lat_ns:.1f} ns slo_violations {r.slo_violations}"
+            for (m, lab), r in zip(blab, bcells) if m == n))
+    bpairs = [(names.index(n), k) for k, (n, _) in enumerate(blab)]
+    ins_b, num_b = grid_timing(torch, smem_ns, paper_traces, bcfg,
+                               "scheduled paper grid", "10", bpairs)
+    out["grid_b"] = dict(num_b, counts=counts_b, wall_s=wall_b)
+
+    # (c) the kernel against the eager plain version at the smoke size
+    straces, slabels, sconfigs, _, _ = dynamic_grid(np, DYN_SMOKE_BUDGET,
+                                                    DYN_SMOKE_RATES)
+    ins_c, num_c = grid_timing(torch, smem_ns, straces, sconfigs,
+                               "fig_dynamic at its smoke size", "10")
+    sel = list(range(len(ins_c["pairs"])))
+    plain, plain_s, pool_s = eager_cells(torch, ins_c["args"], ins_c["kw"],
+                                         sel)
+    err = compare_outputs(plain, ins_c["got"], "fig_dynamic smoke size")
+    scells = simulate_grid(straces, sconfigs)
+    for i, r in enumerate(DYN_SMOKE_RATES):
+        for lab, res in zip(slabels, scells[i]):
+            same_as_datum(np, res, ref["fig_smoke"]["cells"][f"{r:g}"][lab],
+                          f"fig_dynamic smoke {r:g}/{lab}")
+    print(f"phase 10c cell_scan on fig_dynamic's {len(sel)} cells at its "
+          f"smoke size (persist_budget {DYN_SMOKE_BUDGET}): exact against "
+          f"the eager scan_cell ({plain_s:.1f} s of cells, {pool_s:.1f} s "
+          f"wall over a pool) and dynamic_ref.json")
+    out["smoke"] = dict(num_c, plain_s=plain_s, pool_s=pool_s,
+                        max_abs_err=err)
+
+    # (d) the epoch machinery's cost: two equal epochs against none, the
+    # section profile of cholesky's cells in both spellings, and ptxas's
+    # registers and stack frames of the instantiations they ran
+    cost = {}
+    cfgs = {}
+    for n in names:
+        b = bounds[n]
+        cfgs.setdefault("scheduled", []).extend(
+            schedule_configs(b, (0.375, 0.375), (450.0, 450.0))[1])
+        cfgs.setdefault("static", []).extend(
+            schedule_configs(b, 0.375, 450.0)[1])
+    runs = {}
+    for name, cf in cfgs.items():
+        args, kw = cell_inputs(paper_traces, cf, [p[0] for p in bpairs],
+                               [p[1] for p in bpairs], device="cuda")
+        if args[11].shape[1] != (2 if name == "scheduled" else 1):
+            fail(f"the {name} spelling lowered {args[11].shape[1]} epochs")
+        runs[name] = got = cs.cell_scan(*args, **kw)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: cs.cell_scan(*args, **kw), 1)
+        steps = int(got.steps.max())
+        sel = [k for k, p in enumerate(bpairs) if names[p[0]] == "cholesky"]
+        prof = profile_cells(torch, args, kw, got, sel,
+                             [f"cholesky/{blab[k][1]} ({name})"
+                              for k in sel])
+        print_profile("10d", f"cholesky's 4 cells ({name})", prof)
+        cost[name] = dict(ms=ms, steps=steps, ns_per_step=ms * 1e6 / steps,
+                          cholesky_ns_per_step={
+                              c: v["ns_per_step"]
+                              for c, v in prof["cells"].items()})
+    for f in cs.CellScanOut._fields:
+        if not torch_equal(getattr(runs["scheduled"], f).cpu(),
+                           getattr(runs["static"], f).cpu()):
+            fail(f"equal epochs and the static config differ on {f}")
+    print(f"phase 10d epoch machinery on the scheduled paper grid's "
+          f"{len(bpairs)} cells (threshold 0.375 and target 450 ns, as two "
+          f"equal epochs at E = 2 and as static configs at E = 1): outputs "
+          f"equal; kernel {cost['scheduled']['ms']:.3f} ms "
+          f"({cost['scheduled']['ns_per_step']:.1f} ns/step) against "
+          f"{cost['static']['ms']:.3f} ms "
+          f"({cost['static']['ns_per_step']:.1f} ns/step), longest cell "
+          f"{cost['static']['steps']} steps")
+    cost["ptxas"] = ptxas_usage("cell_scan", "ILi1ELi1ELb0E")
+    print(f"phase 10d ptxas, cell_scan_kernel<1, 1, false, EP>: "
+          f"{json.dumps(cost['ptxas'])}")
+    out["cost"] = cost
+
+    # (e) the epoch matrix's fuzzed crash cells against the port's oracle
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_crash_driver import assert_cell_matches, oracle_replay
+    from repro_torch.core import fuzz_trace, tenant_ids
+    n_cells = 0
+    t0 = time.time()
+    plan, mcfg, pols, fab = epoch_matrix()
+    for seed in range(5):
+        ftr, sched = fuzz_trace(seed, n_cores=4, n_slots=50, n_addrs=6,
+                                n_tenants=4, p_persist=0.7)
+        fres = simulate_grid([ftr], mcfg, max_pbe=8, track_addrs=6)[0]
+        ct = tenant_ids(ftr.lengths, 4)
+        for (s, k, v), r in zip(plan, fres):
+            try:
+                assert_cell_matches(r, oracle_replay(
+                    sched, k, s, 8, core_tenant=ct, n_tenants=4,
+                    policy=None if v == "placement" else pols[v],
+                    fabric=fab if v == "placement" else None), 6,
+                    label=(seed, s.name, k, v))
+            except AssertionError as e:
+                fail(f"epoch oracle differential: {e}")
+            n_cells += 1
+    print(f"phase 10e {n_cells} fuzzed epoch crash cells (NoPB/PB/PB_RF x "
+          f"quota step, threshold tighten, static; PB/PB_RF x placement "
+          f"flip; x 5 crash points x 5 seeds) on the card agree with the "
+          f"port's oracle (durable versions, counts, per-tenant and "
+          f"per-leaf survivors) in {time.time() - t0:.1f} s")
+    out["oracle_cells"] = n_cells
+    out["max_abs_err"] = err
     return out
 
 
@@ -1991,6 +2388,7 @@ def main() -> int:
     scan_profile = phase_cell_scan_profile(torch, traces, configs, full)
     chains = phase_chains(torch, np, smem_ns)
     fab = phase_fabric(torch, np, smem_ns, traces, sass_against)
+    epochs = phase_epochs(torch, np, smem_ns, traces)
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
@@ -2014,7 +2412,10 @@ def main() -> int:
              launches=main_path["counts"]["cell_scan"],
              fused_tat_match_calls=main_path["match_calls"],
              max_abs_err=max(scan["max_abs_err"], full[3]), ms=scan["ms"],
-             plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
+             plain_ms=scan["plain_ms"],
+             plain_note="the eager scan_cell's seconds summed over the 21 "
+                        "cells (run on the host, a pool of processes)",
+             bound_ms=scan["bound_ms"],
              bound_by="bytes", library_ms=None,
              shape="7 workloads x 3 schemes at persist_budget=2000",
              latency_bound_ms=scan["latency_bound_ms"],
@@ -2107,6 +2508,46 @@ def main() -> int:
                  for c, v in fab["profile"]["cells"].items()},
              oracle_cells=fab["oracle_cells"],
              sass_identical=fab.get("sass_identical")),
+        dict(name="cell_scan_epochs", route="cuda",
+             source="src/repro_torch/kernels/csrc/cell_scan.cu",
+             replaces="src/repro/core/engine/step.py:102",
+             entry="cell_scan_launch with n_epochs > 1 (the EP "
+                   "instantiation: step.py:72 resolve_epoch_sc's per-op "
+                   "epoch rows)",
+             launches=epochs["fig"]["counts"]["cell_scan"],
+             main_path="phase 10a: simulate_grid over fig_dynamic's grid "
+                       "at its published size (18 cells, E = 2, D = 1, "
+                       "NL = 2); phase 10b launched it once more over the "
+                       "scheduled paper grid",
+             launches_scheduled_grid=epochs["grid_b"]["counts"]["cell_scan"],
+             max_abs_err=epochs["max_abs_err"], ms=epochs["fig"]["ms"],
+             ns_per_step=epochs["fig"]["ns_per_step"],
+             plain_ms=epochs["smoke"]["plain_s"] * 1e3,
+             plain_note="the eager scan_cell's seconds summed over "
+                        "fig_dynamic's 12 cells at its smoke size "
+                        "(persist_budget 150; run on the host, a pool of "
+                        "processes); the kernel on the same cells: "
+                        "smoke_ms",
+             smoke_ms=epochs["smoke"]["ms"],
+             bound_ms=epochs["fig"]["bound_ms"], bound_by="bytes",
+             library_ms=None,
+             shape="fig_dynamic: raytrace on 4 cores, DiurnalArrivals at "
+                   "0.5/2/8 Mops/s, persist_budget 25000; static, "
+                   "quota_sched, migrate, live and crashed",
+             fig_steps=epochs["fig"]["steps"],
+             fig_latency_bound_ms=epochs["fig"]["latency_bound_ms"],
+             fig_wall_s=epochs["fig"]["wall_s"],
+             fig_persist_p50_p95_p99=epochs["fig"]["persist_p50_p95_p99"],
+             fig_leaf_recovery=epochs["fig"]["leaf_recovery"],
+             scheduled_grid_ms=epochs["grid_b"]["ms"],
+             scheduled_grid_steps=epochs["grid_b"]["steps"],
+             scheduled_grid_ns_per_step=epochs["grid_b"]["ns_per_step"],
+             scheduled_grid_bound_ms=epochs["grid_b"]["bound_ms"],
+             scheduled_grid_latency_bound_ms=epochs["grid_b"][
+                 "latency_bound_ms"],
+             scheduled_grid_wall_s=epochs["grid_b"]["wall_s"],
+             equal_epochs_vs_static=epochs["cost"],
+             oracle_cells=epochs["oracle_cells"]),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",

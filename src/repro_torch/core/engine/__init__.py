@@ -1,5 +1,5 @@
-"""Timed PCS engine, torch port of ``repro.core.engine`` (switch chains
-and fan-out fabrics; no schedules or macro-steps yet).
+"""Timed PCS engine, torch port of ``repro.core.engine`` (switch chains,
+fan-out fabrics and epoch schedules; no macro-steps yet).
 
   * ``state``    — machine state, stats layout, config lowering
   * ``channels`` — PM bank + PBC resource model (next-free scalars)

@@ -279,6 +279,33 @@ def rows_of(st) -> dict:
                 dver=st.dver, downer=st.downer, dwt=st.dwt)
 
 
+def drain_pending(sc, scheme: int, rows) -> bool:
+    """Whether a live deep row's own drain-down would drain now (k > 0).
+
+    The reference runs both forwards of a buffered persist (the victim
+    leg and the policy batch) whether or not they carry a packet, and
+    each row evaluates its drain-down as it goes; the eager code skips a
+    forward with no packet, which changes nothing while every row was
+    left at or under its drain policy's count by the forward before.
+    Only a schedule that lowers a row's threshold mid-run breaks that,
+    and then the forward must run empty.
+    """
+    n_sw = float(sc["n_switches"])
+    slot_ids = torch.arange(rows["dstate"].shape[1],
+                            device=rows["dstate"].device)
+    for j in range(rows["dstate"].shape[0]):
+        if not float(j) + 2.0 <= n_sw:
+            break
+        slot_act = slot_ids < sc["deep_pbe"][j].to(torch.int32)
+        dirty_cnt = (slot_act & (rows["dstate"][j] == DIRTY)).to(F).sum()
+        k = dirty_cnt if scheme == 1 else torch.where(
+            dirty_cnt >= sc["deep_thr"][j], dirty_cnt - sc["deep_pre"][j],
+            0.0)
+        if bool(k > 0.0):
+            return True
+    return False
+
+
 def forward_chain(sc, scheme: int, rows, hpbc, hop_stats, batch: Batch, dd1,
                   pm_busy, pm_ver, *, n_banks: int, n_track: int):
     """Propagate a hop-1 drain batch down the whole chain.

@@ -13,10 +13,11 @@ pair); ``simulate`` and ``simulate_sweep`` are thin wrappers over the
 same path.
 
 Scope of the port so far: switch chains (up to the kernel's
-``MAX_DEEP + 1`` switches) and fan-out fabrics (up to the kernel's
-``MAX_LEAVES`` leaves), one schedule epoch (no ``Schedule`` knob, a
-fabric placement included) and no macro-stepping.  Configs outside it
-raise ``NotImplementedError``.
+``MAX_DEEP + 1`` switches), fan-out fabrics (up to the kernel's
+``MAX_LEAVES`` leaves) and epoch schedules (``Schedule`` knobs, a
+fabric placement included; up to the kernel's ``MAX_EPOCHS``
+epochs), but no macro-stepping: ``macro=True`` raises
+``NotImplementedError``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, and
 raise where there is no CUDA.
 """
@@ -37,15 +38,12 @@ from repro_torch.kernels import cell_scan as cs
 _BUCKET = 16384
 
 
-def check_scope(configs: Sequence[PCSConfig], macro: bool) -> None:
+def check_scope(macro: bool) -> None:
     """Reject what this slice of the port does not run (yet)."""
     if macro:
         raise NotImplementedError(
             "macro-stepping is not ported; run with macro=False (results "
             "are identical)")
-    for c in configs:
-        if c.n_epochs > 1:
-            raise NotImplementedError("Schedule knobs are not ported")
 
 
 def _stack_traces(traces: Sequence[Trace]):
@@ -89,7 +87,12 @@ def cell_inputs(traces, configs, cell_trace, cell_cfg, *, max_pbe=None,
     # carries no leaf clock and runs no fabric branch
     n_leaves = max((c.fabric.n_leaves if c.fabric is not None else 1
                     for c in configs), default=1)
-    scs = [scalars_from_config(c, n_tenants_max, n_deep, n_leaves)
+    # and the epoch axis: 1 (no Schedule in the grid) lowers no epoch
+    # rows; any scheduled config gives every config E rows (a static one
+    # repeats its own, its bounds INF)
+    n_epochs = max((c.n_epochs for c in configs), default=1)
+    scs = [scalars_from_config(c, n_tenants_max, n_deep, n_leaves,
+                               n_epochs_max=n_epochs)
            for c in configs]
     tables = cs.pack_configs(scs, n_tenants_max, device)
     ops, addrs, gaps, lengths = (torch.from_numpy(a).to(device)
@@ -149,7 +152,7 @@ def simulate_grid(traces: Sequence[Trace], configs: Sequence[PCSConfig], *,
     ``track_addrs > 0`` additionally returns, per cell, the durable
     version vector over addresses ``[0, track_addrs)``.
     """
-    check_scope(configs, macro)
+    check_scope(macro)
     dev = resolve_device(device)
     if not traces or not configs:
         return [[] for _ in traces]
@@ -170,7 +173,7 @@ def simulate_cells(traces: Sequence[Trace], configs: Sequence[PCSConfig], *,
 
     Repeated Trace objects are stacked once.
     """
-    check_scope(configs, macro)
+    check_scope(macro)
     dev = resolve_device(device)
     if not traces:
         return []

@@ -19,8 +19,11 @@ tenant's reads and persists see only its own leaf's hop-1 slot window
 and queue at its own leaf's PBC clock (``lpbc``), and the spine's Dirty
 occupancy can defer a leaf's drain-down.
 
-Scope: switch chains and fan-out fabrics, one epoch; the grid front-end
-rejects configs that would need more.
+Scope: switch chains and fan-out fabrics; under a schedule the step
+loop hands every handler the rows of the op's epoch
+(``step.resolve_epoch_sc``), and a deep row a lowered threshold left
+over its drain count drains on a forward with no packet
+(``chain.drain_pending``).  Macro-steps are not ported.
 """
 from __future__ import annotations
 
@@ -281,7 +284,9 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
                                           st.hop_stats)
         pmb_v, pmv_v = st.pm_busy, st.pm_ver
         pmw_v = torch.zeros((), dtype=torch.float64, device=t.device)
-        if bool(vic_emit):
+        # (a forward with no packet runs only when a deep row would
+        # drain: chain.drain_pending)
+        if bool(vic_emit) or chain.drain_pending(sc, ctx.scheme, rows_v):
             one_i = torch.tensor([0], dtype=torch.int32, device=t.device)
             vic_batch = chain.Batch(
                 active=vic_emit.reshape(1), addr=vic_tag.reshape(1),
@@ -395,7 +400,8 @@ def _persist_with_buffer(ctx: StepCtx, st: MachineState) -> MachineState:
         rows_c, hpbc_c, hstats_c = rows_v, hpbc_v, hstats_v
         pmb_c, pmv_c = pmb_v, pmv_v
         pmw_c = torch.zeros((), dtype=torch.float64, device=t.device)
-        if bool(pol_active.any()):
+        if bool(pol_active.any()) or chain.drain_pending(sc, ctx.scheme,
+                                                         rows_c):
             pol_order = torch.argsort(torch.where(pol_active, lru3, INF),
                                       stable=True).to(torch.int32)
             po = pol_order.long()

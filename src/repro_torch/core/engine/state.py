@@ -19,8 +19,10 @@ single-tenant configs.
 
 The fabric's per-leaf PBC clocks (``lpbc``) carry ``NL`` entries, ``NL =
 n_leaves_max`` when the grid holds a multi-leaf fabric, else 0 (no
-fabric branch runs).  Epoch schedules are not part of the port yet: the
-grid front-end rejects configs that would need them.
+fabric branch runs).  A grid that holds a ``Schedule`` lowers every
+:data:`EPOCH_KEYS` row with a leading epoch axis and one
+``epoch_bounds`` vector; the step loop resolves them per op
+(``step.resolve_epoch_sc``).
 """
 from __future__ import annotations
 
@@ -685,6 +687,16 @@ def _scalars_numpy(cfg: PCSConfig,
         epoch_bounds=eb,          # (E-1,) shared epoch-boundary vector
     )
     return sc
+
+
+def epoch_rows(sc: dict, e: int) -> dict:
+    """``sc`` with every :data:`EPOCH_KEYS` row indexed at epoch ``e``
+    and ``epoch_bounds`` left out; a schedule-free ``sc`` (no
+    ``epoch_bounds`` key) as it is."""
+    if "epoch_bounds" not in sc:
+        return sc
+    return {k: (v[e] if k in EPOCH_KEYS else v) for k, v in sc.items()
+            if k != "epoch_bounds"}
 
 
 def scalars_from_config(cfg: PCSConfig,

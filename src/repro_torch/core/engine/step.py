@@ -16,6 +16,12 @@ and lets the padded steps run as no-ops; here the loop stops at the
 first step that selects no core, after which every step would be a
 no-op — the results are the same.
 
+Epoch schedules (DESIGN §7): in a grid that carries a ``Schedule`` the
+lowered ``sc`` holds every :data:`~repro_torch.core.engine.state.
+EPOCH_KEYS` row with a leading ``(E,)`` axis and one ``epoch_bounds``
+vector; :func:`resolve_epoch_sc` picks each op's rows at its issue time,
+so every layer below sees a schedule-free ``sc``.
+
 Crash semantics (Section V-D4): an op whose issue time exceeds
 ``sc["crash_at"]`` becomes a no-op (the machine is off), and after the
 loop a recovery pass (``handlers.recovery_snapshot``) computes the
@@ -28,8 +34,24 @@ import torch
 
 from repro_torch.core.engine.handlers import (HANDLERS, StepCtx,
                                               recovery_snapshot)
-from repro_torch.core.engine.state import INF, init_state
+from repro_torch.core.engine.state import INF, epoch_rows, init_state
 from repro_torch.core.params import Op
+
+
+def resolve_epoch_sc(sc, t_issue):
+    """The config rows of the epoch active at issue time ``t_issue``.
+
+    Without an ``epoch_bounds`` key (a schedule-free grid) ``sc`` comes
+    back as it is.  Otherwise the epoch is ``#{b in epoch_bounds : b <=
+    t_issue}`` — a boundary instant belongs to the new epoch, and the
+    ``INF`` padding of a shorter or static config never selects — and
+    the result is that epoch's rows (``state.epoch_rows``).  The
+    reference also returns the next boundary, which only its macro-steps
+    read.
+    """
+    if "epoch_bounds" not in sc:
+        return sc
+    return epoch_rows(sc, int((sc["epoch_bounds"] <= t_issue).sum()))
 
 
 def tenant_map(lengths, n_tenants, n_tenants_max: int):
@@ -66,8 +88,10 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
     lowered with the grid's deep-row bound ``n_deep_max`` (the grid's
     largest depth minus one; 0 carries no deep row) and leaf bound
     ``n_leaves_max`` (the grid's most fabric leaves; 1 carries no leaf
-    clock and runs no fabric branch).  Returns ``(runtime, stats,
-    durable_ver, n_recovered, recovery_ns,
+    clock and runs no fabric branch); a scheduled grid's epoch rows are
+    resolved per step (:func:`resolve_epoch_sc`), and the recovery pass
+    reads the full ``sc``, none of whose epoch rows it needs.  Returns
+    ``(runtime, stats, durable_ver, n_recovered, recovery_ns,
     recovered_per_tenant, hop_stats, recovered_per_hop,
     recovered_per_leaf, n_steps)`` — the reference's outputs without
     the macro telemetry, plus the number of executed steps.
@@ -104,8 +128,10 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
         live = bool(t_issue <= crash_at)
         op = int(ops[c, i]) if live else int(Op.COMPUTE)
         t = t_issue if live else st.clock[c]
+        # every layer below sees the rows of the epoch at the issue time
+        sc_op = resolve_epoch_sc(sc, t_issue)
         tid_c = tids[c]
-        ctx = StepCtx(c=c, t=t, addr=addrs[c, i], scheme=scheme, sc=sc,
+        ctx = StepCtx(c=c, t=t, addr=addrs[c, i], scheme=scheme, sc=sc_op,
                       slot_ids=slot_ids, slot_active=slot_active,
                       tenant=tid_c, tids=tids,
                       n_live_t=live_per_tenant[tid_c], n_banks=pm_banks,

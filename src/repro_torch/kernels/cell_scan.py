@@ -8,12 +8,16 @@ version is the eager :func:`repro_torch.core.engine.step.scan_cell`.
 ``csrc/cell_scan.cu`` runs one block of one warp per (trace, config)
 cell and every cell of a grid in one launch; the scheme is read per
 cell.  Switch chains of up to ``MAX_DEEP + 1`` switches run through the
-deep-hop rows of the kernel's ``D = n_deep_max`` instantiation, and a
-grid that holds a fan-out fabric of up to ``MAX_LEAVES`` leaves through
-its ``FAB`` instantiation (leaf windows, per-leaf PBC clocks, spine
-backpressure, per-leaf recovery); a deeper or wider grid raises.  The
-carry lives in shared memory; lanes own PBE slots, and every ``argmin``
-is a warp reduction that breaks ties to the lowest index.
+deep-hop rows of the kernel's ``D = n_deep_max`` instantiation, a grid
+that holds a fan-out fabric of up to ``MAX_LEAVES`` leaves through its
+``FAB`` instantiation (leaf windows, per-leaf PBC clocks, spine
+backpressure, per-leaf recovery), and a grid that holds a ``Schedule``
+of up to ``MAX_EPOCHS`` epochs through its ``EP`` instantiation (each
+op sees the rows of the epoch its issue time falls in, copied from the
+epoch table when that epoch changes); a deeper, wider or longer grid
+raises.  The carry lives in shared memory; lanes own PBE slots, and
+every ``argmin`` is a warp reduction that breaks ties to the lowest
+index.
 The PB lookups call the ``tat_lookup`` kernel's match routine
 (``csrc/tat_match.cuh``).  What bounds it: each cell is a chain of
 dependent steps (up to 379 029 for the paper's cholesky at
@@ -31,6 +35,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch.core.engine.state import epoch_rows
 from repro_torch.kernels import _build
 
 # Config scalars the engine reads, in the kernel's column order
@@ -52,6 +57,13 @@ DEEP_KEYS = ("deep_pbe", "deep_thr", "deep_pre", "deep_tag", "deep_data")
 # leaf bases and the T tenants' leaves, flat in one
 # (len(FAB_KEYS) + NL1 + T,) row per config (enum FabKey).
 FAB_KEYS = ("n_leaves", "bp_high")
+# Epoch schedules: per config and epoch, the rows a Schedule may change
+# (state.EPOCH_KEYS), flat in one (E, len(EPOCH_SC_KEYS) + len(TENANT_KEYS)
+# * T + 2 * D1 + T) block (enum EpKey): these scalars, the tenant rows,
+# deep_thr and deep_pre, the tenants' leaves; beside it the config's
+# E - 1 epoch bounds.  The other tables hold epoch 0's rows.
+EPOCH_SC_KEYS = ("threshold_count", "preset_count", "lat_target")
+EPOCH_DEEP_KEYS = ("deep_thr", "deep_pre")
 
 MAX_PBE = 128           # 4 slots per lane
 MAX_CORES = 1024
@@ -59,6 +71,7 @@ MAX_TENANTS = 127       # int8 owner column
 MAX_BANKS = 32          # one PM bank per lane
 MAX_DEEP = 3            # deep-hop rows: switch chains up to 4 switches
 MAX_LEAVES = 32         # fabric leaves (per-leaf clocks and survivors)
+MAX_EPOCHS = 8          # schedule epochs
 
 launches = 0
 
@@ -84,7 +97,23 @@ def pack_configs(scs: Sequence[dict], n_tenants_max: int, device):
     """Stack per-config ``scalars_from_config`` dicts into the kernel's
     ``(K, len(SC_KEYS))``, ``(K, len(TENANT_KEYS), T)``,
     ``(K, len(CHAIN_KEYS) + len(DEEP_KEYS) * D1)`` and
-    ``(K, len(FAB_KEYS) + NL1 + T)`` f64 tables."""
+    ``(K, len(FAB_KEYS) + NL1 + T)`` f64 tables (epoch 0's rows), then
+    the ``(K, E, len(EPOCH_SC_KEYS) + len(TENANT_KEYS) * T + 2 * D1 +
+    T)`` epoch table and the ``(K, E - 1)`` epoch bounds (``E = 1``
+    without a schedule: the bounds are empty and the kernel never reads
+    either)."""
+    E = scs[0]["epoch_bounds"].shape[0] + 1 if "epoch_bounds" in scs[0] \
+        else 1
+    ep_table = torch.stack([torch.stack([
+        torch.cat([torch.stack([r[k].reshape(()) for k in EPOCH_SC_KEYS])]
+                  + [r[k].reshape(-1) for k in TENANT_KEYS + EPOCH_DEEP_KEYS]
+                  + [r["leaf_of_t"].reshape(-1)])
+        for r in (epoch_rows(sc, e) for e in range(E))]) for sc in scs]
+    ).to(device)
+    ep_bounds = torch.stack([
+        sc["epoch_bounds"] if E > 1 else torch.zeros(0, dtype=torch.float64)
+        for sc in scs]).to(device)
+    scs = [epoch_rows(sc, 0) for sc in scs]
     sc_table = torch.stack([torch.stack([sc[k].reshape(()) for k in SC_KEYS])
                             for sc in scs]).to(device)
     ten_table = torch.stack([
@@ -99,10 +128,12 @@ def pack_configs(scs: Sequence[dict], n_tenants_max: int, device):
                    sc["leaf_base"].reshape(-1),
                    sc["leaf_of_t"].reshape(n_tenants_max)])
         for sc in scs]).to(device)
-    return sc_table, ten_table, chain_table, fab_table
+    return sc_table, ten_table, chain_table, fab_table, ep_table, ep_bounds
 
 
-def _config_view(sc_table, ten_table, chain_table, fab_table, j):
+def _config_view(sc_table, ten_table, chain_table, fab_table, ep_table,
+                 ep_bounds, j):
+    """Config ``j``'s ``scalars_from_config`` dict, from the tables."""
     row = {k: sc_table[j, i] for i, k in enumerate(SC_KEYS)}
     row.update({k: ten_table[j, i] for i, k in enumerate(TENANT_KEYS)})
     row.update({k: chain_table[j, i] for i, k in enumerate(CHAIN_KEYS)})
@@ -112,20 +143,32 @@ def _config_view(sc_table, ten_table, chain_table, fab_table, j):
     nl1 = fab_table.shape[1] - len(FAB_KEYS) - ten_table.shape[2]
     row["leaf_base"] = fab_table[j, len(FAB_KEYS):len(FAB_KEYS) + nl1]
     row["leaf_of_t"] = fab_table[j, len(FAB_KEYS) + nl1:]
+    if ep_bounds.shape[1] > 0:
+        # the epoch rows, each with its leading (E,) axis, and the bounds
+        T, D1 = ten_table.shape[2], deep.shape[1]
+        ep, o = ep_table[j], len(EPOCH_SC_KEYS)
+        row.update({k: ep[:, i] for i, k in enumerate(EPOCH_SC_KEYS)})
+        for k in TENANT_KEYS:
+            row[k], o = ep[:, o:o + T], o + T
+        for k in EPOCH_DEEP_KEYS:
+            row[k], o = ep[:, o:o + D1], o + D1
+        row["leaf_of_t"] = ep[:, o:o + T]
+        row["epoch_bounds"] = ep_bounds[j]
     return row
 
 
 def cell_scan_ref(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-                  sc_table, ten_table, chain_table, fab_table, *, max_pbe,
-                  pm_banks, n_track, n_tenants_max, n_deep_max=0,
-                  n_leaves_max=1) -> CellScanOut:
+                  sc_table, ten_table, chain_table, fab_table, ep_table,
+                  ep_bounds, *, max_pbe, pm_banks, n_track, n_tenants_max,
+                  n_deep_max=0, n_leaves_max=1) -> CellScanOut:
     """Plain version: the eager ``scan_cell`` over every cell in turn."""
     from repro_torch.core.engine.step import scan_cell
     rows = []
     for tr, cf in zip(cell_trace.tolist(), cell_cfg.tolist()):
         rows.append(scan_cell(
             ops[tr], addrs[tr], gaps[tr], lengths[tr], int(schemes[cf]),
-            _config_view(sc_table, ten_table, chain_table, fab_table, cf),
+            _config_view(sc_table, ten_table, chain_table, fab_table,
+                         ep_table, ep_bounds, cf),
             max_pbe=max_pbe, pm_banks=pm_banks, n_track=n_track,
             n_tenants_max=n_tenants_max, n_deep_max=n_deep_max,
             n_leaves_max=n_leaves_max))
@@ -143,11 +186,15 @@ def cell_scan_ref(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
 
 
 def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-           sc_table, ten_table, chain_table, fab_table, max_pbe, pm_banks,
-           n_track, n_tenants_max, n_deep_max, n_leaves_max):
+           sc_table, ten_table, chain_table, fab_table, ep_table, ep_bounds,
+           max_pbe, pm_banks, n_track, n_tenants_max, n_deep_max,
+           n_leaves_max):
     K, C, L = ops.shape
     n_chain = len(CHAIN_KEYS) + len(DEEP_KEYS) * max(n_deep_max, 1)
     n_fab = len(FAB_KEYS) + max(n_leaves_max, 1) + n_tenants_max
+    E = ep_table.shape[1] if ep_table.dim() == 3 else 0
+    n_ep = len(EPOCH_SC_KEYS) + len(TENANT_KEYS) * n_tenants_max \
+        + len(EPOCH_DEEP_KEYS) * max(n_deep_max, 1) + n_tenants_max
     want = dict(ops=(ops, torch.int32, (K, C, L)),
                 addrs=(addrs, torch.int32, (K, C, L)),
                 gaps=(gaps, torch.float32, (K, C, L)),
@@ -162,6 +209,10 @@ def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
                              (sc_table.shape[0], n_chain)),
                 fab_table=(fab_table, torch.float64,
                            (sc_table.shape[0], n_fab)),
+                ep_table=(ep_table, torch.float64,
+                          (sc_table.shape[0], E, n_ep)),
+                ep_bounds=(ep_bounds, torch.float64,
+                           (sc_table.shape[0], max(E - 1, 0))),
                 cell_trace=(cell_trace, torch.int32, cell_trace.shape),
                 cell_cfg=(cell_cfg, torch.int32, cell_trace.shape))
     for name, (x, dtype, shape) in want.items():
@@ -196,32 +247,40 @@ def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
     if n_leaves_max > 1 and n_deep_max < 1:
         raise ValueError("cell_scan: a fabric grid needs its spine's deep "
                          "row (n_deep_max >= 1)")
+    if not 1 <= E <= MAX_EPOCHS:
+        raise ValueError(f"cell_scan: {E} epochs outside [1, {MAX_EPOCHS}]: "
+                         f"the kernel takes schedules of up to {MAX_EPOCHS} "
+                         f"epochs")
 
 
 def cell_scan(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-              sc_table, ten_table, chain_table, fab_table, *, max_pbe: int,
-              pm_banks: int, n_track: int, n_tenants_max: int,
-              n_deep_max: int = 0, n_leaves_max: int = 1) -> CellScanOut:
+              sc_table, ten_table, chain_table, fab_table, ep_table,
+              ep_bounds, *, max_pbe: int, pm_banks: int, n_track: int,
+              n_tenants_max: int, n_deep_max: int = 0,
+              n_leaves_max: int = 1) -> CellScanOut:
     """Run cells ``k = 0..N-1``: trace ``cell_trace[k]`` of the stacked
     ``(K, C, L)`` traces under config ``cell_cfg[k]`` of the packed
-    tables (:func:`pack_configs`), with ``n_deep_max`` deep-hop rows and
-    ``n_leaves_max`` fabric leaves."""
+    tables (:func:`pack_configs`), with ``n_deep_max`` deep-hop rows,
+    ``n_leaves_max`` fabric leaves and the epoch table's ``E`` epochs."""
     global launches
     _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
-           sc_table, ten_table, chain_table, fab_table, max_pbe, pm_banks,
-           n_track, n_tenants_max, n_deep_max, n_leaves_max)
+           sc_table, ten_table, chain_table, fab_table, ep_table, ep_bounds,
+           max_pbe, pm_banks, n_track, n_tenants_max, n_deep_max,
+           n_leaves_max)
     kw = dict(max_pbe=max_pbe, pm_banks=pm_banks, n_track=n_track,
               n_tenants_max=n_tenants_max, n_deep_max=n_deep_max,
               n_leaves_max=n_leaves_max)
     if ops.device.type == "cpu":
         return cell_scan_ref(ops, addrs, gaps, lengths, cell_trace,
                              cell_cfg, schemes, sc_table, ten_table,
-                             chain_table, fab_table, **kw)
+                             chain_table, fab_table, ep_table, ep_bounds,
+                             **kw)
     if ops.device.type != "cuda":
         raise ValueError(f"cell_scan: unsupported device {ops.device}")
     ins = [x.contiguous() for x in (ops, addrs, gaps, lengths, cell_trace,
                                     cell_cfg, schemes, sc_table, ten_table,
-                                    chain_table, fab_table)]
+                                    chain_table, fab_table, ep_table,
+                                    ep_bounds)]
     out = _empty_out(cell_trace.shape[0], n_tenants_max, max(n_track, 1),
                      n_deep_max, ops.device, n_leaves_max)
     if cell_trace.shape[0] > 0:
@@ -254,7 +313,8 @@ def launch(lib, ins, out: CellScanOut, *, max_pbe, pm_banks, n_track,
     (the order of :func:`cell_scan`'s tensor arguments) and the
     preallocated ``out``; returns the C entry point's error code.
     ``n_leaves > 1`` (the grid holds a multi-leaf fabric) launches the
-    kernel's fabric instantiation."""
+    kernel's fabric instantiation, and an epoch table of ``E > 1``
+    epochs (``ins[11]``; the grid holds a schedule) its epoch one."""
     from repro_torch.core.engine.state import LAT_BIN_EDGES
     ops = ins[0]
     _, C, L = ops.shape
@@ -265,19 +325,19 @@ def launch(lib, ins, out: CellScanOut, *, max_pbe, pm_banks, n_track,
     aver = torch.empty((N, A), dtype=torch.int32, device=ops.device)
     # the kernel's argument order: the depth-1 inputs, bin edges, the
     # depth-1 outputs, the issued-version scratch ``aver``, the chain's
-    # table and per-hop survivors, then the fabric's table and per-leaf
-    # survivors
+    # table and per-hop survivors, the fabric's table and per-leaf
+    # survivors, then the epoch table and bounds
     ptrs = list(ins[:9]) + [edges] + [out.runtime, out.stats, out.hop_stats,
                                       out.durable_ver, out.n_recov,
                                       out.recov_ns, out.recov_t, out.steps,
                                       out.lookups, aver, ins[9], out.recov_h,
-                                      ins[10], out.recov_l]
+                                      ins[10], out.recov_l, ins[11], ins[12]]
     fn = lib.cell_scan_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     rc = fn(*[x.data_ptr() for x in ptrs], N, C, L, max_pbe, pm_banks, A,
-            T, n_track, n_deep, n_leaves, stream)
+            T, n_track, n_deep, n_leaves, ins[11].shape[1], stream)
     if rc == 0 and n_deep == 0:
         # without a chain the one hop's survivors are the recovery count
         out.recov_h[:, 0].copy_(out.n_recov)

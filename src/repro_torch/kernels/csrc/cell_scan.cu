@@ -7,14 +7,17 @@
 // keeps that code's form and order (f64 adds, maxes and products, built
 // with -fmad=false), so the two agree bit for bit.
 //
-// Scope: switch chains of up to MAX_DEEP + 1 = 4 switches and fan-out
-// fabrics of up to MAX_LEAVES leaves, one schedule epoch — the handler
-// and policy bodies with tenants, PBPolicy quotas and weighted victims,
-// the SLO drain tightening, the crash gate and durability tracking, the
-// deep-hop rows of engine/chain.py (the template's D, the grid's
-// deep-row count; D = 0 compiles every chain statement out), and the
-// fabric of engine/fabric.py (the template's FAB, set when the grid holds
-// a multi-leaf fabric; FAB = false compiles every fabric statement out).
+// Scope: switch chains of up to MAX_DEEP + 1 = 4 switches, fan-out
+// fabrics of up to MAX_LEAVES leaves and schedules of up to MAX_EPOCHS
+// epochs — the handler and policy bodies with tenants, PBPolicy quotas
+// and weighted victims, the SLO drain tightening, the crash gate and
+// durability tracking, the deep-hop rows of engine/chain.py (the
+// template's D, the grid's deep-row count; D = 0 compiles every chain
+// statement out), the fabric of engine/fabric.py (the template's FAB,
+// set when the grid holds a multi-leaf fabric; FAB = false compiles
+// every fabric statement out), and the epoch rows of step.py's
+// resolve_epoch_sc (the template's EP, set when the grid holds a
+// Schedule; EP = false compiles every epoch statement out).
 //
 // Design: one block of one warp per (trace, config) cell; every cell of
 // a grid in one launch, with the scheme read per cell.  The machine
@@ -417,6 +420,18 @@ __host__ __device__ size_t carve_fab(FabSmem& f, unsigned char* base,
   f.lof = cv.take<int>(T);
   return cv.off;
 }
+
+// ---- epoch schedules (step.py resolve_epoch_sc) ---------------------------
+// A scheduled grid's epoch table holds, per config and epoch, the rows a
+// Schedule may change (state.py EPOCH_KEYS): threshold, preset and SLO
+// target (EpKey), the N_TEN tenant rows, the deep rows' thr and pre
+// (D1 = max(D, 1) values each) and the T tenants' leaves; beside it
+// the config's E - 1 boundaries (INF past its own).  The cell keeps one
+// epoch's rows where the schedule-free kernel keeps the config's (sc,
+// m.ten, the chain's csc, the fabric's lof), epoch 0's from the config
+// tables, and copies another epoch's over them when an op issues in it.
+enum EpKey { E_THRESHOLD, E_PRESET, E_LAT_TARGET, N_EK };
+constexpr int MAX_EPOCHS = 8;
 
 // One packet of a list, in a lane's registers.
 struct Pkt {
@@ -965,6 +980,34 @@ struct Chain {
     return nb + n_drain;
   }
 
+  // chain.drain_pending: whether a live row's own drain-down would drain
+  // now (k > 0).  The reference forwards every buffered persist's victim
+  // leg and policy batch, with or without a packet; one with none
+  // changes nothing while each row sits at or under its drain count, as
+  // every forward leaves it, so the kernel skips it — unless a schedule
+  // has lowered a row's threshold since the last forward (EP only).  The
+  // rows are walked by constant index, as everywhere, so that pbe stays
+  // in registers.
+  __device__ bool pending(int scheme) const {
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      bool dirty[SPL];
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) {
+        const int s = lane + 32 * jj;
+        dirty[jj] = j < live_rows && s < pbe[j] &&
+                    c.dstate[idx(j, s < P ? s : 0)] == DIRTY;
+      }
+      const double cnt = static_cast<double>(warp_count(dirty, tiles));
+      const double k =
+          scheme == 1 ? cnt
+                      : (cnt >= deep(DK_THR, j) ? cnt - deep(DK_PRE, j) : 0.0);
+      any |= j < live_rows && k > 0.0;
+    }
+    return any;
+  }
+
   // forward_chain: list 0 holds the batch's n packets (Q0 in the full
   // batch), placed into the live rows; the rest land at PM from the
   // first row past the depth.  Returns the PM writes.
@@ -1068,6 +1111,10 @@ struct Args {
   double* recov_l;            // (N, NL) hop-1 survivors per leaf
   FabSmem flay;               // the fabric's carve-up: byte offsets
   int NL;                     // leaves: the grid's max(n_leaves, 1)
+  // ---- epoch schedules (EP instantiations only) ----
+  const double* ep_table;     // (Kc, E, N_EK + N_TEN * T + 2 * D1 + T)
+  const double* ep_bounds;    // (Kc, E - 1)
+  int E;                      // epochs: the grid's max(n_epochs)
 };
 
 }  // namespace
@@ -1081,7 +1128,9 @@ struct Args {
 // window, its leaf's PBC clock serves it (m.pbc holds one a leaf), the
 // spine's Dirty occupancy can defer a PB_RF drain-down, and recovery
 // counts hop-1 survivors per leaf.  FAB = false compiles all of it out.
-template <int SPL, int D, bool FAB>
+// EP: the grid holds a Schedule (E > 1); each op sees the rows of the
+// epoch its issue time falls in.  EP = false compiles all of it out.
+template <int SPL, int D, bool FAB, bool EP>
 __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem m = rebase(a.lay, smem_raw);
@@ -1244,6 +1293,15 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
        sc[K_DATA_NS], sc[K_SWITCH_PIPE], sc[K_OW_SW1_PM],
        sc[K_PBC_READ_OCC]};
 
+  // epoch schedules: the epoch whose rows the copies hold, the window
+  // [ep_lo, ep_hi) of issue times that select it (empty at first, so
+  // the first step resolves it), and whether the epoch changed since the
+  // chain's last forward (only then can a deep row sit over its drain
+  // count: Chain::pending)
+  int ep_cur = 0;
+  double ep_lo = INF, ep_hi = -INF;
+  bool ep_stale = false;
+
   long long steps = 0, lookups = 0;
 #ifdef CELL_SCAN_PROFILE
   Prof prof{};
@@ -1285,6 +1343,54 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
     ++steps;
     const int c = bc;
     const double t_issue = best;
+    if constexpr (EP) {
+      // the epoch at the issue time, #{b : b <= t_issue}; every time in
+      // [ep_lo, ep_hi) counts the same bounds, so only an issue time
+      // outside the window resolves again, and any change of epoch
+      // copies that epoch's rows over the ones held (before the step's
+      // first read of them, my_leaf below)
+      if (!(ep_lo <= t_issue && t_issue < ep_hi)) {
+        const int E = a.E;
+        const double* eb = a.ep_bounds + static_cast<size_t>(cf) * (E - 1);
+        int ep = 0;
+        ep_lo = -INF;
+        ep_hi = INF;
+        for (int k = 0; k < E - 1; ++k) {
+          const double b = eb[k];
+          if (b <= t_issue) {
+            ++ep;
+            ep_lo = fmax(ep_lo, b);
+          } else {
+            ep_hi = fmin(ep_hi, b);
+          }
+        }
+        if (ep != ep_cur) {
+          constexpr int D1 = D > 0 ? D : 1;
+          const int n_ep = N_EK + N_TEN * T + 2 * D1 + T;
+          const double* row =
+              a.ep_table + (static_cast<size_t>(cf) * E + ep) * n_ep;
+          __syncwarp();  // every lane is done with the rows held
+          if (lane == 0) {
+            sc[K_THRESHOLD] = row[E_THRESHOLD];
+            sc[K_PRESET] = row[E_PRESET];
+            sc[K_LAT_TARGET] = row[E_LAT_TARGET];
+          }
+          for (int i = lane; i < N_TEN * T; i += 32) m.ten[i] = row[N_EK + i];
+          if constexpr (D > 0) {
+            // deep_thr then deep_pre: the chain row's DK_THR and DK_PRE runs
+            for (int i = lane; i < 2 * D; i += 32)
+              ch.c.csc[N_CH + DK_THR * D + i] = row[N_EK + N_TEN * T + i];
+          }
+          if constexpr (FAB) {
+            for (int t = lane; t < T; t += 32)
+              fs.lof[t] = static_cast<int>(row[N_EK + N_TEN * T + 2 * D1 + t]);
+          }
+          __syncwarp();
+          ep_cur = ep;
+          ep_stale = true;
+        }
+      }
+    }
     // ops issuing after the power loss never happen (machine is off)
     const bool live = t_issue <= crash;
     const int op = live ? m.cop[c] : OP_COMPUTE;
@@ -1593,8 +1699,15 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
               __syncwarp();
               PROF(SEC_C_BATCH);
               pmw_v = ch.forward(scheme, 1, 1, ch.c.vack, true, lookups);
+              if constexpr (EP) ep_stale = false;
               vack = *ch.c.vack;
               vic_wait = vack;
+            } else if constexpr (EP) {
+              // no victim packet: the leg's empty forward drains a row
+              // that a lowered threshold left over its drain count
+              if (ep_stale && ch.pending(scheme))
+                pmw_v = ch.forward(scheme, 1, 0, ch.c.vack, true, lookups);
+              ep_stale = false;
             }
           }
         }
@@ -1871,8 +1984,14 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
             }
             __syncwarp();  // the hop-1 columns and the batch are written
             PROF(SEC_C_BATCH);
-            if (n_pol > 0)
+            if (n_pol > 0) {
               pmw_c = ch.forward(scheme, P, n_pol, m.dd, false, lookups);
+              if constexpr (EP) ep_stale = false;
+            } else if constexpr (EP) {  // as on the victim leg
+              if (ep_stale && ch.pending(scheme))
+                pmw_c = ch.forward(scheme, P, 0, m.dd, false, lookups);
+              ep_stale = false;
+            }
             if (lane < B) m.pm_busy[lane] = ch.pmb_r;
           }
         }
@@ -2121,12 +2240,13 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
 // n_deep (the grid's deep-hop rows, the D of the instantiation) is
 // bounded by MAX_DEEP: chains of up to MAX_DEEP + 1 switches.  n_leaves
 // (the grid's most fabric leaves) above 1 selects the FAB instantiation,
-// which needs the spine's deep row.
+// which needs the spine's deep row.  n_epochs (the grid's most schedule
+// epochs, at most MAX_EPOCHS) above 1 selects the EP instantiation.
 constexpr int MAX_DEEP = 3;
 
-template <int SPL, int D, bool FAB>
+template <int SPL, int D, bool FAB, bool EP>
 static int run_one(Args& a, int n_cells, size_t smem, cudaStream_t stream) {
-  const auto kernel = cell_scan_kernel<SPL, D, FAB>;
+  const auto kernel = cell_scan_kernel<SPL, D, FAB, EP>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2137,21 +2257,28 @@ static int run_one(Args& a, int n_cells, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int SPL, int D, bool FAB>
+static int run_ep(Args& a, int n_cells, bool ep, size_t smem,
+                  cudaStream_t stream) {
+  return ep ? run_one<SPL, D, FAB, true>(a, n_cells, smem, stream)
+            : run_one<SPL, D, FAB, false>(a, n_cells, smem, stream);
+}
+
 template <int SPL, int D>
-static int run_d(Args& a, int n_cells, bool fab, size_t smem,
+static int run_d(Args& a, int n_cells, bool fab, bool ep, size_t smem,
                  cudaStream_t stream) {
-  return fab ? run_one<SPL, D, true>(a, n_cells, smem, stream)
-             : run_one<SPL, D, false>(a, n_cells, smem, stream);
+  return fab ? run_ep<SPL, D, true>(a, n_cells, ep, smem, stream)
+             : run_ep<SPL, D, false>(a, n_cells, ep, smem, stream);
 }
 
 template <int SPL>
-static int run_spl(Args& a, int n_cells, int n_deep, bool fab, size_t smem,
-                   cudaStream_t stream) {
+static int run_spl(Args& a, int n_cells, int n_deep, bool fab, bool ep,
+                   size_t smem, cudaStream_t stream) {
   switch (n_deep) {
-    case 0: return run_one<SPL, 0, false>(a, n_cells, smem, stream);
-    case 1: return run_d<SPL, 1>(a, n_cells, fab, smem, stream);
-    case 2: return run_d<SPL, 2>(a, n_cells, fab, smem, stream);
-    case 3: return run_d<SPL, 3>(a, n_cells, fab, smem, stream);
+    case 0: return run_ep<SPL, 0, false>(a, n_cells, ep, smem, stream);
+    case 1: return run_d<SPL, 1>(a, n_cells, fab, ep, smem, stream);
+    case 2: return run_d<SPL, 2>(a, n_cells, fab, ep, smem, stream);
+    case 3: return run_d<SPL, 3>(a, n_cells, fab, ep, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2164,25 +2291,28 @@ extern "C" int cell_scan_launch(
     double* hop_stats, int* durable_ver, double* n_recov,
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
     int* aver, const double* chain_table, double* recov_h,
-    const double* fab_table, double* recov_l, int n_cells, int C, int L,
-    int P, int B, int A, int T, int n_track, int n_deep, int n_leaves,
+    const double* fab_table, double* recov_l, const double* ep_table,
+    const double* ep_bounds, int n_cells, int C, int L, int P, int B, int A,
+    int T, int n_track, int n_deep, int n_leaves, int n_epochs,
     cudaStream_t stream) {
   const bool fab = n_leaves > 1;
+  const bool ep = n_epochs > 1;
   const int NL = fab ? n_leaves : 1;
   Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
          C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
-         fab_table, recov_l, {}, NL};
+         fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs};
   if (n_deep < 0 || n_deep > MAX_DEEP || n_leaves < 1 ||
-      n_leaves > MAX_LEAVES || (fab && n_deep < 1))
+      n_leaves > MAX_LEAVES || (fab && n_deep < 1) || n_epochs < 1 ||
+      n_epochs > MAX_EPOCHS)
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = carve(a.lay, nullptr, C, P, B, T, NL);
   if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
   if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
-  if (P <= 32) return run_spl<1>(a, n_cells, n_deep, fab, smem, stream);
-  if (P <= 64) return run_spl<2>(a, n_cells, n_deep, fab, smem, stream);
-  return run_spl<MAX_SPL>(a, n_cells, n_deep, fab, smem, stream);
+  if (P <= 32) return run_spl<1>(a, n_cells, n_deep, fab, ep, smem, stream);
+  if (P <= 64) return run_spl<2>(a, n_cells, n_deep, fab, ep, smem, stream);
+  return run_spl<MAX_SPL>(a, n_cells, n_deep, fab, ep, smem, stream);
 }
 
 #ifdef CELL_SCAN_PROFILE

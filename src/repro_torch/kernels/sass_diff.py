@@ -1,22 +1,24 @@
-"""Compare the cell scan's fabric-free machine code with another source's.
+"""Compare the cell scan's schedule-free machine code with another source's.
 
 Card-only tool (it needs ``nvcc`` and ``cuobjdump``): builds
 ``csrc/cell_scan.cu`` and the ``cell_scan.cu`` given on the command line
 (for example an earlier revision's, saved with ``git show
 <rev>:src/repro_torch/kernels/csrc/cell_scan.cu > old.cu``) to cubins with
-the package's flags, and compares the SASS of every ``FAB = false``
-instantiation of the current ``cell_scan_kernel<SPL, D, FAB>`` (D = 0..3
-deep-hop rows) with the other source's same ``<SPL, D>`` — named
-``cell_scan_kernel<SPL, D, false>``, ``cell_scan_kernel<SPL, D>`` (from
-before the fabric's template parameter) or, for D = 0,
+the package's flags, and compares the SASS of every ``EP = false``
+instantiation of the current ``cell_scan_kernel<SPL, D, FAB, EP>``
+(D = 0..3 deep-hop rows; FAB both ways for D >= 1) with the other
+source's same ``<SPL, D, FAB>`` — named ``cell_scan_kernel<SPL, D, FAB,
+false>``, ``cell_scan_kernel<SPL, D, FAB>`` (from before the epoch
+schedules' template parameter), ``cell_scan_kernel<SPL, D>`` (FAB =
+false, from before the fabric's) or, for D = 0,
 ``cell_scan_kernel<SPL>`` (from before the chain's) — for SPL = 1, 2, 4,
 instruction by instruction:
 
     PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu
 
-Prints each build's seconds, then per (SPL, D) both instruction counts
-and the instructions that differ (branch targets aside, which only move
-when code after them changes length), and the ``FAB = true``
+Prints each build's seconds, then per (SPL, D, FAB) both instruction
+counts and the instructions that differ (branch targets aside, which
+only move when code after them changes length), and the ``EP = true``
 instantiations' counts.
 """
 from __future__ import annotations
@@ -70,37 +72,47 @@ def _find(funcs: dict, names) -> list | None:
     return None
 
 
+def _names(spl: int, d: int, fab: int) -> list:
+    """The mangled template arguments of ``<spl, d, fab>``, newest first."""
+    names = [f"ILi{spl}ELi{d}ELb{fab}ELb0EE", f"ILi{spl}ELi{d}ELb{fab}EE"]
+    if not fab:
+        names.append(f"ILi{spl}ELi{d}EE")
+        if d == 0:
+            names.append(f"ILi{spl}EE")
+    return names
+
+
 def main(other: str) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         old = sass(Path(other), Path(tmp) / "other.cubin")
         new = sass(_build.CSRC / "cell_scan.cu", Path(tmp) / "this.cubin")
     same = True
-    for spl in (1, 2, 4):
-        for d in range(MAX_DEEP + 1):
-            names = [f"ILi{spl}ELi{d}ELb0EE", f"ILi{spl}ELi{d}EE"]
-            o = _find(old, names + ([f"ILi{spl}EE"] if d == 0 else []))
-            n = _find(new, names[:1])
-            if o is None or n is None:
-                print(f"cell_scan_kernel SPL={spl} D={d}: missing "
-                      f"(other {o is not None}, this {n is not None})")
-                same = False
-                continue
-            ops = difflib.SequenceMatcher(
-                a=[_no_target(x) for x in o], b=[_no_target(x) for x in n],
-                autojunk=False).get_opcodes()
-            diff = [op for op in ops if op[0] != "equal"]
-            same &= not diff and len(o) == len(n)
-            print(f"cell_scan_kernel SPL={spl} D={d} FAB=false: other "
-                  f"{len(o)} instructions, this {len(n)}, differing runs "
-                  f"{len(diff)}" + ("" if diff or len(o) != len(n)
-                                    else "; identical"))
-            for tag, i1, i2, j1, j2 in diff[:4]:
-                print(f"  {tag}: {o[i1:i2][:4]} -> {n[j1:j2][:4]}")
-    for spl in (1, 2, 4):
-        counts = [len(_find(new, [f"ILi{spl}ELi{d}ELb1EE"]) or [])
-                  for d in range(1, MAX_DEEP + 1)]
-        print(f"cell_scan_kernel SPL={spl} FAB=true: D = 1..{MAX_DEEP} "
-              f"{counts} instructions")
+    combos = [(spl, d, fab) for spl in (1, 2, 4)
+              for d in range(MAX_DEEP + 1) for fab in ((0, 1) if d else (0,))]
+    for spl, d, fab in combos:
+        names = _names(spl, d, fab)
+        o = _find(old, names)
+        n = _find(new, names[:1])
+        what = f"cell_scan_kernel SPL={spl} D={d} FAB={bool(fab)} EP=false"
+        if o is None or n is None:
+            print(f"{what}: missing (other {o is not None}, this "
+                  f"{n is not None})")
+            same = False
+            continue
+        ops = difflib.SequenceMatcher(
+            a=[_no_target(x) for x in o], b=[_no_target(x) for x in n],
+            autojunk=False).get_opcodes()
+        diff = [op for op in ops if op[0] != "equal"]
+        same &= not diff and len(o) == len(n)
+        print(f"{what}: other {len(o)} instructions, this {len(n)}, "
+              f"differing runs {len(diff)}"
+              + ("" if diff or len(o) != len(n) else "; identical"))
+        for tag, i1, i2, j1, j2 in diff[:4]:
+            print(f"  {tag}: {o[i1:i2][:4]} -> {n[j1:j2][:4]}")
+    for spl, d, fab in combos:
+        n = _find(new, [f"ILi{spl}ELi{d}ELb{fab}ELb1EE"])
+        print(f"cell_scan_kernel SPL={spl} D={d} FAB={bool(fab)} EP=true: "
+              f"{len(n or [])} instructions")
     return 0 if same else 1
 
 

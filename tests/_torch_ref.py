@@ -78,6 +78,26 @@ def reference():
                 delattr(sys.modules[parent], child)
 
 
+def ref_config(R, cfg):
+    """The reference's twin of the port's config ``cfg`` (``R``: the
+    reference's ``repro.core``): every init field, the policies,
+    fabric, latency profile and schedules in it rebuilt from the
+    reference's classes of the same names."""
+    import enum
+
+    def conv(v):
+        if isinstance(v, tuple):
+            return tuple(conv(x) for x in v)
+        if not type(v).__module__.startswith("repro_torch"):
+            return v
+        twin = getattr(R, type(v).__name__)
+        if isinstance(v, enum.Enum):
+            return twin(v.value)
+        return twin(**{f.name: conv(getattr(v, f.name))
+                       for f in dataclasses.fields(v) if f.init})
+    return conv(cfg)
+
+
 def assert_same_result(got, want, label=""):
     """Field-by-field ``SimResult`` equality: exact, except the derived
     means, which may differ by 1 ulp (DESIGN.md "Bit-stability")."""

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ref import assert_same_result, reference
+from _torch_ref import assert_same_result, ref_config, reference
 import repro_torch.core as P
 
 TINY_BUDGET = 200                    # the conftest tiny-trace settings
@@ -98,7 +98,7 @@ def test_paper_grid_ref_datum_holds_the_reference_shape():
             assert r.persists == d["stats"][S_PERSIST_CNT] > 0
 
 
-OUT_OF_SCOPE = [
+SCHEDULED = [
     dict(n_switches=3, policy=P.PBPolicy(drain=P.DrainPolicy(
         threshold=P.Schedule((1e4,), (0.8, 0.5)), preset=0.25))),
     # a fabric whose placement moves tenants between leaves mid-run
@@ -110,21 +110,37 @@ OUT_OF_SCOPE = [
 ]
 
 
-@pytest.mark.parametrize("kw", OUT_OF_SCOPE + ["macro", "macro_fabric"])
+@pytest.mark.parametrize("kw", range(len(SCHEDULED)))
+def test_scheduled_configs_match_reference(ref, kw):
+    """The schedules the port once refused (a deep-row threshold over a
+    3-switch chain, a placement flip, a threshold and preset step), each
+    with its boundary inside the run: equal to the reference's cell."""
+    rtr = ref.traces.make_trace("radiosity", persist_budget=100)
+    ptr = P.trace_from_arrays(rtr.name, rtr.ops, rtr.addrs, rtr.gaps,
+                              rtr.lengths)
+    cfg = P.PCSConfig(scheme=P.Scheme.PB_RF, **SCHEDULED[kw])
+    assert cfg.n_epochs == 2
+    rcfg = ref_config(ref.core, cfg)
+    want = ref.grid.simulate_grid([rtr], [rcfg], macro=False)[0][0]
+    got = P.simulate_grid([ptr], [cfg], device="cpu")[0][0]
+    assert_same_result(got, want, kw)
+    assert got.runtime_ns > 1e4                  # the run crosses it
+
+
+@pytest.mark.parametrize("kw", ["macro", "macro_fabric", "macro_schedule"])
 def test_out_of_scope_configs_raise(kw):
     tr = P.make_trace("radiosity", persist_budget=20)
     if kw == "macro":
-        cfg, call = P.PCSConfig(scheme=P.Scheme.PB), dict(macro=True)
+        cfg = P.PCSConfig(scheme=P.Scheme.PB)
     elif kw == "macro_fabric":
         cfg = P.PCSConfig(scheme=P.Scheme.PB_RF, n_tenants=2,
                           fabric=P.FabricTopology(2, (8, 8), 8, (0, 1)))
-        call = dict(macro=True)
     else:
-        cfg, call = P.PCSConfig(scheme=P.Scheme.PB_RF, **kw), {}
+        cfg = P.PCSConfig(scheme=P.Scheme.PB_RF, **SCHEDULED[0])
     with pytest.raises(NotImplementedError):
-        P.simulate_grid([tr], [cfg], device="cpu", **call)
+        P.simulate_grid([tr], [cfg], device="cpu", macro=True)
     with pytest.raises(NotImplementedError):
-        P.simulate_cells([tr], [cfg], device="cpu", **call)
+        P.simulate_cells([tr], [cfg], device="cpu", macro=True)
 
 
 def test_default_device_is_cuda_and_raises_without_it():

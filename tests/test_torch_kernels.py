@@ -102,7 +102,7 @@ def test_cell_scan_wrapper_cpu_runs_eager_scan_cell():
     assert out.lookups.eq(0).all()
     for k, (i, j) in enumerate(pairs):
         t = traces[i]
-        sc = cs._config_view(args[7], args[8], args[9], args[10], j)
+        sc = cs._config_view(*args[7:13], j)
         want = scan_cell(torch.from_numpy(t.ops), torch.from_numpy(t.addrs),
                          torch.from_numpy(t.gaps),
                          torch.from_numpy(t.lengths), int(configs[j].scheme),
@@ -116,7 +116,8 @@ def test_cell_scan_wrapper_cpu_runs_eager_scan_cell():
 
 @pytest.mark.parametrize("bad", ["ops_dtype", "gaps_dtype", "max_pbe",
                                  "banks", "cfg_shape", "device_mix",
-                                 "leaves", "fab_shape"])
+                                 "leaves", "fab_shape", "epochs",
+                                 "ep_shape"])
 def test_cell_scan_wrapper_raises_on_what_it_does_not_take(bad):
     _, _, _, (args, kw) = _grid_inputs(budget=40)
     args, kw = list(args), dict(kw)
@@ -134,6 +135,14 @@ def test_cell_scan_wrapper_raises_on_what_it_does_not_take(bad):
         kw["n_leaves_max"] = cs.MAX_LEAVES + 1
     elif bad == "fab_shape":
         args[10] = args[10][:, :-1]
+    elif bad == "epochs":
+        # more epochs than the kernel takes
+        E = cs.MAX_EPOCHS + 1
+        args[11] = args[11].expand(-1, E, -1).contiguous()
+        args[12] = torch.full((args[11].shape[0], E - 1), 1e30,
+                              dtype=torch.float64)
+    elif bad == "ep_shape":
+        args[11] = args[11][:, :, :-1]
     else:
         args[3] = args[3].to("meta")
     with pytest.raises(ValueError):
@@ -149,8 +158,12 @@ def test_pack_configs_columns_follow_sc_keys():
                       fabric=FabricTopology(3, (2, 5, 1), 4, (2, 0),
                                             bp_high=3.0))]
     scs = [scalars_from_config(c, 2, 1, 3) for c in cfgs]
-    sct, tent, cht, fabt = cs.pack_configs(scs, 2, "cpu")
+    sct, tent, cht, fabt, ept, epb = cs.pack_configs(scs, 2, "cpu")
     assert sct.shape == (3, len(cs.SC_KEYS))
+    # no schedule: one epoch, no bounds
+    assert ept.shape == (3, 1, len(cs.EPOCH_SC_KEYS)
+                         + len(cs.TENANT_KEYS) * 2 + 2 + 2)
+    assert epb.shape == (3, 0)
     assert tent.shape == (3, len(cs.TENANT_KEYS), 2)
     assert cht.shape == (3, len(cs.CHAIN_KEYS) + len(cs.DEEP_KEYS))
     assert fabt.shape == (3, len(cs.FAB_KEYS) + 3 + 2)
@@ -159,7 +172,44 @@ def test_pack_configs_columns_follow_sc_keys():
             assert float(sct[j, i]) == float(sc[k])
         for i, k in enumerate(cs.TENANT_KEYS):
             assert torch.equal(tent[j, i], sc[k])
-        view = cs._config_view(sct, tent, cht, fabt, j)
+        view = cs._config_view(sct, tent, cht, fabt, ept, epb, j)
+        assert set(view) == set(sc)
         for k in (cs.CHAIN_KEYS + cs.DEEP_KEYS + cs.FAB_KEYS
                   + ("leaf_base", "leaf_of_t")):
             assert torch.equal(view[k].reshape(-1), sc[k].reshape(-1)), k
+
+
+def test_pack_configs_epoch_rows():
+    """A scheduled grid (E = 3): the tables hold epoch 0's rows, the
+    epoch table every epoch's, and the view is the lowered dict, key for
+    key with its (E,) axes and the INF-padded bounds."""
+    from repro_torch.core import (AllocPolicy, DrainPolicy, FabricTopology,
+                                  PBPolicy, Schedule)
+    from repro_torch.core.engine.state import EPOCH_KEYS, scalars_from_config
+    b = (1e4, 3e4)
+    cfgs = [PCSConfig(scheme=Scheme.PB_RF, n_tenants=2, n_switches=3,
+                      policy=PBPolicy(
+                          drain=DrainPolicy(
+                              threshold=Schedule(b, (0.75, 0.5, 0.875)),
+                              preset=0.25,
+                              latency_target_ns=Schedule(b, (None, 300.0,
+                                                             200.0))),
+                          alloc=AllocPolicy(tenant_quota=Schedule(
+                              b, ((8, 8), (12, 4), (4, 12)))))),
+            PCSConfig(scheme=Scheme.PB, n_tenants=2, fabric=FabricTopology(
+                2, (4, 4), 4, Schedule((2e4,), ((0, 1), (1, 0))))),
+            PCSConfig(scheme=Scheme.PB_RF, n_tenants=2)]
+    scs = [scalars_from_config(c, 2, 2, 2, n_epochs_max=3) for c in cfgs]
+    tables = cs.pack_configs(scs, 2, "cpu")
+    ept, epb = tables[4:]
+    assert ept.shape == (3, 3, len(cs.EPOCH_SC_KEYS)
+                         + len(cs.TENANT_KEYS) * 2 + 2 * 2 + 2)
+    assert epb.shape == (3, 2)
+    for j, sc in enumerate(scs):
+        view = cs._config_view(*tables, j)
+        assert set(view) == set(sc)
+        for k, v in sc.items():
+            assert view[k].shape == v.shape and torch.equal(view[k], v), k
+        flat = cs._config_view(*tables[:4], ept[:, :1], epb[:, :0], j)
+        for k in EPOCH_KEYS:
+            assert torch.equal(flat[k], sc[k][0]), k

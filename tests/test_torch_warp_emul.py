@@ -36,22 +36,32 @@ EMUL = Path(__file__).resolve().parent / "warp_emul"
 
 CELL_SCAN_LAUNCH = r'''
 alignas(16) unsigned char smem_raw[1 << 20];
+// the EP = true instantiations the scheduled cases need (SPL 1, D <= 1),
+// which keeps the build short; any other scheduled grid is refused
+template <int SPL, int D, bool FAB>
+static bool emu_ep(Args& a, int n_cells, bool ep) {
+  if (!ep) {
+    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false>(a); });
+    return true;
+  }
+  if constexpr (SPL == 1 && D <= 1) {
+    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, true>(a); });
+    return true;
+  }
+  return false;
+}
 template <int SPL, int D>
-static void emu_d(Args& a, int n_cells, bool fab) {
-  if (fab)
-    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, true>(a); });
-  else
-    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, false>(a); });
+static bool emu_d(Args& a, int n_cells, bool fab, bool ep) {
+  return fab ? emu_ep<SPL, D, true>(a, n_cells, ep)
+             : emu_ep<SPL, D, false>(a, n_cells, ep);
 }
 template <int SPL>
-static void emu_spl(Args& a, int n_cells, int n_deep, bool fab) {
+static bool emu_spl(Args& a, int n_cells, int n_deep, bool fab, bool ep) {
   switch (n_deep) {
-    case 0:
-      emu_run(n_cells, [&] { cell_scan_kernel<SPL, 0, false>(a); });
-      break;
-    case 1: emu_d<SPL, 1>(a, n_cells, fab); break;
-    case 2: emu_d<SPL, 2>(a, n_cells, fab); break;
-    case 3: emu_d<SPL, 3>(a, n_cells, fab); break;
+    case 0: return emu_ep<SPL, 0, false>(a, n_cells, ep);
+    case 1: return emu_d<SPL, 1>(a, n_cells, fab, ep);
+    case 2: return emu_d<SPL, 2>(a, n_cells, fab, ep);
+    default: return emu_d<SPL, 3>(a, n_cells, fab, ep);
   }
 }
 extern "C" int cell_scan_launch(
@@ -62,31 +72,30 @@ extern "C" int cell_scan_launch(
     double* hop_stats, int* durable_ver, double* n_recov,
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
     int* aver, const double* chain_table, double* recov_h,
-    const double* fab_table, double* recov_l, int n_cells, int C, int L,
-    int P, int B, int A, int T, int n_track, int n_deep, int n_leaves,
+    const double* fab_table, double* recov_l, const double* ep_table,
+    const double* ep_bounds, int n_cells, int C, int L, int P, int B, int A,
+    int T, int n_track, int n_deep, int n_leaves, int n_epochs,
     cudaStream_t) {
   const bool fab = n_leaves > 1;
+  const bool ep = n_epochs > 1;
   const int NL = fab ? n_leaves : 1;
   Args a{ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
          C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
-         fab_table, recov_l, {}, NL};
+         fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs};
   if (n_deep < 0 || n_deep > 3 || n_leaves < 1 || n_leaves > MAX_LEAVES ||
-      (fab && n_deep < 1))
+      (fab && n_deep < 1) || n_epochs < 1 || n_epochs > MAX_EPOCHS)
     return 1;
   size_t smem = carve(a.lay, nullptr, C, P, B, T, NL);
   if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
   if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
   if (smem > sizeof(smem_raw)) return 1;
   wg::emu_smem_base = smem_raw;
-  if (P <= 32)
-    emu_spl<1>(a, n_cells, n_deep, fab);
-  else if (P <= 64)
-    emu_spl<2>(a, n_cells, n_deep, fab);
-  else
-    emu_spl<MAX_SPL>(a, n_cells, n_deep, fab);
-  return 0;
+  const bool ran = P <= 32   ? emu_spl<1>(a, n_cells, n_deep, fab, ep)
+                  : P <= 64 ? emu_spl<2>(a, n_cells, n_deep, fab, ep)
+                            : emu_spl<MAX_SPL>(a, n_cells, n_deep, fab, ep);
+  return ran ? 0 : 1;
 }
 // the chain's warp primitives on one emulated warp: lane l's __clz of
 // masks[l], the warp's __reduce_or_sync of masks, lane l's
@@ -363,6 +372,17 @@ def _cases():
                              p_persist=0.7)[0] for seed in (0, 1)]
     fab_fz = [P.fuzz_trace(seed, n_cores=4, n_slots=50, n_addrs=6,
                            n_tenants=4, p_persist=0.7)[0] for seed in (0, 1)]
+    # epoch schedules: one boundary on the fuzzed traces' time scale
+    # (slots 1 ms apart) and one on the dense traces' (tens of ns a op)
+    Sch, fb = P.Schedule, P.fuzz_crash_ns
+    place0 = P.leaf_placement(4, 2, "packed")
+    place1 = tuple(1 - p for p in place0)
+
+    def flip(b, quota=None):
+        return dict(fabric=P.FabricTopology(2, (4, 4), 4,
+                                            Sch((b,), (place0, place1))),
+                    policy=P.PBPolicy(alloc=P.AllocPolicy(
+                        tenant_quota=quota)))
     return {
         "schemes": (small, [P.PCSConfig(scheme=s) for s in S], 0),
         "crash": (small, [P.PCSConfig(scheme=s).with_crash(t)
@@ -510,7 +530,78 @@ def _cases():
                           for f in (_fab(4, (4, 4), 4, "spread"),
                                     _fab(4, (2, 2, 2, 2), 4, "packed", 2.0))
                           for t in (9e3, 2.1e4, 4.4e4)], 64),
+        # epoch schedules at D = 0 (the EP instantiation): a quota step, a
+        # drain-threshold tighten (global and per tenant) and an SLO target
+        # switched on, beside a static cell
+        "epochs_d0": (fz[:1] + [_synth(3, 40, n_cores=2)],
+                      [P.PCSConfig(scheme=s, n_pbe=8, n_tenants=2, policy=p)
+                       .with_crash(t)
+                       for b in (fb(50), 4e3)
+                       for s, p in (
+                           (S.PB_RF, P.PBPolicy(alloc=P.AllocPolicy(
+                               tenant_quota=Sch((b,), ((3, 5), (6, 2)))))),
+                           (S.PB, P.PBPolicy(alloc=P.AllocPolicy(
+                               tenant_quota=Sch((b,), ((4, 4), (2, 6)))))),
+                           (S.PB_RF, P.PBPolicy(drain=P.DrainPolicy(
+                               threshold=Sch((b,), (0.75, 0.375)),
+                               preset=0.25))),
+                           (S.PB_RF, P.PBPolicy(drain=P.DrainPolicy(
+                               threshold=Sch((b,), (0.5, 0.875)),
+                               preset=Sch((b,), (0.25, 0.5)),
+                               per_tenant=True))),
+                           (S.PB_RF, P.PBPolicy(drain=P.DrainPolicy(
+                               latency_target_ns=Sch((b,), (None, 300.0))))))
+                       for t in (INF_NS, 1.5 * b)]
+                      + [P.PCSConfig(scheme=S.PB_RF, n_pbe=8, n_tenants=2)],
+                      8),
+        # a placement flip (and a quota step) over a 2-leaf fabric, power
+        # lost before and after the boundary: D = 1, FAB and EP
+        "epochs_fabric": (fab_fz[:1] + [_fab_probe(4, 40)],
+                          [P.PCSConfig(scheme=s, n_cores=4, n_tenants=4,
+                                       **flip(b, q)).with_crash(t)
+                           for b in (fb(25), 2e4)
+                           for s in (S.PB, S.PB_RF)
+                           for q in (None, Sch((b,), ((2, 2, 2, 2),
+                                                      (4, 2, 1, 1))))
+                           for t in (0.5 * b, 1.5 * b, INF_NS)], 64),
+        # drain thresholds over a 2-hop chain's deep row stepped down and
+        # up mid-run: a row left over its new count drains on a forward
+        # with no packet (chain.drain_pending)
+        "epochs_chain": ([_synth(0, 300), _synth(4, 60, n_cores=3)],
+                         [P.PCSConfig(scheme=S.PB_RF, n_pbe=16, n_switches=2,
+                                      policy=P.PBPolicy(drain=P.DrainPolicy(
+                                          threshold=Sch((b,), thr),
+                                          preset=0.125))).with_crash(t)
+                          for b in (3e3, 5e3)
+                          for thr in ((0.875, 0.375), (0.375, 0.875),
+                                      (1.0, 0.25))
+                          for t in (INF_NS, 1.2 * b)]
+                         + [P.PCSConfig(scheme=S.PB, n_pbe=16, n_switches=2)],
+                         16),
+        # static and scheduled cells in one grid (E = 3: a threshold that
+        # tightens then relaxes over a 2-hop chain's deep row, a flip with
+        # one boundary, padded), the static ones in all their kinds
+        "epochs_mixed": (fab_fz,
+                         [P.PCSConfig(scheme=S.PB_RF, n_pbe=4, n_cores=4,
+                                      n_tenants=4, n_switches=2,
+                                      policy=P.PBPolicy(drain=P.DrainPolicy(
+                                          threshold=Sch((fb(15), fb(30)),
+                                                        (0.75, 0.25, 1.0)),
+                                          preset=0.125))).with_crash(fb(40)),
+                          P.PCSConfig(scheme=S.PB, n_cores=4, n_tenants=4,
+                                      **flip(fb(20))).with_crash(fb(33)),
+                          P.PCSConfig(scheme=S.PB_RF, n_pbe=4, n_cores=4,
+                                      n_tenants=4, n_switches=2),
+                          P.PCSConfig(scheme=S.PB_RF, n_pbe=8, n_cores=4,
+                                      n_tenants=4),
+                          P.PCSConfig(scheme=S.NOPB, n_cores=4, n_tenants=4),
+                          P.PCSConfig(scheme=S.PB_RF, n_cores=4, n_tenants=4,
+                                      fabric=_fab(4, (4, 4), 4, "spread"))],
+                         8),
     }
+
+
+INF_NS = 1e30     # crash_at that never comes
 
 
 def _fab(n_tenants, leaf_pbe, spine_pbe, mode, bp_high=None):
@@ -561,6 +652,10 @@ REACH = {
     "chain_gate": lambda r: r["place_split"] > 0 and r["land_split"] > 0,
     "chain_dup": lambda r: r["coalesces"] > 0,
     "fabric_l4_spread_bp": lambda r: r["deferred"] > 0,
+    "epochs_d0": lambda r: r["epochs"] == {0, 1},
+    "epochs_fabric": lambda r: r["epochs"] == {0, 1},
+    "epochs_mixed": lambda r: r["epochs"] == {0, 1, 2},
+    "epochs_chain": lambda r: r["epochs"] == {0, 1} and r["pending"] > 0,
 }
 
 
@@ -569,12 +664,14 @@ def chain_batches(monkeypatch):
     """What the eager chain's batches held: the most active packets at a
     deep row and at PM, the most on one PM bank, the batches whose commit
     gate fell between their packets (at a row, at PM), the deep-row
-    coalesces, and the batches that named a line twice (none can: every
+    coalesces, the batches that named a line twice (none can: every
     hop holds at most one Dirty entry per line, and a packet bypasses a
-    row only when it holds none for its line)."""
-    from repro_torch.core.engine import chain, channels, policy
+    row only when it holds none for its line), the schedule epochs the
+    steps resolved, and the forwards run with no packet for a deep row
+    left over its drain count."""
+    from repro_torch.core.engine import chain, channels, policy, step
     r = dict(place=0, land=0, bank=0, place_split=0, land_split=0,
-             coalesces=0, repeats=0, deferred=0)
+             coalesces=0, repeats=0, deferred=0, epochs=set(), pending=0)
     place, land = chain._place, chain._pm_land
     drain = policy.drain_threshold_preset
 
@@ -610,6 +707,20 @@ def chain_batches(monkeypatch):
         if defer is not None and bool(defer):
             r["deferred"] += float(drain(*args, **kw)[3]) > 0
         return drain(*args, defer=defer, **kw)
+    resolve = step.resolve_epoch_sc
+
+    def _resolve(sc, t_issue):
+        if "epoch_bounds" in sc:
+            r["epochs"].add(int((sc["epoch_bounds"] <= t_issue).sum()))
+        return resolve(sc, t_issue)
+    pending = chain.drain_pending
+
+    def _pending(*args):
+        out = pending(*args)
+        r["pending"] += out
+        return out
+    monkeypatch.setattr(step, "resolve_epoch_sc", _resolve)
+    monkeypatch.setattr(chain, "drain_pending", _pending)
     monkeypatch.setattr(chain, "_place", _place)
     monkeypatch.setattr(chain, "_pm_land", _land)
     monkeypatch.setattr(policy, "drain_threshold_preset", _drain)
@@ -623,7 +734,9 @@ def chain_batches(monkeypatch):
                                   "chain_bank", "chain_gate", "chain_dup",
                                   "fabric_l2_packed", "fabric_l4_spread_bp",
                                   "fabric_l8", "fabric_mixed",
-                                  "fabric_crash"])
+                                  "fabric_crash", "epochs_d0",
+                                  "epochs_fabric", "epochs_chain",
+                                  "epochs_mixed"])
 def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
                                                    case):
     traces, configs, track = _cases()[case]
@@ -651,9 +764,11 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
             assert float(want.recov_h[:, 1:].sum()) > 0
     if case.startswith("fabric"):
         assert kw["n_leaves_max"] > 1
-    if case == "fabric_crash":
+    if case in ("fabric_crash", "epochs_fabric"):
         # some cell's survivors sit on at least two leaves
         assert int(((want.recov_l > 0).sum(1) >= 2).sum()) > 0
+    if case.startswith("epochs"):
+        assert args[11].shape[1] == (3 if case == "epochs_mixed" else 2)
 
 
 @pytest.mark.parametrize("seed", range(4))
