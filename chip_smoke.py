@@ -122,17 +122,31 @@ without CUDA.
     epochs (``E = 2``) beside the same static configs (``E = 1``): equal
     outputs, the kernel time and ns per step of each, the section profile
     of cholesky's cells in both, and ptxas's registers and stack frames
-    of the ``<1, 1, false, EP>`` instantiations; (e) 275 fuzzed
-    crash cells of the epoch matrix (``tests/test_crash_differential.py``)
-    on the card against the port's oracle.  ``--sass-against OLD.cu``
-    (9f) diffs every ``EP = false`` instantiation.
+    of every instantiation; (e) 275 fuzzed crash cells of the epoch
+    matrix (``tests/test_crash_differential.py``) on the card against
+    the port's oracle; (g) every instantiation of
+    ``cell_scan_kernel<SPL, D, FAB, EP>`` (42: SPL 1, 2, 4 x D = 0 and D
+    = 1..3 x FAB both ways x EP both ways) launched through
+    ``simulate_grid`` on smoke-size grids that mix cells to select it
+    (the deepest row sets D, a multi-leaf fabric FAB, a ``Schedule`` EP,
+    the largest hop SPL; threshold steps over chains of 2-4 switches and
+    a scheduled fabric beside them), each asserted through the wrapper's
+    launch record and exact against the eager ``scan_cell``, with a
+    coverage line.  ``--sass-against OLD.cu`` (9f) diffs every
+    instantiation (the ``D = 0`` ones must be identical).
 
-``python3 chip_smoke.py --against OLD.cu`` runs only a comparison of
-the package's cell scan with another ``cell_scan.cu`` (an earlier
-revision's, its headers beside it or the package's) on Fig. 1's sweep
-and the chained paper grid: outputs equal but for the lookup counts,
-kernel times in the order other, this, this, other, and both section
-profiles (phase 8d's cells); it prints the card and one JSON line.
+``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
+comparison of the package's cell scan with each other ``cell_scan.cu``
+(an earlier revision's, or a variant of
+``repro_torch.kernels.cell_scan_variants``; its headers beside it or the
+package's) on the paper grid,
+Fig. 1's sweep, the chained paper grid, fig_fabric, the fabric paper
+grid, fig_dynamic, the scheduled paper grid and its cells static at D =
+1: outputs equal but for the lookup counts, kernel times in the order
+other, this, this, other, both section profiles of cholesky's cells in
+each grid that names them (and Fig. 1's PB/4 and PB_RF/4), and
+cholesky's depth-1 cells through the D = 0 and the D = 3 instantiation
+of each; it prints the card and one JSON line.
 """
 from __future__ import annotations
 
@@ -600,19 +614,26 @@ def eager_cells(torch, args, kw, sel):
     host core); each task carries only its own trace, cut to its longest
     stream.  Returns ``(CellScanOut over sel, summed seconds of the
     cells, wall seconds of the pool)``."""
+    return eager_grids(torch, [(args, kw, sel)])[0]
+
+
+def eager_grids(torch, grids):
+    """:func:`eager_cells` of every ``(args, kw, sel)`` of ``grids`` over
+    one pool; returns its result for each."""
     import concurrent.futures
     import multiprocessing
     from repro_torch.kernels import cell_scan as cs
-    host = [a.cpu() for a in args]
     tasks = []
-    for k in sel:
-        tr, cf = int(host[4][k]), int(host[5][k])
-        L = max(int(host[3][tr].max()), 1)
-        one = [x[tr:tr + 1, ..., :L] if i < 3 else x[tr:tr + 1]
-               for i, x in enumerate(host[:4])]
-        one += [torch.zeros(1, dtype=torch.int32),
-                torch.tensor([cf], dtype=torch.int32)] + host[6:]
-        tasks.append((k, one, kw))
+    for g, (args, kw, sel) in enumerate(grids):
+        host = [a.cpu() for a in args]
+        for k in sel:
+            tr, cf = int(host[4][k]), int(host[5][k])
+            L = max(int(host[3][tr].max()), 1)
+            one = [x[tr:tr + 1, ..., :L] if i < 3 else x[tr:tr + 1]
+                   for i, x in enumerate(host[:4])]
+            one += [torch.zeros(1, dtype=torch.int32),
+                    torch.tensor([cf], dtype=torch.int32)] + host[6:]
+            tasks.append(((g, k), one, kw))
     t0 = time.time()
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=min(os.cpu_count() or 1, len(tasks)),
@@ -620,18 +641,23 @@ def eager_cells(torch, args, kw, sel):
         done = {k: (out, sec) for k, out, sec in ex.map(_eager_worker,
                                                         tasks)}
     wall = time.time() - t0
-    outs = [done[k][0] for k in sel]
-    plain = cs.CellScanOut(*(torch.cat([getattr(o, f) for o in outs])
-                             for f in cs.CellScanOut._fields))
-    return plain, sum(done[k][1] for k in sel), wall
+    res = []
+    for g, (_, _, sel) in enumerate(grids):
+        outs = [done[(g, k)][0] for k in sel]
+        res.append((cs.CellScanOut(*(torch.cat([getattr(o, f) for o in outs])
+                                     for f in cs.CellScanOut._fields)),
+                    sum(done[(g, k)][1] for k in sel), wall))
+    return res
 
 
-def chain_grid_b():
-    """The 7 workloads at ``persist_budget=100_000`` x NoPB/PB/PB_RF at
-    n_switches 2, 3 and 4 (default PCSConfig): the chained version of
-    phase 4's grid, 63 cells.  Returns ``(traces, labels, configs)``."""
+def chain_grid_b(traces=None):
+    """The 7 workloads at ``persist_budget=100_000`` (``traces``, built if
+    not given) x NoPB/PB/PB_RF at n_switches 2, 3 and 4 (default
+    PCSConfig): the chained version of phase 4's grid, 63 cells.  Returns
+    ``(traces, labels, configs)``."""
     from repro_torch.core import PCSConfig, Scheme, WORKLOADS, make_trace
-    traces = [make_trace(n, persist_budget=100_000) for n in WORKLOADS]
+    traces = traces or [make_trace(n, persist_budget=100_000)
+                        for n in WORKLOADS]
     labels, configs = [], []
     for n_sw in CHAIN_DEPTHS:
         for s in Scheme:
@@ -902,107 +928,172 @@ def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
     return rc
 
 
-def build_against(path: str):
-    """The cell scan of another ``cell_scan.cu`` (an earlier revision's),
-    uninstrumented and with its section profile, built with the
-    package's flags into ``build/repro_torch/against/``; headers beside
-    ``path`` first, then the package's."""
+def build_against(paths):
+    """The cell scan of each other ``cell_scan.cu`` of ``paths`` (an
+    earlier revision's, a variant), uninstrumented and with its section
+    profile, built with the package's flags into
+    ``build/repro_torch/against/<k>/`` (split into units when the source
+    lists them, ``_build.unit_sources``), every library at once; headers
+    beside the source first, then the package's.  Returns a pair of
+    libraries for each path."""
     import ctypes
+    from pathlib import Path
     from repro_torch.kernels import _build
-    out = _build.BUILD_DIR / "against"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in ("cell_scan", "cell_scan_profile"):
-        so = out / f"lib{name}.so"
-        procs.append((so, subprocess.Popen(
-            [_build._nvcc(), *_build.nvcc_flags(name), f"-I{_build.CSRC}",
-             "-o", str(so), path])))
-    for so, proc in procs:
-        if proc.wait() != 0:
-            fail(f"building {path} as {so.name} failed")
-    return tuple(ctypes.CDLL(str(so)) for so, _ in procs)
+    jobs = [(_build.BUILD_DIR / "against" / str(k) / f"lib{name}.so",
+             Path(path), _build.nvcc_flags(name))
+            for k, path in enumerate(paths)
+            for name in ("cell_scan", "cell_scan_profile")]
+    t0 = time.time()
+    _build.build_libs(jobs)
+    print(f"against: {', '.join(paths)} built in {time.time() - t0:.1f} s "
+          f"(" + ", ".join(f"{len(_build.unit_sources(Path(p))) or 1} units"
+                           for p in paths) + " a library, every library at "
+          f"once)")
+    return [tuple(ctypes.CDLL(str(so)) for so, _, _ in jobs[2 * k:2 * k + 2])
+            for k in range(len(paths))]
 
 
-def compare_against(torch, np, path: str) -> dict:
-    """``chip_smoke.py --against OLD.cu``: the package's cell scan beside
-    another source's on Fig. 1's sweep and the chained paper grid —
-    outputs equal (all but the lookup counts), kernel times in the order
-    other, this, this, other, and both section profiles (phase 8d's
-    cells)."""
+def against_grids(np):
+    """The grids ``--against`` runs, each ``(args, kw, labels, prof)``:
+    the kernel's inputs on the card, a label per cell and the cells whose
+    section profile it takes (cholesky's; Fig. 1's PB/4 and PB_RF/4)."""
     from repro_torch.core.engine.grid import cell_inputs
+    grids = {}
+
+    def add(name, traces, configs, labels, prof=None, pairs=None):
+        pairs = pairs or [(i, j) for i in range(len(traces))
+                          for j in range(len(configs))]
+        args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
+                               [p[1] for p in pairs], device="cuda")
+        cells = [labels(i, j) for i, j in pairs]
+        grids[name] = (args, kw, cells,
+                       [k for k, c in enumerate(cells) if prof and prof(c)])
+    traces, configs = paper_grid()
+    names = [t.name for t in traces]
+    add("paper_grid", traces, configs,
+        lambda i, j: f"{names[i]}/{configs[j].scheme.name}")
+    tr, labels, cfgs = fig1_grid(np)
+    add("fig1", [tr], cfgs, lambda i, j: "fig1/{}/{}{}".format(
+        labels[j][0], labels[j][1], "/crash" if labels[j][2] else ""),
+        lambda c: c in ("fig1/PB/4", "fig1/PB_RF/4"))
+    _, blabels, bconfigs = chain_grid_b(traces)
+    add("chained_grid", traces, bconfigs,
+        lambda i, j: f"{names[i]}/{blabels[j][0]}/{blabels[j][1]}",
+        lambda c: c.startswith("cholesky/") and c.endswith("/4"))
+    tr, labels, cfgs = fig_fabric_grid(np, FAB_OPS)
+    add("fig_fabric", [tr], cfgs, lambda i, j: labels[j])
+    flabels, fconfigs = fabric_grid_b()
+    add("fabric_grid", traces, fconfigs,
+        lambda i, j: f"{names[i]}/{flabels[j]}",
+        lambda c: c.startswith("cholesky/"))
+    dtraces, dlabels, dconfigs, _, _ = dynamic_grid(np, DYN_BUDGET, DYN_RATES)
+    add("fig_dynamic", dtraces, dconfigs,
+        lambda i, j: f"{DYN_RATES[i]:g}/{dlabels[j]}")
+    bounds = paper_bounds()
+    for name, knobs in (("scheduled_grid", ((0.75, 0.375), (None, 450.0))),
+                        ("static_d1", (0.375, 450.0))):
+        cfg, lab, pairs = [], [], []
+        for i, t in enumerate(traces):
+            ls, cs_ = schedule_configs(bounds[t.name], *knobs)
+            pairs += [(i, len(cfg) + k) for k in range(len(cs_))]
+            cfg += cs_
+            lab += ls
+        add(name, traces, cfg, lambda i, j, lab=lab: f"{names[i]}/{lab[j]}",
+            lambda c: c.startswith("cholesky/"), pairs)
+    return grids
+
+
+def compare_against(torch, np, paths) -> dict:
+    """``chip_smoke.py --against OLD.cu [...]``: the package's cell scan
+    beside each other source on the paper grid (D = 0), Fig. 1's sweep,
+    the chained paper grid, fig_fabric, the fabric paper grid,
+    fig_dynamic, the scheduled paper grid and its cells static at D = 1
+    — outputs equal (all but the lookup counts), kernel times in the
+    order other, this, this, other — then the section profiles of
+    cholesky's cells (and Fig. 1's PB/4, PB_RF/4) in each grid that names
+    them, and cholesky's depth-1 cells through the D = 0 and the D = 3
+    instantiation, of each source."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import cell_scan as cs
-    other = build_against(path)
-    with open(path) as f:
-        src = f.read()
-    other_abi = ("this" if "ep_table" in src else
-                 "preepoch" if "recov_l" in src else "prefabric")
+    others = build_against(paths)
+    abis = []
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        abis.append("this" if "ep_table" in src else
+                    "preepoch" if "recov_l" in src else "prefabric")
+    t0 = time.time()
     this = (_build.library("cell_scan"), _build.library("cell_scan_profile"))
-    tr, labels, configs = fig1_grid(np)
-    pairs = list(range(len(configs)))
-    args, kw = cell_inputs([tr], configs, [0] * len(pairs), pairs,
-                           device="cuda")
-    traces, blabels, bconfigs = chain_grid_b()
-    names = [t.name for t in traces]
-    bpairs = [(i, j) for i in range(len(traces))
-              for j in range(len(bconfigs))]
-    bargs, bkw = cell_inputs(traces, bconfigs, [p[0] for p in bpairs],
-                             [p[1] for p in bpairs], device="cuda")
+    print(f"against: the package's cell scan built in {time.time() - t0:.1f}"
+          f" s")
     stream = torch.cuda.current_stream().cuda_stream
-    res = {}
-    for grid, (a, k, n, reps) in (("fig1", (args, kw, len(pairs), 3)),
-                                  ("grid_b", (bargs, bkw, len(bpairs), 1))):
+    res, outs_by = {}, {}
+    grids = against_grids(np)
+    for grid, (a, k, cells, _) in grids.items():
         ins = [x.contiguous() for x in a]
-        outs = {}
+        n = len(cells)
+        outs_by[grid] = outs = {}
 
-        def run(which, lib):
+        def run(which, lib, abi):
             out = cs._empty_out(n, k["n_tenants_max"], max(k["n_track"], 1),
                                 k["n_deep_max"], "cuda", k["n_leaves_max"])
-            rc = launch_abi(other_abi if which == "other" else "this", lib,
-                            ins, out, max_pbe=k["max_pbe"],
+            rc = launch_abi(abi, lib, ins, out, max_pbe=k["max_pbe"],
                             pm_banks=k["pm_banks"], n_track=k["n_track"],
                             n_deep=k["n_deep_max"],
                             n_leaves=k["n_leaves_max"], stream=stream)
             _build.check(rc, f"{which} launch")
             outs[which] = out
-        ms = {"other": [], "this": []}
-        for which in ("other", "this", "this", "other"):
-            lib = (other if which == "other" else this)[0]
-            ms[which].append(cuda_ms(lambda: run(which, lib), reps))
-        for f in cs.CellScanOut._fields:
-            if f != "lookups" and not torch_equal(getattr(outs["other"], f),
-                                                  getattr(outs["this"], f)):
-                fail(f"{grid}: {path} and the package's cell scan differ "
-                     f"on {f}")
+        run("this", this[0], "this")
+        torch.cuda.synchronize()
         steps = int(outs["this"].steps.max())
-        res[grid] = dict(ms=ms, steps=steps,
-                         ns_per_step={w: [t * 1e6 / steps for t in v]
-                                      for w, v in ms.items()},
-                         lookups={w: int(o.lookups.sum())
-                                  for w, o in outs.items()})
-        print(f"against {grid}: outputs equal on {n} cells; kernel ms "
-              f"other {ms['other']}, this {ms['this']} (order other, this, "
-              f"this, other); longest cell {steps} steps; lookups "
-              f"{res[grid]['lookups']}")
-        if grid == "fig1":
-            fig1 = {w: (args, kw, o, labels) for w, o in outs.items()}
-        else:
-            grid_b = {w: (bargs, bkw, o, bpairs, names, blabels)
-                      for w, o in outs.items()}
-    for which, libs in (("other", other), ("this", this)):
-        print(f"against: section profile of {which}")
-        res[f"profile_{which}"] = chain_profile(
-            torch, fig1[which], grid_b[which], libs,
-            abi=other_abi if which == "other" else "this")
-    res["depth1"] = depth1_profiles(torch)
+        reps = 3 if steps < 100_000 else 1
+        for path, lib, abi in zip(paths, others, abis):
+            if abi != "this" and a[11].shape[1] > 1:
+                continue                  # that source has no EP
+            ms = {"other": [], "this": []}
+            for which in ("other", "this", "this", "other"):
+                ms[which].append(cuda_ms(lambda: run(
+                    path if which == "other" else "this",
+                    (lib if which == "other" else this)[0],
+                    abi if which == "other" else "this"), reps))
+            for f in cs.CellScanOut._fields:
+                if f != "lookups" and not torch_equal(
+                        getattr(outs[path], f), getattr(outs["this"], f)):
+                    fail(f"{grid}: {path} and the package's cell scan "
+                         f"differ on {f}")
+            res[f"{grid} {path}"] = dict(
+                ms=ms, steps=steps, cells=n,
+                ns_per_step={w: [t * 1e6 / steps for t in v]
+                             for w, v in ms.items()},
+                lookups={w: int(outs[w].lookups.sum())
+                         for w in ("this", path)})
+            print(f"against {grid} ({n} cells, D = {k['n_deep_max']}, NL = "
+                  f"{k['n_leaves_max']}, E = {a[11].shape[1]}) {path}: "
+                  f"outputs equal; kernel ms other {ms['other']}, this "
+                  f"{ms['this']} (order other, this, this, other); longest "
+                  f"cell {steps} steps; lookups "
+                  f"{res[f'{grid} {path}']['lookups']}")
+    for which, libs, abi in [("this", this, "this")] + list(
+            zip(paths, others, abis)):
+        for grid, (a, k, cells, sel) in grids.items():
+            if not sel or which not in outs_by[grid]:
+                continue
+            p = profile_cells(torch, a, k, outs_by[grid][which], sel,
+                              [f"{cells[c]} ({grid})" for c in sel], libs,
+                              abi)
+            print_profile(f"against {which}", f"{grid}'s profiled cells", p)
+            res[f"profile {which} {grid}"] = p
+        res[f"depth1 {which}"] = depth1_profiles(torch, libs, abi,
+                                                 f"against {which}")
     return res
 
 
-def depth1_profiles(torch) -> dict:
+def depth1_profiles(torch, libs=None, abi="this", tag="against") -> dict:
     """cholesky's depth-1 cells (NoPB, PB, PB_RF; Table I) through the
     cell scan's D = 0 instantiation and through its D = 3 one (beside a
     chained cell of a short trace), both profiled and equal: what the
-    chain's instantiation costs the hop-1 work."""
+    chain's instantiation costs the hop-1 work (``libs``, ``abi``: as
+    for :func:`profile_cells`)."""
     from repro_torch.core import PCSConfig, Scheme, make_trace
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
@@ -1020,8 +1111,9 @@ def depth1_profiles(torch) -> dict:
         got = cs.cell_scan(*args, **kw)
         outs[name] = got
         p = profile_cells(torch, args, kw, got, [0, 1, 2],
-                          [f"cholesky/{s.name}/1 ({name})" for s in Scheme])
-        print_profile("against", f"cholesky's depth-1 cells ({name})", p)
+                          [f"cholesky/{s.name}/1 ({name})" for s in Scheme],
+                          libs, abi)
+        print_profile(tag, f"cholesky's depth-1 cells ({name})", p)
         res[name] = p
     for f in ("runtime", "stats", "durable_ver", "n_recov", "steps"):
         if not torch_equal(getattr(outs["D0"], f)[:3],
@@ -1635,9 +1727,9 @@ def phase_epochs(torch, np, smem_ns, paper_traces):
           f"{cost['static']['ms']:.3f} ms "
           f"({cost['static']['ns_per_step']:.1f} ns/step), longest cell "
           f"{cost['static']['steps']} steps")
-    cost["ptxas"] = ptxas_usage("cell_scan", "ILi1ELi1ELb0E")
-    print(f"phase 10d ptxas, cell_scan_kernel<1, 1, false, EP>: "
-          f"{json.dumps(cost['ptxas'])}")
+    cost["ptxas"] = ptxas_usage("cell_scan", "ILi")
+    print(f"phase 10d ptxas (registers, stack frame bytes) of every "
+          f"cell_scan_kernel instantiation: {json.dumps(cost['ptxas'])}")
     out["cost"] = cost
 
     # (e) the epoch matrix's fuzzed crash cells against the port's oracle
@@ -1670,6 +1762,99 @@ def phase_epochs(torch, np, smem_ns, paper_traces):
     out["oracle_cells"] = n_cells
     out["max_abs_err"] = err
     return out
+
+
+# ---- phase 10g: every instantiation of the cell scan -----------------------
+COVER_PBE = {1: 16, 2: 40, 4: 100}     # the largest hop's PBEs selects SPL
+COVER_BOUND = 1e4                      # the schedules' boundary, ns
+COVER_BUDGET = 150
+
+
+def coverage_configs(target):
+    """Phase 10g's configs for ``target = (SPL, D, FAB, EP)``: PB_RF
+    (drain threshold 0.8 and 0.5, preset 0.25) and PB over a chain of D +
+    1 switches whose largest hop holds ``COVER_PBE[SPL]`` PBEs (hop 1 at
+    D = 0, else deep row 0 beside a 16-PBE hop 1 and 8-PBE deeper rows),
+    PB_RF over the default chains of 2 .. D switches, a NoPB cell and,
+    for FAB, a 2-leaf fabric of 8 tenants (PB and PB_RF).  With EP the
+    thresholds step at ``COVER_BOUND`` both ways (0.8 -> 0.5 and 0.5 ->
+    0.8: ``tests/test_torch_epochs.py``'s threshold steps over chains) and
+    the fabric's placement flips there."""
+    from repro_torch.core import (DrainPolicy, FabricTopology, PBPolicy,
+                                  PCSConfig, Schedule, Scheme,
+                                  leaf_placement)
+    spl, d, fab, ep = target
+    big = COVER_PBE[spl]
+
+    def pol(v):
+        return PBPolicy(drain=DrainPolicy(
+            threshold=Schedule((COVER_BOUND,), v) if ep else v[0],
+            preset=0.25))
+    hops = (big,) if d == 0 else (16, big) + (8,) * (d - 1)
+    configs = [PCSConfig(scheme=s, n_switches=d + 1, n_pbe=hops[0],
+                         pbe_per_hop=hops if d else None, policy=p)
+               for s, p in ((Scheme.PB_RF, pol((0.8, 0.5))),
+                            (Scheme.PB_RF, pol((0.5, 0.8))),
+                            (Scheme.PB, None))]
+    configs += [PCSConfig(scheme=Scheme.PB_RF, n_switches=n,
+                          policy=pol((0.8, 0.5))) for n in range(2, d + 1)]
+    configs.append(PCSConfig(scheme=Scheme.NOPB))
+    if fab:
+        place0 = leaf_placement(8, 2, "packed")
+        place = (Schedule((COVER_BOUND,), (place0, tuple(1 - p for p in
+                                                         place0)))
+                 if ep else place0)
+        configs += [PCSConfig(scheme=s, n_cores=8, n_tenants=8,
+                              fabric=FabricTopology(2, (8, 8), 8, place))
+                    for s in (Scheme.PB, Scheme.PB_RF)]
+    return configs
+
+
+def phase_coverage(torch):
+    """Phase 10g: every instantiation of ``cell_scan_kernel<SPL, D, FAB,
+    EP>`` (``cell_scan.INSTANTIATIONS``) launched once through
+    ``simulate_grid`` on smoke-size traces (radiosity and raytrace at
+    ``persist_budget`` COVER_BUDGET) x :func:`coverage_configs`, the
+    instantiation read from the wrapper's launch record, and every output
+    exact against the eager ``scan_cell`` (one pool for every grid)."""
+    from repro_torch.core import make_trace, simulate_grid
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.kernels import cell_scan as cs
+    traces = [make_trace(n, persist_budget=COVER_BUDGET)
+              for n in ("radiosity", "raytrace")]
+    t0 = time.time()
+    grids, ran = [], {}
+    for target in cs.INSTANTIATIONS:
+        configs = coverage_configs(target)
+        cs.launches_by = {}
+        simulate_grid(traces, configs)            # default device: CUDA
+        ran[target] = dict(cs.launches_by)
+        if ran[target] != {target: 1}:
+            fail(f"phase 10g: the grid for {target} launched {ran[target]}")
+        pairs = [(i, j) for i in range(len(traces))
+                 for j in range(len(configs))]
+        args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
+                               [p[1] for p in pairs], device="cuda")
+        grids.append((args, kw, list(range(len(pairs)))))
+    gots = [cs.cell_scan(*args, **kw) for args, kw, _ in grids]
+    torch.cuda.synchronize()
+    plains = eager_grids(torch, grids)
+    n_cells = 0
+    for target, got, (plain, _, _) in zip(cs.INSTANTIATIONS, gots, plains):
+        compare_outputs(plain, got, f"phase 10g {target}")
+        n_cells += int(got.steps.shape[0])
+    done = sorted(set().union(*ran.values()))
+    print(f"phase 10g instantiations launched: "
+          + ", ".join(f"<{s}, {d}, {str(f).lower()}, {str(e).lower()}>"
+                      for s, d, f, e in done))
+    print(f"phase 10g coverage: {len(done)} of {len(cs.INSTANTIATIONS)} "
+          f"cell_scan_kernel instantiations launched, each exact against "
+          f"the eager scan_cell ({n_cells} cells, {plains[0][2]:.1f} s wall "
+          f"over a pool; {time.time() - t0:.1f} s in all)")
+    if len(done) != len(cs.INSTANTIATIONS):
+        fail(f"phase 10g: {len(done)} of {len(cs.INSTANTIATIONS)} "
+             f"instantiations ran")
+    return dict(launched=len(done), of=len(cs.INSTANTIATIONS), cells=n_cells)
 
 
 # ---- the model side: flash_attention, ssd_scan, serving ----------------
@@ -2362,10 +2547,10 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    if len(sys.argv) == 3 and sys.argv[1] == "--against":
+    if len(sys.argv) >= 3 and sys.argv[1] == "--against":
         _build.build_all(("cell_scan", "cell_scan_profile"))
         print(json.dumps({"against": compare_against(torch, np,
-                                                     sys.argv[2])}))
+                                                     sys.argv[2:])}))
         return 0
     sass_against = None
     if len(sys.argv) == 3 and sys.argv[1] == "--sass-against":
@@ -2389,6 +2574,7 @@ def main() -> int:
     chains = phase_chains(torch, np, smem_ns)
     fab = phase_fabric(torch, np, smem_ns, traces, sass_against)
     epochs = phase_epochs(torch, np, smem_ns, traces)
+    epochs["coverage"] = phase_coverage(torch)
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
@@ -2547,6 +2733,7 @@ def main() -> int:
                  "latency_bound_ms"],
              scheduled_grid_wall_s=epochs["grid_b"]["wall_s"],
              equal_epochs_vs_static=epochs["cost"],
+             instantiation_coverage=epochs["coverage"],
              oracle_cells=epochs["oracle_cells"]),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",

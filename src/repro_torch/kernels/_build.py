@@ -1,18 +1,24 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout,
 at first use; ``<hash>`` covers the source, every header in ``csrc/``
 and the flags, so an edited source rebuilds and an unchanged one loads
-as it is.  :func:`build_all` starts one ``nvcc`` per source at once.
-The sources have a plain C interface (no PyTorch headers), which keeps
-a build to seconds; pointers and the stream cross as ``c_void_p``.
+as it is.  A source that lists units (``csrc/cell_scan.cu``'s
+``CELL_SCAN_UNITS``: one per (SPL, D) of its kernel, and the entry
+point) is split: each unit is a small generated ``.cu`` that defines the
+unit's macros and includes the source, compiled to an object by its own
+``nvcc``, and the objects are linked into the library.  :func:`build_all`
+starts every ``nvcc`` at once.  The sources have a plain C interface (no
+PyTorch headers), which keeps a build to seconds; pointers and the
+stream cross as ``c_void_p``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,6 +53,24 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
         + extra
 
 
+def unit_sources(path: Path) -> Dict[str, str]:
+    """The split build's units of the source at ``path``: ``{unit name:
+    generated source}``, one ``s<SPL>_d<D>`` per ``X(SPL, D)`` of its
+    ``CELL_SCAN_UNITS`` list and ``entry``; empty for a source without
+    the list, which builds as one unit."""
+    text = Path(path).read_text()
+    m = re.search(r"#define CELL_SCAN_UNITS\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                  text)
+    if not m:
+        return {}
+    inc = f'#include "{Path(path).resolve()}"\n'
+    units = {f"s{s}_d{d}": (f"#define CELL_SCAN_UNIT_SPL {s}\n"
+                            f"#define CELL_SCAN_UNIT_D {d}\n" + inc)
+             for s, d in re.findall(r"X\((\d+),\s*(\d+)\)", m.group(1))}
+    units["entry"] = "#define CELL_SCAN_UNIT_ENTRY\n" + inc
+    return units
+
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -66,32 +90,70 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Sequence[str] = SOURCES) -> None:
-    """Compile every missing library, one ``nvcc`` per source, all at once."""
-    todo = [(n, _lib_path(n)) for n in names if not _lib_path(n).exists()]
-    if not todo:
-        return
+def build_libs(jobs: Sequence[Tuple[Path, Path, Sequence[str]]]) -> None:
+    """Build library ``out`` from source ``src`` with ``flags`` for each
+    ``(out, src, flags)``: every ``nvcc`` (one per source, or one per
+    unit of a split source) starts at once, then the split libraries are
+    linked.  Each library's ``nvcc`` output goes to ``out`` with the
+    suffix ``.log``; ``-I csrc`` finds the package's headers."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name, out in todo:
+    procs, links = [], []
+    for out, src, flags in jobs:
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        procs.append((name, out, tmp, log, subprocess.Popen(
-            [nvcc, *nvcc_flags(name), "-o", str(tmp),
-             str(CSRC / f"{_source(name)[0]}.cu")],
-            stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, out, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            failed.append(f"{name}: nvcc exit {rc}\n"
-                          + out.with_suffix(".log").read_text())
+        units = unit_sources(src)
+        if not units:
+            procs.append((out, [out.with_suffix(".log")], subprocess.Popen(
+                [nvcc, *flags, f"-I{CSRC}", "-o", str(tmp), str(src)],
+                stdout=open(out.with_suffix(".log"), "w"),
+                stderr=subprocess.STDOUT)))
+            links.append((out, tmp, None))
+            continue
+        udir = out.with_suffix(".units")
+        udir.mkdir(exist_ok=True)
+        cflags = [f for f in flags if f != "-shared"]
+        objs, logs = [], []
+        for u, text in units.items():
+            cu = udir / f"{u}.cu"
+            cu.write_text(text)
+            obj, log = udir / f"{u}.o", udir / f"{u}.log"
+            objs.append(obj)
+            logs.append(log)
+            procs.append((out, [log], subprocess.Popen(
+                [nvcc, *cflags, f"-I{CSRC}", "-c", "-o", str(obj), str(cu)],
+                stdout=open(log, "w"), stderr=subprocess.STDOUT)))
+        links.append((out, tmp, (objs, logs)))
+    failed = set()
+    for out, logs, proc in procs:
+        if proc.wait() != 0:
+            failed.add(out)
+    errors = []
+    for out, tmp, split in links:
+        if split is not None and out not in failed:
+            objs, logs = split
+            rc = subprocess.run(
+                [nvcc, *[f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")],
+                 "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            with open(out.with_suffix(".log"), "w") as f:
+                for log in logs:
+                    f.write(log.read_text())
+                f.write(rc.stdout + rc.stderr)
+            if rc.returncode != 0:
+                failed.add(out)
+        if out in failed:
+            errors.append(f"{out.name}:\n" + out.with_suffix(".log")
+                          .read_text()[-20000:])
         else:
             os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+
+
+def build_all(names: Sequence[str] = SOURCES) -> None:
+    """Compile every missing library, all ``nvcc`` processes at once."""
+    build_libs([(_lib_path(n), CSRC / f"{_source(n)[0]}.cu", nvcc_flags(n))
+                for n in names if not _lib_path(n).exists()])
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -74,6 +74,27 @@ MAX_LEAVES = 32         # fabric leaves (per-leaf clocks and survivors)
 MAX_EPOCHS = 8          # schedule epochs
 
 launches = 0
+# launches per instantiation of cell_scan_kernel<SPL, D, FAB, EP>
+# (:func:`instantiation`), counted where ``launches`` is
+launches_by: dict = {}
+
+
+def instantiation(max_pbe: int, n_deep: int, n_leaves: int,
+                  n_epochs: int) -> tuple:
+    """The ``(SPL, D, FAB, EP)`` of the kernel a grid launches: the
+    fewest slots a lane that hold ``max_pbe`` (1, 2 or 4), its deep-hop
+    rows, whether it holds a multi-leaf fabric and whether a schedule
+    (csrc/cell_scan.cu, cell_scan_launch)."""
+    spl = 1 if max_pbe <= 32 else (2 if max_pbe <= 64 else 4)
+    return spl, n_deep, n_leaves > 1, n_epochs > 1
+
+
+# Every instantiation cell_scan_launch can dispatch to: SPL 1, 2, 4 x
+# (D = 0, and D = 1..MAX_DEEP with FAB both ways) x EP both ways.
+INSTANTIATIONS = tuple((spl, d, fab, ep) for spl in (1, 2, 4)
+                       for d in range(MAX_DEEP + 1)
+                       for fab in ((False, True) if d else (False,))
+                       for ep in (False, True))
 
 
 class CellScanOut(NamedTuple):
@@ -290,6 +311,9 @@ def cell_scan(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
                     stream=torch.cuda.current_stream(ops.device).cuda_stream)
         _build.check(rc, "cell_scan launch")
         launches += 1
+        key = instantiation(max_pbe, n_deep_max, n_leaves_max,
+                            ep_table.shape[1])
+        launches_by[key] = launches_by.get(key, 0) + 1
     return out
 
 

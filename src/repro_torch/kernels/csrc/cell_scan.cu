@@ -97,7 +97,8 @@ enum ProfSection {
 };
 constexpr int N_OPS = 6, N_PROF = N_SEC + N_OPS + 1;
 #ifdef CELL_SCAN_PROFILE
-__device__ long long* g_prof;
+// one per unit of the split build (cell_scan_set_profile sets each)
+static __device__ long long* g_prof;
 struct Prof {
   long long acc[N_SEC], t;
 };
@@ -341,7 +342,9 @@ __device__ __forceinline__ Smem rebase(Smem m, unsigned char* base) {
 // the latest burst end of a landing (f64 bits; both are all zero
 // between uses).
 struct ChainSmem {
-  double *dlru, *ddd, *dwt, *csc, *vack, *emit0, *emit1, *wcommit;
+  // pad: the place of a field no kernel reads any more, which keeps
+  // Args' layout and so the D = 0 kernels' parameter offsets
+  double *dlru, *ddd, *dwt, *csc, *pad, *emit0, *emit1, *wcommit;
   int *dtag, *dver, *pos0, *pos1, *oslot0, *oslot1, *addr0, *addr1, *ver0,
       *ver1, *wver, *waddr, *bcnt;
   unsigned long long* bnew;
@@ -349,7 +352,7 @@ struct ChainSmem {
 };
 
 #define CHAIN_FIELDS(X)                                                     \
-  X(dlru) X(ddd) X(dwt) X(csc) X(vack) X(emit0) X(emit1) X(wcommit) X(dtag) \
+  X(dlru) X(ddd) X(dwt) X(csc) X(emit0) X(emit1) X(wcommit) X(dtag)         \
   X(dver) X(pos0) X(pos1) X(oslot0) X(oslot1) X(addr0) X(addr1) X(ver0)    \
   X(ver1) X(wver) X(waddr) X(bcnt) X(bnew) X(dstate) X(downer) X(ohop0)    \
   X(ohop1) X(own0) X(own1) X(wflag) X(wown)
@@ -364,7 +367,6 @@ __host__ __device__ size_t carve_chain(ChainSmem& c, unsigned char* base,
   c.ddd = cv.take<double>(DP);
   c.dwt = cv.take<double>(DP);
   c.csc = cv.take<double>(N_CH + N_DK * D);
-  c.vack = cv.take<double>(1);
   c.emit0 = cv.take<double>(Q);
   c.emit1 = cv.take<double>(Q);
   c.wcommit = cv.take<double>(P);
@@ -518,13 +520,25 @@ __device__ __forceinline__ double warp_max_n(double v, int cnt) {
 // a ballot per packet or a shuffle per Dirty slot (the shorter loop),
 // each slot's writer staged in shared memory for the owning lane, the
 // per-bank burst order at PM a ballot per bank present; what crosses a
-// tile is carried.  A batch of at most one packet is held by every lane
-// and needs none of this.  Per-slot work runs on the owning lanes.  Only
-// the commit-latency sum stays in order, packet by packet (its order is
-// the reference's).  Lane j holds row j's PBC clock, lane l the deep
-// rows' telemetry value l, and lane b bank b's PM clock during a
-// forward, so none of them passes through shared memory.  `pm_ver` is
-// the cell's durable-version row (global).
+// tile is carried.  Per-slot work runs on the owning lanes.  Only the
+// commit-latency sum stays in order, packet by packet (its order is the
+// reference's).  Lane j holds row j's PBC clock, lane l the deep rows'
+// telemetry value l, and lane b bank b's PM clock during a forward, so
+// none of them passes through shared memory.  `pm_ver` is the cell's
+// durable-version row (global).
+//
+// A batch of at most one packet — most of them — is lone: every lane
+// holds the packet in registers (a Pkt), and its row's FIFO start,
+// coalesce match, slot choice, writer hand-off, drain rank and PM
+// landing are evaluated on every lane at once with no warp operation but
+// the match and the ballots of the row's drain-down.  The victim leg's
+// packet and a policy batch of one enter the chain lone, never written
+// to a list; its ack goes to the slot's owner, which read that slot
+// earlier in program order, so no __syncwarp orders them.  Each row
+// hands on a list (its bypass and drains: an owner's store and one load
+// measured shorter than keeping a bypass in registers or shuffling a
+// drained entry from its owner), taken lone by the next row or the
+// landing when it holds one packet.
 template <int SPL, int D>
 struct Chain {
   ChainSmem c;
@@ -551,34 +565,41 @@ struct Chain {
     if (lane == j * N_HOP_STATS + k) hop_r += v;
   }
 
-  // _pm_land at switch `pos_sw`: the list's n packets land at PM
+  // _pm_land at switch `pos_sw`: the batch's n packets land at PM
   // (per-bank burst order, the banks' clocks on lanes < B); the acks of
-  // the batch's last block (`last`, >= 1) go to deep row last-1.
-  // Returns the writes.
-  __device__ double land(const Pkts& b, int n, int pos_sw, int last) {
+  // the batch's last block (`last`, >= 1) go to deep row last-1.  A lone
+  // batch (n <= 1) is `pk`, held by every lane, else list b.  Returns
+  // the writes.
+  __device__ double land(const Pkts& b, int n, int pos_sw, int last,
+                         const Pkt& pk1, bool lone) {
     const double rem = fmax(n_sw - static_cast<double>(pos_sw), 0.0);
     const double path_down = link_ns + rem * hop_ns;
+    if (lone) {
+      if (n == 1) {
+        const int bk = bank_of(pk1.addr);
+        const double start =
+            fmax(__shfl_sync(FULL, pmb_r, bk), pk1.emit + path_down) +
+            static_cast<double>(0) * w_occ;
+        const double path_up =
+            link_ns +
+            fmax(n_sw - static_cast<double>(pk1.ohop + 1), 0.0) * hop_ns;
+        const double dd_val = start + nvm_write + path_up;
+        if (lane == 0 && dd_val <= crash && pk1.addr >= 0 &&
+            pk1.addr < n_track)
+          atomicMax(&pm_ver[clampi(pk1.addr, 0, A - 1)], pk1.ver);
+        if (pk1.ohop == last && lane == (pk1.oslot & 31))
+          c.ddd[idx(last - 1, pk1.oslot)] = dd_val;
+        const double end = start + w_occ;
+        if (lane < B)
+          pmb_r = fmax(pmb_r, lane == bk ? (end > 0.0 ? end : 0.0) : 0.0);
+      } else if (lane < B) {
+        pmb_r = fmax(pmb_r, 0.0);
+      }
+      PROF(SEC_C_LAND);
+      return static_cast<double>(n);
+    }
     const bool tiled = n > 32;  // ranks carried from tile to tile
     Pkt pk = b.at(lane < n ? lane : 0);
-    if (n == 1) {  // one packet, held by every lane
-      const int bk = bank_of(pk.addr);
-      const double start =
-          fmax(__shfl_sync(FULL, pmb_r, bk), pk.emit + path_down) +
-          static_cast<double>(0) * w_occ;
-      const double path_up =
-          link_ns + fmax(n_sw - static_cast<double>(pk.ohop + 1), 0.0) * hop_ns;
-      const double dd_val = start + nvm_write + path_up;
-      if (lane == 0) {
-        if (dd_val <= crash && pk.addr >= 0 && pk.addr < n_track)
-          atomicMax(&pm_ver[clampi(pk.addr, 0, A - 1)], pk.ver);
-        if (pk.ohop == last) c.ddd[idx(last - 1, pk.oslot)] = dd_val;
-      }
-      const double end = start + w_occ;
-      if (lane < B)
-        pmb_r = fmax(pmb_r, lane == bk ? (end > 0.0 ? end : 0.0) : 0.0);
-      PROF(SEC_C_LAND);
-      return 1.0;
-    }
     for (int base = 0; base < n; base += 32) {
       const int q = base + lane;
       const bool act = q < n;
@@ -648,19 +669,21 @@ struct Chain {
     return pbc_occ * rank + fmax(x, busy);
   }
 
-  // _place of the list's n packets (Q in the full batch) into row j, its
-  // own drain-down, and the next list `nx`; returns the next list's
-  // count.  Row 0's acks go to the hop-1 dd sink (`dd1`, or the single
-  // slot `*dd1` when `single`).
+  // _place of the batch's n packets (Q in the full batch) into row j,
+  // its own drain-down, and the next list nx; returns the next list's
+  // count.  A lone batch (n <= 1, `lone`) comes in `pk1`, held by every
+  // lane, a larger one in list b.  Row 0's acks go to the hop-1 dd sink:
+  // `ack0` (every lane) when `single`, else `dd1`.
   __device__ int place(int j, int scheme, const Pkts& b, int n, int Q,
-                       const Pkts& nx, double* dd1, bool single,
+                       const Pkt& pk1, bool lone, const Pkts& nx,
+                       double* dd1, bool single, double& ack0,
                        long long& lookups) {
     const double tag_j = deep(DK_TAG, j), data_j = deep(DK_DATA, j);
     const int pbe_j = static_cast<int>(deep(DK_PBE, j));
     const double busy = __shfl_sync(FULL, hpbc_r, j);
     // the batch's first tile, and the row as the batch finds it
-    Pkt pk = b.at(lane < n ? lane : 0);
-    const double emit0 = b.emit[0];
+    Pkt pk = lone ? pk1 : b.at(lane < n ? lane : 0);
+    const double emit0 = lone ? pk.emit : b.emit[0];
     signed char v0[SPL], own0[SPL];
     int tg[SPL], dv[SPL];
     double ddv[SPL], lru0[SPL], wt0[SPL];
@@ -680,12 +703,13 @@ struct Chain {
     // lazy free observed once, at the batch head: the least classify
     // time.  While pbc_occ >= 0 the FIFO's starts never decrease (each is
     // a sum of two non-decreasing terms, rounded monotonically), so that
-    // is packet 0's, evaluated here as its own lane evaluates it.
+    // is packet 0's, evaluated here as its own lane evaluates it (and a
+    // lone packet's is its own).
     double run0 = -INF;
     const double start0 = fifo_start(emit0, true, 0, 1, busy, run0);
     double t0 = -INF;
     if (n > 0) {
-      if (pbc_occ >= 0.0) {
+      if (pbc_occ >= 0.0 || lone) {
         t0 = start0 + pbc_proc + tag_j;
       } else {
         double run = -INF, mn = INF;
@@ -734,7 +758,7 @@ struct Chain {
     int nb = 0, n_ended = 0, n_co = 0, n_by = 0;
     ChunkSum fwd_sum(Q);
     double busy_after = busy, t_row = 0.0;
-    if (n <= 1) {
+    if (lone) {
       // at most one packet, held by every lane: the reference's
       // expressions for it need no warp operation but the match
       const bool one = n == 1;
@@ -758,16 +782,18 @@ struct Chain {
       if (ended && gate) fwd_sum.add(pk.pos, cm - pk.emit);
       if (one) busy_after = fmax(busy, start + pbc_occ);
       t_row = fmax(ended && gate ? cm : -INF, 0.0);
-      if (lane == 0 && ended && pk.ohop == j) {
+      // the origin's ack: every lane holds it for the victim leg, else
+      // the slot's owner writes it
+      if (ended && pk.ohop == j) {
         const double dd_val =
             cm + (static_cast<double>(j + 2) -
                   (static_cast<double>(pk.ohop) + 1.0)) * hop_ns;
-        if (j == 0)
-          dd1[single ? 0 : pk.oslot] = dd_val;
-        else
-          c.ddd[idx(j - 1, pk.oslot)] = dd_val;
+        if (j == 0 && single)
+          ack0 = dd_val;
+        else if (lane == (pk.oslot & 31))
+          (j == 0 ? dd1 : c.ddd + idx(j - 1, 0))[pk.oslot] = dd_val;
       }
-      if (one && !ended) {
+      if (one && !ended) {  // on toward the next switch
         if (lane == 0) {
           nx.pos[0] = pk.pos;
           nx.oslot[0] = pk.oslot;
@@ -839,7 +865,7 @@ struct Chain {
               cm + (static_cast<double>(j + 2) -
                     (static_cast<double>(ohop) + 1.0)) * hop_ns;
           if (j == 0)
-            dd1[single ? 0 : oslot] = dd_val;
+            dd1[oslot] = dd_val;  // a tiled batch is never the victim leg
           else
             c.ddd[idx(j - 1, oslot)] = dd_val;
         }
@@ -936,7 +962,8 @@ struct Chain {
     for (int jj = 0; jj < SPL; ++jj) rank[jj] = 0;
 #pragma unroll
     for (int jq = 0; jq < SPL; ++jq) {
-      if (n_dirty < 2) break;  // a lone Dirty entry ranks 0
+      // a lone Dirty entry ranks 0, and ranks order only drains
+      if (n_dirty < 2 || !(k > 0.0)) break;
       for (unsigned bits = dbits[jq]; bits; bits &= bits - 1) {
         const int l = __ffs(bits) - 1, q = 32 * jq + l;
         const double kq = __shfl_sync(FULL, lru1[jq], l);
@@ -1008,25 +1035,32 @@ struct Chain {
     return any;
   }
 
-  // forward_chain: list 0 holds the batch's n packets (Q0 in the full
-  // batch), placed into the live rows; the rest land at PM from the
-  // first row past the depth.  Returns the PM writes.
-  __device__ double forward(int scheme, int Q0, int n, double* dd1,
-                            bool single, long long& lookups) {
+  // forward_chain: the batch's n packets (Q0 in the full batch; lone in
+  // `pk` when n <= 1, else in list 0) placed into the live rows; the rest
+  // land at PM from the first row past the depth.  Each row hands on a
+  // list, which the next row and the landing take lone when it holds at
+  // most one packet.  Row 0's acks go to `ack0` when `single` (the victim
+  // leg), else to `dd1`.  Returns the PM writes.
+  __device__ double forward(int scheme, int Q0, int n, Pkt pk, double* dd1,
+                            bool single, double& ack0, long long& lookups) {
     int cur = 0, Q = Q0, j = 0;
+    bool lone = n <= 1;
 #pragma unroll 1
     for (; j < live_rows; ++j) {
-      n = place(j, scheme, list(cur), n, Q, list(1 - cur), dd1, single,
-                lookups);
+      n = place(j, scheme, list(cur), n, Q, pk, lone, list(1 - cur), dd1,
+                single, ack0, lookups);
       cur = 1 - cur;
       Q += P;
+      lone = n <= 1;
+      if (lone) pk = list(cur).at(0);
     }
-    return land(list(cur), n, j + 1, j);
+    return land(list(cur), n, j + 1, j, pk, lone);
   }
 
   // deep_read, in two parts: probe reads, with no branch, which of each
   // lane's slots of the live deep rows hold `addr` (bit j SPL + jj: slot
-  // lane + 32 jj of row j; none without a chain); pick, when some row
+  // lane + 32 jj of row j; every row's tags load at once, a predicate on
+  // the row's liveness measured slower); pick, when some row
   // does, evaluates their visibility and service at t and takes the
   // warp's least tat_first_key: the shallowest row holding a visible
   // servable entry for `addr`, its first Dirty one, else its first late
@@ -1130,8 +1164,13 @@ struct Args {
 // counts hop-1 survivors per leaf.  FAB = false compiles all of it out.
 // EP: the grid holds a Schedule (E > 1); each op sees the rows of the
 // epoch its issue time falls in.  EP = false compiles all of it out.
+// At D >= 1, one block a multiprocessor (the launch bounds' second
+// argument) frees ptxas to hold every register a lane needs: left to its
+// own heuristic it stopped at 168 and spilled in the step loop.  0 leaves
+// D = 0's bounds as they were (its machine code is unchanged).
 template <int SPL, int D, bool FAB, bool EP>
-__global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
+__global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
+    cell_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem m = rebase(a.lay, smem_raw);
   const int lane = threadIdx.x;
@@ -1431,10 +1470,6 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         m.clock[c] = t + sc[K_DRAM_NS];
       }
     } else if (op == OP_PM_READ) {
-      // the deep rows' tag matches, loaded first so that hop 1's lookup
-      // covers their latency
-      unsigned deep_tm = 0;
-      if constexpr (D > 0) deep_tm = ch.probe(addr);
       const int bank = bank_of(addr);
       const double pm_start_dir = fmax(m.pm_busy[bank], t + rd.ow_cpu_pm);
       const double resp_dir = pm_start_dir + rd.nvm_read + rd.ow_cpu_pm;
@@ -1495,13 +1530,17 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
         // read forwarding below hop 1 (chain.deep_read): with no live
         // hop-1 entry the packet passes every deeper switch's PBCS, and
         // the shallowest servable entry answers
+        // (the deep rows' tags are loaded only here, once hop 1 has no
+        // live entry: loaded beside hop 1's own loads on every read, as
+        // before, they lengthened the read path, PERF.md §6)
         int deep_row = -1, deep_slot = 0;
         double resp_deep = 0.0;
         if constexpr (D > 0) {
           if (is_chain && !has) {
             PROF(SEC_READ);
-            deep_row = ch.pick(deep_tm, t, rd.ow_cpu_sw1, rd.fwd_margin,
-                               sc[K_PBC_READ], deep_slot, resp_deep, lookups);
+            deep_row = ch.pick(ch.probe(addr), t, rd.ow_cpu_sw1,
+                               rd.fwd_margin, sc[K_PBC_READ], deep_slot,
+                               resp_deep, lookups);
             PROF(SEC_C_READ);
           }
         }
@@ -1684,29 +1723,22 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           if (is_chain) {
             ch.pmb_r = lane < B ? m.pm_busy[lane] : 0.0;  // B <= 32
             if (vic_emit) {
+              // one packet, held by every lane, its ack in vack
               PROF(SEC_SELECT);
-              if (lane == 0) {
-                *ch.c.vack = m.dd[victim_idx];
-                const Pkts b0 = ch.list(0);
-                b0.pos[0] = 0;
-                b0.oslot[0] = victim_idx;
-                b0.addr[0] = vic_tag;
-                b0.ver[0] = vic_ver;
-                b0.owner[0] = m.owner[victim_idx];
-                b0.ohop[0] = 0;
-                b0.emit[0] = pbc_start;
-              }
-              __syncwarp();
+              const Pkt vp{pbc_start, 0, victim_idx, vic_tag, vic_ver, 0,
+                           m.owner[victim_idx]};
+              vack = m.dd[victim_idx];
               PROF(SEC_C_BATCH);
-              pmw_v = ch.forward(scheme, 1, 1, ch.c.vack, true, lookups);
+              pmw_v = ch.forward(scheme, 1, 1, vp, nullptr, true, vack,
+                                 lookups);
               if constexpr (EP) ep_stale = false;
-              vack = *ch.c.vack;
               vic_wait = vack;
             } else if constexpr (EP) {
               // no victim packet: the leg's empty forward drains a row
               // that a lowered threshold left over its drain count
               if (ep_stale && ch.pending(scheme))
-                pmw_v = ch.forward(scheme, 1, 0, ch.c.vack, true, lookups);
+                pmw_v = ch.forward(scheme, 1, 0, Pkt{}, nullptr, true, vack,
+                                   lookups);
               ep_stale = false;
             }
           }
@@ -1946,50 +1978,77 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
           if (is_chain) {
             PROF(SEC_WRITE);
             bool pol[SPL];
-            int pol_rank[SPL];
+            unsigned pol_bits[SPL];
+            int n_pol = 0;
 #pragma unroll
             for (int j = 0; j < SPL; ++j) {
               pol[j] = commit && lane + 32 * j < P && st4[j] == DRAIN &&
                        st3[j] == DIRTY;
-              pol_rank[j] = 0;
+              pol_bits[j] = j < tiles ? __ballot_sync(FULL, pol[j]) : 0u;
+              n_pol += __popc(pol_bits[j]);
             }
+            // one drain (most persists) is lone: every lane takes it from
+            // its owner by shuffle; more go to list 0 in LRU rank order
+            Pkt pk{t_written, 0, 0, 0, 0, 0, 0};
+            if (n_pol == 1) {
+              int l = 0, p_tag = 0, p_ver = 0, p_own = 0;
 #pragma unroll
-            for (int jq = 0; jq < SPL; ++jq) {
-              if (jq >= tiles) break;
-              for (unsigned bits = __ballot_sync(FULL, pol[jq]); bits;
-                   bits &= bits - 1) {
-                const int l = __ffs(bits) - 1, q = 32 * jq + l;
-                const double kq = __shfl_sync(FULL, lru3[jq], l);
-#pragma unroll
-                for (int j = 0; j < SPL; ++j) {
-                  const int s = lane + 32 * j;
-                  pol_rank[j] += (kq < lru3[j]) || (kq == lru3[j] && q < s);
+              for (int j = 0; j < SPL; ++j) {
+                if (pol_bits[j]) {  // the one slot: 32 j + l
+                  l = __ffs(pol_bits[j]) - 1;
+                  pk.oslot = 32 * j + l;
+                }
+                if (pol[j]) {
+                  p_tag = tag3[j];
+                  p_ver = ver3[j];
+                  p_own = own3[j];
                 }
               }
-            }
-            const int n_pol = warp_count(pol, tiles);
-            const Pkts b0 = ch.list(0);
+              pk.addr = __shfl_sync(FULL, p_tag, l);
+              pk.ver = __shfl_sync(FULL, p_ver, l);
+              pk.owner = static_cast<signed char>(__shfl_sync(FULL, p_own, l));
+            } else if (n_pol > 1) {
+              int pol_rank[SPL];
 #pragma unroll
-            for (int j = 0; j < SPL; ++j) {
-              if (pol[j]) {
-                const int o = pol_rank[j];
-                b0.pos[o] = o;
-                b0.oslot[o] = lane + 32 * j;
-                b0.addr[o] = tag3[j];
-                b0.ver[o] = ver3[j];
-                b0.owner[o] = own3[j];
-                b0.ohop[o] = 0;
-                b0.emit[o] = t_written;
+              for (int j = 0; j < SPL; ++j) pol_rank[j] = 0;
+#pragma unroll
+              for (int jq = 0; jq < SPL; ++jq) {
+                for (unsigned bits = pol_bits[jq]; bits; bits &= bits - 1) {
+                  const int l = __ffs(bits) - 1, q = 32 * jq + l;
+                  const double kq = __shfl_sync(FULL, lru3[jq], l);
+#pragma unroll
+                  for (int j = 0; j < SPL; ++j) {
+                    const int s = lane + 32 * j;
+                    pol_rank[j] += (kq < lru3[j]) || (kq == lru3[j] && q < s);
+                  }
+                }
               }
+              const Pkts b0 = ch.list(0);
+#pragma unroll
+              for (int j = 0; j < SPL; ++j) {
+                if (pol[j]) {
+                  const int o = pol_rank[j];
+                  b0.pos[o] = o;
+                  b0.oslot[o] = lane + 32 * j;
+                  b0.addr[o] = tag3[j];
+                  b0.ver[o] = ver3[j];
+                  b0.owner[o] = own3[j];
+                  b0.ohop[o] = 0;
+                  b0.emit[o] = t_written;
+                }
+              }
+              __syncwarp();  // the hop-1 columns and the batch are written
             }
-            __syncwarp();  // the hop-1 columns and the batch are written
             PROF(SEC_C_BATCH);
+            double none = 0.0;
             if (n_pol > 0) {
-              pmw_c = ch.forward(scheme, P, n_pol, m.dd, false, lookups);
+              pmw_c = ch.forward(scheme, P, n_pol, pk, m.dd, false, none,
+                                 lookups);
               if constexpr (EP) ep_stale = false;
             } else if constexpr (EP) {  // as on the victim leg
               if (ep_stale && ch.pending(scheme))
-                pmw_c = ch.forward(scheme, P, 0, m.dd, false, lookups);
+                pmw_c = ch.forward(scheme, P, 0, pk, m.dd, false, none,
+                                   lookups);
               ep_stale = false;
             }
             if (lane < B) m.pm_busy[lane] = ch.pmb_r;
@@ -2023,16 +2082,31 @@ __global__ void __launch_bounds__(32) cell_scan_kernel(Args a) {
       }
     } else if (op == OP_BARRIER) {  // centralized barrier per tenant
       const bool last = (m.bcount[tid] + 1) >= n_live_t;
-      double ck[(1024 + 31) / 32];
-      for (int k = lane, j = 0; k < C; k += 32, ++j) {
-        const double released =
-            (k == c) ? t : ((m.blocked[k] && m.tids[k] == tid) ? t : m.clock[k]);
-        ck[j] = last ? released : (k == c ? INF * 0.9 : m.clock[k]);
-      }
-      __syncwarp();
-      for (int k = lane, j = 0; k < C; k += 32, ++j) {
-        m.clock[k] = ck[j];
-        if (last && m.tids[k] == tid) m.blocked[k] = 0;
+      if constexpr (D > 0) {
+        // in one pass: a lane reads and writes only its own cores (k =
+        // lane + 32 i), so no array carries the new clocks over a
+        // __syncwarp (the D = 0 body keeps them in one, on the stack)
+        for (int k = lane; k < C; k += 32) {
+          const bool mine = m.tids[k] == tid;
+          const double released =
+              (k == c) ? t : ((m.blocked[k] && mine) ? t : m.clock[k]);
+          m.clock[k] = last ? released : (k == c ? INF * 0.9 : m.clock[k]);
+          if (last && mine) m.blocked[k] = 0;
+        }
+        __syncwarp();  // every lane has read bcount
+      } else {
+        double ck[(1024 + 31) / 32];
+        for (int k = lane, j = 0; k < C; k += 32, ++j) {
+          const double released =
+              (k == c) ? t
+                       : ((m.blocked[k] && m.tids[k] == tid) ? t : m.clock[k]);
+          ck[j] = last ? released : (k == c ? INF * 0.9 : m.clock[k]);
+        }
+        __syncwarp();
+        for (int k = lane, j = 0; k < C; k += 32, ++j) {
+          m.clock[k] = ck[j];
+          if (last && m.tids[k] == tid) m.blocked[k] = 0;
+        }
       }
       if (lane == 0) {
         if (last) {
@@ -2271,16 +2345,75 @@ static int run_d(Args& a, int n_cells, bool fab, bool ep, size_t smem,
              : run_ep<SPL, D, false>(a, n_cells, ep, smem, stream);
 }
 
+// The split build (kernels/_build.py, UNITS): unit (SPL, D) is this
+// file compiled with CELL_SCAN_UNIT_SPL and CELL_SCAN_UNIT_D defined —
+// the kernels of that pair, behind cell_scan_run_<SPL>_<D> (and, in the
+// profile build, cell_scan_set_profile_<SPL>_<D>) — and the entry unit,
+// compiled with CELL_SCAN_UNIT_ENTRY, holds cell_scan_launch and
+// dispatches to them.  Without these macros the file builds every kernel
+// and the entry point in one unit.  The units' list:
+#define CELL_SCAN_UNITS(X)                                            \
+  X(1, 0) X(1, 1) X(1, 2) X(1, 3) X(2, 0) X(2, 1) X(2, 2) X(2, 3)     \
+  X(4, 0) X(4, 1) X(4, 2) X(4, 3)
+#define CS_PASTE(pre, s, d) pre##s##_##d
+#define CS_UNIT_NAME(pre, s, d) CS_PASTE(pre, s, d)
+
+// The kernels of (SPL, D): FAB and EP both ways (D = 0: no fabric).
+template <int SPL, int D>
+static int run_sd(Args& a, int n_cells, bool fab, bool ep, size_t smem,
+                  cudaStream_t stream) {
+  if constexpr (D == 0)
+    return run_ep<SPL, 0, false>(a, n_cells, ep, smem, stream);
+  else
+    return run_d<SPL, D>(a, n_cells, fab, ep, smem, stream);
+}
+
+#if defined(CELL_SCAN_UNIT_SPL)
+extern "C" int CS_UNIT_NAME(cell_scan_run_, CELL_SCAN_UNIT_SPL,
+                            CELL_SCAN_UNIT_D)(const void* args, int n_cells,
+                                              int fab, int ep, size_t smem,
+                                              cudaStream_t stream) {
+  Args a;
+  memcpy(&a, args, sizeof a);
+  return run_sd<CELL_SCAN_UNIT_SPL, CELL_SCAN_UNIT_D>(a, n_cells, fab, ep,
+                                                      smem, stream);
+}
+#ifdef CELL_SCAN_PROFILE
+extern "C" int CS_UNIT_NAME(cell_scan_set_profile_, CELL_SCAN_UNIT_SPL,
+                            CELL_SCAN_UNIT_D)(long long* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_prof, &buf, sizeof(buf)));
+}
+#endif
+#else
+#ifdef CELL_SCAN_UNIT_ENTRY
+#define CS_DECLARE(s, d)                                                  \
+  extern "C" int CS_UNIT_NAME(cell_scan_run_, s, d)(                      \
+      const void*, int, int, int, size_t, cudaStream_t);                  \
+  extern "C" int CS_UNIT_NAME(cell_scan_set_profile_, s, d)(long long*);
+CELL_SCAN_UNITS(CS_DECLARE)
+#undef CS_DECLARE
+#endif
+
 template <int SPL>
 static int run_spl(Args& a, int n_cells, int n_deep, bool fab, bool ep,
                    size_t smem, cudaStream_t stream) {
+#ifdef CELL_SCAN_UNIT_ENTRY
+#define CS_RUN(s, d)                                                      \
+  if (SPL == s && n_deep == d)                                            \
+    return CS_UNIT_NAME(cell_scan_run_, s, d)(&a, n_cells, fab, ep, smem, \
+                                              stream);
+  CELL_SCAN_UNITS(CS_RUN)
+#undef CS_RUN
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
   switch (n_deep) {
-    case 0: return run_ep<SPL, 0, false>(a, n_cells, ep, smem, stream);
-    case 1: return run_d<SPL, 1>(a, n_cells, fab, ep, smem, stream);
-    case 2: return run_d<SPL, 2>(a, n_cells, fab, ep, smem, stream);
-    case 3: return run_d<SPL, 3>(a, n_cells, fab, ep, smem, stream);
+    case 0: return run_sd<SPL, 0>(a, n_cells, fab, ep, smem, stream);
+    case 1: return run_sd<SPL, 1>(a, n_cells, fab, ep, smem, stream);
+    case 2: return run_sd<SPL, 2>(a, n_cells, fab, ep, smem, stream);
+    case 3: return run_sd<SPL, 3>(a, n_cells, fab, ep, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
 
 extern "C" int cell_scan_launch(
@@ -2318,6 +2451,16 @@ extern "C" int cell_scan_launch(
 #ifdef CELL_SCAN_PROFILE
 // The profile's output: (n_cells, N_PROF) int64 on the device.
 extern "C" int cell_scan_set_profile(long long* buf) {
+#ifdef CELL_SCAN_UNIT_ENTRY
+  int rc = 0;
+#define CS_SET(s, d) \
+  if (rc == 0) rc = CS_UNIT_NAME(cell_scan_set_profile_, s, d)(buf);
+  CELL_SCAN_UNITS(CS_SET)
+#undef CS_SET
+  return rc;
+#else
   return static_cast<int>(cudaMemcpyToSymbol(g_prof, &buf, sizeof(buf)));
+#endif
 }
 #endif
+#endif  // CELL_SCAN_UNIT_SPL

@@ -1,28 +1,33 @@
-"""Compare the cell scan's schedule-free machine code with another source's.
+"""Compare the cell scan's machine code with another source's.
 
 Card-only tool (it needs ``nvcc`` and ``cuobjdump``): builds
 ``csrc/cell_scan.cu`` and the ``cell_scan.cu`` given on the command line
 (for example an earlier revision's, saved with ``git show
 <rev>:src/repro_torch/kernels/csrc/cell_scan.cu > old.cu``) to cubins with
-the package's flags, and compares the SASS of every ``EP = false``
-instantiation of the current ``cell_scan_kernel<SPL, D, FAB, EP>``
-(D = 0..3 deep-hop rows; FAB both ways for D >= 1) with the other
-source's same ``<SPL, D, FAB>`` — named ``cell_scan_kernel<SPL, D, FAB,
-false>``, ``cell_scan_kernel<SPL, D, FAB>`` (from before the epoch
-schedules' template parameter), ``cell_scan_kernel<SPL, D>`` (FAB =
-false, from before the fabric's) or, for D = 0,
-``cell_scan_kernel<SPL>`` (from before the chain's) — for SPL = 1, 2, 4,
-instruction by instruction:
+the package's flags — a source that lists units
+(``_build.unit_sources``) one cubin per unit, all at once, as the
+library is built — and compares the SASS of every instantiation of
+``cell_scan_kernel<SPL, D, FAB, EP>`` (SPL = 1, 2, 4; D = 0..3 deep-hop
+rows; FAB both ways for D >= 1; EP both ways) with the other source's
+same instantiation, instruction by instruction.  An instantiation from
+before a template parameter existed is found under its older name:
+``cell_scan_kernel<SPL, D, FAB>`` (EP = false, before the epoch
+schedules), ``cell_scan_kernel<SPL, D>`` (FAB = false, before the
+fabric) or, for D = 0, ``cell_scan_kernel<SPL>`` (before the chain)::
 
-    PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu
+    PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu [--all]
 
-Prints each build's seconds, then per (SPL, D, FAB) both instruction
-counts and the instructions that differ (branch targets aside, which
-only move when code after them changes length), and the ``EP = true``
-instantiations' counts.
+Prints each build's seconds, then per instantiation both instruction
+counts, the instructions that differ (branch targets aside, which only
+move when code after them changes length), ptxas's registers and stack
+frame, and the local-memory instructions (``LDL``/``STL``) in all and
+inside the step loop (the longest backward branch's span), the other
+source's beside this one's.  Exits 1 when a ``D = 0`` instantiation
+differs (every instantiation with ``--all``).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import difflib
 import re
 import subprocess
@@ -37,25 +42,60 @@ CUDA_BIN = Path("/usr/local/cuda/bin")
 MAX_DEEP = 3
 
 
-def sass(src: Path, out: Path) -> dict:
-    """``{function name: [instruction, ...]}`` of ``src`` built to ``out``."""
+def sass(src: Path, out_dir: Path) -> dict:
+    """``{function name: {"ins": [instruction, ...], "addr": [offset,
+    ...], "regs": n, "stack": bytes}}`` of ``src`` built into
+    ``out_dir``, one cubin per unit of a split source."""
     flags = [f for f in _build.nvcc_flags("cell_scan")
-             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    units = {u: t for u, t in _build.unit_sources(src).items()
+             if u != "entry"} or {"all": None}
     t0 = time.time()
-    subprocess.run([str(CUDA_BIN / "nvcc"), *flags, f"-I{_build.CSRC}",
-                    "-cubin", "-o", str(out), str(src)], check=True)
-    print(f"built {src} in {time.time() - t0:.1f} s")
-    text = subprocess.run([str(CUDA_BIN / "cuobjdump"), "-sass", str(out)],
-                          check=True, capture_output=True, text=True).stdout
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s+Function : (\S+)", line)
-        if m:
-            cur = funcs.setdefault(m.group(1), [])
-            continue
-        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
-        if cur is not None and m:
-            cur.append(m.group(1).strip())
+    procs = []
+    for u, text in units.items():
+        cu = src
+        if text is not None:
+            cu = out_dir / f"{u}.cu"
+            cu.write_text(text)
+        cubin = out_dir / f"{u}.cubin"
+        procs.append((cubin, subprocess.Popen(
+            [str(CUDA_BIN / "nvcc"), *flags, f"-I{_build.CSRC}", "-cubin",
+             "-o", str(cubin), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    funcs, usage = {}, {}
+    for cubin, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -cubin of {src} failed:\n{log}")
+        fn = None
+        for line in log.splitlines():
+            m = re.search(r"(?:Function properties for|entry function) '?"
+                          r"([\w.]+)", line)
+            if m:
+                fn = m.group(1)
+                usage.setdefault(fn, {})
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if fn and m:
+                usage[fn]["stack"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if fn and m:
+                usage[fn]["regs"] = int(m.group(1))
+        text = subprocess.run([str(CUDA_BIN / "cuobjdump"), "-sass",
+                               str(cubin)], check=True, capture_output=True,
+                              text=True).stdout
+        cur = None
+        for line in text.splitlines():
+            m = re.match(r"\s+Function : (\S+)", line)
+            if m:
+                cur = funcs.setdefault(m.group(1), dict(
+                    ins=[], addr=[], **usage.get(m.group(1), {})))
+                continue
+            m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if cur is not None and m:
+                cur["addr"].append(int(m.group(1), 16))
+                cur["ins"].append(m.group(2).strip())
+    print(f"built {src} in {time.time() - t0:.1f} s ({len(units)} "
+          f"unit{'s' if len(units) > 1 else ''})")
     return funcs
 
 
@@ -63,7 +103,21 @@ def _no_target(ins: str) -> str:
     return re.sub(r"0x[0-9a-f]+", "TARGET", ins) if "BRA" in ins else ins
 
 
-def _find(funcs: dict, names) -> list | None:
+def local_memory(f: dict) -> tuple:
+    """``(LDL/STL instructions in all, inside the step loop)``: the loop
+    is the span of the longest backward branch (the step loop encloses
+    every other loop of the step)."""
+    lo = hi = -1
+    for a, ins in zip(f["addr"], f["ins"]):
+        m = re.search(r"\bBRA(?:\.\S+)?\s+(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < a and a - int(m.group(1), 16) > hi - lo:
+            lo, hi = int(m.group(1), 16), a
+    loc = [a for a, ins in zip(f["addr"], f["ins"])
+           if re.search(r"\b(LDL|STL)\b", ins)]
+    return len(loc), sum(lo <= a <= hi for a in loc)
+
+
+def _find(funcs: dict, names) -> dict | None:
     """The first function whose mangled name holds one of ``names``."""
     for name in names:
         for k, v in funcs.items():
@@ -72,49 +126,65 @@ def _find(funcs: dict, names) -> list | None:
     return None
 
 
-def _names(spl: int, d: int, fab: int) -> list:
-    """The mangled template arguments of ``<spl, d, fab>``, newest first."""
-    names = [f"ILi{spl}ELi{d}ELb{fab}ELb0EE", f"ILi{spl}ELi{d}ELb{fab}EE"]
-    if not fab:
-        names.append(f"ILi{spl}ELi{d}EE")
-        if d == 0:
-            names.append(f"ILi{spl}EE")
+def _names(spl: int, d: int, fab: int, ep: int) -> list:
+    """The mangled template arguments of ``<spl, d, fab, ep>``, newest
+    first."""
+    names = [f"ILi{spl}ELi{d}ELb{fab}ELb{ep}EE"]
+    if not ep:
+        names.append(f"ILi{spl}ELi{d}ELb{fab}EE")
+        if not fab:
+            names.append(f"ILi{spl}ELi{d}EE")
+            if d == 0:
+                names.append(f"ILi{spl}EE")
     return names
 
 
-def main(other: str) -> int:
-    with tempfile.TemporaryDirectory() as tmp:
-        old = sass(Path(other), Path(tmp) / "other.cubin")
-        new = sass(_build.CSRC / "cell_scan.cu", Path(tmp) / "this.cubin")
+def _usage(f: dict) -> str:
+    n, loop = local_memory(f)
+    return (f"{f.get('regs')} registers, {f.get('stack')} B stack, "
+            f"LDL/STL {n} ({loop} in the step loop)")
+
+
+def main(other: str, strict_all: bool = False) -> int:
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(2) as ex:
+        (Path(tmp) / "other").mkdir()
+        (Path(tmp) / "this").mkdir()
+        old, new = ex.map(lambda a: sass(*a), (
+            (Path(other), Path(tmp) / "other"),
+            (_build.CSRC / "cell_scan.cu", Path(tmp) / "this")))
     same = True
-    combos = [(spl, d, fab) for spl in (1, 2, 4)
-              for d in range(MAX_DEEP + 1) for fab in ((0, 1) if d else (0,))]
-    for spl, d, fab in combos:
-        names = _names(spl, d, fab)
+    combos = [(spl, d, fab, ep) for spl in (1, 2, 4)
+              for d in range(MAX_DEEP + 1) for fab in ((0, 1) if d else (0,))
+              for ep in (0, 1)]
+    for spl, d, fab, ep in combos:
+        names = _names(spl, d, fab, ep)
         o = _find(old, names)
         n = _find(new, names[:1])
-        what = f"cell_scan_kernel SPL={spl} D={d} FAB={bool(fab)} EP=false"
+        what = (f"cell_scan_kernel SPL={spl} D={d} FAB={bool(fab)} "
+                f"EP={bool(ep)}")
+        must = strict_all or d == 0
         if o is None or n is None:
             print(f"{what}: missing (other {o is not None}, this "
                   f"{n is not None})")
-            same = False
+            same &= not must
             continue
         ops = difflib.SequenceMatcher(
-            a=[_no_target(x) for x in o], b=[_no_target(x) for x in n],
-            autojunk=False).get_opcodes()
+            a=[_no_target(x) for x in o["ins"]],
+            b=[_no_target(x) for x in n["ins"]], autojunk=False).get_opcodes()
         diff = [op for op in ops if op[0] != "equal"]
-        same &= not diff and len(o) == len(n)
-        print(f"{what}: other {len(o)} instructions, this {len(n)}, "
-              f"differing runs {len(diff)}"
-              + ("" if diff or len(o) != len(n) else "; identical"))
-        for tag, i1, i2, j1, j2 in diff[:4]:
-            print(f"  {tag}: {o[i1:i2][:4]} -> {n[j1:j2][:4]}")
-    for spl, d, fab in combos:
-        n = _find(new, [f"ILi{spl}ELi{d}ELb{fab}ELb1EE"])
-        print(f"cell_scan_kernel SPL={spl} D={d} FAB={bool(fab)} EP=true: "
-              f"{len(n or [])} instructions")
+        ident = not diff and len(o["ins"]) == len(n["ins"])
+        same &= ident or not must
+        print(f"{what}: other {len(o['ins'])} instructions, this "
+              f"{len(n['ins'])}, differing runs {len(diff)}"
+              + ("; identical" if ident else "")
+              + f"; other {_usage(o)}; this {_usage(n)}")
+        if must:
+            for tag, i1, i2, j1, j2 in diff[:4]:
+                print(f"  {tag}: {o['ins'][i1:i2][:4]} -> "
+                      f"{n['ins'][j1:j2][:4]}")
     return 0 if same else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], "--all" in sys.argv[2:]))

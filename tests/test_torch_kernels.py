@@ -16,6 +16,7 @@ from repro_torch.core import PCSConfig, Scheme, make_trace
 from repro_torch.core.engine import grid
 from repro_torch.core.engine.step import scan_cell
 from repro_torch.kernels import cell_scan as cs
+from repro_torch.kernels import cell_scan_variants as cv
 from repro_torch.kernels import tat_lookup as tl
 from repro_torch.kernels.ref import tat_lookup_ref
 
@@ -213,3 +214,56 @@ def test_pack_configs_epoch_rows():
         flat = cs._config_view(*tables[:4], ept[:, :1], epb[:, :0], j)
         for k in EPOCH_KEYS:
             assert torch.equal(flat[k], sc[k][0]), k
+
+
+def test_cell_scan_units_cover_every_instantiation(tmp_path):
+    """The cell scan's split build: the generated units
+    (``_build.unit_sources``) hold one (SPL, D) unit for each pair of
+    every ``(SPL, D, FAB, EP)`` the wrapper dispatches to, and the entry
+    unit; the source's runners take FAB (D >= 1) and EP both ways; a
+    source without the units' list builds as one unit."""
+    import re
+    from repro_torch.kernels import _build
+    src = _build.CSRC / "cell_scan.cu"
+    units = _build.unit_sources(src)
+    pairs = set()
+    for name, text in units.items():
+        assert f'#include "{src.resolve()}"' in text, name
+        if name == "entry":
+            assert "#define CELL_SCAN_UNIT_ENTRY" in text
+            continue
+        spl, d = (int(re.search(rf"#define CELL_SCAN_UNIT_{k} (\d+)",
+                                text).group(1)) for k in ("SPL", "D"))
+        assert name == f"s{spl}_d{d}"
+        pairs.add((spl, d))
+    assert "entry" in units and len(units) == len(pairs) + 1
+    dispatched = {cs.instantiation(p, d, nl, e)
+                  for p in range(1, cs.MAX_PBE + 1)
+                  for d in range(cs.MAX_DEEP + 1)
+                  for nl in ((1, 2) if d else (1,)) for e in (1, 2)}
+    assert dispatched == set(cs.INSTANTIATIONS)
+    assert {(s, d) for s, d, _, _ in dispatched} == pairs
+    body = src.read_text()
+    for call in ("run_one<SPL, D, FAB, true>", "run_one<SPL, D, FAB, false>",
+                 "run_ep<SPL, D, true>", "run_ep<SPL, D, false>",
+                 "run_ep<SPL, 0, false>", "run_d<SPL, D>"):
+        assert call in body, call
+    one = tmp_path / "cell_scan.cu"
+    one.write_text(re.sub(r"#define CELL_SCAN_UNITS\(X\)", "#define NONE",
+                          body))
+    assert _build.unit_sources(one) == {}
+
+
+@pytest.mark.parametrize("name", sorted(cv.VARIANTS))
+def test_cell_scan_variants_edits_apply(name):
+    """Each A/B variant of the cell scan finds its anchors once in the
+    source, cuts the units to SPL 1 at D = 0, 1 and 3, and (but for the
+    yardstick ``units``) changes the kernel's text."""
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / "cell_scan.cu").read_text()
+    out = cv.variant_source(text, cv.VARIANTS[name])
+    cut = cv.variant_source(text, [])
+    assert (out == cut) == (name == "units")
+    assert "X(1, 0) X(1, 1) X(1, 3)\n" in out and "X(2, 0)" not in out
+    with pytest.raises(ValueError):
+        cv.variant_source(out, cv.VARIANTS[name] or [("no such text", "")])

@@ -36,19 +36,23 @@ EMUL = Path(__file__).resolve().parent / "warp_emul"
 
 CELL_SCAN_LAUNCH = r'''
 alignas(16) unsigned char smem_raw[1 << 20];
-// the EP = true instantiations the scheduled cases need (SPL 1, D <= 1),
-// which keeps the build short; any other scheduled grid is refused
+// EMU_EP: the library's half of the instantiations, built beside the
+// other at once — every EP = false one (0), or the EP = true ones the
+// scheduled cases need (1: SPL 1, and SPL 2 at D = 3); a grid outside
+// the half is refused
 template <int SPL, int D, bool FAB>
 static bool emu_ep(Args& a, int n_cells, bool ep) {
-  if (!ep) {
-    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false>(a); });
-    return true;
-  }
-  if constexpr (SPL == 1 && D <= 1) {
+  if (ep != static_cast<bool>(EMU_EP)) return false;
+#if EMU_EP
+  if constexpr (SPL == 1 || (SPL == 2 && D == 3)) {
     emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, true>(a); });
     return true;
   }
   return false;
+#else
+  emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false>(a); });
+  return true;
+#endif
 }
 template <int SPL, int D>
 static bool emu_d(Args& a, int n_cells, bool fab, bool ep) {
@@ -295,35 +299,47 @@ def _emulated_source(name: str, launcher: str) -> str:
 
 
 def _build(out: Path, sources) -> dict:
+    """Each ``(library, kernel source, launcher)`` of ``sources`` built by
+    its own g++, all at once; ``{library: loaded}``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is needed to build the emulated kernels")
-    loaded = {}
-    for name, launcher in sources:
-        cpp = out / f"{name}.cpp"
+    procs = []
+    for lib, name, launcher in sources:
+        cpp = out / f"{lib}.cpp"
         cpp.write_text(_emulated_source(name, launcher))
-        so = out / f"lib{name}.so"
-        subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off",
-                        "-fPIC", "-shared", "-pthread", f"-I{EMUL}", "-o",
-                        str(so), str(cpp)], check=True, capture_output=True)
-        loaded[name] = ctypes.CDLL(str(so))
+        so = out / f"lib{lib}.so"
+        procs.append((lib, so, subprocess.Popen(
+            [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
+             "-shared", "-pthread", f"-I{EMUL}", "-o", str(so), str(cpp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    loaded = {}
+    for lib, so, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ of {lib} failed:\n{log.decode()}")
+        loaded[lib] = ctypes.CDLL(str(so))
     return loaded
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("warp_emul"),
-                  (("cell_scan", CELL_SCAN_LAUNCH),
-                   ("tat_lookup", TAT_LOOKUP_LAUNCH)))
+                  (("cell_scan", "cell_scan",
+                    "#define EMU_EP 0\n" + CELL_SCAN_LAUNCH),
+                   ("cell_scan_ep", "cell_scan",
+                    "#define EMU_EP 1\n" + CELL_SCAN_LAUNCH),
+                   ("tat_lookup", "tat_lookup", TAT_LOOKUP_LAUNCH)))
 
 
 @pytest.fixture(scope="module")
 def model_libs(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("warp_emul_model"),
-                  (("flash_attention", FLASH_LAUNCH),
-                   ("flash_attention_tc", FLASH_TC_LAUNCH),
-                   ("ssd_scan", SSD_LAUNCH),
-                   ("ssd_scan_tc", SSD_TC_LAUNCH)))
+                  tuple((n, n, launcher) for n, launcher in (
+                      ("flash_attention", FLASH_LAUNCH),
+                      ("flash_attention_tc", FLASH_TC_LAUNCH),
+                      ("ssd_scan", SSD_LAUNCH),
+                      ("ssd_scan_tc", SSD_TC_LAUNCH))))
 
 
 @pytest.mark.parametrize("r,n", [(256, 16), (1024, 256), (8, 16), (37, 5)])
@@ -578,6 +594,45 @@ def _cases():
                           for t in (INF_NS, 1.2 * b)]
                          + [P.PCSConfig(scheme=S.PB, n_pbe=16, n_switches=2)],
                          16),
+        # threshold steps over chains of 3 and 4 switches whose deeper rows
+        # hold more entries than hop 1: rows 1 and 2 left over their new
+        # drain count drain on forwards with no packet (D = 3, SPL 1)
+        "epochs_deep": ([_synth(0, 300, p_read=0.0)],
+                        [P.PCSConfig(scheme=S.PB_RF, n_pbe=hp[0],
+                                     n_switches=len(hp), pbe_per_hop=hp,
+                                     policy=P.PBPolicy(drain=P.DrainPolicy(
+                                         threshold=Sch((b,), (0.875, 0.25)),
+                                         preset=0.125))).with_crash(t)
+                         for hp, b in (((4, 8, 8, 16), 2e3),
+                                       ((8, 8, 8, 8), 6e3), ((4, 8, 8), 2e3))
+                         for t in (INF_NS, 1.5 * b)]
+                        + [P.PCSConfig(scheme=S.PB, n_pbe=4, n_switches=4)],
+                        16),
+        # a 3-switch threshold step beside a scheduled fabric (D = 2, FAB,
+        # EP, SPL 1)
+        "epochs_d2": (fab_fz[:1] + [_synth(4, 60, n_cores=4)],
+                      [P.PCSConfig(scheme=S.PB_RF, n_pbe=4, n_cores=4,
+                                   n_tenants=4, n_switches=3,
+                                   pbe_per_hop=(4, 8, 8),
+                                   policy=P.PBPolicy(drain=P.DrainPolicy(
+                                       threshold=Sch((b,), (0.875, 0.25)),
+                                       preset=0.125)))
+                       for b in (fb(20), 2e3)]
+                      + [P.PCSConfig(scheme=S.PB_RF, n_cores=4, n_tenants=4,
+                                     **flip(fb(20)))], 8),
+        # SPL 2: a 4-switch threshold step over 40 hop-1 PBEs beside a
+        # scheduled fabric of 40 leaf PBEs (D = 3, FAB, EP)
+        "epochs_spl2": ([_synth(0, 300, p_read=0.0, n_cores=4)],
+                        [P.PCSConfig(scheme=S.PB_RF, n_pbe=40, n_cores=4,
+                                     n_switches=4, pbe_per_hop=(40, 8, 8, 8),
+                                     policy=P.PBPolicy(drain=P.DrainPolicy(
+                                         threshold=Sch((3e3,), (0.5, 0.125)),
+                                         preset=0.0625))),
+                         P.PCSConfig(scheme=S.PB, n_cores=4, n_tenants=4,
+                                     fabric=P.FabricTopology(
+                                         2, (20, 20), 4,
+                                         Sch((3e3,), (place0, place1))))],
+                        8),
         # static and scheduled cells in one grid (E = 3: a threshold that
         # tightens then relaxes over a 2-hop chain's deep row, a flip with
         # one boundary, padded), the static ones in all their kinds
@@ -656,7 +711,16 @@ REACH = {
     "epochs_fabric": lambda r: r["epochs"] == {0, 1},
     "epochs_mixed": lambda r: r["epochs"] == {0, 1, 2},
     "epochs_chain": lambda r: r["epochs"] == {0, 1} and r["pending"] > 0,
+    "epochs_deep": lambda r: {1, 2} <= r["pending_rows"],
+    "epochs_d2": lambda r: r["epochs"] == {0, 1},
+    "epochs_spl2": lambda r: r["epochs"] == {0, 1},
 }
+
+
+# The kernel instantiation a scheduled case must run: (SPL, D, FAB, EP).
+INSTANTIATION = {"epochs_deep": (1, 3, False, True),
+                 "epochs_d2": (1, 2, True, True),
+                 "epochs_spl2": (2, 3, True, True)}
 
 
 @pytest.fixture
@@ -671,7 +735,8 @@ def chain_batches(monkeypatch):
     left over its drain count."""
     from repro_torch.core.engine import chain, channels, policy, step
     r = dict(place=0, land=0, bank=0, place_split=0, land_split=0,
-             coalesces=0, repeats=0, deferred=0, epochs=set(), pending=0)
+             coalesces=0, repeats=0, deferred=0, epochs=set(), pending=0,
+             pending_rows=set())
     place, land = chain._place, chain._pm_land
     drain = policy.drain_threshold_preset
 
@@ -715,9 +780,19 @@ def chain_batches(monkeypatch):
         return resolve(sc, t_issue)
     pending = chain.drain_pending
 
-    def _pending(*args):
-        out = pending(*args)
+    def _pending(sc, scheme, rows):
+        out = pending(sc, scheme, rows)
         r["pending"] += out
+        # the live rows a lowered threshold left over their drain count
+        slots = torch.arange(rows["dstate"].shape[1])
+        for j in range(rows["dstate"].shape[0]):
+            if float(j) + 2.0 <= float(sc["n_switches"]):
+                cnt = ((slots < sc["deep_pbe"][j].to(torch.int32))
+                       & (rows["dstate"][j] == 1)).double().sum()
+                k = cnt if scheme == 1 else torch.where(
+                    cnt >= sc["deep_thr"][j], cnt - sc["deep_pre"][j], 0.0)
+                if bool(k > 0.0):
+                    r["pending_rows"].add(j)
         return out
     monkeypatch.setattr(step, "resolve_epoch_sc", _resolve)
     monkeypatch.setattr(chain, "drain_pending", _pending)
@@ -736,7 +811,8 @@ def chain_batches(monkeypatch):
                                   "fabric_l8", "fabric_mixed",
                                   "fabric_crash", "epochs_d0",
                                   "epochs_fabric", "epochs_chain",
-                                  "epochs_mixed"])
+                                  "epochs_mixed", "epochs_deep",
+                                  "epochs_d2", "epochs_spl2"])
 def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
                                                    case):
     traces, configs, track = _cases()[case]
@@ -749,7 +825,8 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
         assert REACH[case](chain_batches), chain_batches
     got = cs._empty_out(len(pairs), kw["n_tenants_max"], max(track, 1),
                         kw["n_deep_max"], "cpu", kw["n_leaves_max"])
-    assert cs.launch(libs["cell_scan"], list(args), got,
+    lib = libs["cell_scan_ep" if args[11].shape[1] > 1 else "cell_scan"]
+    assert cs.launch(lib, list(args), got,
                      max_pbe=kw["max_pbe"], pm_banks=kw["pm_banks"],
                      n_track=track, n_deep=kw["n_deep_max"],
                      n_leaves=kw["n_leaves_max"], stream=None) == 0
@@ -769,6 +846,10 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
         assert int(((want.recov_l > 0).sum(1) >= 2).sum()) > 0
     if case.startswith("epochs"):
         assert args[11].shape[1] == (3 if case == "epochs_mixed" else 2)
+    if case in INSTANTIATION:
+        assert cs.instantiation(kw["max_pbe"], kw["n_deep_max"],
+                                kw["n_leaves_max"], args[11].shape[1]) \
+            == INSTANTIATION[case]
 
 
 @pytest.mark.parametrize("seed", range(4))
