@@ -125,15 +125,38 @@ without CUDA.
     of every instantiation; (e) 275 fuzzed crash cells of the epoch
     matrix (``tests/test_crash_differential.py``) on the card against
     the port's oracle; (g) every instantiation of
-    ``cell_scan_kernel<SPL, D, FAB, EP>`` (42: SPL 1, 2, 4 x D = 0 and D
-    = 1..3 x FAB both ways x EP both ways) launched through
-    ``simulate_grid`` on smoke-size grids that mix cells to select it
-    (the deepest row sets D, a multi-leaf fabric FAB, a ``Schedule`` EP,
-    the largest hop SPL; threshold steps over chains of 2-4 switches and
-    a scheduled fabric beside them), each asserted through the wrapper's
-    launch record and exact against the eager ``scan_cell``, with a
-    coverage line.  ``--sass-against OLD.cu`` (9f) diffs every
-    instantiation (the ``D = 0`` ones must be identical).
+    ``cell_scan_kernel<SPL, D, FAB, EP, MAC>`` (84: SPL 1, 2, 4 x D = 0
+    and D = 1..3 x FAB both ways x EP both ways x MAC both ways)
+    launched through ``simulate_grid`` on smoke-size grids that mix cells
+    to select it (the deepest row sets D, a multi-leaf fabric FAB, a
+    ``Schedule`` EP, the largest hop SPL, ``macro`` MAC; threshold steps
+    over chains of 2-4 switches and a scheduled fabric beside them), each
+    asserted through the wrapper's launch record and exact against the
+    eager ``scan_cell`` with macro-steps on (the MAC ones' counters too),
+    with a coverage line.  ``--sass-against OLD.cu`` (9f) diffs every
+    instantiation (the ``D = 0``, ``MAC = false`` ones must be
+    identical).
+
+11. (run after phase 10, before 5) macro-steps through the cell scan's
+    MAC instantiation, which ``simulate_grid``, ``simulate_cells`` and
+    ``simulate`` run by default (so phases 4 and 8-10 already ran it on
+    their grids, and held their outputs to the datums): (a) the paper
+    grid and (b) Fig. 1's sweep, fig_fabric, fig_dynamic and phase 3's
+    crash cells through the default once more, the launch record showing
+    a MAC instantiation and ``last_macro_hit_rate`` /
+    ``last_macro_abort_reasons`` equal to
+    ``src/repro_torch/testdata/macro_ref.json``'s sums; then each of
+    them, and the chained, fabric and scheduled paper grids, through the
+    kernel with macro-steps on and off: the same state outputs, every
+    cell's slots run as macro-steps and six abort counts equal to
+    macro_ref.json's (the JAX reference's, cell by cell), both timed in
+    turns (off, on, on, off) with the hit rate and the reasons; (c) the
+    MAC kernel against the eager ``scan_cell`` with macro-steps on (a
+    pool) on phase 3's budget-2000 grid and crash cells, counters
+    included.  Phase 3 itself runs the grid and crash cells with
+    macro-steps off, and the section profiles (phases 4, 8d, 9d, 10d)
+    run the profile build, SPL 1 and ``MAC = false`` only, against the
+    main path's state outputs.
 
 ``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
 comparison of the package's cell scan with each other ``cell_scan.cu``
@@ -143,7 +166,8 @@ package's) on the paper grid,
 Fig. 1's sweep, the chained paper grid, fig_fabric, the fabric paper
 grid, fig_dynamic, the scheduled paper grid and its cells static at D =
 1: outputs equal but for the lookup counts, kernel times in the order
-other, this, this, other, both section profiles of cholesky's cells in
+other, this, this, other (with macro-steps off, and on too against a
+source that has them), both section profiles of cholesky's cells in
 each grid that names them (and Fig. 1's PB/4 and PB_RF/4), and
 cholesky's depth-1 cells through the D = 0 and the D = 3 instantiation
 of each; it prints the card and one JSON line.
@@ -162,10 +186,43 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak (NVIDIA data sheet)
 SCHEME_KEYS = ("pb", "pb_rf")
+# the cell-scan outputs only its MAC instantiation counts
+MACRO_FIELDS = ("macro_ops", "macro_aborts")
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def stop_children() -> None:
+    """Leave no process behind.  The first pool of spawned processes
+    (:func:`eager_grids`) starts multiprocessing's resource tracker, a
+    child that would outlive the script until it reads the end of its
+    pipe: close the pipe and wait for it.  Then end, and name on stderr,
+    any other child still running."""
+    import signal
+    from multiprocessing import resource_tracker
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        if tracker._fd is not None and tracker._pid is not None:
+            os.close(tracker._fd)
+            tracker._fd = None
+            os.waitpid(tracker._pid, 0)
+            tracker._pid = None
+    me = os.getpid()
+    kids = set()
+    for task in os.listdir(f"/proc/{me}/task"):
+        with open(f"/proc/{me}/task/{task}/children") as f:
+            kids.update(int(k) for k in f.read().split())
+    for pid in sorted(kids):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            os.kill(pid, signal.SIGTERM)
+            os.waitpid(pid, 0)
+        except (FileNotFoundError, ProcessLookupError, ChildProcessError):
+            continue
+        print(f"chip_smoke: ended child {pid}: {cmd[:200]}", file=sys.stderr)
 
 
 SPIN_CYCLES = 10 ** 8               # ~50 ms of the card's clock
@@ -258,13 +315,15 @@ def torch_equal(a, b) -> bool:
 
 
 def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int,
-               D: int = 0, NL: int = 1, E: int = 1) -> float:
+               D: int = 0, NL: int = 1, E: int = 1,
+               macro: bool = False) -> float:
     """Bytes the cell scan must move: each trace op (op, addr, gap) and
     stream length read once, the config tables read once, every output
     written once (D: the grid's deep-hop rows; NL > 1: the grid's fabric
     leaves, whose table and per-leaf survivors the kernel moves too;
     E > 1: the grid's schedule epochs, whose bounds and rows past epoch
-    0 the kernel reads)."""
+    0 the kernel reads; macro: each op's run length read once and the
+    counters written)."""
     from repro_torch.core.engine.state import N_HOP_STATS, N_STATS
     from repro_torch.kernels.cell_scan import (CHAIN_KEYS, DEEP_KEYS,
                                                EPOCH_DEEP_KEYS,
@@ -283,6 +342,9 @@ def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int,
         n_ep = (len(EPOCH_SC_KEYS) + len(TENANT_KEYS) * T
                 + len(EPOCH_DEEP_KEYS) * max(D, 1) + T)
         inputs += 8 * n_cfg * (E - 1) * (n_ep + 1)
+    if macro:
+        inputs += sum(t.total_ops for t in traces)
+        outputs += n_cells * 8 * 7
     return float(inputs + outputs)
 
 
@@ -294,8 +356,10 @@ def phase_cell_scan(torch, smem_ns):
     traces = [make_trace(n, persist_budget=2000) for n in names]
     configs = [PCSConfig(scheme=s) for s in Scheme]
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
+    # macro-steps off: the slot-at-a-time instantiation and its plain
+    # version (phase 11 runs the MAC one on the same grid)
     args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
-                           [p[1] for p in pairs], device="cpu")
+                           [p[1] for p in pairs], macro=False, device="cpu")
     plain, plain_s, pool_s = eager_cells(torch, args, kw,
                                          list(range(len(pairs))))
     plain_ms = plain_s * 1e3
@@ -329,7 +393,7 @@ def phase_cell_scan(torch, smem_ns):
                 crash_cfgs.append(PCSConfig(scheme=s).with_crash(f * t_pb))
     cargs, ckw = cell_inputs(crash_traces, crash_cfgs,
                              [p[0] for p in cpairs], [p[1] for p in cpairs],
-                             track_addrs=64, device="cpu")
+                             track_addrs=64, macro=False, device="cpu")
     cplain = eager_cells(torch, cargs, ckw, list(range(len(cpairs))))[0]
     cgot = cs.cell_scan(*[a.cuda() for a in cargs], **ckw)
     torch.cuda.synchronize()
@@ -338,7 +402,9 @@ def phase_cell_scan(torch, smem_ns):
           f"(durable_ver, recovery_entries {cplain.n_recov.tolist()}, "
           f"recovery_ns)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
-                max_steps=max_steps, latency_bound_ms=latency_bound)
+                max_steps=max_steps, latency_bound_ms=latency_bound,
+                grid=(traces, configs, pairs, plain),
+                crash=(crash_traces, crash_cfgs, cpairs, cplain))
 
 
 def paper_grid():
@@ -387,10 +453,13 @@ def phase_main_path(torch, np, smem_ns, traces, configs, full):
     names = [t.name for t in traces]
 
     cs.launches = tl.launches = 0
+    cs.launches_by = {}
     t0 = time.time()
     cells = simulate_grid(traces, configs)          # default device: CUDA
     wall = time.time() - t0
     counts = dict(cell_scan=cs.launches, tat_lookup=tl.launches)
+    # the default runs the macro-steps: the MAC instantiation
+    mac_launches = sum(v for k, v in cs.launches_by.items() if k[4])
     # The match routine runs inside the cell-scan kernel, which counts
     # its calls on the device; read from the kernel's run on the main
     # path's inputs (phase 3), which the run above repeats exactly.
@@ -399,9 +468,9 @@ def phase_main_path(torch, np, smem_ns, traces, configs, full):
     print(f"phase 4 simulate_grid (paper grid, 21 cells) wall {wall:.3f} s; "
           f"launches {json.dumps(counts)}; tat_lookup match-routine calls "
           f"inside cell_scan {match_calls}")
-    if counts["cell_scan"] < 1 or match_calls < 1:
+    if counts["cell_scan"] < 1 or match_calls < 1 or mac_launches < 1:
         fail(f"main path did not run through the kernels: {counts}, "
-             f"{match_calls} match calls")
+             f"{match_calls} match calls, {cs.launches_by}")
 
     for i, n in enumerate(names):
         for j, s in enumerate(Scheme):
@@ -450,6 +519,7 @@ def phase_main_path(torch, np, smem_ns, traces, configs, full):
     bound = cell_bytes(traces, len(pairs), 1, 1, len(configs)) \
         / HBM_BYTES_PER_S * 1e3
     return dict(counts=counts, match_calls=match_calls,
+                mac_launches=mac_launches,
                 main_ms=main_ms, main_bound_ms=bound,
                 main_steps=main_steps, wall_s=wall,
                 main_latency_bound_ms=latency_bound)
@@ -460,17 +530,19 @@ PROF_SECTIONS = ("merge_keys", "merge_argmin", "merge_fetch", "read",
                  "drain_policy", "state_writes", "stats", "other_ops",
                  "bookkeeping", "chain_batch", "chain_read", "chain_fifo",
                  "chain_match", "chain_alloc", "chain_writer",
-                 "chain_drain_rank", "chain_land")
+                 "chain_drain_rank", "chain_land", "macro")
 OP_NAMES = ("compute", "dram_read", "dram_write", "pm_read", "persist",
             "barrier")
 
 
 def profile_cells(torch, args, kw, got, sel, labels, libs=None,
-                  abi="this"):
+                  abi="this", macro=False):
     """The section profile of a step on cells ``sel`` of the kernel's
     inputs ``args``: ``cell_scan.cu`` built with ``-DCELL_SCAN_PROFILE``
-    (``_build.VARIANTS``) beside the uninstrumented build, both exact
-    against ``got`` (the main path's outputs; the lookup counts too).
+    (``_build.VARIANTS``: SPL 1) beside the uninstrumented build, both
+    with macro-steps on or off by ``macro``, both exact against ``got``
+    (the main path's outputs; the lookup counts too; the macro counters
+    too with ``macro``).
     ``libs``: the (uninstrumented, profile) libraries, the package's by
     default (``abi``: their argument list, :func:`launch_abi`).  Returns
     ``{label:
@@ -501,7 +573,8 @@ def profile_cells(torch, args, kw, got, sel, labels, libs=None,
                                 pm_banks=kw["pm_banks"],
                                 n_track=kw["n_track"],
                                 n_deep=kw["n_deep_max"],
-                                n_leaves=kw["n_leaves_max"], stream=stream),
+                                n_leaves=kw["n_leaves_max"], stream=stream,
+                                macro=macro),
                      f"{name} launch")
         outs[name] = out
     prof_ms = cuda_ms(lambda: run("profile", prof_lib), 1)
@@ -509,6 +582,8 @@ def profile_cells(torch, args, kw, got, sel, labels, libs=None,
     want = cs.CellScanOut(*(x[sel_t] for x in got))
     for name, out in outs.items():
         for f in cs.CellScanOut._fields:
+            if f in MACRO_FIELDS and not macro:
+                continue
             if not torch_equal(getattr(out, f), getattr(want, f)):
                 fail(f"{name} build on {labels} differs from the main path "
                      f"on {f}")
@@ -622,17 +697,20 @@ def eager_grids(torch, grids):
     one pool; returns its result for each."""
     import concurrent.futures
     import multiprocessing
+    from repro_torch.core.params import MACRO_KMAX
     from repro_torch.kernels import cell_scan as cs
     tasks = []
     for g, (args, kw, sel) in enumerate(grids):
         host = [a.cpu() for a in args]
         for k in sel:
             tr, cf = int(host[4][k]), int(host[5][k])
-            L = max(int(host[3][tr].max()), 1)
+            # the longest stream and the macro-steps' window past it
+            L = max(int(host[3][tr].max()), 1) + MACRO_KMAX
             one = [x[tr:tr + 1, ..., :L] if i < 3 else x[tr:tr + 1]
                    for i, x in enumerate(host[:4])]
             one += [torch.zeros(1, dtype=torch.int32),
-                    torch.tensor([cf], dtype=torch.int32)] + host[6:]
+                    torch.tensor([cf], dtype=torch.int32)] + host[6:13]
+            one.append(host[13][tr:tr + 1, ..., :L])
             tasks.append(((g, k), one, kw))
     t0 = time.time()
     with concurrent.futures.ProcessPoolExecutor(
@@ -887,14 +965,16 @@ def chain_profile(torch, fig1, grid_b, libs=None, abi="this"):
 
 
 def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
-               n_leaves, stream) -> int:
-    """``cell_scan_launch`` of ``lib`` on a schedule-free grid, by the
-    argument list of the source it was built from: ``"this"`` the
-    package's (:func:`repro_torch.kernels.cell_scan.launch`),
-    ``"preepoch"`` from before the epoch schedules (no epoch table,
-    bounds or count), ``"prefabric"`` from before the fabric (nor a
-    fabric table, per-leaf survivors or leaf count; a grid without a
-    fabric)."""
+               n_leaves, stream, macro=False) -> int:
+    """``cell_scan_launch`` of ``lib`` by the argument list of the source
+    it was built from: ``"this"`` the package's
+    (:func:`repro_torch.kernels.cell_scan.launch`; ``macro`` runs its
+    macro-steps), ``"premacro"`` from before the macro-steps (no run
+    plan, counters or macro flag), ``"preepoch"`` from before the epoch
+    schedules (nor an epoch table, bounds or count; a schedule-free
+    grid), ``"prefabric"`` from before the fabric (nor a fabric table,
+    per-leaf survivors or leaf count; a grid without a fabric).  The
+    older ones leave the macro counters at 0."""
     import ctypes
     from repro_torch.core.engine.state import LAT_BIN_EDGES
     from repro_torch.kernels import cell_scan as cs
@@ -902,7 +982,9 @@ def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
     if abi == "this":
         return cs.launch(lib, ins, out, max_pbe=max_pbe, pm_banks=pm_banks,
                          n_track=n_track, n_deep=n_deep, n_leaves=n_leaves,
-                         stream=stream)
+                         stream=stream, macro=macro)
+    if macro:
+        fail(f"launch_abi: a {abi} source has no macro-steps")
     _, C, L = ins[0].shape
     N, T, A = out.recov_t.shape[0], out.recov_t.shape[1], \
         out.durable_ver.shape[1]
@@ -913,9 +995,14 @@ def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
                             out.recov_t, out.steps, out.lookups, aver,
                             ins[9], out.recov_h]
     ints = [N, C, L, max_pbe, pm_banks, A, T, n_track, n_deep]
-    if abi == "preepoch":
+    if abi in ("preepoch", "premacro"):
         ptrs += [ins[10], out.recov_l]
         ints.append(n_leaves)
+    if abi == "premacro":
+        ptrs += [ins[11], ins[12]]
+        ints.append(ins[11].shape[1])
+    out.macro_ops.zero_()
+    out.macro_aborts.zero_()
     fn = lib.cell_scan_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] \
@@ -1005,7 +1092,8 @@ def against_grids(np):
 
 def compare_against(torch, np, paths) -> dict:
     """``chip_smoke.py --against OLD.cu [...]``: the package's cell scan
-    beside each other source on the paper grid (D = 0), Fig. 1's sweep,
+    beside each other source (macro-steps off; on too where the other
+    source has them) on the paper grid (D = 0), Fig. 1's sweep,
     the chained paper grid, fig_fabric, the fabric paper grid,
     fig_dynamic, the scheduled paper grid and its cells static at D = 1
     — outputs equal (all but the lookup counts), kernel times in the
@@ -1020,7 +1108,8 @@ def compare_against(torch, np, paths) -> dict:
     for path in paths:
         with open(path) as f:
             src = f.read()
-        abis.append("this" if "ep_table" in src else
+        abis.append("this" if "macro_aborts" in src else
+                    "premacro" if "ep_table" in src else
                     "preepoch" if "recov_l" in src else "prefabric")
     t0 = time.time()
     this = (_build.library("cell_scan"), _build.library("cell_scan_profile"))
@@ -1034,13 +1123,14 @@ def compare_against(torch, np, paths) -> dict:
         n = len(cells)
         outs_by[grid] = outs = {}
 
-        def run(which, lib, abi):
+        def run(which, lib, abi, mac=False):
             out = cs._empty_out(n, k["n_tenants_max"], max(k["n_track"], 1),
                                 k["n_deep_max"], "cuda", k["n_leaves_max"])
             rc = launch_abi(abi, lib, ins, out, max_pbe=k["max_pbe"],
                             pm_banks=k["pm_banks"], n_track=k["n_track"],
                             n_deep=k["n_deep_max"],
-                            n_leaves=k["n_leaves_max"], stream=stream)
+                            n_leaves=k["n_leaves_max"], stream=stream,
+                            macro=mac)
             _build.check(rc, f"{which} launch")
             outs[which] = out
         run("this", this[0], "this")
@@ -1048,33 +1138,39 @@ def compare_against(torch, np, paths) -> dict:
         steps = int(outs["this"].steps.max())
         reps = 3 if steps < 100_000 else 1
         for path, lib, abi in zip(paths, others, abis):
-            if abi != "this" and a[11].shape[1] > 1:
+            if abi in ("preepoch", "prefabric") and a[11].shape[1] > 1:
                 continue                  # that source has no EP
-            ms = {"other": [], "this": []}
-            for which in ("other", "this", "this", "other"):
-                ms[which].append(cuda_ms(lambda: run(
-                    path if which == "other" else "this",
-                    (lib if which == "other" else this)[0],
-                    abi if which == "other" else "this"), reps))
-            for f in cs.CellScanOut._fields:
-                if f != "lookups" and not torch_equal(
-                        getattr(outs[path], f), getattr(outs["this"], f)):
-                    fail(f"{grid}: {path} and the package's cell scan "
-                         f"differ on {f}")
-            res[f"{grid} {path}"] = dict(
-                ms=ms, steps=steps, cells=n,
-                ns_per_step={w: [t * 1e6 / steps for t in v]
-                             for w, v in ms.items()},
-                lookups={w: int(outs[w].lookups.sum())
-                         for w in ("this", path)})
-            print(f"against {grid} ({n} cells, D = {k['n_deep_max']}, NL = "
-                  f"{k['n_leaves_max']}, E = {a[11].shape[1]}) {path}: "
-                  f"outputs equal; kernel ms other {ms['other']}, this "
-                  f"{ms['this']} (order other, this, this, other); longest "
-                  f"cell {steps} steps; lookups "
-                  f"{res[f'{grid} {path}']['lookups']}")
+            # macro-steps off, and on where the other source has them
+            for mac in (False, True) if abi == "this" else (False,):
+                ms = {"other": [], "this": []}
+                for which in ("other", "this", "this", "other"):
+                    ms[which].append(cuda_ms(lambda: run(
+                        path if which == "other" else "this",
+                        (lib if which == "other" else this)[0],
+                        abi if which == "other" else "this", mac), reps))
+                for f in cs.CellScanOut._fields:
+                    if f != "lookups" and not torch_equal(
+                            getattr(outs[path], f), getattr(outs["this"], f)):
+                        fail(f"{grid}: {path} and the package's cell scan "
+                             f"differ on {f} (macro {mac})")
+                key = f"{grid} {path}" + (" macro" if mac else "")
+                res[key] = dict(
+                    ms=ms, steps=steps, cells=n, macro=mac,
+                    ns_per_step={w: [t * 1e6 / steps for t in v]
+                                 for w, v in ms.items()},
+                    lookups={w: int(outs[w].lookups.sum())
+                             for w in ("this", path)})
+                print(f"against {grid} ({n} cells, D = {k['n_deep_max']}, NL "
+                      f"= {k['n_leaves_max']}, E = {a[11].shape[1]}, MAC = "
+                      f"{str(mac).lower()}) {path}: outputs equal; kernel ms "
+                      f"other {ms['other']}, this {ms['this']} (order other, "
+                      f"this, this, other); longest cell {steps} steps; "
+                      f"lookups {res[key]['lookups']}")
+            run("this", this[0], "this")
     for which, libs, abi in [("this", this, "this")] + list(
             zip(paths, others, abis)):
+        if abi != "this":
+            continue              # its section list is not this one's
         for grid, (a, k, cells, sel) in grids.items():
             if not sel or which not in outs_by[grid]:
                 continue
@@ -1403,11 +1499,12 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
     out["oracle_cells"] = n_cells
     out["max_abs_err"] = err
 
-    # (f) every EP = false instantiation against an earlier source
+    # (f) every instantiation against an earlier source (the D = 0,
+    # MAC = false ones must be identical)
     if sass_against:
         from repro_torch.kernels import sass_diff
         if sass_diff.main(sass_against) != 0:
-            fail(f"EP = false SASS differs from {sass_against}")
+            fail(f"D = 0, MAC = false SASS differs from {sass_against}")
         out["sass_identical"] = True
     return out
 
@@ -1771,7 +1868,7 @@ COVER_BUDGET = 150
 
 
 def coverage_configs(target):
-    """Phase 10g's configs for ``target = (SPL, D, FAB, EP)``: PB_RF
+    """Phase 10g's configs for ``target = (SPL, D, FAB, EP[, MAC])``: PB_RF
     (drain threshold 0.8 and 0.5, preset 0.25) and PB over a chain of D +
     1 switches whose largest hop holds ``COVER_PBE[SPL]`` PBEs (hop 1 at
     D = 0, else deep row 0 beside a 16-PBE hop 1 and 8-PBE deeper rows),
@@ -1783,7 +1880,7 @@ def coverage_configs(target):
     from repro_torch.core import (DrainPolicy, FabricTopology, PBPolicy,
                                   PCSConfig, Schedule, Scheme,
                                   leaf_placement)
-    spl, d, fab, ep = target
+    spl, d, fab, ep = target[:4]
     big = COVER_PBE[spl]
 
     def pol(v):
@@ -1812,49 +1909,314 @@ def coverage_configs(target):
 
 def phase_coverage(torch):
     """Phase 10g: every instantiation of ``cell_scan_kernel<SPL, D, FAB,
-    EP>`` (``cell_scan.INSTANTIATIONS``) launched once through
+    EP, MAC>`` (``cell_scan.INSTANTIATIONS``) launched once through
     ``simulate_grid`` on smoke-size traces (radiosity and raytrace at
-    ``persist_budget`` COVER_BUDGET) x :func:`coverage_configs`, the
-    instantiation read from the wrapper's launch record, and every output
-    exact against the eager ``scan_cell`` (one pool for every grid)."""
+    ``persist_budget`` COVER_BUDGET) x :func:`coverage_configs`, with
+    macro-steps on and off, the instantiation read from the wrapper's
+    launch record, and every output exact against the eager ``scan_cell``
+    with macro-steps on (one pool for every grid): the ``MAC`` kernel's
+    counters included, the other's state outputs, which macro-steps leave
+    as they are, beside counters of 0."""
     from repro_torch.core import make_trace, simulate_grid
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
     traces = [make_trace(n, persist_budget=COVER_BUDGET)
               for n in ("radiosity", "raytrace")]
     t0 = time.time()
-    grids, ran = [], {}
-    for target in cs.INSTANTIATIONS:
+    grids, ran, gots = [], {}, []
+    targets = sorted({t[:4] for t in cs.INSTANTIATIONS})
+    for target in targets:
         configs = coverage_configs(target)
-        cs.launches_by = {}
-        simulate_grid(traces, configs)            # default device: CUDA
-        ran[target] = dict(cs.launches_by)
-        if ran[target] != {target: 1}:
-            fail(f"phase 10g: the grid for {target} launched {ran[target]}")
         pairs = [(i, j) for i in range(len(traces))
                  for j in range(len(configs))]
-        args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
-                               [p[1] for p in pairs], device="cuda")
+        for mac in (False, True):
+            cs.launches_by = {}
+            simulate_grid(traces, configs, macro=mac)   # default: CUDA
+            ran[target + (mac,)] = dict(cs.launches_by)
+            if ran[target + (mac,)] != {target + (mac,): 1}:
+                fail(f"phase 10g: the grid for {target + (mac,)} launched "
+                     f"{ran[target + (mac,)]}")
+            args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
+                                   [p[1] for p in pairs], macro=mac,
+                                   device="cuda")
+            gots.append(cs.cell_scan(*args, **kw))
         grids.append((args, kw, list(range(len(pairs)))))
-    gots = [cs.cell_scan(*args, **kw) for args, kw, _ in grids]
     torch.cuda.synchronize()
     plains = eager_grids(torch, grids)
     n_cells = 0
-    for target, got, (plain, _, _) in zip(cs.INSTANTIATIONS, gots, plains):
-        compare_outputs(plain, got, f"phase 10g {target}")
-        n_cells += int(got.steps.shape[0])
+    for k, (target, (plain, _, _)) in enumerate(zip(targets, plains)):
+        off, on = gots[2 * k], gots[2 * k + 1]
+        compare_outputs(plain, on, f"phase 10g {target + (True,)}")
+        zero = plain._replace(macro_ops=torch.zeros_like(plain.macro_ops),
+                              macro_aborts=torch.zeros_like(
+                                  plain.macro_aborts))
+        compare_outputs(zero, off, f"phase 10g {target + (False,)}")
+        n_cells += 2 * int(on.steps.shape[0])
     done = sorted(set().union(*ran.values()))
     print(f"phase 10g instantiations launched: "
-          + ", ".join(f"<{s}, {d}, {str(f).lower()}, {str(e).lower()}>"
-                      for s, d, f, e in done))
+          + ", ".join("<" + ", ".join(str(x).lower() for x in t) + ">"
+                      for t in done))
     print(f"phase 10g coverage: {len(done)} of {len(cs.INSTANTIATIONS)} "
           f"cell_scan_kernel instantiations launched, each exact against "
-          f"the eager scan_cell ({n_cells} cells, {plains[0][2]:.1f} s wall "
-          f"over a pool; {time.time() - t0:.1f} s in all)")
+          f"the eager scan_cell ({n_cells} cells; the macro counters of "
+          f"the {len(targets)} MAC ones too; {plains[0][2]:.1f} s wall over "
+          f"a pool; {time.time() - t0:.1f} s in all)")
     if len(done) != len(cs.INSTANTIATIONS):
         fail(f"phase 10g: {len(done)} of {len(cs.INSTANTIATIONS)} "
              f"instantiations ran")
     return dict(launched=len(done), of=len(cs.INSTANTIATIONS), cells=n_cells)
+
+
+# ---- phase 11: macro-steps -------------------------------------------------
+def macro_datum():
+    """``testdata/macro_ref.json``'s grids: the JAX reference's macro
+    counters, cell by cell."""
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "macro_ref.json")) as f:
+        return json.load(f)["grids"]
+
+
+def macro_turns(torch, smem_ns, what, traces, configs, pairs=None,
+                want=None):
+    """The kernel over the cells of ``traces`` x ``configs`` (``pairs``:
+    the (trace, config) cells simulate_cells stacks instead) with
+    macro-steps on and off: the same state outputs, counters of 0 off,
+    each cell's counters on equal to ``want[k]`` (a macro_ref.json cell,
+    in cell order) where given; both timed in turns (off, on, on, off).
+    Returns the numbers and the MAC run's outputs and inputs."""
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.core.engine.macro import MACRO_ABORT_REASONS
+    from repro_torch.kernels import cell_scan as cs
+    pairs = pairs or [(i, j) for i in range(len(traces))
+                      for j in range(len(configs))]
+    args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
+                           [p[1] for p in pairs], device="cuda")
+    kws = {"on": kw, "off": dict(kw, macro=False)}
+    on = cs.cell_scan(*args, **kws["on"])
+    off = cs.cell_scan(*args, **kws["off"])
+    torch.cuda.synchronize()
+    for f in cs.CellScanOut._fields:
+        if f not in MACRO_FIELDS and not torch_equal(getattr(on, f).cpu(),
+                                                     getattr(off, f).cpu()):
+            fail(f"phase 11 {what}: macro-steps on and off differ on {f}")
+    if int(off.macro_ops.abs().sum()) or int(off.macro_aborts.abs().sum()):
+        fail(f"phase 11 {what}: counters with macro-steps off")
+    ops, aborts = on.macro_ops.tolist(), on.macro_aborts.tolist()
+    slots = [traces[i].total_ops for i, _ in pairs]
+    if want is not None:
+        for k, d in enumerate(want):
+            if (ops[k], aborts[k], slots[k]) != (
+                    d["macro_ops"], d["abort_reasons"], d["total_ops"]):
+                fail(f"phase 11 {what}: cell {k} counted {ops[k]} "
+                     f"{aborts[k]} of {slots[k]} slots, macro_ref.json "
+                     f"{d['macro_ops']} {d['abort_reasons']} of "
+                     f"{d['total_ops']}")
+    steps = int(on.steps.max())
+    reps = 3 if steps < 100_000 else 1
+    ms = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        ms[which].append(cuda_ms(lambda: cs.cell_scan(*args, **kws[which]),
+                                 reps))
+    mean = {w: sum(v) / len(v) for w, v in ms.items()}
+    reasons = dict(zip(MACRO_ABORT_REASONS,
+                       [int(x) for x in on.macro_aborts.sum(0).tolist()]))
+    hit = sum(ops) / sum(slots)
+    print(f"phase 11 {what} ({len(pairs)} cells, D = {kw['n_deep_max']}, "
+          f"NL = {kw['n_leaves_max']}, E = {args[11].shape[1]}): MAC = true "
+          f"{ms['on']} ms, MAC = false {ms['off']} ms (order false, true, "
+          f"true, false); {mean['on'] * 1e6 / steps:.1f} vs "
+          f"{mean['off'] * 1e6 / steps:.1f} ns per trace slot of the "
+          f"longest cell ({steps} slots); hit rate {hit:.6f} "
+          f"({sum(ops)} of {sum(slots)} slots); aborts {json.dumps(reasons)}"
+          + ("; counters exact against macro_ref.json on every cell"
+             if want is not None else ""))
+    return dict(ms=ms, ms_on=mean["on"], ms_off=mean["off"], steps=steps,
+                ns_per_slot_on=mean["on"] * 1e6 / steps,
+                ns_per_slot_off=mean["off"] * 1e6 / steps,
+                latency_bound_ms=steps * smem_ns / 1e6, hit_rate=hit,
+                macro_ops=sum(ops), slots=sum(slots), aborts=reasons,
+                cells=len(pairs), exact_cells=len(want or ())), \
+        (args, kw, on)
+
+
+def telemetry_check(what, want):
+    """The latest simulate_* call's ``last_macro_hit_rate`` and
+    ``last_macro_abort_reasons`` equal to the sums of ``want`` (the
+    datum's cells of that call)."""
+    from repro_torch.core import (last_macro_abort_reasons,
+                                  last_macro_hit_rate)
+    ops = sum(d["macro_ops"] for d in want)
+    slots = sum(d["total_ops"] for d in want)
+    reasons = [sum(d["abort_reasons"][r] for d in want) for r in range(6)]
+    got = last_macro_abort_reasons()
+    if last_macro_hit_rate() != ops / slots or list(got.values()) != reasons:
+        fail(f"phase 11 {what}: telemetry {last_macro_hit_rate()} "
+             f"{got}, macro_ref.json {ops / slots} {reasons}")
+
+
+def phase_macro(torch, np, smem_ns, paper_traces, paper_configs, scan):
+    """Phase 11: macro-steps through the cell scan's MAC instantiation.
+    (a) the paper grid and (b) Fig. 1's sweep, fig_fabric, fig_dynamic
+    (each at its published size) and the budget-2000 crash cells through
+    ``simulate_grid``'s default (launch counts zeroed just before and
+    read just after; the telemetry equal to ``testdata/macro_ref.json``'s
+    sums), then through the kernel with macro-steps on and off: the same
+    state outputs, every cell's counters exact against macro_ref.json,
+    both timed in turns; the chained, fabric and scheduled paper grids
+    the same; (c) the MAC kernel against the eager ``scan_cell`` with
+    macro-steps on (a pool of host processes) on phase 3's budget-2000
+    grid and crash cells; (d) the section profile of cholesky's paper
+    cells with macro-steps on and off."""
+    from repro_torch.core import simulate_cells, simulate_grid
+    from repro_torch.core.engine.grid import cell_inputs
+    from repro_torch.kernels import cell_scan as cs
+    from repro_torch.kernels import tat_lookup as tl
+    datum = macro_datum()
+    names = [t.name for t in paper_traces]
+    out = {}
+
+    def through_default(what, run, want):
+        cs.launches = tl.launches = 0
+        cs.launches_by = {}
+        t0 = time.time()
+        run()
+        wall = time.time() - t0
+        macs = {k: v for k, v in cs.launches_by.items() if k[4]}
+        if cs.launches < 1 or not macs:
+            fail(f"phase 11 {what} did not run through the MAC kernel: "
+                 f"{cs.launches_by}")
+        telemetry_check(what, want)
+        return dict(wall_s=wall, counts=dict(cell_scan=cs.launches,
+                                             tat_lookup=tl.launches),
+                    instantiations={",".join(map(str, k)): v
+                                    for k, v in macs.items()})
+
+    # (a) the paper grid
+    want = [datum["paper"][n][c.scheme.name] for n in names
+            for c in paper_configs]
+    d = through_default("paper grid", lambda: simulate_grid(
+        paper_traces, paper_configs), want)
+    num, paper_run = macro_turns(torch, smem_ns, "paper grid", paper_traces,
+                                 paper_configs, want=want)
+    out["paper_grid"] = dict(num, **d)
+
+    # (b) Fig. 1, fig_fabric, fig_dynamic, the crash cells
+    tr, labels, configs = fig1_grid(np)
+    want = [datum["fig1"]["{}/{}{}".format(s, n, "/crash" if c else "")]
+            for s, n, c in labels]
+    d = through_default("Fig. 1 sweep", lambda: simulate_grid([tr], configs),
+                        want)
+    num, _ = macro_turns(torch, smem_ns, "Fig. 1 sweep", [tr], configs,
+                         want=want)
+    out["fig1"] = dict(num, **d)
+    tr, labels, configs = fig_fabric_grid(np, FAB_OPS)
+    want = [datum["fig_fabric"][lab] for lab in labels]
+    d = through_default("fig_fabric", lambda: simulate_grid([tr], configs),
+                        want)
+    num, _ = macro_turns(torch, smem_ns, "fig_fabric", [tr], configs,
+                         want=want)
+    out["fig_fabric"] = dict(num, **d)
+    dtraces, dlabels, dconfigs, bound, _ = dynamic_grid(np, DYN_BUDGET,
+                                                        DYN_RATES)
+    if bound != float(datum["fig_dynamic"]["bound_ns"]):
+        fail("fig_dynamic's boundary differs from macro_ref.json's")
+    want = [datum["fig_dynamic"]["cells"][f"{r:g}"][lab] for r in DYN_RATES
+            for lab in dlabels]
+    d = through_default("fig_dynamic", lambda: simulate_grid(dtraces,
+                                                             dconfigs), want)
+    num, _ = macro_turns(torch, smem_ns, "fig_dynamic", dtraces, dconfigs,
+                         want=want)
+    out["fig_dynamic"] = dict(num, **d)
+    ctraces, ccfgs, cpairs, cplain = scan["crash"]
+    want = [datum["crash2000"][ctraces[i].name][ccfgs[j].scheme.name][
+        f"{f:g}"] for (i, j), f in zip(cpairs, [0.25, 0.5, 0.75] * 4)]
+    d = through_default("crash cells", lambda: simulate_cells(
+        [ctraces[i] for i, _ in cpairs], ccfgs, track_addrs=64), want)
+    num, _ = macro_turns(torch, smem_ns, "crash cells", ctraces, ccfgs,
+                         cpairs, want=want)
+    out["crash_cells"] = dict(num, **d)
+
+    # the chained, fabric and scheduled paper grids
+    _, blabels, bconfigs = chain_grid_b(paper_traces)
+    want = [datum["chain"][n][f"{s}/{k}"] for n in names
+            for s, k in blabels] if "chain" in datum else None
+    num, _ = macro_turns(torch, smem_ns, "chained paper grid", paper_traces,
+                         bconfigs, want=want)
+    out["chained_grid"] = num
+    flabels, fconfigs = fabric_grid_b()
+    want = [datum["fabric_b"][n][lab] for n in names for lab in flabels] \
+        if "fabric_b" in datum else None
+    num, _ = macro_turns(torch, smem_ns, "fabric paper grid", paper_traces,
+                         fconfigs, want=want)
+    out["fabric_grid"] = num
+    bounds = paper_bounds()
+    scfg, spairs, want = [], [], []
+    for i, n in enumerate(names):
+        lab, cfgs = schedule_configs(bounds[n])
+        spairs += [(i, len(scfg) + k) for k in range(len(cfgs))]
+        scfg += cfgs
+        want += [datum["sched_b"][n][x] for x in lab] \
+            if "sched_b" in datum else []
+    num, _ = macro_turns(torch, smem_ns, "scheduled paper grid",
+                         paper_traces, scfg, spairs, want=want or None)
+    out["scheduled_grid"] = num
+
+    # (d) the section profile of cholesky's paper cells, MAC on and off
+    args, kw, got = paper_run
+    sel = [k for k in range(got.steps.shape[0])
+           if names[k // len(paper_configs)] == "cholesky"]
+    prof = {}
+    for mac in (True, False):
+        labels = [paper_configs[k % len(paper_configs)].scheme.name
+                  for k in sel]
+        p = profile_cells(torch, args, dict(kw, macro=mac), got, sel,
+                          [f"cholesky/{lab} (MAC {str(mac).lower()})"
+                           for lab in labels], macro=mac)
+        print_profile("11d", f"cholesky's 3 paper cells, MAC = "
+                      f"{str(mac).lower()}", p)
+        prof[mac] = {c: v["ns_per_step"] for c, v in p["cells"].items()}
+    out["cholesky_sections"] = prof
+
+    # (c) the MAC kernel against its eager twin (macro-steps on) on phase
+    # 3's grid and crash cells
+    gtraces, gconfigs, gpairs, _ = scan["grid"]
+    grids = []
+    for trs, cfgs, prs, track in ((gtraces, gconfigs, gpairs, 0),
+                                  (ctraces, ccfgs, cpairs, 64)):
+        args, kw = cell_inputs(trs, cfgs, [p[0] for p in prs],
+                               [p[1] for p in prs], track_addrs=track,
+                               device="cpu")
+        grids.append((args, kw, list(range(len(prs)))))
+    (gplain, gplain_s, pool_s), (cplain_m, _, _) = eager_grids(torch, grids)
+    gargs = [a.cuda() for a in grids[0][0]]
+    ggot = cs.cell_scan(*gargs, **grids[0][1])
+    cgot = cs.cell_scan(*[a.cuda() for a in grids[1][0]], **grids[1][1])
+    torch.cuda.synchronize()
+    err = max(compare_outputs(gplain, ggot, "phase 11 budget-2000 grid"),
+              compare_outputs(cplain_m, cgot, "phase 11 crash cells"))
+    for f in cs.CellScanOut._fields:
+        if f not in MACRO_FIELDS + ("lookups",) and not torch_equal(
+                getattr(cplain, f), getattr(cplain_m, f)):
+            fail(f"phase 11 crash cells: the eager scan_cell with "
+                 f"macro-steps on and off differ on {f}")
+    ms = cuda_ms(lambda: cs.cell_scan(*gargs, **grids[0][1]), 3)
+    steps = int(gplain.steps.max())
+    bound = cell_bytes(gtraces, len(gpairs), 1, 1, len(gconfigs),
+                       macro=True) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 11 cell_scan MAC = true on the budget-2000 grid "
+          f"({len(gpairs)} cells) and the {len(cpairs)} crash cells: exact "
+          f"against the eager scan_cell with macro-steps on, counters "
+          f"included ({gplain_s:.1f} s of the grid's cells, {pool_s:.1f} s "
+          f"wall over a pool); kernel {ms:.3f} ms, longest cell {steps} "
+          f"slots; hit rate "
+          f"{int(gplain.macro_ops.sum()) / sum(t.total_ops for t in gtraces) / len(gconfigs):.6f}")
+    out["plain"] = dict(ms=ms, plain_ms=gplain_s * 1e3, bound_ms=bound,
+                        max_abs_err=err, steps=steps,
+                        latency_bound_ms=steps * smem_ns / 1e6,
+                        macro_ops=int(gplain.macro_ops.sum()),
+                        aborts=[int(x) for x in
+                                gplain.macro_aborts.sum(0).tolist()])
+    return out
 
 
 # ---- the model side: flash_attention, ssd_scan, serving ----------------
@@ -2575,6 +2937,7 @@ def main() -> int:
     fab = phase_fabric(torch, np, smem_ns, traces, sass_against)
     epochs = phase_epochs(torch, np, smem_ns, traces)
     epochs["coverage"] = phase_coverage(torch)
+    macro = phase_macro(torch, np, smem_ns, traces, configs, scan)
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
@@ -2735,6 +3098,38 @@ def main() -> int:
              equal_epochs_vs_static=epochs["cost"],
              instantiation_coverage=epochs["coverage"],
              oracle_cells=epochs["oracle_cells"]),
+        dict(name="cell_scan_macro", route="cuda",
+             source="src/repro_torch/kernels/csrc/cell_scan.cu",
+             replaces="src/repro/core/engine/macro.py:68",
+             entry="cell_scan_launch with macro = 1 (the MAC "
+                   "instantiation: engine/macro.py's dead-run collapse "
+                   "and each live head's commit or abort, counted)",
+             launches=main_path["mac_launches"],
+             main_path="phase 4: simulate_grid over the paper grid (its "
+                       "default, macro=True); phase 11 launched it again "
+                       "over every grid, each beside MAC = false in turns",
+             max_abs_err=macro["plain"]["max_abs_err"],
+             ms=macro["plain"]["ms"], plain_ms=macro["plain"]["plain_ms"],
+             plain_note="the eager scan_cell with macro-steps on, seconds "
+                        "summed over the 21 cells (run on the host, a "
+                        "pool of processes)",
+             bound_ms=macro["plain"]["bound_ms"], bound_by="bytes",
+             library_ms=None,
+             shape="7 workloads x 3 schemes at persist_budget=2000",
+             latency_bound_ms=macro["plain"]["latency_bound_ms"],
+             main_path_ms=macro["paper_grid"]["ms_on"],
+             main_path_ms_mac_false=macro["paper_grid"]["ms_off"],
+             main_path_hit_rate=macro["paper_grid"]["hit_rate"],
+             main_path_aborts=macro["paper_grid"]["aborts"],
+             grids={k: {f: v[f] for f in ("ms_on", "ms_off",
+                                          "ns_per_slot_on",
+                                          "ns_per_slot_off", "steps",
+                                          "hit_rate", "macro_ops", "slots",
+                                          "aborts", "cells", "exact_cells",
+                                          "latency_bound_ms")}
+                    for k, v in macro.items()
+                    if k not in ("plain", "cholesky_sections")},
+             cholesky_section_ns_per_step=macro["cholesky_sections"]),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
@@ -2865,4 +3260,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

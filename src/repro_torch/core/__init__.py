@@ -1,6 +1,8 @@
 """PCS core, torch port: parameters, traces, the untimed oracle
 (``semantics``) and the timed engine."""
-from repro_torch.core.engine import (SimResult, simulate,  # noqa: F401
+from repro_torch.core.engine import (SimResult,  # noqa: F401
+                                     last_macro_abort_reasons,
+                                     last_macro_hit_rate, simulate,
                                      simulate_cells, simulate_grid,
                                      simulate_sweep)
 from repro_torch.core.params import (AllocPolicy, DrainPolicy,  # noqa: F401
@@ -24,7 +26,8 @@ __all__ = [
     "Op", "PBEState", "PBPolicy", "PCSConfig", "Schedule", "Scheme",
     "Event", "EventKind", "PersistentBuffer", "PersistentMemory",
     "SimResult", "simulate", "simulate_cells", "simulate_grid",
-    "simulate_sweep", "config_from_fields",
+    "simulate_sweep", "last_macro_abort_reasons", "last_macro_hit_rate",
+    "config_from_fields",
     "BurstyArrivals", "DiurnalArrivals", "PoissonArrivals",
     "Trace", "WORKLOADS", "apply_arrivals", "compose_tenants",
     "fuzz_crash_ns", "fuzz_trace", "leaf_placement",

@@ -8,16 +8,22 @@ per-config tables with the scheme id beside them, and the kernel runs
 one cell per block.  Mixed schemes in one grid are first-class.  On the
 CPU the same wrapper runs the eager ``scan_cell`` cell by cell.
 
+The stacker also runs the macro-run pre-pass (``core.traces.plan_runs``)
+and pads the op axis by ``MACRO_KMAX`` slots so a macro-step's window
+never reads past a stream; ``macro=True`` (the default, as in the
+reference) runs the macro-steps, ``macro=False`` the slot-at-a-time
+path alone — the results are identical, and the latest call's
+macro telemetry is :func:`last_macro_hit_rate` and
+:func:`last_macro_abort_reasons` (on CUDA the kernel's own counters).
+
 ``simulate_cells`` is the flat variant (one result per (trace, config)
 pair); ``simulate`` and ``simulate_sweep`` are thin wrappers over the
 same path.
 
-Scope of the port so far: switch chains (up to the kernel's
-``MAX_DEEP + 1`` switches), fan-out fabrics (up to the kernel's
-``MAX_LEAVES`` leaves) and epoch schedules (``Schedule`` knobs, a
-fabric placement included; up to the kernel's ``MAX_EPOCHS``
-epochs), but no macro-stepping: ``macro=True`` raises
-``NotImplementedError``.
+Scope: switch chains (up to the kernel's ``MAX_DEEP + 1`` switches),
+fan-out fabrics (up to the kernel's ``MAX_LEAVES`` leaves) and epoch
+schedules (``Schedule`` knobs, a fabric placement included; up to the
+kernel's ``MAX_EPOCHS`` epochs).
 Entry points run on CUDA unless the caller passes ``device="cpu"``, and
 raise where there is no CUDA.
 """
@@ -28,28 +34,48 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.engine.macro import MACRO_ABORT_REASONS
 from repro_torch.core.engine.state import (SimResult, result_from_stats,
                                            scalars_from_config)
-from repro_torch.core.params import PCSConfig
-from repro_torch.core.traces import Trace
+from repro_torch.core.params import MACRO_KMAX, PCSConfig
+from repro_torch.core.traces import Trace, plan_runs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cell_scan as cs
 
 _BUCKET = 16384
 
+# telemetry of the most recent grid/cells call: macro-executed trace
+# slots vs total trace slots, plus the per-reason counts of live macro
+# windows that failed to commit (MACRO_ABORT_REASONS order, summed over
+# all cells)
+_LAST_MACRO = {"macro_ops": 0, "total_ops": 0,
+               "abort_reasons": [0] * len(MACRO_ABORT_REASONS)}
 
-def check_scope(macro: bool) -> None:
-    """Reject what this slice of the port does not run (yet)."""
-    if macro:
-        raise NotImplementedError(
-            "macro-stepping is not ported; run with macro=False (results "
-            "are identical)")
+
+def last_macro_hit_rate() -> float:
+    """Fraction of trace slots the latest simulate_* call ran via
+    macro-steps (0.0 when macro was disabled or nothing ran)."""
+    total = _LAST_MACRO["total_ops"]
+    return (_LAST_MACRO["macro_ops"] / total) if total else 0.0
+
+
+def last_macro_abort_reasons() -> dict:
+    """Per-reason counts of live macro candidates the latest simulate_*
+    call failed to commit, keyed by ``MACRO_ABORT_REASONS`` name (all
+    zero when macro was disabled or nothing ran)."""
+    return dict(zip(MACRO_ABORT_REASONS, _LAST_MACRO["abort_reasons"]))
 
 
 def _stack_traces(traces: Sequence[Trace]):
-    """Pad traces into one shared (C, L) block and stack them."""
+    """Pad traces into one shared (C, L) block and stack them, with the
+    macro-run plan beside them.
+
+    The op axis carries ``MACRO_KMAX`` slots past the longest stream
+    (zeros, as the reference's padding), so a macro-step's window never
+    reads past the block.
+    """
     C = max(t.ops.shape[0] for t in traces)
-    L = max(max(t.ops.shape[1] for t in traces), 1)
+    L = max(t.ops.shape[1] for t in traces) + MACRO_KMAX
     K = len(traces)
     ops = np.zeros((K, C, L), np.int32)
     addrs = np.zeros((K, C, L), np.int32)
@@ -61,13 +87,16 @@ def _stack_traces(traces: Sequence[Trace]):
         addrs[k, :c, :l] = t.addrs
         gaps[k, :c, :l] = t.gaps
         lengths[k, :c] = t.lengths
-    return ops, addrs, gaps, lengths
+    mlen = np.stack([plan_runs(ops[k], addrs[k], gaps[k], MACRO_KMAX)
+                     for k in range(K)])
+    return ops, addrs, gaps, lengths, mlen
 
 
 def cell_inputs(traces, configs, cell_trace, cell_cfg, *, max_pbe=None,
-                track_addrs=0, device="cpu"):
+                track_addrs=0, macro=True, device="cpu"):
     """The cell-scan wrapper's arguments for cells ``k``: trace
-    ``traces[cell_trace[k]]`` under config ``configs[cell_cfg[k]]``.
+    ``traces[cell_trace[k]]`` under config ``configs[cell_cfg[k]]``,
+    macro-steps on or off by ``macro``.
 
     Returns ``(args, kwargs)`` for :func:`repro_torch.kernels.cell_scan
     .cell_scan`, with every tensor on ``device``.
@@ -95,27 +124,33 @@ def cell_inputs(traces, configs, cell_trace, cell_cfg, *, max_pbe=None,
                                n_epochs_max=n_epochs)
            for c in configs]
     tables = cs.pack_configs(scs, n_tenants_max, device)
-    ops, addrs, gaps, lengths = (torch.from_numpy(a).to(device)
-                                 for a in _stack_traces(traces))
+    ops, addrs, gaps, lengths, mlen = (torch.from_numpy(a).to(device)
+                                       for a in _stack_traces(traces))
     schemes = torch.tensor([int(c.scheme) for c in configs],
                            dtype=torch.int32, device=device)
 
     def idx(v):
         return torch.tensor(list(v), dtype=torch.int32, device=device)
     args = (ops, addrs, gaps, lengths, idx(cell_trace), idx(cell_cfg),
-            schemes) + tables
+            schemes) + tables + (mlen,)
     return args, dict(max_pbe=max_pbe, pm_banks=banks.pop(),
                       n_track=track_addrs, n_tenants_max=n_tenants_max,
-                      n_deep_max=n_deep, n_leaves_max=n_leaves)
+                      n_deep_max=n_deep, n_leaves_max=n_leaves, macro=macro)
 
 
 def _run(traces, configs, cell_trace, cell_cfg, *, max_pbe, track_addrs,
-         device):
+         macro, device):
     args, kw = cell_inputs(traces, configs, cell_trace, cell_cfg,
                            max_pbe=max_pbe, track_addrs=track_addrs,
-                           device=device)
+                           macro=macro, device=device)
     out = cs.cell_scan(*args, **kw)
     host = cs.CellScanOut(*(x.cpu().numpy() for x in out))
+    # the telemetry, from the cells' own counters (the kernel's on CUDA)
+    _LAST_MACRO["macro_ops"] = int(host.macro_ops.sum())
+    _LAST_MACRO["total_ops"] = int(sum(traces[i].total_ops
+                                       for i in cell_trace))
+    _LAST_MACRO["abort_reasons"] = [int(x)
+                                    for x in host.macro_aborts.sum(0)]
     results = []
     for k, j in enumerate(cell_cfg):
         cfg = configs[j]
@@ -141,7 +176,7 @@ def simulate_grid(traces: Sequence[Trace], configs: Sequence[PCSConfig], *,
                   max_pbe: int | None = None,
                   bucket: int = _BUCKET,
                   track_addrs: int = 0,
-                  macro: bool = False,
+                  macro: bool = True,
                   device=None) -> List[List[SimResult]]:
     """Simulate every (trace, config) cell; one kernel launch on CUDA.
 
@@ -150,16 +185,17 @@ def simulate_grid(traces: Sequence[Trace], configs: Sequence[PCSConfig], *,
     accepted for signature compatibility with the reference, whose
     shape padding it controls; results never depend on it.
     ``track_addrs > 0`` additionally returns, per cell, the durable
-    version vector over addresses ``[0, track_addrs)``.
+    version vector over addresses ``[0, track_addrs)``.  ``macro``
+    toggles the guarded macro-steps; results are identical either way.
     """
-    check_scope(macro)
     dev = resolve_device(device)
     if not traces or not configs:
         return [[] for _ in traces]
     nt, nc = len(traces), len(configs)
     flat = _run(traces, configs, [i for i in range(nt) for _ in range(nc)],
                 [j for _ in range(nt) for j in range(nc)],
-                max_pbe=max_pbe, track_addrs=track_addrs, device=dev)
+                max_pbe=max_pbe, track_addrs=track_addrs, macro=macro,
+                device=dev)
     return [flat[i * nc:(i + 1) * nc] for i in range(nt)]
 
 
@@ -167,13 +203,12 @@ def simulate_cells(traces: Sequence[Trace], configs: Sequence[PCSConfig], *,
                    max_pbe: int | None = None,
                    bucket: int = _BUCKET,
                    track_addrs: int = 0,
-                   macro: bool = False,
+                   macro: bool = True,
                    device=None) -> List[SimResult]:
     """Simulate paired cells: ``result[k]`` is (traces[k], configs[k]).
 
     Repeated Trace objects are stacked once.
     """
-    check_scope(macro)
     dev = resolve_device(device)
     if not traces:
         return []
@@ -187,13 +222,13 @@ def simulate_cells(traces: Sequence[Trace], configs: Sequence[PCSConfig], *,
             uniq.append(t)
     return _run(uniq, configs, [index[id(t)] for t in traces],
                 list(range(len(configs))), max_pbe=max_pbe,
-                track_addrs=track_addrs, device=dev)
+                track_addrs=track_addrs, macro=macro, device=dev)
 
 
 def simulate(trace: Trace, config: PCSConfig,
              max_pbe: int | None = None, *,
              bucket: int = _BUCKET, track_addrs: int = 0,
-             macro: bool = False, device=None) -> SimResult:
+             macro: bool = True, device=None) -> SimResult:
     """Simulate one (trace, config) pair and return aggregate metrics."""
     max_pbe = max_pbe or config.max_hop_pbe
     return simulate_grid([trace], [config], max_pbe=max_pbe,

@@ -23,7 +23,8 @@ Scope: switch chains and fan-out fabrics; under a schedule the step
 loop hands every handler the rows of the op's epoch
 (``step.resolve_epoch_sc``), and a deep row a lowered threshold left
 over its drain count drains on a forward with no packet
-(``chain.drain_pending``).  Macro-steps are not ported.
+(``chain.drain_pending``).  A committed macro-step (``engine.macro``)
+stands in for the handlers of its window's ops, with the same results.
 """
 from __future__ import annotations
 

@@ -22,6 +22,14 @@ EPOCH_KEYS` row with a leading ``(E,)`` axis and one ``epoch_bounds``
 vector; :func:`resolve_epoch_sc` picks each op's rows at its issue time,
 so every layer below sees a schedule-free ``sc``.
 
+Macro-stepping (``engine.macro``): with ``macro=True`` each step also
+hands the selected core's planned window (``mlen``, from
+``core.traces.plan_runs``) to ``macro.macro_step``, which commits up to
+``MACRO_KMAX`` ops at once behind its guard, or collapses a dead
+post-crash run, and otherwise leaves the slot-at-a-time result standing
+— bit-exact either way.  The step then consumes as many trace slots as
+the macro-step did.
+
 Crash semantics (Section V-D4): an op whose issue time exceeds
 ``sc["crash_at"]`` becomes a no-op (the machine is off), and after the
 loop a recovery pass (``handlers.recovery_snapshot``) computes the
@@ -34,24 +42,30 @@ import torch
 
 from repro_torch.core.engine.handlers import (HANDLERS, StepCtx,
                                               recovery_snapshot)
+from repro_torch.core.engine.macro import (MACRO_ABORT_REASONS,
+                                           floor_holds, macro_step)
 from repro_torch.core.engine.state import INF, epoch_rows, init_state
-from repro_torch.core.params import Op
+from repro_torch.core.params import MACRO_KMAX, Op
 
 
 def resolve_epoch_sc(sc, t_issue):
-    """The config rows of the epoch active at issue time ``t_issue``.
+    """The config rows of the epoch active at issue time ``t_issue``, and
+    the next epoch boundary.
 
-    Without an ``epoch_bounds`` key (a schedule-free grid) ``sc`` comes
-    back as it is.  Otherwise the epoch is ``#{b in epoch_bounds : b <=
+    Without an ``epoch_bounds`` key (a schedule-free grid) the result is
+    ``(sc, None)``.  Otherwise the epoch is ``#{b in epoch_bounds : b <=
     t_issue}`` — a boundary instant belongs to the new epoch, and the
     ``INF`` padding of a shorter or static config never selects — and
-    the result is that epoch's rows (``state.epoch_rows``).  The
-    reference also returns the next boundary, which only its macro-steps
-    read.
+    the result is that epoch's rows (``state.epoch_rows``) and the least
+    bound strictly after ``t_issue`` (``INF`` in the last epoch), which
+    the macro window's epoch gate reads.
     """
     if "epoch_bounds" not in sc:
-        return sc
-    return epoch_rows(sc, int((sc["epoch_bounds"] <= t_issue).sum()))
+        return sc, None
+    eb = sc["epoch_bounds"]
+    sc_op = epoch_rows(sc, int((eb <= t_issue).sum()))
+    next_bound = torch.min(torch.where(eb > t_issue, eb, INF))
+    return sc_op, next_bound
 
 
 def tenant_map(lengths, n_tenants, n_tenants_max: int):
@@ -79,7 +93,7 @@ def tenant_map(lengths, n_tenants, n_tenants_max: int):
 def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
               max_pbe: int, pm_banks: int, n_track: int = 0,
               n_tenants_max: int = 1, n_deep_max: int = 0,
-              n_leaves_max: int = 1):
+              n_leaves_max: int = 1, mlen=None, macro: bool = False):
     """Simulate one (trace, config) cell, one Python iteration per step.
 
     ``ops``/``addrs`` (C, L) int32, ``gaps`` (C, L) f32 and ``lengths``
@@ -90,11 +104,17 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
     ``n_leaves_max`` (the grid's most fabric leaves; 1 carries no leaf
     clock and runs no fabric branch); a scheduled grid's epoch rows are
     resolved per step (:func:`resolve_epoch_sc`), and the recovery pass
-    reads the full ``sc``, none of whose epoch rows it needs.  Returns
-    ``(runtime, stats, durable_ver, n_recovered, recovery_ns,
-    recovered_per_tenant, hop_stats, recovered_per_hop,
-    recovered_per_leaf, n_steps)`` — the reference's outputs without
-    the macro telemetry, plus the number of executed steps.
+    reads the full ``sc``, none of whose epoch rows it needs.
+    ``macro=True`` runs the macro-steps over the ``(C, L)`` run plan
+    ``mlen``; the trace axis must then carry ``MACRO_KMAX`` slots past
+    the longest stream (the grid pads it).  Returns ``(runtime, stats,
+    durable_ver, n_recovered, recovery_ns, recovered_per_tenant,
+    hop_stats, recovered_per_hop, recovered_per_leaf, n_steps,
+    macro_ops, macro_aborts)``: the reference's outputs with the number
+    of trace slots consumed (``n_steps``, whatever ``macro`` is) before
+    its macro telemetry — the slots run as macro-steps and the
+    per-reason aborts (:data:`~repro_torch.core.engine.macro.
+    MACRO_ABORT_REASONS` order, all zero with ``macro`` off).
     """
     dev = ops.device
     C = ops.shape[0]
@@ -109,7 +129,10 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
     crash_at = sc["crash_at"]
     st = init_state(C, max_pbe, pm_banks, n_track, n_tenants_max,
                     n_deep_max, n_leaves_max, device=dev)
-    n_steps = 0
+    use_macro = bool(macro) and mlen is not None
+    floor_ok = use_macro and floor_holds(sc)
+    n_steps = macro_ops = 0
+    macro_aborts = [0] * len(MACRO_ABORT_REASONS)
     while True:
         active = st.ptr < lengths
         idx = torch.minimum(st.ptr, torch.clamp(lengths - 1, min=0))
@@ -121,7 +144,6 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
         # once no core can be selected every later step is a no-op
         if not bool(active.any() & (tsel[c] < INF * 0.5)):
             break
-        n_steps += 1
         i = idx[c]
         t_issue = tsel[c]
         # ops issuing after the power loss never happen (machine is off)
@@ -129,16 +151,31 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
         op = int(ops[c, i]) if live else int(Op.COMPUTE)
         t = t_issue if live else st.clock[c]
         # every layer below sees the rows of the epoch at the issue time
-        sc_op = resolve_epoch_sc(sc, t_issue)
+        sc_op, next_bound = resolve_epoch_sc(sc, t_issue)
         tid_c = tids[c]
         ctx = StepCtx(c=c, t=t, addr=addrs[c, i], scheme=scheme, sc=sc_op,
                       slot_ids=slot_ids, slot_active=slot_active,
                       tenant=tid_c, tids=tids,
                       n_live_t=live_per_tenant[tid_c], n_banks=pm_banks,
                       n_track=n_track)
-        st2 = HANDLERS[op](ctx, st)
+        st2, adv, took = None, 1, False
+        if use_macro:
+            st2, k_m, reason = macro_step(
+                ctx, st, ops, addrs, gaps64, lengths, mlen, tsel, live,
+                t_issue, int(i), kmax=MACRO_KMAX,
+                next_epoch_bound=next_bound, floor_ok=floor_ok)
+            if st2 is not None:
+                adv, took = k_m, True
+                macro_ops += k_m
+            if reason is not None:
+                macro_aborts[reason] += 1
+        if st2 is None:     # no macro-step committed: the slot's handler
+            st2 = HANDLERS[op](ctx, st)
+        n_steps += adv
 
-        # barriers synchronize only within a tenant (independent hosts)
+        # barriers synchronize only within a tenant (independent hosts);
+        # macro windows hold no barrier, so after a macro-step this is
+        # an identity
         blocked, bcount = st.blocked, st.bcount
         if op == int(Op.BARRIER):
             if bool((st.bcount[tid_c] + 1) >= ctx.n_live_t):
@@ -153,11 +190,12 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
         # crashed ops still consume their cursor slot and still advance
         # the core clock to their issue time: gaps are relative, so a
         # frozen clock would let a *later* op's issue time collapse back
-        # below the crash point and wrongly execute
+        # below the crash point and wrongly execute (a dead-run
+        # macro-step advanced the clock itself)
         ptr = st2.ptr.clone()
-        ptr[c] += 1
+        ptr[c] += adv
         clock = st2.clock
-        if not live:
+        if not live and not took:
             clock = clock.clone()
             clock[c] = t_issue
         st = st2._replace(clock=clock, ptr=ptr, blocked=blocked,
@@ -170,4 +208,5 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
      recov_l) = recovery_snapshot(st, scheme, sc, slot_active, pm_banks,
                                   n_track)
     return (runtime, st.stats, durable_ver, n_recov, recov_ns, recov_t,
-            st.hop_stats, recov_h, recov_l, n_steps)
+            st.hop_stats, recov_h, recov_l, n_steps, macro_ops,
+            macro_aborts)

@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 at first use; ``<hash>`` covers the source, every header in ``csrc/``
 and the flags, so an edited source rebuilds and an unchanged one loads
 as it is.  A source that lists units (``csrc/cell_scan.cu``'s
-``CELL_SCAN_UNITS``: one per (SPL, D) of its kernel, and the entry
-point) is split: each unit is a small generated ``.cu`` that defines the
+``CELL_SCAN_UNITS``: one per (SPL, D, MAC) of its kernel, and the
+entry point) is split: each unit is a small generated ``.cu`` that defines the
 unit's macros and includes the source, compiled to an object by its own
 ``nvcc``, and the objects are linked into the library.  :func:`build_all`
 starts every ``nvcc`` at once.  The sources have a plain C interface (no
@@ -32,9 +32,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("tat_lookup", "cell_scan", "flash_attention",
            "flash_attention_tc", "ssd_scan", "ssd_scan_tc")
 # Libraries built from another library's source with extra flags:
-# name -> (source, flags).  ``cell_scan_profile`` is the cell scan with
-# its section profile compiled in (chip_smoke.py's trace of a step).
-VARIANTS = {"cell_scan_profile": ("cell_scan", ("-DCELL_SCAN_PROFILE",))}
+# name -> (source, flags, units).  ``units``: the (SPL, D, MAC) units of a
+# split source the library keeps (None: all of them); its source is then
+# the package's with the units' list cut to those, written beside the
+# library.  ``cell_scan_profile`` is the cell scan with its section
+# profile compiled in (chip_smoke.py's trace of a step), at SPL 1, the
+# only cells it profiles.
+VARIANTS = {"cell_scan_profile": ("cell_scan", ("-DCELL_SCAN_PROFILE",),
+                                  tuple((1, d, m) for m in (0, 1)
+                                        for d in range(4)))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # -fmad=false: the reference's f64 arithmetic is separate adds, maxes and
@@ -44,7 +50,24 @@ EXACT_SOURCES = ("tat_lookup", "cell_scan", "smem_probe")
 
 
 def _source(name: str) -> Tuple[str, Tuple[str, ...]]:
-    return VARIANTS.get(name, (name, ()))
+    return VARIANTS.get(name, (name, (), None))[:2]
+
+
+_UNITS_RE = r"(#define CELL_SCAN_UNITS\(X\))((?:[^\n]*\\\n)*[^\n]*)"
+
+
+def source_text(name: str) -> str:
+    """The text library ``name`` builds from: its source's, the units'
+    list cut to the variant's units where it names them."""
+    src, _, units = VARIANTS.get(name, (name, (), None))
+    text = (CSRC / f"{src}.cu").read_text()
+    if units is None:
+        return text
+    body = " ".join(f"X({s}, {d}, {m})" for s, d, m in units)
+    out, n = re.subn(_UNITS_RE, lambda m: f"{m.group(1)} {body}", text)
+    if n != 1:
+        raise ValueError(f"{src}.cu: no units' list to cut for {name}")
+    return out
 
 
 def nvcc_flags(name: str) -> Tuple[str, ...]:
@@ -55,18 +78,23 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
 
 def unit_sources(path: Path) -> Dict[str, str]:
     """The split build's units of the source at ``path``: ``{unit name:
-    generated source}``, one ``s<SPL>_d<D>`` per ``X(SPL, D)`` of its
-    ``CELL_SCAN_UNITS`` list and ``entry``; empty for a source without
-    the list, which builds as one unit."""
+    generated source}``, one ``s<SPL>_d<D>_m<MAC>`` per ``X(SPL, D,
+    MAC)`` of its ``CELL_SCAN_UNITS`` list (``s<SPL>_d<D>`` per ``X(SPL,
+    D)`` of a source from before the MAC axis) and ``entry``; empty for a
+    source without the list, which builds as one unit."""
     text = Path(path).read_text()
-    m = re.search(r"#define CELL_SCAN_UNITS\(X\)((?:[^\n]*\\\n)*[^\n]*)",
-                  text)
+    m = re.search(_UNITS_RE, text)
     if not m:
         return {}
     inc = f'#include "{Path(path).resolve()}"\n'
-    units = {f"s{s}_d{d}": (f"#define CELL_SCAN_UNIT_SPL {s}\n"
-                            f"#define CELL_SCAN_UNIT_D {d}\n" + inc)
-             for s, d in re.findall(r"X\((\d+),\s*(\d+)\)", m.group(1))}
+    units = {}
+    for s, d, mac in re.findall(r"X\((\d+),\s*(\d+)(?:,\s*(\d+))?\)",
+                                m.group(2)):
+        name = f"s{s}_d{d}" + (f"_m{mac}" if mac else "")
+        units[name] = (f"#define CELL_SCAN_UNIT_SPL {s}\n"
+                       f"#define CELL_SCAN_UNIT_D {d}\n"
+                       + (f"#define CELL_SCAN_UNIT_MAC {mac}\n" if mac
+                          else "") + inc)
     units["entry"] = "#define CELL_SCAN_UNIT_ENTRY\n" + inc
     return units
 
@@ -84,10 +112,24 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{_source(name)[0]}.cu"]:
+    for p in sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    h.update(f"{_source(name)[0]}.cu".encode())
+    h.update(source_text(name).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _source_path(name: str) -> Path:
+    """The source file library ``name`` builds from: the package's, or a
+    variant's cut text written beside the library."""
+    src, _, units = VARIANTS.get(name, (name, (), None))
+    if units is None:
+        return CSRC / f"{src}.cu"
+    path = _lib_path(name).with_suffix(".cu")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(source_text(name))
+    return path
 
 
 def build_libs(jobs: Sequence[Tuple[Path, Path, Sequence[str]]]) -> None:
@@ -152,7 +194,7 @@ def build_libs(jobs: Sequence[Tuple[Path, Path, Sequence[str]]]) -> None:
 
 def build_all(names: Sequence[str] = SOURCES) -> None:
     """Compile every missing library, all ``nvcc`` processes at once."""
-    build_libs([(_lib_path(n), CSRC / f"{_source(n)[0]}.cu", nvcc_flags(n))
+    build_libs([(_lib_path(n), _source_path(n), nvcc_flags(n))
                 for n in names if not _lib_path(n).exists()])
 
 

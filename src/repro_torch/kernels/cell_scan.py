@@ -15,7 +15,14 @@ backpressure, per-leaf recovery), and a grid that holds a ``Schedule``
 of up to ``MAX_EPOCHS`` epochs through its ``EP`` instantiation (each
 op sees the rows of the epoch its issue time falls in, copied from the
 epoch table when that epoch changes); a deeper, wider or longer grid
-raises.  The carry lives in shared memory; lanes own PBE slots, and
+raises.  With macro-steps on (``macro=True``) its ``MAC``
+instantiation also counts, exactly as the eager ``scan_cell`` does, the
+trace slots run as macro-steps and the aborted live windows by reason
+(``engine/macro.py``): it collapses dead post-crash runs for real, and
+decides each live window's commit or abort by replaying the window's
+clocks and guard on a scratch copy, while the state itself advances slot
+by slot (a committed window's ops are the next steps of its core, bit
+for bit the same).  The carry lives in shared memory; lanes own PBE slots, and
 every ``argmin`` is a warp reduction that breaks ties to the lowest
 index.
 The PB lookups call the ``tat_lookup`` kernel's match routine
@@ -36,6 +43,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.core.engine.state import epoch_rows
+from repro_torch.core.params import MACRO_KMAX
 from repro_torch.kernels import _build
 
 # Config scalars the engine reads, in the kernel's column order
@@ -73,28 +81,31 @@ MAX_DEEP = 3            # deep-hop rows: switch chains up to 4 switches
 MAX_LEAVES = 32         # fabric leaves (per-leaf clocks and survivors)
 MAX_EPOCHS = 8          # schedule epochs
 
+N_REASONS = 6           # engine/macro.py MACRO_ABORT_REASONS
+
 launches = 0
-# launches per instantiation of cell_scan_kernel<SPL, D, FAB, EP>
+# launches per instantiation of cell_scan_kernel<SPL, D, FAB, EP, MAC>
 # (:func:`instantiation`), counted where ``launches`` is
 launches_by: dict = {}
 
 
 def instantiation(max_pbe: int, n_deep: int, n_leaves: int,
-                  n_epochs: int) -> tuple:
-    """The ``(SPL, D, FAB, EP)`` of the kernel a grid launches: the
+                  n_epochs: int, macro: bool) -> tuple:
+    """The ``(SPL, D, FAB, EP, MAC)`` of the kernel a grid launches: the
     fewest slots a lane that hold ``max_pbe`` (1, 2 or 4), its deep-hop
-    rows, whether it holds a multi-leaf fabric and whether a schedule
-    (csrc/cell_scan.cu, cell_scan_launch)."""
+    rows, whether it holds a multi-leaf fabric, whether a schedule, and
+    whether it runs macro-steps (csrc/cell_scan.cu, cell_scan_launch)."""
     spl = 1 if max_pbe <= 32 else (2 if max_pbe <= 64 else 4)
-    return spl, n_deep, n_leaves > 1, n_epochs > 1
+    return spl, n_deep, n_leaves > 1, n_epochs > 1, bool(macro)
 
 
 # Every instantiation cell_scan_launch can dispatch to: SPL 1, 2, 4 x
-# (D = 0, and D = 1..MAX_DEEP with FAB both ways) x EP both ways.
-INSTANTIATIONS = tuple((spl, d, fab, ep) for spl in (1, 2, 4)
+# (D = 0, and D = 1..MAX_DEEP with FAB both ways) x EP both ways x MAC
+# both ways.
+INSTANTIATIONS = tuple((spl, d, fab, ep, mac) for spl in (1, 2, 4)
                        for d in range(MAX_DEEP + 1)
                        for fab in ((False, True) if d else (False,))
-                       for ep in (False, True))
+                       for ep in (False, True) for mac in (False, True))
 
 
 class CellScanOut(NamedTuple):
@@ -109,9 +120,12 @@ class CellScanOut(NamedTuple):
     recov_t: torch.Tensor      # (N, T) f64
     recov_h: torch.Tensor      # (N, D + 1) f64 survivors per hop
     recov_l: torch.Tensor      # (N, NL1) f64 hop-1 survivors per leaf
-    steps: torch.Tensor        # (N,)  i64 executed (valid) steps
+    steps: torch.Tensor        # (N,)  i64 trace slots consumed
     lookups: torch.Tensor      # (N,)  i64 match-routine calls (kernel only;
                                #       0 on the plain path)
+    macro_ops: torch.Tensor    # (N,)  i64 trace slots run as macro-steps
+    macro_aborts: torch.Tensor  # (N, N_REASONS) i64 aborted live windows
+                                #       per reason (0 with macro off)
 
 
 def pack_configs(scs: Sequence[dict], n_tenants_max: int, device):
@@ -180,8 +194,9 @@ def _config_view(sc_table, ten_table, chain_table, fab_table, ep_table,
 
 def cell_scan_ref(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
                   sc_table, ten_table, chain_table, fab_table, ep_table,
-                  ep_bounds, *, max_pbe, pm_banks, n_track, n_tenants_max,
-                  n_deep_max=0, n_leaves_max=1) -> CellScanOut:
+                  ep_bounds, mlen, *, max_pbe, pm_banks, n_track,
+                  n_tenants_max, n_deep_max=0, n_leaves_max=1,
+                  macro=False) -> CellScanOut:
     """Plain version: the eager ``scan_cell`` over every cell in turn."""
     from repro_torch.core.engine.step import scan_cell
     rows = []
@@ -192,7 +207,7 @@ def cell_scan_ref(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
                          ep_table, ep_bounds, cf),
             max_pbe=max_pbe, pm_banks=pm_banks, n_track=n_track,
             n_tenants_max=n_tenants_max, n_deep_max=n_deep_max,
-            n_leaves_max=n_leaves_max))
+            n_leaves_max=n_leaves_max, mlen=mlen[tr], macro=macro))
     dev = ops.device
 
     def col(k, dtype=None):
@@ -203,13 +218,14 @@ def cell_scan_ref(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
         durable_ver=col(2, torch.int32), n_recov=col(3), recov_ns=col(4),
         recov_t=col(5), recov_h=col(7), recov_l=col(8),
         steps=col(9, torch.int64),
-        lookups=torch.zeros((len(rows),), dtype=torch.int64, device=dev))
+        lookups=torch.zeros((len(rows),), dtype=torch.int64, device=dev),
+        macro_ops=col(10, torch.int64), macro_aborts=col(11, torch.int64))
 
 
 def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
            sc_table, ten_table, chain_table, fab_table, ep_table, ep_bounds,
-           max_pbe, pm_banks, n_track, n_tenants_max, n_deep_max,
-           n_leaves_max):
+           mlen, max_pbe, pm_banks, n_track, n_tenants_max, n_deep_max,
+           n_leaves_max, macro):
     K, C, L = ops.shape
     n_chain = len(CHAIN_KEYS) + len(DEEP_KEYS) * max(n_deep_max, 1)
     n_fab = len(FAB_KEYS) + max(n_leaves_max, 1) + n_tenants_max
@@ -220,6 +236,7 @@ def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
                 addrs=(addrs, torch.int32, (K, C, L)),
                 gaps=(gaps, torch.float32, (K, C, L)),
                 lengths=(lengths, torch.int32, (K, C)),
+                mlen=(mlen, torch.int8, (K, C, L)),
                 schemes=(schemes, torch.int32, (sc_table.shape[0],)),
                 sc_table=(sc_table, torch.float64,
                           (sc_table.shape[0], len(SC_KEYS))),
@@ -272,47 +289,54 @@ def _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
         raise ValueError(f"cell_scan: {E} epochs outside [1, {MAX_EPOCHS}]: "
                          f"the kernel takes schedules of up to {MAX_EPOCHS} "
                          f"epochs")
+    if macro and K and C and int(lengths.max()) + MACRO_KMAX > L:
+        raise ValueError(f"cell_scan: macro-steps read {MACRO_KMAX} trace "
+                         f"slots past a stream; the trace axis L={L} must "
+                         f"carry them past the longest stream")
 
 
 def cell_scan(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
               sc_table, ten_table, chain_table, fab_table, ep_table,
-              ep_bounds, *, max_pbe: int, pm_banks: int, n_track: int,
+              ep_bounds, mlen, *, max_pbe: int, pm_banks: int, n_track: int,
               n_tenants_max: int, n_deep_max: int = 0,
-              n_leaves_max: int = 1) -> CellScanOut:
+              n_leaves_max: int = 1, macro: bool = False) -> CellScanOut:
     """Run cells ``k = 0..N-1``: trace ``cell_trace[k]`` of the stacked
     ``(K, C, L)`` traces under config ``cell_cfg[k]`` of the packed
     tables (:func:`pack_configs`), with ``n_deep_max`` deep-hop rows,
-    ``n_leaves_max`` fabric leaves and the epoch table's ``E`` epochs."""
+    ``n_leaves_max`` fabric leaves and the epoch table's ``E`` epochs;
+    ``macro`` runs the macro-steps over the ``(K, C, L)`` int8 run plan
+    ``mlen`` (``core.traces.plan_runs``), whose windows need the trace
+    axis to carry ``MACRO_KMAX`` slots past every stream."""
     global launches
     _check(ops, addrs, gaps, lengths, cell_trace, cell_cfg, schemes,
            sc_table, ten_table, chain_table, fab_table, ep_table, ep_bounds,
-           max_pbe, pm_banks, n_track, n_tenants_max, n_deep_max,
-           n_leaves_max)
+           mlen, max_pbe, pm_banks, n_track, n_tenants_max, n_deep_max,
+           n_leaves_max, macro)
     kw = dict(max_pbe=max_pbe, pm_banks=pm_banks, n_track=n_track,
               n_tenants_max=n_tenants_max, n_deep_max=n_deep_max,
-              n_leaves_max=n_leaves_max)
+              n_leaves_max=n_leaves_max, macro=macro)
     if ops.device.type == "cpu":
         return cell_scan_ref(ops, addrs, gaps, lengths, cell_trace,
                              cell_cfg, schemes, sc_table, ten_table,
                              chain_table, fab_table, ep_table, ep_bounds,
-                             **kw)
+                             mlen, **kw)
     if ops.device.type != "cuda":
         raise ValueError(f"cell_scan: unsupported device {ops.device}")
     ins = [x.contiguous() for x in (ops, addrs, gaps, lengths, cell_trace,
                                     cell_cfg, schemes, sc_table, ten_table,
                                     chain_table, fab_table, ep_table,
-                                    ep_bounds)]
+                                    ep_bounds, mlen)]
     out = _empty_out(cell_trace.shape[0], n_tenants_max, max(n_track, 1),
                      n_deep_max, ops.device, n_leaves_max)
     if cell_trace.shape[0] > 0:
         rc = launch(_build.library("cell_scan"), ins, out, max_pbe=max_pbe,
                     pm_banks=pm_banks, n_track=n_track, n_deep=n_deep_max,
-                    n_leaves=n_leaves_max,
+                    n_leaves=n_leaves_max, macro=macro,
                     stream=torch.cuda.current_stream(ops.device).cuda_stream)
         _build.check(rc, "cell_scan launch")
         launches += 1
         key = instantiation(max_pbe, n_deep_max, n_leaves_max,
-                            ep_table.shape[1])
+                            ep_table.shape[1], macro)
         launches_by[key] = launches_by.get(key, 0) + 1
     return out
 
@@ -328,17 +352,20 @@ def _empty_out(N, T, A, D, dev, n_leaves=1) -> CellScanOut:
         durable_ver=empty((N, A), torch.int32), n_recov=empty((N,)),
         recov_ns=empty((N,)), recov_t=empty((N, T)), recov_h=empty((N, D + 1)),
         recov_l=empty((N, max(n_leaves, 1))),
-        steps=empty((N,), torch.int64), lookups=empty((N,), torch.int64))
+        steps=empty((N,), torch.int64), lookups=empty((N,), torch.int64),
+        macro_ops=empty((N,), torch.int64),
+        macro_aborts=empty((N, N_REASONS), torch.int64))
 
 
 def launch(lib, ins, out: CellScanOut, *, max_pbe, pm_banks, n_track,
-           n_deep, stream, n_leaves=1) -> int:
+           n_deep, stream, n_leaves=1, macro=False) -> int:
     """Call ``cell_scan_launch`` of ``lib`` on contiguous inputs ``ins``
     (the order of :func:`cell_scan`'s tensor arguments) and the
     preallocated ``out``; returns the C entry point's error code.
     ``n_leaves > 1`` (the grid holds a multi-leaf fabric) launches the
-    kernel's fabric instantiation, and an epoch table of ``E > 1``
-    epochs (``ins[11]``; the grid holds a schedule) its epoch one."""
+    kernel's fabric instantiation, an epoch table of ``E > 1`` epochs
+    (``ins[11]``; the grid holds a schedule) its epoch one, and
+    ``macro`` its macro-step one."""
     from repro_torch.core.engine.state import LAT_BIN_EDGES
     ops = ins[0]
     _, C, L = ops.shape
@@ -350,18 +377,25 @@ def launch(lib, ins, out: CellScanOut, *, max_pbe, pm_banks, n_track,
     # the kernel's argument order: the depth-1 inputs, bin edges, the
     # depth-1 outputs, the issued-version scratch ``aver``, the chain's
     # table and per-hop survivors, the fabric's table and per-leaf
-    # survivors, then the epoch table and bounds
+    # survivors, the epoch table and bounds, then the run plan and the
+    # macro counters
     ptrs = list(ins[:9]) + [edges] + [out.runtime, out.stats, out.hop_stats,
                                       out.durable_ver, out.n_recov,
                                       out.recov_ns, out.recov_t, out.steps,
                                       out.lookups, aver, ins[9], out.recov_h,
-                                      ins[10], out.recov_l, ins[11], ins[12]]
+                                      ins[10], out.recov_l, ins[11], ins[12],
+                                      ins[13], out.macro_ops,
+                                      out.macro_aborts]
     fn = lib.cell_scan_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
+    if not macro:               # only the MAC instantiation writes them
+        out.macro_ops.zero_()
+        out.macro_aborts.zero_()
     rc = fn(*[x.data_ptr() for x in ptrs], N, C, L, max_pbe, pm_banks, A,
-            T, n_track, n_deep, n_leaves, ins[11].shape[1], stream)
+            T, n_track, n_deep, n_leaves, ins[11].shape[1], int(macro),
+            stream)
     if rc == 0 and n_deep == 0:
         # without a chain the one hop's survivors are the recovery count
         out.recov_h[:, 0].copy_(out.n_recov)

@@ -4,9 +4,9 @@ Each variant is ``csrc/cell_scan.cu`` with a few text edits (an edit
 whose anchor is not found exactly once raises), written out as a
 source that ``chip_smoke.py --against`` builds and holds against the
 package's cell scan: outputs equal, kernel times in turns, section
-profiles.  Every variant's units are cut to the three the ``--against``
-grids launch — SPL 1 at D = 0, 1 and 3 — so that several build at once
-in little time.  Run from the root of the checkout:
+profiles.  Every variant's units are cut to the ones the ``--against``
+grids launch — SPL 1 at D = 0, 1 and 3, MAC both ways — so that several
+build at once in little time.  Run from the root of the checkout:
 
     PYTHONPATH=src python -m repro_torch.kernels.cell_scan_variants \
         OUT [--from OLD.cu] [names]
@@ -26,7 +26,8 @@ hold the anchors) written as ``OUT/<stem of OLD>_<name>.cu``, then
   predicated on its row's liveness;
 * ``bounds_1``: ``__launch_bounds__(32, 1)`` on every instantiation,
   the ``D = 0`` ones too, which lets ptxas use every register a lane
-  may hold instead of spilling (the source gives ``D >= 1`` that);
+  may hold instead of spilling (the source gives ``D >= 1`` and ``MAC``
+  that);
 * ``bounds_heuristic``: ``__launch_bounds__(32)`` on every
   instantiation: ptxas's own register heuristic at ``D >= 1`` too.
 """
@@ -37,9 +38,11 @@ from pathlib import Path
 
 from repro_torch.kernels import _build
 
-UNITS = ("  X(1, 0) X(1, 1) X(1, 2) X(1, 3) X(2, 0) X(2, 1) X(2, 2) X(2, 3)     \\\n"
-         "  X(4, 0) X(4, 1) X(4, 2) X(4, 3)",
-         "  X(1, 0) X(1, 1) X(1, 3)")
+UNITS = ("  X(1, 0, 0) X(1, 1, 0) X(1, 2, 0) X(1, 3, 0) X(2, 0, 0) X(2, 1, 0)       \\\n"
+         "  X(2, 2, 0) X(2, 3, 0) X(4, 0, 0) X(4, 1, 0) X(4, 2, 0) X(4, 3, 0)       \\\n"
+         "  X(1, 0, 1) X(1, 1, 1) X(1, 2, 1) X(1, 3, 1) X(2, 0, 1) X(2, 1, 1)       \\\n"
+         "  X(2, 2, 1) X(2, 3, 1) X(4, 0, 1) X(4, 1, 1) X(4, 2, 1) X(4, 3, 1)",
+         "  X(1, 0, 0) X(1, 1, 0) X(1, 3, 0) X(1, 0, 1) X(1, 1, 1) X(1, 3, 1)")
 VARIANTS = {
     "units": [],
     "pick_noinline": [("  __device__ int pick(",
@@ -57,9 +60,9 @@ VARIANTS = {
                     "        const int tg = live ? c.dtag[idx(j, s < P ? s : "
                     "0)] : addr + 1;\n"
                     "        if (live && s < pbe[j] && tg == addr)")],
-    "bounds_1": [("__launch_bounds__(32, D > 0 ? 1 : 0)",
+    "bounds_1": [("__launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)",
                   "__launch_bounds__(32, 1)")],
-    "bounds_heuristic": [("__launch_bounds__(32, D > 0 ? 1 : 0)",
+    "bounds_heuristic": [("__launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)",
                           "__launch_bounds__(32)")],
 }
 

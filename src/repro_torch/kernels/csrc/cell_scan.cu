@@ -88,12 +88,13 @@
 // the row's and the batch's loads, the coalesce match (a lone packet's
 // counts in the next), allocation, gates, acks and bypass, the writers'
 // hand-off and the row after the batch, the drain rank with the row's
-// write-back, and the PM landing.
+// write-back, and the PM landing.  SEC_MACRO is a MAC step's macro
+// work: the head's gates and window replay, or a dead-run collapse.
 enum ProfSection {
   SEC_KEYS, SEC_ARGMIN, SEC_FETCH, SEC_READ, SEC_LOOKUP, SEC_OCC,
   SEC_SELECT, SEC_DRAIN, SEC_WRITE, SEC_STATS, SEC_OTHER, SEC_BOOK,
   SEC_C_BATCH, SEC_C_READ, SEC_C_FIFO, SEC_C_MATCH, SEC_C_ALLOC,
-  SEC_C_WRITER, SEC_C_DRANK, SEC_C_LAND, N_SEC
+  SEC_C_WRITER, SEC_C_DRANK, SEC_C_LAND, SEC_MACRO, N_SEC
 };
 constexpr int N_OPS = 6, N_PROF = N_SEC + N_OPS + 1;
 #ifdef CELL_SCAN_PROFILE
@@ -216,6 +217,20 @@ __device__ __forceinline__ void warp_argmin_lane(double& key, int& idx) {
   idx = __ffs(__ballot_sync(FULL, hi == min_hi && lo == min_lo)) - 1;
   bits = (static_cast<unsigned long long>(min_hi) << 32) | min_lo;
   memcpy(&key, &bits, sizeof bits);
+}
+
+// The least of the warp's keys, each a non-negative double (as for
+// warp_argmin_lane): two reductions of the bits' halves.
+__device__ __forceinline__ double warp_min_nonneg(double key) {
+  unsigned long long bits;
+  memcpy(&bits, &key, sizeof bits);
+  const unsigned hi = static_cast<unsigned>(bits >> 32);
+  const unsigned lo = static_cast<unsigned>(bits);
+  const unsigned min_hi = __reduce_min_sync(FULL, hi);
+  const unsigned min_lo = __reduce_min_sync(FULL, hi == min_hi ? lo : ~0u);
+  bits = (static_cast<unsigned long long>(min_hi) << 32) | min_lo;
+  memcpy(&key, &bits, sizeof bits);
+  return key;
 }
 
 // Three independent argmins in the same five rounds, so that their
@@ -1113,6 +1128,229 @@ struct Chain {
   }
 };
 
+// ---- macro-steps (engine/macro.py) ---------------------------------------
+// A live head's window of up to MAC_KMAX ops of its core, planned by
+// traces.plan_runs (mlen), commits or aborts as macro_step decides; the
+// kernel counts the outcome (the slots committed, or one abort reason)
+// and advances the state slot by slot as ever: a committed window's ops
+// are, by its no-interleave gate, the next steps of its core, so the
+// state is exact by construction and the verdict alone needs the
+// replay.  A dead post-crash run collapses for real (up to MAC_KMAX
+// slots in one step), as the reference's does, so that the steps — and
+// with them the heads counted — are the reference's.
+constexpr int MAC_KMAX = 8;  // params.MACRO_KMAX
+// MACRO_ABORT_REASONS, in their order; MAC_COMMIT: the window commits
+enum MacReason { R_WINDOW, R_FABRIC, R_DEEP, R_EPOCH, R_INTERLEAVE, R_GUARD,
+                 N_REASONS, MAC_COMMIT = -1 };
+
+// The config scalars a window's replay reads that no schedule changes,
+// in registers for the whole cell.
+struct MacCfg {
+  double ow_cpu_pm, nvm_read, nvm_r_occ, nvm_write, nvm_w_occ, ow_cpu_sw1,
+      pbc_proc_tag, data_ns, ow_sw1_pm, pbc_occ, crash, lat_tol,
+      empty_slack, low_water;
+  bool scoped;
+  // every latency between an op's issue and its completion on a replayed
+  // path is >= 0, so no op completes before it issues (macro.floor_holds)
+  bool floor_ok;
+};
+
+// macro_step's live window from a head at cursor p of core c (every lane,
+// with the same values): the window's clocks and guard replayed on a
+// scratch copy of what moves them — each lane's slots' state, tag, LRU
+// stamp, drain ack and owner; bank b's PM clock on lane b; the PBC clock
+// that serves the op (`pbc0`); the tenant's persist and SLO-over counts
+// — in macro.py's expressions and order.  Once the guard clears only
+// the clocks go on (they alone decide t_last, and no slot state feeds
+// them).  Returns the first failing gate of epoch_boundary, interleave
+// and guard (the caller settled window, fabric and deep), or MAC_COMMIT.
+// `others_min`: every other core's issue time, least; `next_bound`: the
+// next epoch boundary (EP; INF otherwise).  Three exact shortcuts
+// (macro.py): while no op completes before it issues, the window's gaps
+// added in order to t_issue bound t_last below, so a floor at or past
+// the settling bound (next_bound under EP, else others_min) aborts with
+// no replay; under EP, another core at or below the floor leaves
+// epoch_boundary or interleave, which the clocks alone decide (the
+// replay starts with the guard cleared); and with non-negative gaps the
+// replay stops at the first op issuing at or past the settling bound.
+template <int SPL, bool EP>
+__device__ int macro_verdict(const Smem& m, const MacCfg& mc,
+                             const double* st_row, int lane, int c, int tid,
+                             int scheme, int k_live, double t_issue,
+                             const int* w_ops, const int* w_addrs,
+                             float w_gap, double others_min,
+                             double next_bound, double pbc0, int P,
+                             int n_pbe, int T, int B, int tiles,
+                             const Banks& bank_of) {
+  const double stop = EP ? next_bound : others_min;
+  const int settled = EP ? R_EPOCH : R_INTERLEAVE;
+  bool monotone = mc.floor_ok, guard = true;
+  if (mc.floor_ok) {
+    // the floor after the first gap settles most heads (another core
+    // issues before the window's second op can), then the rest of it
+    const float g1 = __shfl_sync(FULL, w_gap, 1);
+    double lb = t_issue + static_cast<double>(g1);
+    if (lb >= stop) return settled;
+    monotone = g1 >= 0.0f;
+    for (int j = 2; j < k_live; ++j) {
+      const float g = __shfl_sync(FULL, w_gap, j);
+      lb = lb + static_cast<double>(g);
+      monotone = monotone && g >= 0.0f;
+    }
+    if (lb >= stop) return settled;
+    // (only under EP can another core sit at or below the floor here)
+    guard = !(others_min <= lb);
+  }
+  // the window's ops and lines, lane j holding entry j
+  const int jw = lane < MAC_KMAX ? lane : 0;
+  const int w_op = w_ops[jw], w_addr = w_addrs[jw];
+  const bool is_nopb = scheme == 0, is_rf = scheme == 2;
+  // the scratch copy
+  signed char st[SPL], own[SPL];
+  int tg[SPL];
+  double lru[SPL], dd[SPL];
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) {
+    const int s = lane + 32 * j, sp = s < P ? s : 0;
+    st[j] = s < P ? m.state[sp] : static_cast<signed char>(EMPTY);
+    tg[j] = m.tag[sp];
+    lru[j] = m.lru[sp];
+    dd[j] = m.dd[sp];
+    own[j] = m.owner[sp];
+  }
+  double pmb_r = lane < B ? m.pm_busy[lane] : 0.0;  // B <= 32
+  double pbc = pbc0, clk = m.clock[c], t_last = t_issue;
+  double cnt = st_row[S_PERSIST_CNT], over = st_row[S_SLO_OVER];
+  for (int j = 0; j < k_live; ++j) {
+    const int o_j = __shfl_sync(FULL, w_op, j);
+    const int a_j = __shfl_sync(FULL, w_addr, j);
+    const double t_j = clk + static_cast<double>(__shfl_sync(FULL, w_gap, j));
+    t_last = t_j;
+    if (monotone && t_j >= stop) break;  // t_last >= t_j: settled
+    const int bank = bank_of(a_j);
+    const double pmb_b = __shfl_sync(FULL, pmb_r, bank);
+    if (o_j != OP_PERSIST) {
+      // PM read: the handler's miss path in both schemes
+      const double pm_start_r = fmax(pmb_b, t_j + mc.ow_cpu_pm);
+      bool g_op = t_j <= mc.crash;
+      if (!is_nopb && guard) {
+        bool hit[SPL];
+#pragma unroll
+        for (int jj = 0; jj < SPL; ++jj) {
+          const int s = lane + 32 * jj;
+          if (st[jj] == DRAIN && dd[jj] <= t_j) st[jj] = EMPTY;
+          hit[jj] = s < n_pbe && tg[jj] == a_j && st[jj] != EMPTY;
+        }
+        g_op = g_op && warp_count(hit, tiles) == 0;
+      }
+      guard = guard && g_op;
+      if (lane == bank) pmb_r = pm_start_r + mc.nvm_r_occ;
+      clk = pm_start_r + mc.nvm_read + mc.ow_cpu_pm;
+    } else if (is_nopb) {
+      // persist, NoPB leg
+      const double pm_start_w = fmax(pmb_b, t_j + mc.ow_cpu_pm);
+      guard = guard && t_j <= mc.crash;
+      if (lane == bank) pmb_r = pm_start_w + mc.nvm_w_occ;
+      clk = pm_start_w + mc.nvm_write + mc.ow_cpu_pm;
+    } else {
+      // persist, buffered leg (a fresh Empty slot)
+      const double arr = t_j + mc.ow_cpu_sw1;
+      const double pbc_start = fmax(pbc, arr) + mc.pbc_proc_tag;
+      const double t_written = pbc_start + mc.data_ns;
+      const double ack_p = t_written + mc.ow_cpu_sw1;
+      const double over_j = ack_p - t_j > m.sc[K_LAT_TARGET] ? 1.0 : 0.0;
+      if (guard) {
+        bool dirty_hit[SPL], live_own[SPL];
+#pragma unroll
+        for (int jj = 0; jj < SPL; ++jj) {
+          const int s = lane + 32 * jj;
+          if (st[jj] == DRAIN && dd[jj] <= pbc_start) st[jj] = EMPTY;
+          dirty_hit[jj] = s < n_pbe && tg[jj] == a_j && st[jj] == DIRTY;
+          live_own[jj] = s < n_pbe && st[jj] != EMPTY &&
+                         clampi(own[jj], 0, T - 1) == tid;
+        }
+        const bool has_dirty = warp_count(dirty_hit, tiles) > 0;
+        const double occ_t = static_cast<double>(warp_count(live_own, tiles));
+        const bool over_quota = occ_t >= m.ten[T_QUOTA * T + tid];
+        double ke = INF;
+        int ie = lane;
+        bool any_e = false;
+#pragma unroll
+        for (int jj = 0; jj < SPL; ++jj) {
+          const int s = lane + 32 * jj;
+          const bool e = s < n_pbe && st[jj] == EMPTY && !over_quota;
+          any_e |= e;
+          const double k1 = e ? lru[jj] : INF;
+          if (k1 < ke) {
+            ke = k1;
+            ie = s;
+          }
+        }
+        const bool any_empty = __any_sync(FULL, any_e);
+        warp_argmin(ke, ie);
+        const int wslot = ie;
+#pragma unroll
+        for (int jj = 0; jj < SPL; ++jj) {
+          if (lane + 32 * jj == wslot) {
+            st[jj] = DIRTY;
+            tg[jj] = a_j;
+            lru[jj] = t_written;
+            own[jj] = static_cast<signed char>(tid);
+          }
+        }
+        bool g_wr = any_empty && t_written <= mc.crash;
+        if (is_rf) {
+          // the threshold/preset drain-down must fire no drain
+          bool dm[SPL], em[SPL];
+#pragma unroll
+          for (int jj = 0; jj < SPL; ++jj) {
+            const int s = lane + 32 * jj;
+            const bool in_scope = mc.scoped ? own[jj] == tid : true;
+            dm[jj] = st[jj] == DIRTY && s < n_pbe && in_scope;
+            em[jj] = st[jj] == EMPTY && s < n_pbe;
+          }
+          const double dirty_cnt = static_cast<double>(warp_count(dm, tiles));
+          const double empty_cnt = static_cast<double>(warp_count(em, tiles));
+          double thr = mc.scoped ? m.ten[T_THRESHOLD * T + tid] : m.sc[K_THRESHOLD];
+          double pre = mc.scoped ? m.ten[T_PRESET * T + tid] : m.sc[K_PRESET];
+          const double cnt1 = cnt + 1.0;
+          const double over1 = over + over_j;
+          const bool tight = over1 > mc.lat_tol * cnt1;
+          thr = tight ? 1.0 : thr;
+          pre = tight ? 0.0 : pre;
+          const double k_thresh = dirty_cnt >= thr ? dirty_cnt - pre : 0.0;
+          const double k_low = empty_cnt <= mc.empty_slack
+                                   ? fmin(mc.low_water, dirty_cnt) : 0.0;
+          g_wr = g_wr && !has_dirty && fmax(k_thresh, k_low) == 0.0;
+        } else {
+          // PB: the written entry drains at once
+          const double pm_start2 = fmax(pmb_b, t_written + mc.ow_sw1_pm);
+#pragma unroll
+          for (int jj = 0; jj < SPL; ++jj) {
+            if (lane + 32 * jj == wslot) {
+              st[jj] = DRAIN;
+              dd[jj] = pm_start2 + mc.nvm_write + mc.ow_sw1_pm;
+            }
+          }
+          if (lane == bank) pmb_r = pm_start2 + mc.nvm_w_occ;
+        }
+        guard = t_j <= mc.crash && g_wr;
+      } else if (!is_rf) {
+        // the guard has cleared: PB's drain still reserves its bank
+        const double pm_start2 = fmax(pmb_b, t_written + mc.ow_sw1_pm);
+        if (lane == bank) pmb_r = pm_start2 + mc.nvm_w_occ;
+      }
+      pbc = fmax(fmax(pbc, arr) + mc.pbc_occ, 0.0);
+      cnt = cnt + 1.0;
+      over = over + over_j;
+      clk = ack_p;
+    }
+  }
+  if (EP && !(t_last < next_bound)) return R_EPOCH;
+  if (!(others_min > t_last)) return R_INTERLEAVE;
+  return guard ? MAC_COMMIT : R_GUARD;
+}
+
 struct Args {
   const int* ops;          // (K, C, L)
   const int* addrs;        // (K, C, L)
@@ -1149,6 +1387,10 @@ struct Args {
   const double* ep_table;     // (Kc, E, N_EK + N_TEN * T + 2 * D1 + T)
   const double* ep_bounds;    // (Kc, E - 1)
   int E;                      // epochs: the grid's max(n_epochs)
+  // ---- macro-steps (MAC instantiations only) ----
+  const signed char* mlen;    // (K, C, L) the run plan
+  long long* macro_ops;       // (N,) trace slots run as macro-steps
+  long long* macro_aborts;    // (N, N_REASONS) aborted live windows
 };
 
 }  // namespace
@@ -1164,12 +1406,16 @@ struct Args {
 // counts hop-1 survivors per leaf.  FAB = false compiles all of it out.
 // EP: the grid holds a Schedule (E > 1); each op sees the rows of the
 // epoch its issue time falls in.  EP = false compiles all of it out.
-// At D >= 1, one block a multiprocessor (the launch bounds' second
-// argument) frees ptxas to hold every register a lane needs: left to its
-// own heuristic it stopped at 168 and spilled in the step loop.  0 leaves
-// D = 0's bounds as they were (its machine code is unchanged).
-template <int SPL, int D, bool FAB, bool EP>
-__global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
+// MAC: macro-steps (engine/macro.py) are on: the kernel counts each live
+// head's committed slots or abort reason and collapses dead runs.
+// MAC = false compiles all of it out.
+// At D >= 1 or with MAC, one block a multiprocessor (the launch bounds'
+// second argument) frees ptxas to hold every register a lane needs: left
+// to its own heuristic it stopped at 168 and spilled in the step loop.
+// 0 leaves D = 0's bounds as they were without MAC (that machine code is
+// unchanged).
+template <int SPL, int D, bool FAB, bool EP, bool MAC>
+__global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
     cell_scan_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem m = rebase(a.lay, smem_raw);
@@ -1341,6 +1587,32 @@ __global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
   double ep_lo = INF, ep_hi = -INF;
   bool ep_stale = false;
 
+  // macro-steps: the window a committed head opened (its core and the
+  // steps left in it, which are no heads), the counters (lane 0's), and
+  // the replay's config scalars; n_switches and n_leaves from the chain
+  // and fabric tables, which every grid carries
+  int win_core = 0, win_left = 0;
+  long long mac_ops = 0, mac_ab[MAC ? N_REASONS : 1] = {};
+  MacCfg mc{};
+  double mac_nsw = 0.0, mac_nl = 0.0;
+  if constexpr (MAC) {
+    mc = MacCfg{sc[K_OW_CPU_PM], sc[K_NVM_READ], sc[K_NVM_R_OCC],
+                sc[K_NVM_WRITE], sc[K_NVM_W_OCC], sc[K_OW_CPU_SW1],
+                sc[K_PBC_PROC] + sc[K_TAG_NS], sc[K_DATA_NS],
+                sc[K_OW_SW1_PM], sc[K_PBC_OCC], crash, sc[K_LAT_TOL],
+                sc[K_EMPTY_SLACK], sc[K_LOW_WATER], sc[K_DRAIN_SCOPE] > 0.0,
+                false};
+    mc.floor_ok = mc.ow_cpu_pm >= 0.0 && mc.nvm_read >= 0.0 &&
+                  mc.nvm_write >= 0.0 && mc.ow_cpu_sw1 >= 0.0 &&
+                  sc[K_PBC_PROC] >= 0.0 && sc[K_TAG_NS] >= 0.0 &&
+                  mc.data_ns >= 0.0;
+    constexpr int D1 = D > 0 ? D : 1;
+    mac_nsw = a.chain_table[static_cast<size_t>(cf) * (N_CH + N_DK * D1) +
+                            C_N_SWITCHES];
+    mac_nl = a.fab_table[static_cast<size_t>(cf) * (N_FK + a.NL + T) +
+                         F_N_LEAVES];
+  }
+
   long long steps = 0, lookups = 0;
 #ifdef CELL_SCAN_PROFILE
   Prof prof{};
@@ -1362,8 +1634,10 @@ __global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
     };
     double best = INF;
     int bc = lane;
+    double my_key = INF;  // MAC: lane c's own key (C <= 32)
     if (C <= 32) {  // core c on lane c (an idle lane keys INF)
       if (lane < C) best = key_of(lane);
+      if constexpr (MAC) my_key = best;
       PROF(SEC_KEYS);
       warp_argmin_lane(best, bc);
     } else {
@@ -1429,6 +1703,103 @@ __global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
           ep_stale = true;
         }
       }
+    }
+    if constexpr (MAC) {
+      if (win_left > 0) {
+        // inside a committed window: its core's next op, no head
+#ifdef CELL_SCAN_WINDOW_CHECK
+        CELL_SCAN_WINDOW_CHECK(c == win_core);
+#endif
+        --win_left;
+      } else {
+        const int p = m.ptr[c], len = m.len[c];
+        const int k_cap = clampi(len - p, 0, MAC_KMAX);
+        // the window's entries, lane j holding entry p + j (the host pads
+        // the trace axis by MAC_KMAX past every stream)
+        const size_t w0 = static_cast<size_t>(c) * L + p;
+        const int jw = lane < MAC_KMAX ? lane : 0;
+        const float w_gap = gaps[w0 + jw];
+        if (!(t_issue <= crash)) {
+          // a dead run: every op of it a no-op that sets the clock to its
+          // issue time; with all MAC_KMAX gaps >= 0 the next k_cap collapse
+          // into this step
+          const bool gaps_ok =
+              __ballot_sync(FULL, lane >= MAC_KMAX || w_gap >= 0.0f) == FULL;
+          if (k_cap >= 2 && gaps_ok) {
+            double ck = m.clock[c];
+            for (int j = 0; j < k_cap; ++j)
+              ck = ck + static_cast<double>(__shfl_sync(FULL, w_gap, j));
+            // core c's ring and current entry restart at the new cursor
+            // (refills still in flight land first)
+            wg::cp_async_wait<0>();
+            __syncwarp();
+            const int p2 = p + k_cap, last = max(len - 1, 0);
+            if (lane < RING) {
+              const int e = p2 + lane, slot = c * RING + e % RING;
+              const size_t src = static_cast<size_t>(c) * L + min(e, last);
+              m.rop[slot] = ops[src];
+              m.raddr[slot] = addrs[src];
+              m.rgap[slot] = gaps[src];
+            }
+            if (lane == 0) {
+              const size_t src = static_cast<size_t>(c) * L + min(p2, last);
+              m.ptr[c] = p2;
+              m.clock[c] = ck;
+              m.cop[c] = ops[src];
+              m.caddr[c] = addrs[src];
+              m.cgap[c] = gaps[src];
+              mac_ops += k_cap;
+            }
+            steps += k_cap - 1;
+            __syncwarp();
+            PROF(SEC_MACRO);
+            continue;
+          }
+        } else {
+          // a live head: one abort reason, or the window commits
+          const int k_live = min(
+              static_cast<int>(a.mlen[static_cast<size_t>(tr) * C * L + w0]),
+              k_cap);
+          int why = MAC_COMMIT;
+          if (k_live < 2) {
+            why = R_WINDOW;
+          } else if (scheme != 0 && mac_nl >= 2.0) {
+            why = R_FABRIC;
+          } else if (scheme != 0 && mac_nsw >= 2.0) {
+            why = R_DEEP;
+          } else {
+            // the other cores' least issue time: the keys of the merge
+            // (core k on lane k), else each lane's cores again
+            double om = INF;
+            if (C <= 32) {
+              om = warp_min_nonneg(lane == c ? INF : my_key);
+            } else {
+              for (int k = lane; k < C; k += 32) {
+                const double key = key_of(k);
+                if (k != c && key < om) om = key;
+              }
+              for (int off = 16; off > 0; off >>= 1)
+                om = fmin(om, __shfl_xor_sync(FULL, om, off));
+            }
+            const int tid = m.tids[c];
+            int leaf = 0;
+            if constexpr (FAB) leaf = fs.lof[tid];
+            why = macro_verdict<SPL, EP>(
+                m, mc, stats + static_cast<size_t>(tid) * N_STATS, lane, c,
+                tid, scheme, k_live, t_issue, ops + w0, addrs + w0, w_gap,
+                om, EP ? ep_hi : INF, m.pbc[leaf], P, n_pbe, T, B, tiles,
+                bank_of);
+          }
+          if (why == MAC_COMMIT) {
+            win_core = c;
+            win_left = k_live - 1;
+            if (lane == 0) mac_ops += k_live;
+          } else if (lane == 0) {
+            ++mac_ab[why];
+          }
+        }
+      }
+      PROF(SEC_MACRO);
     }
     // ops issuing after the power loss never happen (machine is off)
     const bool live = t_issue <= crash;
@@ -2210,6 +2581,11 @@ __global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
       a.recov_ns[cell] = cost;
       a.steps[cell] = steps;
       a.lookups[cell] = lookups;
+      if constexpr (MAC) {
+        a.macro_ops[cell] = mac_ops;
+        for (int r = 0; r < N_REASONS; ++r)
+          a.macro_aborts[static_cast<size_t>(cell) * N_REASONS + r] = mac_ab[r];
+      }
     }
   } else {
     double n_rec = 0.0, cost = 0.0;
@@ -2306,6 +2682,11 @@ __global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
       a.recov_ns[cell] = cost;
       a.steps[cell] = steps;
       a.lookups[cell] = lookups;
+      if constexpr (MAC) {
+        a.macro_ops[cell] = mac_ops;
+        for (int r = 0; r < N_REASONS; ++r)
+          a.macro_aborts[static_cast<size_t>(cell) * N_REASONS + r] = mac_ab[r];
+      }
     }
   }
 }
@@ -2315,12 +2696,13 @@ __global__ void __launch_bounds__(32, D > 0 ? 1 : 0)
 // bounded by MAX_DEEP: chains of up to MAX_DEEP + 1 switches.  n_leaves
 // (the grid's most fabric leaves) above 1 selects the FAB instantiation,
 // which needs the spine's deep row.  n_epochs (the grid's most schedule
-// epochs, at most MAX_EPOCHS) above 1 selects the EP instantiation.
+// epochs, at most MAX_EPOCHS) above 1 selects the EP instantiation, and
+// macro the MAC one.
 constexpr int MAX_DEEP = 3;
 
-template <int SPL, int D, bool FAB, bool EP>
+template <int SPL, int D, bool FAB, bool EP, bool MAC>
 static int run_one(Args& a, int n_cells, size_t smem, cudaStream_t stream) {
-  const auto kernel = cell_scan_kernel<SPL, D, FAB, EP>;
+  const auto kernel = cell_scan_kernel<SPL, D, FAB, EP, MAC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2331,89 +2713,103 @@ static int run_one(Args& a, int n_cells, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int SPL, int D, bool FAB>
+template <int SPL, int D, bool FAB, bool MAC>
 static int run_ep(Args& a, int n_cells, bool ep, size_t smem,
                   cudaStream_t stream) {
-  return ep ? run_one<SPL, D, FAB, true>(a, n_cells, smem, stream)
-            : run_one<SPL, D, FAB, false>(a, n_cells, smem, stream);
+  return ep ? run_one<SPL, D, FAB, true, MAC>(a, n_cells, smem, stream)
+            : run_one<SPL, D, FAB, false, MAC>(a, n_cells, smem, stream);
 }
 
-template <int SPL, int D>
+template <int SPL, int D, bool MAC>
 static int run_d(Args& a, int n_cells, bool fab, bool ep, size_t smem,
                  cudaStream_t stream) {
-  return fab ? run_ep<SPL, D, true>(a, n_cells, ep, smem, stream)
-             : run_ep<SPL, D, false>(a, n_cells, ep, smem, stream);
+  return fab ? run_ep<SPL, D, true, MAC>(a, n_cells, ep, smem, stream)
+             : run_ep<SPL, D, false, MAC>(a, n_cells, ep, smem, stream);
 }
 
-// The split build (kernels/_build.py, UNITS): unit (SPL, D) is this
-// file compiled with CELL_SCAN_UNIT_SPL and CELL_SCAN_UNIT_D defined —
-// the kernels of that pair, behind cell_scan_run_<SPL>_<D> (and, in the
-// profile build, cell_scan_set_profile_<SPL>_<D>) — and the entry unit,
-// compiled with CELL_SCAN_UNIT_ENTRY, holds cell_scan_launch and
-// dispatches to them.  Without these macros the file builds every kernel
-// and the entry point in one unit.  The units' list:
-#define CELL_SCAN_UNITS(X)                                            \
-  X(1, 0) X(1, 1) X(1, 2) X(1, 3) X(2, 0) X(2, 1) X(2, 2) X(2, 3)     \
-  X(4, 0) X(4, 1) X(4, 2) X(4, 3)
-#define CS_PASTE(pre, s, d) pre##s##_##d
-#define CS_UNIT_NAME(pre, s, d) CS_PASTE(pre, s, d)
+// The split build (kernels/_build.py, UNITS): unit (SPL, D, MAC) is this
+// file compiled with CELL_SCAN_UNIT_SPL, CELL_SCAN_UNIT_D and
+// CELL_SCAN_UNIT_MAC defined — the kernels of that triple, behind
+// cell_scan_run_<SPL>_<D>_<MAC> (and, in the profile build,
+// cell_scan_set_profile_<SPL>_<D>_<MAC>) — and the entry unit, compiled
+// with CELL_SCAN_UNIT_ENTRY, holds cell_scan_launch and dispatches to
+// them.  Without these macros the file builds every kernel and the entry
+// point in one unit.  The units' list:
+#define CELL_SCAN_UNITS(X)                                                \
+  X(1, 0, 0) X(1, 1, 0) X(1, 2, 0) X(1, 3, 0) X(2, 0, 0) X(2, 1, 0)       \
+  X(2, 2, 0) X(2, 3, 0) X(4, 0, 0) X(4, 1, 0) X(4, 2, 0) X(4, 3, 0)       \
+  X(1, 0, 1) X(1, 1, 1) X(1, 2, 1) X(1, 3, 1) X(2, 0, 1) X(2, 1, 1)       \
+  X(2, 2, 1) X(2, 3, 1) X(4, 0, 1) X(4, 1, 1) X(4, 2, 1) X(4, 3, 1)
+#define CS_PASTE(pre, s, d, c) pre##s##_##d##_##c
+#define CS_UNIT_NAME(pre, s, d, c) CS_PASTE(pre, s, d, c)
 
-// The kernels of (SPL, D): FAB and EP both ways (D = 0: no fabric).
-template <int SPL, int D>
+// The kernels of (SPL, D, MAC): FAB and EP both ways (D = 0: no fabric).
+template <int SPL, int D, bool MAC>
 static int run_sd(Args& a, int n_cells, bool fab, bool ep, size_t smem,
                   cudaStream_t stream) {
   if constexpr (D == 0)
-    return run_ep<SPL, 0, false>(a, n_cells, ep, smem, stream);
+    return run_ep<SPL, 0, false, MAC>(a, n_cells, ep, smem, stream);
   else
-    return run_d<SPL, D>(a, n_cells, fab, ep, smem, stream);
+    return run_d<SPL, D, MAC>(a, n_cells, fab, ep, smem, stream);
 }
 
 #if defined(CELL_SCAN_UNIT_SPL)
 extern "C" int CS_UNIT_NAME(cell_scan_run_, CELL_SCAN_UNIT_SPL,
-                            CELL_SCAN_UNIT_D)(const void* args, int n_cells,
-                                              int fab, int ep, size_t smem,
-                                              cudaStream_t stream) {
+                            CELL_SCAN_UNIT_D, CELL_SCAN_UNIT_MAC)(
+    const void* args, int n_cells, int fab, int ep, size_t smem,
+    cudaStream_t stream) {
   Args a;
   memcpy(&a, args, sizeof a);
-  return run_sd<CELL_SCAN_UNIT_SPL, CELL_SCAN_UNIT_D>(a, n_cells, fab, ep,
-                                                      smem, stream);
+  return run_sd<CELL_SCAN_UNIT_SPL, CELL_SCAN_UNIT_D,
+                static_cast<bool>(CELL_SCAN_UNIT_MAC)>(a, n_cells, fab, ep,
+                                                       smem, stream);
 }
 #ifdef CELL_SCAN_PROFILE
 extern "C" int CS_UNIT_NAME(cell_scan_set_profile_, CELL_SCAN_UNIT_SPL,
-                            CELL_SCAN_UNIT_D)(long long* buf) {
+                            CELL_SCAN_UNIT_D, CELL_SCAN_UNIT_MAC)(
+    long long* buf) {
   return static_cast<int>(cudaMemcpyToSymbol(g_prof, &buf, sizeof(buf)));
 }
 #endif
 #else
 #ifdef CELL_SCAN_UNIT_ENTRY
-#define CS_DECLARE(s, d)                                                  \
-  extern "C" int CS_UNIT_NAME(cell_scan_run_, s, d)(                      \
+#define CS_DECLARE(s, d, c)                                               \
+  extern "C" int CS_UNIT_NAME(cell_scan_run_, s, d, c)(                   \
       const void*, int, int, int, size_t, cudaStream_t);                  \
-  extern "C" int CS_UNIT_NAME(cell_scan_set_profile_, s, d)(long long*);
+  extern "C" int CS_UNIT_NAME(cell_scan_set_profile_, s, d, c)(long long*);
 CELL_SCAN_UNITS(CS_DECLARE)
 #undef CS_DECLARE
 #endif
 
-template <int SPL>
+template <int SPL, bool MAC>
 static int run_spl(Args& a, int n_cells, int n_deep, bool fab, bool ep,
                    size_t smem, cudaStream_t stream) {
 #ifdef CELL_SCAN_UNIT_ENTRY
-#define CS_RUN(s, d)                                                      \
-  if (SPL == s && n_deep == d)                                            \
-    return CS_UNIT_NAME(cell_scan_run_, s, d)(&a, n_cells, fab, ep, smem, \
-                                              stream);
+#define CS_RUN(s, d, c)                                                   \
+  if (SPL == s && n_deep == d && MAC == static_cast<bool>(c))             \
+    return CS_UNIT_NAME(cell_scan_run_, s, d, c)(&a, n_cells, fab, ep,    \
+                                                 smem, stream);
   CELL_SCAN_UNITS(CS_RUN)
 #undef CS_RUN
   return static_cast<int>(cudaErrorInvalidValue);
 #else
   switch (n_deep) {
-    case 0: return run_sd<SPL, 0>(a, n_cells, fab, ep, smem, stream);
-    case 1: return run_sd<SPL, 1>(a, n_cells, fab, ep, smem, stream);
-    case 2: return run_sd<SPL, 2>(a, n_cells, fab, ep, smem, stream);
-    case 3: return run_sd<SPL, 3>(a, n_cells, fab, ep, smem, stream);
+    case 0: return run_sd<SPL, 0, MAC>(a, n_cells, fab, ep, smem, stream);
+    case 1: return run_sd<SPL, 1, MAC>(a, n_cells, fab, ep, smem, stream);
+    case 2: return run_sd<SPL, 2, MAC>(a, n_cells, fab, ep, smem, stream);
+    case 3: return run_sd<SPL, 3, MAC>(a, n_cells, fab, ep, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #endif
+}
+
+template <bool MAC>
+static int run_mac(Args& a, int n_cells, int n_deep, bool fab, bool ep,
+                   size_t smem, cudaStream_t stream) {
+  const int P = a.P;
+  if (P <= 32) return run_spl<1, MAC>(a, n_cells, n_deep, fab, ep, smem, stream);
+  if (P <= 64) return run_spl<2, MAC>(a, n_cells, n_deep, fab, ep, smem, stream);
+  return run_spl<MAX_SPL, MAC>(a, n_cells, n_deep, fab, ep, smem, stream);
 }
 
 extern "C" int cell_scan_launch(
@@ -2425,8 +2821,9 @@ extern "C" int cell_scan_launch(
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
     int* aver, const double* chain_table, double* recov_h,
     const double* fab_table, double* recov_l, const double* ep_table,
-    const double* ep_bounds, int n_cells, int C, int L, int P, int B, int A,
-    int T, int n_track, int n_deep, int n_leaves, int n_epochs,
+    const double* ep_bounds, const signed char* mlen, long long* macro_ops,
+    long long* macro_aborts, int n_cells, int C, int L, int P, int B, int A,
+    int T, int n_track, int n_deep, int n_leaves, int n_epochs, int macro,
     cudaStream_t stream) {
   const bool fab = n_leaves > 1;
   const bool ep = n_epochs > 1;
@@ -2435,7 +2832,8 @@ extern "C" int cell_scan_launch(
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
          C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
-         fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs};
+         fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs,
+         mlen, macro_ops, macro_aborts};
   if (n_deep < 0 || n_deep > MAX_DEEP || n_leaves < 1 ||
       n_leaves > MAX_LEAVES || (fab && n_deep < 1) || n_epochs < 1 ||
       n_epochs > MAX_EPOCHS)
@@ -2443,9 +2841,8 @@ extern "C" int cell_scan_launch(
   size_t smem = carve(a.lay, nullptr, C, P, B, T, NL);
   if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
   if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
-  if (P <= 32) return run_spl<1>(a, n_cells, n_deep, fab, ep, smem, stream);
-  if (P <= 64) return run_spl<2>(a, n_cells, n_deep, fab, ep, smem, stream);
-  return run_spl<MAX_SPL>(a, n_cells, n_deep, fab, ep, smem, stream);
+  return macro ? run_mac<true>(a, n_cells, n_deep, fab, ep, smem, stream)
+               : run_mac<false>(a, n_cells, n_deep, fab, ep, smem, stream);
 }
 
 #ifdef CELL_SCAN_PROFILE
@@ -2453,8 +2850,8 @@ extern "C" int cell_scan_launch(
 extern "C" int cell_scan_set_profile(long long* buf) {
 #ifdef CELL_SCAN_UNIT_ENTRY
   int rc = 0;
-#define CS_SET(s, d) \
-  if (rc == 0) rc = CS_UNIT_NAME(cell_scan_set_profile_, s, d)(buf);
+#define CS_SET(s, d, c) \
+  if (rc == 0) rc = CS_UNIT_NAME(cell_scan_set_profile_, s, d, c)(buf);
   CELL_SCAN_UNITS(CS_SET)
 #undef CS_SET
   return rc;

@@ -7,13 +7,16 @@ Card-only tool (it needs ``nvcc`` and ``cuobjdump``): builds
 the package's flags — a source that lists units
 (``_build.unit_sources``) one cubin per unit, all at once, as the
 library is built — and compares the SASS of every instantiation of
-``cell_scan_kernel<SPL, D, FAB, EP>`` (SPL = 1, 2, 4; D = 0..3 deep-hop
-rows; FAB both ways for D >= 1; EP both ways) with the other source's
-same instantiation, instruction by instruction.  An instantiation from
-before a template parameter existed is found under its older name:
-``cell_scan_kernel<SPL, D, FAB>`` (EP = false, before the epoch
-schedules), ``cell_scan_kernel<SPL, D>`` (FAB = false, before the
-fabric) or, for D = 0, ``cell_scan_kernel<SPL>`` (before the chain)::
+``cell_scan_kernel<SPL, D, FAB, EP, MAC>`` (SPL = 1, 2, 4; D = 0..3
+deep-hop rows; FAB both ways for D >= 1; EP both ways; MAC both ways)
+with the other source's same instantiation, instruction by instruction.
+An instantiation from before a template parameter existed is found under
+its older name: ``cell_scan_kernel<SPL, D, FAB, EP>`` (MAC = false,
+before the macro-steps), ``cell_scan_kernel<SPL, D, FAB>`` (EP = false,
+before the epoch schedules), ``cell_scan_kernel<SPL, D>`` (FAB = false,
+before the fabric) or, for D = 0, ``cell_scan_kernel<SPL>`` (before the
+chain); an older source has no ``MAC = true`` one, which is reported
+missing::
 
     PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu [--all]
 
@@ -22,8 +25,8 @@ counts, the instructions that differ (branch targets aside, which only
 move when code after them changes length), ptxas's registers and stack
 frame, and the local-memory instructions (``LDL``/``STL``) in all and
 inside the step loop (the longest backward branch's span), the other
-source's beside this one's.  Exits 1 when a ``D = 0`` instantiation
-differs (every instantiation with ``--all``).
+source's beside this one's.  Exits 1 when a ``D = 0``, ``MAC = false``
+instantiation differs (every instantiation with ``--all``).
 """
 from __future__ import annotations
 
@@ -126,10 +129,13 @@ def _find(funcs: dict, names) -> dict | None:
     return None
 
 
-def _names(spl: int, d: int, fab: int, ep: int) -> list:
-    """The mangled template arguments of ``<spl, d, fab, ep>``, newest
-    first."""
-    names = [f"ILi{spl}ELi{d}ELb{fab}ELb{ep}EE"]
+def _names(spl: int, d: int, fab: int, ep: int, mac: int) -> list:
+    """The mangled template arguments of ``<spl, d, fab, ep, mac>``,
+    newest first."""
+    names = [f"ILi{spl}ELi{d}ELb{fab}ELb{ep}ELb{mac}EE"]
+    if mac:
+        return names
+    names.append(f"ILi{spl}ELi{d}ELb{fab}ELb{ep}EE")
     if not ep:
         names.append(f"ILi{spl}ELi{d}ELb{fab}EE")
         if not fab:
@@ -154,16 +160,16 @@ def main(other: str, strict_all: bool = False) -> int:
             (Path(other), Path(tmp) / "other"),
             (_build.CSRC / "cell_scan.cu", Path(tmp) / "this")))
     same = True
-    combos = [(spl, d, fab, ep) for spl in (1, 2, 4)
+    combos = [(spl, d, fab, ep, mac) for mac in (0, 1) for spl in (1, 2, 4)
               for d in range(MAX_DEEP + 1) for fab in ((0, 1) if d else (0,))
               for ep in (0, 1)]
-    for spl, d, fab, ep in combos:
-        names = _names(spl, d, fab, ep)
+    for spl, d, fab, ep, mac in combos:
+        names = _names(spl, d, fab, ep, mac)
         o = _find(old, names)
         n = _find(new, names[:1])
         what = (f"cell_scan_kernel SPL={spl} D={d} FAB={bool(fab)} "
-                f"EP={bool(ep)}")
-        must = strict_all or d == 0
+                f"EP={bool(ep)} MAC={bool(mac)}")
+        must = strict_all or (d == 0 and not mac)
         if o is None or n is None:
             print(f"{what}: missing (other {o is not None}, this "
                   f"{n is not None})")

@@ -1,7 +1,9 @@
 """Port parity of the whole slice: the tiny paper grid (7 workloads x
 NoPB/PB/PB_RF at the conftest's reduced persist budget) through
-``repro_torch`` on the CPU, against the JAX ``simulate_grid`` with the
-macro-step fast path off and on, and the Fig. 5 rows built from both.
+``repro_torch`` on the CPU (its default, macro-steps on), against the
+JAX ``simulate_grid`` with the macro-step fast path off and on, its
+macro telemetry against the reference's, and the Fig. 5 rows built from
+both.
 
 Tolerances (DESIGN.md "Bit-stability"): runtimes, stats-derived counts
 and sums, histograms and recovery numbers exactly equal; derived means
@@ -38,16 +40,19 @@ def grids(ref):
     rcf = [ref.params.PCSConfig(scheme=s) for s in ref.params.Scheme]
     off = ref.grid.simulate_grid(rtr, rcf, bucket=TINY_BUCKET, macro=False)
     on = ref.grid.simulate_grid(rtr, rcf, bucket=TINY_BUCKET, macro=True)
+    ref_tele = (ref.grid.last_macro_hit_rate(),
+                ref.grid.last_macro_abort_reasons())
     ptr = [P.trace_from_arrays(t.name, t.ops, t.addrs, t.gaps, t.lengths)
            for t in rtr]
     pcf = [P.config_from_fields(dataclasses.asdict(c)) for c in rcf]
     port = P.simulate_grid(ptr, pcf, device="cpu")
-    return names, off, on, port
+    port_tele = (P.last_macro_hit_rate(), P.last_macro_abort_reasons())
+    return names, off, on, port, (ref_tele, port_tele)
 
 
 @pytest.mark.parametrize("macro", [False, True])
 def test_tiny_paper_grid_matches_reference(grids, macro):
-    names, off, on, port = grids
+    names, off, on, port, _ = grids
     want = on if macro else off
     for i, name in enumerate(names):
         for j in range(3):
@@ -70,8 +75,16 @@ def _fig5_rows(cells, names):
     return rows
 
 
+def test_tiny_paper_grid_macro_telemetry_matches_reference(grids):
+    """The default call's hit rate and per-reason aborts, exactly the
+    reference's (most live heads abort on interleave)."""
+    ref_tele, port_tele = grids[4]
+    assert port_tele == ref_tele
+    assert port_tele[0] > 0.0 and port_tele[1]["interleave"] > 0
+
+
 def test_fig5_rows_identical(grids):
-    names, off, on, port = grids
+    names, off, on, port, _ = grids
     assert _fig5_rows(port, names) == _fig5_rows(off, names)
     assert _fig5_rows(port, names) == _fig5_rows(on, names)
 
@@ -127,20 +140,40 @@ def test_scheduled_configs_match_reference(ref, kw):
     assert got.runtime_ns > 1e4                  # the run crosses it
 
 
-@pytest.mark.parametrize("kw", ["macro", "macro_fabric", "macro_schedule"])
-def test_out_of_scope_configs_raise(kw):
-    tr = P.make_trace("radiosity", persist_budget=20)
-    if kw == "macro":
-        cfg = P.PCSConfig(scheme=P.Scheme.PB)
+@pytest.mark.parametrize("kw", ["macro_chain", "macro_fabric",
+                                "macro_schedule"])
+def test_macro_on_chain_fabric_schedule_configs(ref, kw):
+    """The configs the port once refused with macro-steps on (a 3-switch
+    chain, a fabric, a scheduled chain): ``simulate_grid`` and
+    ``simulate_cells`` equal ``macro=False``, and their telemetry is the
+    reference's."""
+    rtr = ref.traces.make_trace("radiosity", persist_budget=20)
+    tr = P.trace_from_arrays(rtr.name, rtr.ops, rtr.addrs, rtr.gaps,
+                             rtr.lengths)
+    if kw == "macro_chain":
+        cfgs = [P.PCSConfig(scheme=s, n_switches=3) for s in P.Scheme]
     elif kw == "macro_fabric":
-        cfg = P.PCSConfig(scheme=P.Scheme.PB_RF, n_tenants=2,
-                          fabric=P.FabricTopology(2, (8, 8), 8, (0, 1)))
+        cfgs = [P.PCSConfig(scheme=s, n_tenants=2,
+                            fabric=P.FabricTopology(2, (8, 8), 8, (0, 1)))
+                for s in (P.Scheme.PB, P.Scheme.PB_RF)]
     else:
-        cfg = P.PCSConfig(scheme=P.Scheme.PB_RF, **SCHEDULED[0])
-    with pytest.raises(NotImplementedError):
-        P.simulate_grid([tr], [cfg], device="cpu", macro=True)
-    with pytest.raises(NotImplementedError):
-        P.simulate_cells([tr], [cfg], device="cpu", macro=True)
+        cfgs = [P.PCSConfig(scheme=P.Scheme.PB_RF, **SCHEDULED[0]),
+                P.PCSConfig(scheme=P.Scheme.NOPB)]
+    rcf = [ref_config(ref.core, c) for c in cfgs]
+    for run, ref_run, trs, rtrs in (
+            (P.simulate_grid, ref.grid.simulate_grid, [tr], [rtr]),
+            (P.simulate_cells, ref.grid.simulate_cells, [tr] * len(cfgs),
+             [rtr] * len(cfgs))):
+        on = run(trs, cfgs, device="cpu")
+        tele = (P.last_macro_hit_rate(), P.last_macro_abort_reasons())
+        ref_run(rtrs, rcf)
+        assert tele == (ref.grid.last_macro_hit_rate(),
+                        ref.grid.last_macro_abort_reasons()), kw
+        off = run(trs, cfgs, device="cpu", macro=False)
+        if run is P.simulate_grid:
+            on, off = on[0], off[0]
+        for j in range(len(cfgs)):
+            assert_same_result(on[j], off[j], (kw, j))
 
 
 def test_default_device_is_cuda_and_raises_without_it():

@@ -51,8 +51,9 @@ def ref():
 def test_resolve_epoch_sc_matches_reference(ref, seed):
     """Seeded epoch rows and bounds (INF-padded past the config's own),
     resolved at issue times on, between and past the bounds: the same
-    rows as the reference's, a boundary instant in the new epoch, the
-    padding never selected."""
+    rows and next boundary as the reference's, a boundary instant in the
+    new epoch, the padding never selected, no next boundary without a
+    schedule."""
     rng = np.random.default_rng(seed)
     E, T, D1 = (2, 3, 5, 8)[seed], 3, 2
     n_real = int(rng.integers(1, E))            # bounds of the config's own
@@ -72,9 +73,13 @@ def test_resolve_epoch_sc_matches_reference(ref, seed):
         import jax.numpy as jnp
         from repro.core.engine.step import resolve_epoch_sc as ref_resolve
         sc_j = {k: jnp.asarray(v) for k, v in sc_np.items()}
-        want = [ref_resolve(sc_j, jnp.float64(t))[0] for t in times]
-    for t, w in zip(times, want):
-        got = resolve_epoch_sc(sc_t, torch.tensor(t, dtype=torch.float64))
+        want = [ref_resolve(sc_j, jnp.float64(t)) for t in times]
+    for t, (w, w_next) in zip(times, want):
+        got, nxt = resolve_epoch_sc(sc_t, torch.tensor(t, dtype=torch.float64))
+        assert nxt.dtype == torch.float64
+        assert float(nxt) == float(w_next), (t, float(nxt), float(w_next))
+        later = bounds[bounds > t]
+        assert float(nxt) == (float(later.min()) if len(later) else INF)
         assert set(got) == set(w) == set(sc_np) - {"epoch_bounds"}
         for k in got:
             assert got[k].dtype == torch.float64
@@ -83,11 +88,12 @@ def test_resolve_epoch_sc_matches_reference(ref, seed):
         assert np.array_equal(got["quota"].numpy(), sc_np["quota"][ep])
     assert np.array_equal(
         resolve_epoch_sc(sc_t, torch.tensor(float(bounds[0]),
-                                            dtype=torch.float64))["quota"],
+                                            dtype=torch.float64))[0]["quota"],
         sc_np["quota"][1])
     flat = {k: v[0] if k in EPOCH_KEYS else v
             for k, v in sc_t.items() if k != "epoch_bounds"}
-    assert resolve_epoch_sc(flat, torch.tensor(5e5)) is flat
+    got, nxt = resolve_epoch_sc(flat, torch.tensor(5e5))
+    assert got is flat and nxt is None
 
 
 # ---- the matrix against the reference ---------------------------------------

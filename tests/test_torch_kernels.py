@@ -118,7 +118,7 @@ def test_cell_scan_wrapper_cpu_runs_eager_scan_cell():
 @pytest.mark.parametrize("bad", ["ops_dtype", "gaps_dtype", "max_pbe",
                                  "banks", "cfg_shape", "device_mix",
                                  "leaves", "fab_shape", "epochs",
-                                 "ep_shape"])
+                                 "ep_shape", "mlen_dtype", "macro_pad"])
 def test_cell_scan_wrapper_raises_on_what_it_does_not_take(bad):
     _, _, _, (args, kw) = _grid_inputs(budget=40)
     args, kw = list(args), dict(kw)
@@ -144,6 +144,15 @@ def test_cell_scan_wrapper_raises_on_what_it_does_not_take(bad):
                               dtype=torch.float64)
     elif bad == "ep_shape":
         args[11] = args[11][:, :, :-1]
+    elif bad == "mlen_dtype":
+        args[13] = args[13].to(torch.int32)
+    elif bad == "macro_pad":
+        # macro-steps read MACRO_KMAX slots past a stream: the trace axis
+        # cut to the longest stream cannot carry them
+        L = int(args[3].max())
+        args[:3] = [a[..., :L].contiguous() for a in args[:3]]
+        args[13] = args[13][..., :L].contiguous()
+        assert kw["macro"]
     else:
         args[3] = args[3].to("meta")
     with pytest.raises(ValueError):
@@ -218,10 +227,10 @@ def test_pack_configs_epoch_rows():
 
 def test_cell_scan_units_cover_every_instantiation(tmp_path):
     """The cell scan's split build: the generated units
-    (``_build.unit_sources``) hold one (SPL, D) unit for each pair of
-    every ``(SPL, D, FAB, EP)`` the wrapper dispatches to, and the entry
-    unit; the source's runners take FAB (D >= 1) and EP both ways; a
-    source without the units' list builds as one unit."""
+    (``_build.unit_sources``) hold one (SPL, D, MAC) unit for each triple
+    of every ``(SPL, D, FAB, EP, MAC)`` the wrapper dispatches to, and
+    the entry unit; the source's runners take FAB (D >= 1), EP and MAC
+    both ways; a source without the units' list builds as one unit."""
     import re
     from repro_torch.kernels import _build
     src = _build.CSRC / "cell_scan.cu"
@@ -232,21 +241,26 @@ def test_cell_scan_units_cover_every_instantiation(tmp_path):
         if name == "entry":
             assert "#define CELL_SCAN_UNIT_ENTRY" in text
             continue
-        spl, d = (int(re.search(rf"#define CELL_SCAN_UNIT_{k} (\d+)",
-                                text).group(1)) for k in ("SPL", "D"))
-        assert name == f"s{spl}_d{d}"
-        pairs.add((spl, d))
+        spl, d, mac = (int(re.search(rf"#define CELL_SCAN_UNIT_{k} (\d+)",
+                                     text).group(1))
+                       for k in ("SPL", "D", "MAC"))
+        assert name == f"s{spl}_d{d}_m{mac}"
+        pairs.add((spl, d, bool(mac)))
     assert "entry" in units and len(units) == len(pairs) + 1
-    dispatched = {cs.instantiation(p, d, nl, e)
+    dispatched = {cs.instantiation(p, d, nl, e, m)
                   for p in range(1, cs.MAX_PBE + 1)
                   for d in range(cs.MAX_DEEP + 1)
-                  for nl in ((1, 2) if d else (1,)) for e in (1, 2)}
+                  for nl in ((1, 2) if d else (1,)) for e in (1, 2)
+                  for m in (False, True)}
     assert dispatched == set(cs.INSTANTIATIONS)
-    assert {(s, d) for s, d, _, _ in dispatched} == pairs
+    assert len(dispatched) == 84
+    assert {(s, d, m) for s, d, _, _, m in dispatched} == pairs
     body = src.read_text()
-    for call in ("run_one<SPL, D, FAB, true>", "run_one<SPL, D, FAB, false>",
-                 "run_ep<SPL, D, true>", "run_ep<SPL, D, false>",
-                 "run_ep<SPL, 0, false>", "run_d<SPL, D>"):
+    for call in ("run_one<SPL, D, FAB, true, MAC>",
+                 "run_one<SPL, D, FAB, false, MAC>",
+                 "run_ep<SPL, D, true, MAC>", "run_ep<SPL, D, false, MAC>",
+                 "run_ep<SPL, 0, false, MAC>", "run_d<SPL, D, MAC>",
+                 "run_mac<true>", "run_mac<false>"):
         assert call in body, call
     one = tmp_path / "cell_scan.cu"
     one.write_text(re.sub(r"#define CELL_SCAN_UNITS\(X\)", "#define NONE",
@@ -257,13 +271,14 @@ def test_cell_scan_units_cover_every_instantiation(tmp_path):
 @pytest.mark.parametrize("name", sorted(cv.VARIANTS))
 def test_cell_scan_variants_edits_apply(name):
     """Each A/B variant of the cell scan finds its anchors once in the
-    source, cuts the units to SPL 1 at D = 0, 1 and 3, and (but for the
-    yardstick ``units``) changes the kernel's text."""
+    source, cuts the units to SPL 1 at D = 0, 1 and 3 (MAC both ways),
+    and (but for the yardstick ``units``) changes the kernel's text."""
     from repro_torch.kernels import _build
     text = (_build.CSRC / "cell_scan.cu").read_text()
     out = cv.variant_source(text, cv.VARIANTS[name])
     cut = cv.variant_source(text, [])
     assert (out == cut) == (name == "units")
-    assert "X(1, 0) X(1, 1) X(1, 3)\n" in out and "X(2, 0)" not in out
+    assert "X(1, 0, 0) X(1, 1, 0) X(1, 3, 0) X(1, 0, 1) X(1, 1, 1) " \
+        "X(1, 3, 1)\n" in out and "X(2, 0" not in out
     with pytest.raises(ValueError):
         cv.variant_source(out, cv.VARIANTS[name] or [("no such text", "")])

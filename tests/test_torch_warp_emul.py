@@ -34,40 +34,67 @@ from repro_torch.kernels.ref import (flash_attention_ref, ssd_scan_ref,
 CSRC = Path(tl.__file__).resolve().parent / "csrc"
 EMUL = Path(__file__).resolve().parent / "warp_emul"
 
+# Defined before the kernel's source in every emulated cell-scan library:
+# a step inside a committed macro window that does not select the
+# window's core is counted (window_faults below).
+CELL_SCAN_PRELUDE = r'''
+#include <atomic>
+static std::atomic<int> g_window_faults{0};
+#define CELL_SCAN_WINDOW_CHECK(ok) \
+  do {                             \
+    if (!(ok)) ++g_window_faults;  \
+  } while (0)
+'''
+
 CELL_SCAN_LAUNCH = r'''
 alignas(16) unsigned char smem_raw[1 << 20];
-// EMU_EP: the library's half of the instantiations, built beside the
-// other at once — every EP = false one (0), or the EP = true ones the
-// scheduled cases need (1: SPL 1, and SPL 2 at D = 3); a grid outside
-// the half is refused
+// EMU_MAC / EMU_EP: the library's third of the instantiations, built
+// beside the others at once — with macro-steps off, every EP = false one
+// (EMU_EP 0) or the EP = true ones the scheduled cases need (EMU_EP 1:
+// SPL 1, and SPL 2 at D = 3); with them on (EMU_MAC 1), SPL 1's at every
+// D, FAB and EP; a grid outside the library's third is refused
 template <int SPL, int D, bool FAB>
-static bool emu_ep(Args& a, int n_cells, bool ep) {
-  if (ep != static_cast<bool>(EMU_EP)) return false;
-#if EMU_EP
-  if constexpr (SPL == 1 || (SPL == 2 && D == 3)) {
-    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, true>(a); });
+static bool emu_ep(Args& a, int n_cells, bool ep, bool mac) {
+  if (mac != static_cast<bool>(EMU_MAC)) return false;
+#if EMU_MAC
+  if constexpr (SPL == 1) {
+    if (ep)
+      emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, true, true>(a); });
+    else
+      emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false, true>(a); });
     return true;
   }
   return false;
 #else
-  emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false>(a); });
+  if (ep != static_cast<bool>(EMU_EP)) return false;
+#if EMU_EP
+  if constexpr (SPL == 1 || (SPL == 2 && D == 3)) {
+    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, true, false>(a); });
+    return true;
+  }
+  return false;
+#else
+  emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false, false>(a); });
   return true;
+#endif
 #endif
 }
 template <int SPL, int D>
-static bool emu_d(Args& a, int n_cells, bool fab, bool ep) {
-  return fab ? emu_ep<SPL, D, true>(a, n_cells, ep)
-             : emu_ep<SPL, D, false>(a, n_cells, ep);
+static bool emu_d(Args& a, int n_cells, bool fab, bool ep, bool mac) {
+  return fab ? emu_ep<SPL, D, true>(a, n_cells, ep, mac)
+             : emu_ep<SPL, D, false>(a, n_cells, ep, mac);
 }
 template <int SPL>
-static bool emu_spl(Args& a, int n_cells, int n_deep, bool fab, bool ep) {
+static bool emu_spl(Args& a, int n_cells, int n_deep, bool fab, bool ep,
+                    bool mac) {
   switch (n_deep) {
-    case 0: return emu_ep<SPL, 0, false>(a, n_cells, ep);
-    case 1: return emu_d<SPL, 1>(a, n_cells, fab, ep);
-    case 2: return emu_d<SPL, 2>(a, n_cells, fab, ep);
-    default: return emu_d<SPL, 3>(a, n_cells, fab, ep);
+    case 0: return emu_ep<SPL, 0, false>(a, n_cells, ep, mac);
+    case 1: return emu_d<SPL, 1>(a, n_cells, fab, ep, mac);
+    case 2: return emu_d<SPL, 2>(a, n_cells, fab, ep, mac);
+    default: return emu_d<SPL, 3>(a, n_cells, fab, ep, mac);
   }
 }
+extern "C" int window_faults() { return g_window_faults.exchange(0); }
 extern "C" int cell_scan_launch(
     const int* ops, const int* addrs, const float* gaps, const int* lengths,
     const int* cell_trace, const int* cell_cfg, const int* schemes,
@@ -77,8 +104,9 @@ extern "C" int cell_scan_launch(
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
     int* aver, const double* chain_table, double* recov_h,
     const double* fab_table, double* recov_l, const double* ep_table,
-    const double* ep_bounds, int n_cells, int C, int L, int P, int B, int A,
-    int T, int n_track, int n_deep, int n_leaves, int n_epochs,
+    const double* ep_bounds, const signed char* mlen, long long* macro_ops,
+    long long* macro_aborts, int n_cells, int C, int L, int P, int B, int A,
+    int T, int n_track, int n_deep, int n_leaves, int n_epochs, int macro,
     cudaStream_t) {
   const bool fab = n_leaves > 1;
   const bool ep = n_epochs > 1;
@@ -87,7 +115,8 @@ extern "C" int cell_scan_launch(
          sc_table, ten_table, lat_edges, runtime, stats, hop_stats,
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
          C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
-         fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs};
+         fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs,
+         mlen, macro_ops, macro_aborts};
   if (n_deep < 0 || n_deep > 3 || n_leaves < 1 || n_leaves > MAX_LEAVES ||
       (fab && n_deep < 1) || n_epochs < 1 || n_epochs > MAX_EPOCHS)
     return 1;
@@ -96,9 +125,11 @@ extern "C" int cell_scan_launch(
   if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
   if (smem > sizeof(smem_raw)) return 1;
   wg::emu_smem_base = smem_raw;
-  const bool ran = P <= 32   ? emu_spl<1>(a, n_cells, n_deep, fab, ep)
-                  : P <= 64 ? emu_spl<2>(a, n_cells, n_deep, fab, ep)
-                            : emu_spl<MAX_SPL>(a, n_cells, n_deep, fab, ep);
+  const bool mac = macro != 0;
+  const bool ran =
+      P <= 32   ? emu_spl<1>(a, n_cells, n_deep, fab, ep, mac)
+      : P <= 64 ? emu_spl<2>(a, n_cells, n_deep, fab, ep, mac)
+                : emu_spl<MAX_SPL>(a, n_cells, n_deep, fab, ep, mac);
   return ran ? 0 : 1;
 }
 // the chain's warp primitives on one emulated warp: lane l's __clz of
@@ -286,7 +317,7 @@ extern "C" int ssd_scan_tc_f32_launch(
 '''
 
 
-def _emulated_source(name: str, launcher: str) -> str:
+def _emulated_source(name: str, launcher: str, prelude: str = "") -> str:
     src = (CSRC / f"{name}.cu").read_text()
     body = src.split("// ---- host entry point")[0]
     body = body.replace("#include <cuda_runtime.h>",
@@ -295,19 +326,20 @@ def _emulated_source(name: str, launcher: str) -> str:
         twin = EMUL / header.name        # a host twin of PTX primitives
         body = body.replace(f'#include "{header.name}"',
                             f'#include "{twin if twin.exists() else header}"')
-    return body + launcher
+    return prelude + body + launcher
 
 
 def _build(out: Path, sources) -> dict:
-    """Each ``(library, kernel source, launcher)`` of ``sources`` built by
-    its own g++, all at once; ``{library: loaded}``."""
+    """Each ``(library, kernel source, launcher[, prelude])`` of
+    ``sources`` built by its own g++, all at once; ``{library:
+    loaded}``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is needed to build the emulated kernels")
     procs = []
-    for lib, name, launcher in sources:
+    for lib, name, launcher, *prelude in sources:
         cpp = out / f"{lib}.cpp"
-        cpp.write_text(_emulated_source(name, launcher))
+        cpp.write_text(_emulated_source(name, launcher, *prelude))
         so = out / f"lib{lib}.so"
         procs.append((lib, so, subprocess.Popen(
             [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
@@ -325,11 +357,13 @@ def _build(out: Path, sources) -> dict:
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("warp_emul"),
-                  (("cell_scan", "cell_scan",
-                    "#define EMU_EP 0\n" + CELL_SCAN_LAUNCH),
-                   ("cell_scan_ep", "cell_scan",
-                    "#define EMU_EP 1\n" + CELL_SCAN_LAUNCH),
-                   ("tat_lookup", "tat_lookup", TAT_LOOKUP_LAUNCH)))
+                  tuple((lib, "cell_scan", f"#define EMU_EP {ep}\n"
+                         f"#define EMU_MAC {mac}\n" + CELL_SCAN_LAUNCH,
+                         CELL_SCAN_PRELUDE)
+                        for lib, ep, mac in (("cell_scan", 0, 0),
+                                             ("cell_scan_ep", 1, 0),
+                                             ("cell_scan_mac", 0, 1)))
+                  + (("tat_lookup", "tat_lookup", TAT_LOOKUP_LAUNCH),))
 
 
 @pytest.fixture(scope="module")
@@ -653,7 +687,88 @@ def _cases():
                           P.PCSConfig(scheme=S.PB_RF, n_cores=4, n_tenants=4,
                                       fabric=_fab(4, (4, 4), 4, "spread"))],
                          8),
+        # macro-steps (the MAC = true library, SPL 1).  Commits: one core
+        # of persist/read pairs to fresh lines (no other core to
+        # interleave), each scheme, an SLO target that tightens PB_RF's
+        # drain-down and a PB_RF whose drain-down fires mid-run
+        "macro_commits": ([_fig1_probe(60), _fig1_probe(40, gap=50.0)],
+                          [P.PCSConfig(scheme=s) for s in S]
+                          + [P.PCSConfig(scheme=S.PB_RF, n_pbe=4,
+                                         policy=P.PBPolicy(
+                                             drain=P.DrainPolicy(
+                                                 latency_target_ns=300.0)))],
+                          8),
+        # every abort reason in one grid (D = 1, FAB, EP): computes
+        # (window), a fabric, a 2-switch chain, a threshold step inside a
+        # window (epoch_boundary), several cores (interleave), PB read
+        # hits (guard)
+        "macro_reasons": (small[:1] + [_fig1_probe(40, gap=500.0),
+                                       _hit_probe()],
+                          [P.PCSConfig(scheme=S.PB), P.PCSConfig(
+                              scheme=S.PB_RF, n_pbe=4),
+                           P.PCSConfig(scheme=S.PB, n_switches=2),
+                           P.PCSConfig(scheme=S.PB_RF, n_tenants=2,
+                                       fabric=P.FabricTopology(2, (4, 4), 4,
+                                                               (0, 1))),
+                           P.PCSConfig(scheme=S.PB, policy=P.PBPolicy(
+                               drain=P.DrainPolicy(
+                                   threshold=Sch((2.5e4,), (0.75, 0.5)),
+                                   preset=0.25)))], 8),
+        # dead runs after a crash, advancing up to MACRO_KMAX slots past
+        # the trace-entry ring's RING = 4, at points that also cut
+        # committed windows
+        "macro_dead": (small + [_fig1_probe(60)],
+                       [P.PCSConfig(scheme=s).with_crash(t) for s in S
+                        for t in (2e3, 5e3, 9e4)], 16),
+        # tenants under quotas, weighted victims and a per-tenant SLO
+        "macro_tenants": (fz, [P.PCSConfig(scheme=s, n_pbe=8, n_tenants=2,
+                                           policy=p)
+                               for s in (S.PB, S.PB_RF) for p in pols], 8),
+        # more cores than lanes: the other cores' least key over lanes
+        # holding two cores each (cores that run one after another, whose
+        # windows commit, beside the fuzzed ones)
+        "macro_many_cores": (many + [_staggered(36)],
+                             [P.PCSConfig(scheme=s, n_pbe=16, n_tenants=2)
+                              for s in S], 8),
     }
+
+
+def _fig1_probe(n_pairs, gap=2000.0):
+    """``benchmarks/fig1_switch_depth.py``'s probe, cut: one core of
+    persist/read pairs to fresh lines, ``gap`` ns apart."""
+    ops = np.tile(np.int32([int(P.Op.PERSIST), int(P.Op.PM_READ)]),
+                  n_pairs)[None]
+    addrs = np.stack([np.arange(n_pairs), (1 << 20) + np.arange(n_pairs)],
+                     1).reshape(1, -1).astype(np.int32)
+    return P.trace_from_arrays(f"probe{n_pairs}", ops, addrs,
+                               np.full(ops.shape, gap, np.float32),
+                               np.full(1, ops.shape[1], np.int32))
+
+
+def _staggered(n_cores, n_pairs=10):
+    """``n_cores`` cores of persist/read pairs to lines of their own,
+    100 ns apart, core c starting at c ms: each runs alone but at its
+    neighbours' edges."""
+    ops = np.tile(np.int32([int(P.Op.PERSIST), int(P.Op.PM_READ)]),
+                  (n_cores, n_pairs))
+    addrs = ((np.arange(n_cores)[:, None] << 16)
+             + np.arange(2 * n_pairs)[None, :]).astype(np.int32)
+    gaps = np.full(ops.shape, 100.0, np.float32)
+    gaps[:, 0] = 1e6 * np.arange(n_cores)
+    return P.trace_from_arrays("staggered", ops, addrs, gaps,
+                               np.full(n_cores, ops.shape[1], np.int32))
+
+
+def _hit_probe(n=12):
+    """One core: a persist to a line, then reads of it and of a fresh
+    one, 10 ns apart (each window's first read hits the PB)."""
+    ops = np.tile(np.int32([int(P.Op.PERSIST), int(P.Op.PM_READ),
+                            int(P.Op.PM_READ)]), n)[None]
+    addrs = np.stack([3 * np.arange(n)] * 2 + [3 * np.arange(n) + 1],
+                     1).reshape(1, -1).astype(np.int32)
+    return P.trace_from_arrays("hit_probe", ops, addrs,
+                               np.full(ops.shape, 10.0, np.float32),
+                               np.full(1, ops.shape[1], np.int32))
 
 
 INF_NS = 1e30     # crash_at that never comes
@@ -714,13 +829,19 @@ REACH = {
     "epochs_deep": lambda r: {1, 2} <= r["pending_rows"],
     "epochs_d2": lambda r: r["epochs"] == {0, 1},
     "epochs_spl2": lambda r: r["epochs"] == {0, 1},
+    # a committed window and a dead run each longer than the ring
+    "macro_commits": lambda r: r["window_max"] > 4,
+    "macro_dead": lambda r: r["dead_max"] > 4 and r["window_max"] > 4,
+    "macro_reasons": lambda r: r["window_max"] > 1,
 }
 
 
-# The kernel instantiation a scheduled case must run: (SPL, D, FAB, EP).
-INSTANTIATION = {"epochs_deep": (1, 3, False, True),
-                 "epochs_d2": (1, 2, True, True),
-                 "epochs_spl2": (2, 3, True, True)}
+# The kernel instantiation a case must run: (SPL, D, FAB, EP, MAC).
+INSTANTIATION = {"epochs_deep": (1, 3, False, True, False),
+                 "epochs_d2": (1, 2, True, True, False),
+                 "epochs_spl2": (2, 3, True, True, False),
+                 "macro_commits": (1, 0, False, False, True),
+                 "macro_reasons": (1, 1, True, True, True)}
 
 
 @pytest.fixture
@@ -731,12 +852,13 @@ def chain_batches(monkeypatch):
     coalesces, the batches that named a line twice (none can: every
     hop holds at most one Dirty entry per line, and a packet bypasses a
     row only when it holds none for its line), the schedule epochs the
-    steps resolved, and the forwards run with no packet for a deep row
-    left over its drain count."""
+    steps resolved, the forwards run with no packet for a deep row left
+    over its drain count, and the longest committed macro window and
+    dead-run collapse (``window_max``, ``dead_max``, in trace slots)."""
     from repro_torch.core.engine import chain, channels, policy, step
     r = dict(place=0, land=0, bank=0, place_split=0, land_split=0,
              coalesces=0, repeats=0, deferred=0, epochs=set(), pending=0,
-             pending_rows=set())
+             pending_rows=set(), window_max=0, dead_max=0)
     place, land = chain._place, chain._pm_land
     drain = policy.drain_threshold_preset
 
@@ -794,6 +916,17 @@ def chain_batches(monkeypatch):
                 if bool(k > 0.0):
                     r["pending_rows"].add(j)
         return out
+    macro_step = step.macro_step
+
+    def _macro_step(ctx, st, ops, addrs, gaps64, lengths, mlen, tsel, live,
+                    *a, **kw):
+        out = macro_step(ctx, st, ops, addrs, gaps64, lengths, mlen, tsel,
+                         live, *a, **kw)
+        if out[0] is not None:
+            key = "window_max" if live else "dead_max"
+            r[key] = max(r[key], out[1])
+        return out
+    monkeypatch.setattr(step, "macro_step", _macro_step)
     monkeypatch.setattr(step, "resolve_epoch_sc", _resolve)
     monkeypatch.setattr(chain, "drain_pending", _pending)
     monkeypatch.setattr(chain, "_place", _place)
@@ -812,28 +945,48 @@ def chain_batches(monkeypatch):
                                   "fabric_crash", "epochs_d0",
                                   "epochs_fabric", "epochs_chain",
                                   "epochs_mixed", "epochs_deep",
-                                  "epochs_d2", "epochs_spl2"])
+                                  "epochs_d2", "epochs_spl2",
+                                  "macro_commits", "macro_reasons",
+                                  "macro_dead", "macro_tenants",
+                                  "macro_many_cores"])
 def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
                                                    case):
+    """The emulated kernel against the eager ``scan_cell`` on every
+    output; the ``macro`` cases run the MAC library with macro-steps on
+    (the other cases with them off), its counters included, and every
+    step inside a committed window must select the window's core."""
     traces, configs, track = _cases()[case]
+    macro = case.startswith("macro")
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
     args, kw = grid.cell_inputs(traces, configs, [p[0] for p in pairs],
-                                [p[1] for p in pairs], track_addrs=track)
+                                [p[1] for p in pairs], track_addrs=track,
+                                macro=macro)
     want = cs.cell_scan(*args, **kw)
     assert chain_batches["repeats"] == 0
     if case in REACH:
         assert REACH[case](chain_batches), chain_batches
     got = cs._empty_out(len(pairs), kw["n_tenants_max"], max(track, 1),
                         kw["n_deep_max"], "cpu", kw["n_leaves_max"])
-    lib = libs["cell_scan_ep" if args[11].shape[1] > 1 else "cell_scan"]
+    lib = libs["cell_scan_mac" if macro else "cell_scan_ep"
+               if args[11].shape[1] > 1 else "cell_scan"]
     assert cs.launch(lib, list(args), got,
                      max_pbe=kw["max_pbe"], pm_banks=kw["pm_banks"],
                      n_track=track, n_deep=kw["n_deep_max"],
-                     n_leaves=kw["n_leaves_max"], stream=None) == 0
+                     n_leaves=kw["n_leaves_max"], macro=macro,
+                     stream=None) == 0
     for f in cs.CellScanOut._fields:
         if f != "lookups":
             assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(got.lookups.sum()) > 0
+    assert lib.window_faults() == 0
+    if macro:
+        assert int(want.macro_ops.sum()) > 0
+        if case == "macro_reasons":
+            assert bool((want.macro_aborts.sum(0) > 0).all()), \
+                want.macro_aborts.sum(0)
+    else:
+        assert int(want.macro_ops.abs().sum()) == 0
+        assert int(want.macro_aborts.abs().sum()) == 0
     if case.startswith(("chain", "fabric")):
         # the chain's rows saw commits, and its hops hold survivors
         assert float(want.hop_stats[:, 1:, 1].sum()) > 0
@@ -848,8 +1001,8 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
         assert args[11].shape[1] == (3 if case == "epochs_mixed" else 2)
     if case in INSTANTIATION:
         assert cs.instantiation(kw["max_pbe"], kw["n_deep_max"],
-                                kw["n_leaves_max"], args[11].shape[1]) \
-            == INSTANTIATION[case]
+                                kw["n_leaves_max"], args[11].shape[1],
+                                macro) == INSTANTIATION[case]
 
 
 @pytest.mark.parametrize("seed", range(4))
