@@ -31,14 +31,19 @@ lines:
    same kernel built with ``-DCELL_SCAN_PROFILE`` on the three cholesky
    cells (the longest), cycles and ns per step of each section;
 5. every route of ``flash_attention`` against the plain version on the
-   card: the JAX sweep (bf16 and f32 up to head dim 128 on the
-   tensor-core kernel, f32 at 256 on the FMA kernel, causal with and
-   without a window, one non-causal case each; 2e-5 / 3e-2; each case's
-   route checked by its launch counters), the tensor-core kernel's bf16
-   outputs past 3e-2 over 8 seeds at smollm-135m's prefill shape (none
-   allowed), and that shape in bf16 (the main path) and f32 (the f32
-   tensor-core route beside the FMA kernel, run through ``launch``),
-   timed beside the plain version and ``scaled_dot_product_attention``;
+   card: the JAX sweep (bf16 and f32 on the tensor-core kernels, f32 at
+   head dim 256 on the wide one, causal with and without a window, one
+   non-causal case each; 2e-5 / 3e-2; each case's route checked by its
+   launch counters), the tensor-core kernel's bf16 outputs past 3e-2
+   over 8 seeds at smollm-135m's prefill shape (none allowed), and that
+   shape in bf16 (the main path) and f32 (the f32 tensor-core route
+   beside the FMA kernel, run through ``launch``), timed beside the plain
+   version and ``scaled_dot_product_attention``; then f32 at D = 256 in
+   gemma2-2b's head layout, q (4, 8, 1024, 256) and k/v (4, 4, 1024,
+   256), causal: the wide kernel's outputs past 2e-5 over 8 seeds (none
+   allowed) and its launches by entry, and its time in turns with the
+   FMA kernel (through ``launch``) beside the plain version, the bound
+   and ``scaled_dot_product_attention`` in f32;
 6. every route of ``ssd_scan`` against the plain version: the JAX sweep
    in both dtypes (the tensor-core kernel; 1e-3 / 1e-1; each case's
    route checked by its launch counters), a carried-in state on a
@@ -98,9 +103,12 @@ without CUDA.
    fig_fabric's smoke size (150 pairs); (d) the section profile of a
    fabric step (cholesky's 4 cells of (b)); (e) 300 fuzzed fabric crash
    cells on the card against the port's oracle; and, given
-   ``--sass-against OLD.cu``, (f) ``repro_torch.kernels.sass_diff`` of
-   every ``EP = false`` instantiation (``FAB`` both ways) against
-   ``OLD.cu``.
+   ``--sass-against OLD.cu [OLD_FLASH.cu]``, (f)
+   ``repro_torch.kernels.sass_diff`` of every instantiation against
+   ``OLD.cu`` (every ``MAC = false`` one must be identical), with the
+   registers and stack frame of each, and of every kernel of
+   ``flash_attention_tc.cu`` that ``OLD_FLASH.cu`` also has (each must be
+   identical).
 
 10. (run after phase 9, before 5) epoch schedules through the cell
     scan's EP instantiation: (a) ``benchmarks/fig_dynamic.py``'s grid at
@@ -134,8 +142,7 @@ without CUDA.
     asserted through the wrapper's launch record and exact against the
     eager ``scan_cell`` with macro-steps on (the MAC ones' counters too),
     with a coverage line.  ``--sass-against OLD.cu`` (9f) diffs every
-    instantiation (the ``D = 0``, ``MAC = false`` ones must be
-    identical).
+    instantiation (the ``MAC = false`` ones must be identical).
 
 11. (run after phase 10, before 5) macro-steps through the cell scan's
     MAC instantiation, which ``simulate_grid``, ``simulate_cells`` and
@@ -969,8 +976,11 @@ def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
     """``cell_scan_launch`` of ``lib`` by the argument list of the source
     it was built from: ``"this"`` the package's
     (:func:`repro_torch.kernels.cell_scan.launch`; ``macro`` runs its
-    macro-steps), ``"premacro"`` from before the macro-steps (no run
-    plan, counters or macro flag), ``"preepoch"`` from before the epoch
+    macro-steps, the run plan packed into the op words), ``"mlen"`` a
+    source whose macro-steps read the run plan from an argument of its
+    own and the op words as they are, ``"premacro"`` from before the
+    macro-steps (no run plan, counters or macro flag), ``"preepoch"``
+    from before the epoch
     schedules (nor an epoch table, bounds or count; a schedule-free
     grid), ``"prefabric"`` from before the fabric (nor a fabric table,
     per-leaf survivors or leaf count; a grid without a fabric).  The
@@ -983,7 +993,7 @@ def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
         return cs.launch(lib, ins, out, max_pbe=max_pbe, pm_banks=pm_banks,
                          n_track=n_track, n_deep=n_deep, n_leaves=n_leaves,
                          stream=stream, macro=macro)
-    if macro:
+    if macro and abi != "mlen":
         fail(f"launch_abi: a {abi} source has no macro-steps")
     _, C, L = ins[0].shape
     N, T, A = out.recov_t.shape[0], out.recov_t.shape[1], \
@@ -995,14 +1005,18 @@ def launch_abi(abi, lib, ins, out, *, max_pbe, pm_banks, n_track, n_deep,
                             out.recov_t, out.steps, out.lookups, aver,
                             ins[9], out.recov_h]
     ints = [N, C, L, max_pbe, pm_banks, A, T, n_track, n_deep]
-    if abi in ("preepoch", "premacro"):
+    if abi in ("preepoch", "premacro", "mlen"):
         ptrs += [ins[10], out.recov_l]
         ints.append(n_leaves)
-    if abi == "premacro":
+    if abi in ("premacro", "mlen"):
         ptrs += [ins[11], ins[12]]
         ints.append(ins[11].shape[1])
-    out.macro_ops.zero_()
-    out.macro_aborts.zero_()
+    if abi == "mlen":
+        ptrs += [ins[13], out.macro_ops, out.macro_aborts]
+        ints.append(int(macro))
+    if not macro:
+        out.macro_ops.zero_()
+        out.macro_aborts.zero_()
     fn = lib.cell_scan_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] \
@@ -1108,7 +1122,8 @@ def compare_against(torch, np, paths) -> dict:
     for path in paths:
         with open(path) as f:
             src = f.read()
-        abis.append("this" if "macro_aborts" in src else
+        abis.append("this" if "OPS_MLEN_SHIFT" in src else
+                    "mlen" if "macro_aborts" in src else
                     "premacro" if "ep_table" in src else
                     "preepoch" if "recov_l" in src else "prefabric")
     t0 = time.time()
@@ -1141,7 +1156,7 @@ def compare_against(torch, np, paths) -> dict:
             if abi in ("preepoch", "prefabric") and a[11].shape[1] > 1:
                 continue                  # that source has no EP
             # macro-steps off, and on where the other source has them
-            for mac in (False, True) if abi == "this" else (False,):
+            for mac in (False, True) if abi in ("this", "mlen") else (False,):
                 ms = {"other": [], "this": []}
                 for which in ("other", "this", "this", "other"):
                     ms[which].append(cuda_ms(lambda: run(
@@ -1169,7 +1184,7 @@ def compare_against(torch, np, paths) -> dict:
             run("this", this[0], "this")
     for which, libs, abi in [("this", this, "this")] + list(
             zip(paths, others, abis)):
-        if abi != "this":
+        if abi not in ("this", "mlen"):
             continue              # its section list is not this one's
         for grid, (a, k, cells, sel) in grids.items():
             if not sel or which not in outs_by[grid]:
@@ -1341,8 +1356,9 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
     the kernel against the eager plain version on all 52 cells of (a)
     at fig_fabric's smoke size; (d) the section profile of a fabric step
     (cholesky's 4 cells of (b)); (e) fuzzed fabric crash cells on the
-    card against the port's oracle; (f) with ``sass_against`` (an
-    earlier ``cell_scan.cu``), ``sass_diff`` of every EP = false
+    card against the port's oracle; (f) with ``sass_against`` (the
+    arguments of ``sass_diff.main``: an earlier ``cell_scan.cu``, and
+    perhaps an earlier ``flash_attention_tc.cu``), ``sass_diff`` of every
     instantiation against it."""
     from repro_torch.core import PCSConfig, Scheme, simulate_grid
     from repro_torch.kernels import cell_scan as cs
@@ -1499,12 +1515,14 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
     out["oracle_cells"] = n_cells
     out["max_abs_err"] = err
 
-    # (f) every instantiation against an earlier source (the D = 0,
-    # MAC = false ones must be identical)
+    # (f) every instantiation against an earlier source (the MAC = false
+    # ones must be identical), and the attention kernels against an
+    # earlier flash_attention_tc.cu where one is given (every kernel both
+    # have must be identical)
     if sass_against:
         from repro_torch.kernels import sass_diff
-        if sass_diff.main(sass_against) != 0:
-            fail(f"D = 0, MAC = false SASS differs from {sass_against}")
+        if sass_diff.main(*sass_against) != 0:
+            fail(f"SASS differs from {sass_against}")
         out["sass_identical"] = True
     return out
 
@@ -2106,8 +2124,10 @@ def phase_macro(torch, np, smem_ns, paper_traces, paper_configs, scan):
             for s, n, c in labels]
     d = through_default("Fig. 1 sweep", lambda: simulate_grid([tr], configs),
                         want)
-    num, _ = macro_turns(torch, smem_ns, "Fig. 1 sweep", [tr], configs,
-                         want=want)
+    num, fig1_run = macro_turns(torch, smem_ns, "Fig. 1 sweep", [tr],
+                                configs, want=want)
+    fig1_labels = ["{}/{}{}".format(s, n, "/crash" if c else "")
+                   for s, n, c in labels]
     out["fig1"] = dict(num, **d)
     tr, labels, configs = fig_fabric_grid(np, FAB_OPS)
     want = [datum["fig_fabric"][lab] for lab in labels]
@@ -2176,6 +2196,19 @@ def phase_macro(torch, np, smem_ns, paper_traces, paper_configs, scan):
                       f"{str(mac).lower()}", p)
         prof[mac] = {c: v["ns_per_step"] for c, v in p["cells"].items()}
     out["cholesky_sections"] = prof
+    # and Fig. 1's 21 cells (one core: every live head replays or is
+    # settled by its config's deep gate)
+    args, kw, got = fig1_run
+    sel = list(range(got.steps.shape[0]))
+    prof = {}
+    for mac in (True, False):
+        p = profile_cells(torch, args, dict(kw, macro=mac), got, sel,
+                          [f"fig1/{lab} (MAC {str(mac).lower()})"
+                           for lab in fig1_labels], macro=mac)
+        print_profile("11d", f"Fig. 1's 21 cells, MAC = "
+                      f"{str(mac).lower()}", p)
+        prof[mac] = {c: v["total_ns_per_step"] for c, v in p["cells"].items()}
+    out["fig1_ns_per_step"] = prof
 
     # (c) the MAC kernel against its eager twin (macro-steps on) on phase
     # 3's grid and crash cells
@@ -2339,8 +2372,9 @@ def phase_flash(torch, np):
         err[key] = max(err[key], e)
     print(f"phase 5 flash_attention sweep ({len(cases)} cases): max abs "
           f"error bf16 {err['bfloat16']:.3g} and f32 {err['float32']:.3g} "
-          f"(tensor-core kernel, {n_served['tc']} launches), f32 at D = 256 "
-          f"{err['fma']:.3g} (FMA kernel, {n_served['fma']} launches)")
+          f"(tensor-core kernels, f32 at D = 256 on the wide one; "
+          f"{n_served['tc']} launches, {n_served['fma']} on the FMA "
+          f"kernel)")
     f8 = flash_over_counts(torch, np)
     if any(f8["over_plain"]) or any(f8["over_exact"]):
         fail(f"flash_attention_tc bf16 outputs past 3e-2: {f8}")
@@ -2417,7 +2451,108 @@ def phase_flash(torch, np):
               + f", {nbytes / 1e6:.1f} MB); {ms / rec['bound_ms']:.1f}x the "
               f"bound" + extra)
         out[name] = rec
+    # the FMA kernel's row: at D = 256, the shape of the route it served
+    # until the wide tensor-core kernel took it; the serving shape's
+    # numbers beside
+    w = out["f32_256"] = flash_f32_wide(torch, np, qkv)
+    out["fma"] = dict(ms=w["fma_ms"], plain_ms=w["plain_ms"],
+                      library_ms=w["library_ms"], max_abs_err=w["fma_err"],
+                      bound_ms=w["bound_ms"], bound_by=w["bound_by"],
+                      bound_f32_fma_ms=w["bound_f32_fma_ms"],
+                      serving_shape=out["fma"])
     return out
+
+
+def flash_f32_wide(torch, np, qkv):
+    """f32 at D = 256, gemma2-2b's head layout (8 query heads on 4 KV
+    heads, head dim 256; 4 x 1024 tokens, causal): its route (the wide
+    tensor-core kernel, its launch counted) against the plain version,
+    its outputs past 2e-5 over 8 seeds (none allowed), and timed in turns
+    with the FMA kernel (through ``launch``; held too) beside the plain
+    version and ``scaled_dot_product_attention`` in f32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, h, hkv, s, d = 4, 8, 4, 1024, 256
+    limit = TOL["float32"][0]
+    entry = fa.TC_F32_256[1]
+    if fa.route(torch.float32, d) != fa.TC_F32_256:
+        fail(f"f32 at D = {d} routes to {fa.route(torch.float32, d)}")
+    over, errs = [], []
+    for seed in range(8):
+        rng = np.random.default_rng(100 + seed)
+        q, k, v = (torch.tensor(rng.standard_normal((b, s, n, d)),
+                                dtype=torch.float32, device="cuda")
+                   .transpose(1, 2) for n in (h, hkv, hkv))
+        n0, tc0 = fa.launches_by.get(entry, 0), fa.launches_tc
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if (fa.launches_by.get(entry, 0) - n0, fa.launches_tc - tc0) != \
+                (1, 1):
+            fail(f"flash_attention f32 D = {d} did not launch {entry}")
+        if not bool(torch.isfinite(got).all()):
+            fail("flash_attention f32 D = 256: non-finite output")
+        diff = (got - want).abs()
+        over.append(int((diff > limit).sum()))
+        errs.append(float(diff.max()))
+    if any(over):
+        fail(f"flash_attention f32 D = {d}: outputs past {limit} per seed "
+             f"{over} (max abs error {errs})")
+    q, k, v = qkv(b, h, hkv, s, d, torch.float32)
+    want = flash_attention_ref(q, k, v, causal=True)
+    lib_fma = _build.library(fa.FMA_F32[0])
+    o_fma = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_fma():
+        _build.check(fa.launch(lib_fma, q, k, v, o_fma, causal=True,
+                               window=None, stream=stream,
+                               entry=fa.FMA_F32[1]), "FMA launch")
+    got = fa.flash_attention(q, k, v, causal=True)
+    run_fma()
+    torch.cuda.synchronize()
+    e = max_err(got, want, "flash_attention f32 D = 256", limit)
+    e_fma = max_err(o_fma, want, "FMA kernel f32 D = 256", limit)
+    ms = {"tc": [], "fma": []}
+    for which in ("tc", "fma", "fma", "tc"):
+        ms[which].append(cuda_ms(
+            (lambda: fa.flash_attention(q, k, v, causal=True))
+            if which == "tc" else run_fma, 20))
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), 5)
+    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    lib_out = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+    torch.cuda.synchronize()
+    lib_err = float((lib_out - want).abs().max())
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), 20)
+    pairs = s * (s + 1) // 2
+    flops = 4.0 * b * h * pairs * d
+    nbytes = 4 * (2.0 * b * h * s * d + 2.0 * b * hkv * s * d)
+    bound_ms, bound_by = bound(6 * flops, nbytes)
+    fma_bound = bound(flops, nbytes, F32_FLOPS_PER_S)[0]
+    rec = dict(ms=sum(ms["tc"]) / 2, fma_ms=sum(ms["fma"]) / 2,
+               ms_turns=ms, plain_ms=plain, library_ms=lib,
+               library_err=lib_err, max_abs_err=max(e, max(errs)),
+               fma_err=e_fma, over_counts=over, seed_errs=errs,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_f32_fma_ms=fma_bound,
+               shape="q (4, 8, 1024, 256), k/v (4, 4, 1024, 256), f32, "
+                     "causal")
+    print(f"phase 5 flash_attention_tc ({entry}) (4, 8, 1024, 256) f32 "
+          f"causal, 4 KV heads: max abs error {e:.3g}, outputs past {limit} "
+          f"over 8 seeds {over} (max {max(errs):.3g}); kernel "
+          f"{ms['tc']} ms, FMA kernel (flash_attention.cu, through launch) "
+          f"{ms['fma']} ms (order tc, fma, fma, tc; its error {e_fma:.3g}), "
+          f"plain {plain:.4f} ms, scaled_dot_product_attention f32 "
+          f"{lib:.4f} ms (its error {lib_err:.3g}); bound {bound_ms:.5f} ms "
+          f"({bound_by}: {flops / 1e9:.2f} GFLOP x 6 split products, "
+          f"{nbytes / 1e6:.1f} MB), at the f32 FMA rate {fma_bound:.5f} ms; "
+          f"{rec['ms'] / bound_ms:.2f}x the bound, "
+          f"{rec['ms'] / lib:.2f}x SDPA, {rec['ms'] / rec['fma_ms']:.2f}x "
+          f"the FMA kernel")
+    return rec
 
 
 def ssd_inputs(torch, rng, b, s, h, p, n, dtype):
@@ -2769,6 +2904,7 @@ def phase_serve(torch, np):
         prompt = torch.tensor(d["prompt"], device="cuda")
         worst, checked, agree = 0.0, 0, 0
         fa.launches_fma = fa.launches_tc = 0
+        fa.launches_by = {}
         ss.launches_fma = ss.launches_tc = 0
         with torch.inference_mode():
             logits, caches = T.prefill(model, {"tokens": prompt},
@@ -2804,6 +2940,7 @@ def phase_serve(torch, np):
                         flash_attention_tc=fa.launches_tc,
                         ssd_scan_fma=ss.launches_fma,
                         ssd_scan_tc=ss.launches_tc)
+        by_entry32 = dict(fa.launches_by)
         want32 = dict(flash_attention_fma=0,
                       flash_attention_tc=0 if cfg.attn_free
                       else cfg.n_layers, ssd_scan_fma=0,
@@ -2842,6 +2979,7 @@ def phase_serve(torch, np):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.launches_tc = fa.launches_fma = 0
+        fa.launches_by = {}
         ss.launches_tc = ss.launches_fma = 0
         tl.launches = cs.launches = 0
         res = serve(model, prompt, 64)
@@ -2850,6 +2988,7 @@ def phase_serve(torch, np):
                       ssd_scan_tc=ss.launches_tc,
                       ssd_scan_fma=ss.launches_fma, tat_lookup=tl.launches,
                       cell_scan=cs.launches)
+        by_entry = dict(fa.launches_by)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if res.tokens.shape != (4, 64) or res.tokens.min() < 0 \
                 or res.tokens.max() >= cfg.vocab:
@@ -2882,6 +3021,8 @@ def phase_serve(torch, np):
         plain_check = (ssd_plain_check(torch, model, prompt)
                        if cfg.attn_free else None)
         out[arch] = dict(counts=counts, counts_f32_datum=routes32,
+                         counts_by_entry=by_entry,
+                         counts_f32_datum_by_entry=by_entry32,
                          f32_prefill_device_ms=pre32_ms,
                          f32_prefill_device_ms_fma_route=fma32_ms,
                          bf16_vs_plain_ssd=plain_check,
@@ -2915,8 +3056,9 @@ def main() -> int:
                                                      sys.argv[2:])}))
         return 0
     sass_against = None
-    if len(sys.argv) == 3 and sys.argv[1] == "--sass-against":
-        sass_against = sys.argv[2]
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--sass-against":
+        # OLD cell_scan.cu [OLD flash_attention_tc.cu]
+        sass_against = (sys.argv[2], False, (sys.argv[3:] or [None])[0])
     elif len(sys.argv) != 1:
         fail(f"unknown arguments {sys.argv[1:]}")
     t0 = time.time()
@@ -3128,7 +3270,8 @@ def main() -> int:
                                           "aborts", "cells", "exact_cells",
                                           "latency_bound_ms")}
                     for k, v in macro.items()
-                    if k not in ("plain", "cholesky_sections")},
+                    if k not in ("plain", "cholesky_sections",
+                                 "fig1_ns_per_step")},
              cholesky_section_ns_per_step=macro["cholesky_sections"]),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
@@ -3172,6 +3315,34 @@ def main() -> int:
                      "per query head)",
              shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), f32, "
                    "causal"),
+        dict(name="flash_attention_tc_f32_256", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+             replaces="src/repro/kernels/flash_attention.py:68",
+             entry="flash_attention_tc_f32_256_launch",
+             launches=served["smollm-135m"]["counts_by_entry"].get(
+                 "flash_attention_tc_f32_256_launch", 0)
+             + served["smollm-135m"]["counts_f32_datum_by_entry"].get(
+                 "flash_attention_tc_f32_256_launch", 0),
+             main_path="the f32 route of flash_attention at D = 256: not "
+                       "launched by the bf16 serve or the f32 datum "
+                       "prefill (D = 64); held over 8 seeds and timed at "
+                       "gemma2-2b's head layout in phase 5, in turns with "
+                       "the FMA kernel",
+             max_abs_err=flash["f32_256"]["max_abs_err"],
+             over_counts=flash["f32_256"]["over_counts"],
+             ms=flash["f32_256"]["ms"],
+             fma_kernel_ms=flash["f32_256"]["fma_ms"],
+             plain_ms=flash["f32_256"]["plain_ms"],
+             bound_ms=flash["f32_256"]["bound_ms"],
+             bound_by=flash["f32_256"]["bound_by"],
+             bound_note="six bf16 products a product at the bf16 "
+                        "tensor-core peak; bound_f32_fma_ms: the f32 work "
+                        "at the f32 FMA rate",
+             bound_f32_fma_ms=flash["f32_256"]["bound_f32_fma_ms"],
+             library_ms=flash["f32_256"]["library_ms"],
+             library="scaled_dot_product_attention in f32 (K/V repeated "
+                     "per query head)",
+             shape=flash["f32_256"]["shape"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
@@ -3179,10 +3350,10 @@ def main() -> int:
              launches=served["smollm-135m"]["counts"]["flash_attention_fma"]
              + served["smollm-135m"]["counts_f32_datum"][
                  "flash_attention_fma"],
-             main_path="the f32 route of flash_attention at D = 256: not "
-                       "launched by the bf16 serve or the f32 datum "
-                       "prefill (D = 64); held and timed through launch() "
-                       "at the serving shape in phase 5",
+             main_path="on no route of flash_attention (f32 at D = 256 "
+                       "went to the wide tensor-core kernel); held and "
+                       "timed through launch() at D = 256 in turns with "
+                       "that kernel, and at the serving shape, in phase 5",
              max_abs_err=flash["fma"]["max_abs_err"],
              ms=flash["fma"]["ms"], plain_ms=flash["fma"]["plain_ms"],
              bound_ms=flash["fma"]["bound_ms"],
@@ -3191,8 +3362,8 @@ def main() -> int:
              library_ms=flash["fma"]["library_ms"],
              library="scaled_dot_product_attention in f32 (K/V repeated "
                      "per query head)",
-             shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), f32, "
-                   "causal"),
+             serving_shape=flash["fma"]["serving_shape"],
+             shape=flash["f32_256"]["shape"]),
         dict(name="ssd_scan_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
              replaces="src/repro/kernels/ssd_scan.py:68",

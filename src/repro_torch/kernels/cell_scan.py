@@ -82,6 +82,10 @@ MAX_LEAVES = 32         # fabric leaves (per-leaf clocks and survivors)
 MAX_EPOCHS = 8          # schedule epochs
 
 N_REASONS = 6           # engine/macro.py MACRO_ABORT_REASONS
+# The MAC instantiation's op words carry the run plan above the op code
+# (csrc/cell_scan.cu OPS_MLEN_SHIFT), so a head's window gate reads the
+# word the step reads anyway.
+OPS_MLEN_SHIFT = 8
 
 launches = 0
 # launches per instantiation of cell_scan_kernel<SPL, D, FAB, EP, MAC>
@@ -126,6 +130,13 @@ class CellScanOut(NamedTuple):
     macro_ops: torch.Tensor    # (N,)  i64 trace slots run as macro-steps
     macro_aborts: torch.Tensor  # (N, N_REASONS) i64 aborted live windows
                                 #       per reason (0 with macro off)
+
+
+def pack_ops(ops: torch.Tensor, mlen: torch.Tensor) -> torch.Tensor:
+    """The MAC kernel's op words: each op code (``ops``, int32) with the
+    run plan's length (``mlen``, int8, ``core.traces.plan_runs``) in the
+    bits from ``OPS_MLEN_SHIFT`` up."""
+    return ops | (mlen.to(torch.int32) << OPS_MLEN_SHIFT)
 
 
 def pack_configs(scs: Sequence[dict], n_tenants_max: int, device):
@@ -374,18 +385,17 @@ def launch(lib, ins, out: CellScanOut, *, max_pbe, pm_banks, n_track,
     edges = torch.tensor(LAT_BIN_EDGES, dtype=torch.float64,
                          device=ops.device)
     aver = torch.empty((N, A), dtype=torch.int32, device=ops.device)
-    # the kernel's argument order: the depth-1 inputs, bin edges, the
-    # depth-1 outputs, the issued-version scratch ``aver``, the chain's
-    # table and per-hop survivors, the fabric's table and per-leaf
-    # survivors, the epoch table and bounds, then the run plan and the
-    # macro counters
-    ptrs = list(ins[:9]) + [edges] + [out.runtime, out.stats, out.hop_stats,
-                                      out.durable_ver, out.n_recov,
-                                      out.recov_ns, out.recov_t, out.steps,
-                                      out.lookups, aver, ins[9], out.recov_h,
-                                      ins[10], out.recov_l, ins[11], ins[12],
-                                      ins[13], out.macro_ops,
-                                      out.macro_aborts]
+    # the kernel's argument order: the depth-1 inputs (with macro-steps
+    # on, the op words carry the run plan, ``ins[13]``: pack_ops), bin
+    # edges, the depth-1 outputs, the issued-version scratch ``aver``, the
+    # chain's table and per-hop survivors, the fabric's table and per-leaf
+    # survivors, the epoch table and bounds, then the macro counters
+    words = pack_ops(ops, ins[13]) if macro else ops
+    ptrs = [words] + list(ins[1:9]) + [edges] + [
+        out.runtime, out.stats, out.hop_stats, out.durable_ver, out.n_recov,
+        out.recov_ns, out.recov_t, out.steps, out.lookups, aver, ins[9],
+        out.recov_h, ins[10], out.recov_l, ins[11], ins[12], out.macro_ops,
+        out.macro_aborts]
     fn = lib.cell_scan_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 12 \

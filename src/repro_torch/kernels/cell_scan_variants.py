@@ -29,7 +29,18 @@ hold the anchors) written as ``OUT/<stem of OLD>_<name>.cu``, then
   may hold instead of spilling (the source gives ``D >= 1`` and ``MAC``
   that);
 * ``bounds_heuristic``: ``__launch_bounds__(32)`` on every
-  instantiation: ptxas's own register heuristic at ``D >= 1`` too.
+  instantiation: ptxas's own register heuristic at ``D >= 1`` too;
+* ``no_free_bound``: a macro head's first bound of its window's second
+  issue time (either op kind's completion with a free bank or PBC, from
+  the issue time alone) left out, so every head that reaches the
+  bounds reads the ring and op 0's kind first;
+* ``head_unroll1``: the head's loop over a lane's cores (grids of more
+  than 32 cores) kept rolled, so that the step loop's code is shorter;
+* ``verdict_noinline``: the window replay (``macro_verdict``) compiled
+  out of line, out of the step loop's code;
+* ``scratch_smem``, ``scratch_regs``: the replay's scratch copy in
+  shared memory, or in registers, at every D (the source: shared memory
+  at D = 0, registers at D >= 1).
 """
 from __future__ import annotations
 
@@ -64,6 +75,20 @@ VARIANTS = {
                   "__launch_bounds__(32, 1)")],
     "bounds_heuristic": [("__launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)",
                           "__launch_bounds__(32)")],
+    "no_free_bound": [("            why = settle(fmin(read_done(arr_rd), "
+                       "write_done(arr_wr)));\n",
+                       "            why = MAC_COMMIT;\n")],
+    "head_unroll1": [("            double o = INF;\n"
+                      "            for (int k = lane; k < C; k += 32) {",
+                      "            double o = INF;\n"
+                      "#pragma unroll 1\n"
+                      "            for (int k = lane; k < C; k += 32) {")],
+    "verdict_noinline": [("__device__ __forceinline__ int macro_verdict(",
+                          "__device__ __noinline__ int macro_verdict(")],
+    "scratch_smem": [("macro_verdict<SPL, EP, D == 0>(",
+                      "macro_verdict<SPL, EP, true>(")],
+    "scratch_regs": [("macro_verdict<SPL, EP, D == 0>(",
+                      "macro_verdict<SPL, EP, false>(")],
 }
 
 

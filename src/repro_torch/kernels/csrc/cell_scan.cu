@@ -1138,61 +1138,125 @@ struct Chain {
 // replay.  A dead post-crash run collapses for real (up to MAC_KMAX
 // slots in one step), as the reference's does, so that the steps — and
 // with them the heads counted — are the reference's.
+//
+// Every step of a multi-core grid is a live head, and nearly all of them
+// abort on interleave.  So a head is decided from what the step holds
+// anyway: the run plan's length rides in the op word (OPS_MLEN_SHIFT;
+// the host packs it, kernels/cell_scan.py pack_ops), and bounds of the
+// window's second issue time (op 0's completion plus the first gap, the
+// ring's entry p + 1) go against the merge's keys in one vote.  Only a
+// head that no bound settles loads its window and replays it, on a
+// scratch copy (Scratch).  A cell whose fabric or chain gate settles
+// every head and that never loses power runs no head: its counts
+// follow from the run plan when the cell ends.
 constexpr int MAC_KMAX = 8;  // params.MACRO_KMAX
 // MACRO_ABORT_REASONS, in their order; MAC_COMMIT: the window commits
 enum MacReason { R_WINDOW, R_FABRIC, R_DEEP, R_EPOCH, R_INTERLEAVE, R_GUARD,
                  N_REASONS, MAC_COMMIT = -1 };
+// The op word under MAC: the op code in the low OPS_MLEN_SHIFT bits, the
+// run plan's length (1..MAC_KMAX) above them.
+constexpr int OPS_MLEN_SHIFT = 8;
+template <bool MAC>
+__device__ __forceinline__ int op_code(int word) {
+  return MAC ? (word & ((1 << OPS_MLEN_SHIFT) - 1)) : word;
+}
 
-// The config scalars a window's replay reads that no schedule changes,
-// in registers for the whole cell.
-struct MacCfg {
-  double ow_cpu_pm, nvm_read, nvm_r_occ, nvm_write, nvm_w_occ, ow_cpu_sw1,
-      pbc_proc_tag, data_ns, ow_sw1_pm, pbc_occ, crash, lat_tol,
-      empty_slack, low_water;
-  bool scoped;
-  // every latency between an op's issue and its completion on a replayed
-  // path is >= 0, so no op completes before it issues (macro.floor_holds)
-  bool floor_ok;
+// The replay's scratch copy of the slots a window moves (state, owner,
+// tag, LRU stamp and drain ack; lane l copies and replays its own slots
+// l + 32 j, so no lane reads another's), after the fabric's carve-up.
+struct MacSmem {
+  double *lru, *dd;
+  int* tag;
+  signed char *state, *owner;
+};
+
+__host__ __device__ size_t carve_mac(MacSmem& s, unsigned char* base,
+                                     size_t off, int P) {
+  Carver cv{base, off};
+  s.lru = cv.take<double>(P);
+  s.dd = cv.take<double>(P);
+  s.tag = cv.take<int>(P);
+  s.state = cv.take<signed char>(P);
+  s.owner = cv.take<signed char>(P);
+  return cv.off;
+}
+
+__device__ __forceinline__ MacSmem rebase_mac(MacSmem s, unsigned char* base) {
+#define REBASE(f) \
+  s.f = reinterpret_cast<decltype(s.f)>(base + reinterpret_cast<size_t>(s.f));
+  REBASE(lru) REBASE(dd) REBASE(tag) REBASE(state) REBASE(owner)
+#undef REBASE
+  return s;
+}
+
+// The replay's scratch copy of lane l's slots l + 32 j, j < SPL, taken
+// slot by slot (the caller guards j's slot below n_pbe): in shared
+// memory (SMEM, the MacSmem area) or in registers.  The D = 0 kernels
+// take shared memory, where their step is the shortest and a replay the
+// rarest; the D >= 1 kernels registers, where a one-core grid (Fig. 1)
+// replays every window.
+template <int SPL, bool SMEM>
+struct Scratch;
+
+template <int SPL>
+struct Scratch<SPL, true> {
+  MacSmem ms;
+  int lane;
+  __device__ signed char& st(int j) { return ms.state[lane + 32 * j]; }
+  __device__ signed char& own(int j) { return ms.owner[lane + 32 * j]; }
+  __device__ int& tg(int j) { return ms.tag[lane + 32 * j]; }
+  __device__ double& lru(int j) { return ms.lru[lane + 32 * j]; }
+  __device__ double& dd(int j) { return ms.dd[lane + 32 * j]; }
+};
+
+template <int SPL>
+struct Scratch<SPL, false> {
+  signed char st_[SPL], own_[SPL];
+  int tg_[SPL];
+  double lru_[SPL], dd_[SPL];
+  __device__ Scratch(const MacSmem&, int) {}
+  __device__ signed char& st(int j) { return st_[j]; }
+  __device__ signed char& own(int j) { return own_[j]; }
+  __device__ int& tg(int j) { return tg_[j]; }
+  __device__ double& lru(int j) { return lru_[j]; }
+  __device__ double& dd(int j) { return dd_[j]; }
 };
 
 // macro_step's live window from a head at cursor p of core c (every lane,
-// with the same values): the window's clocks and guard replayed on a
-// scratch copy of what moves them — each lane's slots' state, tag, LRU
-// stamp, drain ack and owner; bank b's PM clock on lane b; the PBC clock
-// that serves the op (`pbc0`); the tenant's persist and SLO-over counts
-// — in macro.py's expressions and order.  Once the guard clears only
-// the clocks go on (they alone decide t_last, and no slot state feeds
-// them).  Returns the first failing gate of epoch_boundary, interleave
-// and guard (the caller settled window, fabric and deep), or MAC_COMMIT.
-// `others_min`: every other core's issue time, least; `next_bound`: the
-// next epoch boundary (EP; INF otherwise).  Three exact shortcuts
-// (macro.py): while no op completes before it issues, the window's gaps
-// added in order to t_issue bound t_last below, so a floor at or past
-// the settling bound (next_bound under EP, else others_min) aborts with
-// no replay; under EP, another core at or below the floor leaves
-// epoch_boundary or interleave, which the clocks alone decide (the
-// replay starts with the guard cleared); and with non-negative gaps the
-// replay stops at the first op issuing at or past the settling bound.
-template <int SPL, bool EP>
-__device__ int macro_verdict(const Smem& m, const MacCfg& mc,
-                             const double* st_row, int lane, int c, int tid,
-                             int scheme, int k_live, double t_issue,
-                             const int* w_ops, const int* w_addrs,
-                             float w_gap, double others_min,
-                             double next_bound, double pbc0, int P,
-                             int n_pbe, int T, int B, int tiles,
-                             const Banks& bank_of) {
+// with the same values), for a head the caller's gates did not settle:
+// the window floor, then the window's clocks and guard
+// replayed on the scratch copy — each lane's slots in `ms`, bank b's PM
+// clock on lane b, the PBC clock that serves the op (`pbc0`), the
+// tenant's persist and SLO-over counts — in macro.py's expressions and
+// order, the config's latencies read from the cell's row as the replay
+// starts.  Once the guard clears only the clocks go on (they alone
+// decide t_last, and no slot state feeds them).  Returns the first
+// failing gate of epoch_boundary, interleave and guard, or MAC_COMMIT.
+// `others_min`: every other core's issue time, least;
+// `next_bound`: the next epoch boundary (EP; INF otherwise).  Exact
+// shortcuts (macro.py): while no op completes before it issues, the
+// window's gaps added in order to t_issue bound t_last below, so a floor
+// at or past the settling bound (next_bound under EP, else others_min)
+// aborts with no replay; under EP, another core at or below the floor
+// leaves epoch_boundary or interleave, which the clocks alone decide
+// (the replay starts with the guard cleared); and with non-negative gaps
+// the replay stops at the first op issuing at or past the settling bound.
+template <int SPL, bool EP, bool SMEM>
+__device__ __forceinline__ int macro_verdict(
+    const Smem& m, const MacSmem& ms, const double* st_row, int lane, int c,
+    int tid, int scheme, int k_live, double t_issue, bool floor_ok,
+    const int* w_ops, const int* w_addrs, const float* w_gaps,
+    double others_min, double next_bound, double pbc0, double crash,
+    int n_pbe, int T, int B, int tiles, const Banks& bank_of) {
   const double stop = EP ? next_bound : others_min;
   const int settled = EP ? R_EPOCH : R_INTERLEAVE;
-  bool monotone = mc.floor_ok, guard = true;
-  if (mc.floor_ok) {
-    // the floor after the first gap settles most heads (another core
-    // issues before the window's second op can), then the rest of it
-    const float g1 = __shfl_sync(FULL, w_gap, 1);
-    double lb = t_issue + static_cast<double>(g1);
-    if (lb >= stop) return settled;
-    monotone = g1 >= 0.0f;
-    for (int j = 2; j < k_live; ++j) {
+  // the window's entries, lane j holding entry j
+  const int jw = lane < MAC_KMAX ? lane : 0;
+  const float w_gap = w_gaps[jw];
+  bool monotone = floor_ok, guard = true;
+  if (floor_ok) {
+    double lb = t_issue;
+    for (int j = 1; j < k_live; ++j) {
       const float g = __shfl_sync(FULL, w_gap, j);
       lb = lb + static_cast<double>(g);
       monotone = monotone && g >= 0.0f;
@@ -1201,27 +1265,38 @@ __device__ int macro_verdict(const Smem& m, const MacCfg& mc,
     // (only under EP can another core sit at or below the floor here)
     guard = !(others_min <= lb);
   }
-  // the window's ops and lines, lane j holding entry j
-  const int jw = lane < MAC_KMAX ? lane : 0;
-  const int w_op = w_ops[jw], w_addr = w_addrs[jw];
+  const int w_op = op_code<true>(w_ops[jw]), w_addr = w_addrs[jw];
   const bool is_nopb = scheme == 0, is_rf = scheme == 2;
-  // the scratch copy
-  signed char st[SPL], own[SPL];
-  int tg[SPL];
-  double lru[SPL], dd[SPL];
+  const double* sc = m.sc;
+  const double ow_cpu_pm = sc[K_OW_CPU_PM], nvm_read = sc[K_NVM_READ],
+               nvm_r_occ = sc[K_NVM_R_OCC], nvm_write = sc[K_NVM_WRITE],
+               nvm_w_occ = sc[K_NVM_W_OCC], ow_cpu_sw1 = sc[K_OW_CPU_SW1],
+               pbc_proc_tag = sc[K_PBC_PROC] + sc[K_TAG_NS],
+               data_ns = sc[K_DATA_NS], ow_sw1_pm = sc[K_OW_SW1_PM],
+               pbc_occ = sc[K_PBC_OCC];
+  // the scratch copy of this lane's slots (only slots below n_pbe take
+  // part in a window, and none under NoPB)
+  Scratch<SPL, SMEM> sx{ms, lane};
 #pragma unroll
   for (int j = 0; j < SPL; ++j) {
-    const int s = lane + 32 * j, sp = s < P ? s : 0;
-    st[j] = s < P ? m.state[sp] : static_cast<signed char>(EMPTY);
-    tg[j] = m.tag[sp];
-    lru[j] = m.lru[sp];
-    dd[j] = m.dd[sp];
-    own[j] = m.owner[sp];
+    const int s = lane + 32 * j;
+    if (!is_nopb && s < n_pbe) {
+      sx.st(j) = m.state[s];
+      sx.tg(j) = m.tag[s];
+      sx.lru(j) = m.lru[s];
+      sx.dd(j) = m.dd[s];
+      sx.own(j) = m.owner[s];
+    }
   }
   double pmb_r = lane < B ? m.pm_busy[lane] : 0.0;  // B <= 32
   double pbc = pbc0, clk = m.clock[c], t_last = t_issue;
   double cnt = st_row[S_PERSIST_CNT], over = st_row[S_SLO_OVER];
+  // with no other core issuing (and, under EP, no boundary ahead) t_last
+  // decides nothing: a cleared guard is the verdict
+  const bool guard_decides =
+      others_min >= INF && (!EP || next_bound >= INF);
   for (int j = 0; j < k_live; ++j) {
+    if (guard_decides && !guard) return R_GUARD;
     const int o_j = __shfl_sync(FULL, w_op, j);
     const int a_j = __shfl_sync(FULL, w_addr, j);
     const double t_j = clk + static_cast<double>(__shfl_sync(FULL, w_gap, j));
@@ -1231,43 +1306,56 @@ __device__ int macro_verdict(const Smem& m, const MacCfg& mc,
     const double pmb_b = __shfl_sync(FULL, pmb_r, bank);
     if (o_j != OP_PERSIST) {
       // PM read: the handler's miss path in both schemes
-      const double pm_start_r = fmax(pmb_b, t_j + mc.ow_cpu_pm);
-      bool g_op = t_j <= mc.crash;
+      const double pm_start_r = fmax(pmb_b, t_j + ow_cpu_pm);
+      bool g_op = t_j <= crash;
       if (!is_nopb && guard) {
         bool hit[SPL];
 #pragma unroll
         for (int jj = 0; jj < SPL; ++jj) {
           const int s = lane + 32 * jj;
-          if (st[jj] == DRAIN && dd[jj] <= t_j) st[jj] = EMPTY;
-          hit[jj] = s < n_pbe && tg[jj] == a_j && st[jj] != EMPTY;
+          hit[jj] = false;
+          if (s < n_pbe) {
+            int st = sx.st(jj);
+            if (st == DRAIN && sx.dd(jj) <= t_j) sx.st(jj) = st = EMPTY;
+            hit[jj] = sx.tg(jj) == a_j && st != EMPTY;
+          }
         }
         g_op = g_op && warp_count(hit, tiles) == 0;
       }
       guard = guard && g_op;
-      if (lane == bank) pmb_r = pm_start_r + mc.nvm_r_occ;
-      clk = pm_start_r + mc.nvm_read + mc.ow_cpu_pm;
+      if (lane == bank) pmb_r = pm_start_r + nvm_r_occ;
+      clk = pm_start_r + nvm_read + ow_cpu_pm;
     } else if (is_nopb) {
       // persist, NoPB leg
-      const double pm_start_w = fmax(pmb_b, t_j + mc.ow_cpu_pm);
-      guard = guard && t_j <= mc.crash;
-      if (lane == bank) pmb_r = pm_start_w + mc.nvm_w_occ;
-      clk = pm_start_w + mc.nvm_write + mc.ow_cpu_pm;
+      const double pm_start_w = fmax(pmb_b, t_j + ow_cpu_pm);
+      guard = guard && t_j <= crash;
+      if (lane == bank) pmb_r = pm_start_w + nvm_w_occ;
+      clk = pm_start_w + nvm_write + ow_cpu_pm;
     } else {
       // persist, buffered leg (a fresh Empty slot)
-      const double arr = t_j + mc.ow_cpu_sw1;
-      const double pbc_start = fmax(pbc, arr) + mc.pbc_proc_tag;
-      const double t_written = pbc_start + mc.data_ns;
-      const double ack_p = t_written + mc.ow_cpu_sw1;
-      const double over_j = ack_p - t_j > m.sc[K_LAT_TARGET] ? 1.0 : 0.0;
+      const double arr = t_j + ow_cpu_sw1;
+      const double pbc_start = fmax(pbc, arr) + pbc_proc_tag;
+      const double t_written = pbc_start + data_ns;
+      const double ack_p = t_written + ow_cpu_sw1;
+      const double over_j = ack_p - t_j > sc[K_LAT_TARGET] ? 1.0 : 0.0;
       if (guard) {
+        // each slot's state after the lazy free at pbc_start, and owner
+        signed char st[SPL], own[SPL];
         bool dirty_hit[SPL], live_own[SPL];
 #pragma unroll
         for (int jj = 0; jj < SPL; ++jj) {
           const int s = lane + 32 * jj;
-          if (st[jj] == DRAIN && dd[jj] <= pbc_start) st[jj] = EMPTY;
-          dirty_hit[jj] = s < n_pbe && tg[jj] == a_j && st[jj] == DIRTY;
-          live_own[jj] = s < n_pbe && st[jj] != EMPTY &&
-                         clampi(own[jj], 0, T - 1) == tid;
+          st[jj] = EMPTY;
+          own[jj] = 0;
+          dirty_hit[jj] = live_own[jj] = false;
+          if (s < n_pbe) {
+            st[jj] = sx.st(jj);
+            own[jj] = sx.own(jj);
+            if (st[jj] == DRAIN && sx.dd(jj) <= pbc_start)
+              sx.st(jj) = st[jj] = EMPTY;
+            dirty_hit[jj] = sx.tg(jj) == a_j && st[jj] == DIRTY;
+            live_own[jj] = st[jj] != EMPTY && clampi(own[jj], 0, T - 1) == tid;
+          }
         }
         const bool has_dirty = warp_count(dirty_hit, tiles) > 0;
         const double occ_t = static_cast<double>(warp_count(live_own, tiles));
@@ -1280,7 +1368,7 @@ __device__ int macro_verdict(const Smem& m, const MacCfg& mc,
           const int s = lane + 32 * jj;
           const bool e = s < n_pbe && st[jj] == EMPTY && !over_quota;
           any_e |= e;
-          const double k1 = e ? lru[jj] : INF;
+          const double k1 = e ? sx.lru(jj) : INF;
           if (k1 < ke) {
             ke = k1;
             ie = s;
@@ -1291,56 +1379,60 @@ __device__ int macro_verdict(const Smem& m, const MacCfg& mc,
         const int wslot = ie;
 #pragma unroll
         for (int jj = 0; jj < SPL; ++jj) {
-          if (lane + 32 * jj == wslot) {
+          const int s = lane + 32 * jj;
+          if (s == wslot) {
             st[jj] = DIRTY;
-            tg[jj] = a_j;
-            lru[jj] = t_written;
             own[jj] = static_cast<signed char>(tid);
+            sx.st(jj) = DIRTY;
+            sx.tg(jj) = a_j;
+            sx.lru(jj) = t_written;
+            sx.own(jj) = static_cast<signed char>(tid);
           }
         }
-        bool g_wr = any_empty && t_written <= mc.crash;
+        bool g_wr = any_empty && t_written <= crash;
         if (is_rf) {
           // the threshold/preset drain-down must fire no drain
+          const bool scoped = sc[K_DRAIN_SCOPE] > 0.0;
           bool dm[SPL], em[SPL];
 #pragma unroll
           for (int jj = 0; jj < SPL; ++jj) {
             const int s = lane + 32 * jj;
-            const bool in_scope = mc.scoped ? own[jj] == tid : true;
+            const bool in_scope = scoped ? own[jj] == tid : true;
             dm[jj] = st[jj] == DIRTY && s < n_pbe && in_scope;
             em[jj] = st[jj] == EMPTY && s < n_pbe;
           }
           const double dirty_cnt = static_cast<double>(warp_count(dm, tiles));
           const double empty_cnt = static_cast<double>(warp_count(em, tiles));
-          double thr = mc.scoped ? m.ten[T_THRESHOLD * T + tid] : m.sc[K_THRESHOLD];
-          double pre = mc.scoped ? m.ten[T_PRESET * T + tid] : m.sc[K_PRESET];
+          double thr = scoped ? m.ten[T_THRESHOLD * T + tid] : sc[K_THRESHOLD];
+          double pre = scoped ? m.ten[T_PRESET * T + tid] : sc[K_PRESET];
           const double cnt1 = cnt + 1.0;
           const double over1 = over + over_j;
-          const bool tight = over1 > mc.lat_tol * cnt1;
+          const bool tight = over1 > sc[K_LAT_TOL] * cnt1;
           thr = tight ? 1.0 : thr;
           pre = tight ? 0.0 : pre;
           const double k_thresh = dirty_cnt >= thr ? dirty_cnt - pre : 0.0;
-          const double k_low = empty_cnt <= mc.empty_slack
-                                   ? fmin(mc.low_water, dirty_cnt) : 0.0;
+          const double k_low = empty_cnt <= sc[K_EMPTY_SLACK]
+                                   ? fmin(sc[K_LOW_WATER], dirty_cnt) : 0.0;
           g_wr = g_wr && !has_dirty && fmax(k_thresh, k_low) == 0.0;
         } else {
           // PB: the written entry drains at once
-          const double pm_start2 = fmax(pmb_b, t_written + mc.ow_sw1_pm);
+          const double pm_start2 = fmax(pmb_b, t_written + ow_sw1_pm);
 #pragma unroll
           for (int jj = 0; jj < SPL; ++jj) {
             if (lane + 32 * jj == wslot) {
-              st[jj] = DRAIN;
-              dd[jj] = pm_start2 + mc.nvm_write + mc.ow_sw1_pm;
+              sx.st(jj) = DRAIN;
+              sx.dd(jj) = pm_start2 + nvm_write + ow_sw1_pm;
             }
           }
-          if (lane == bank) pmb_r = pm_start2 + mc.nvm_w_occ;
+          if (lane == bank) pmb_r = pm_start2 + nvm_w_occ;
         }
-        guard = t_j <= mc.crash && g_wr;
+        guard = t_j <= crash && g_wr;
       } else if (!is_rf) {
         // the guard has cleared: PB's drain still reserves its bank
-        const double pm_start2 = fmax(pmb_b, t_written + mc.ow_sw1_pm);
-        if (lane == bank) pmb_r = pm_start2 + mc.nvm_w_occ;
+        const double pm_start2 = fmax(pmb_b, t_written + ow_sw1_pm);
+        if (lane == bank) pmb_r = pm_start2 + nvm_w_occ;
       }
-      pbc = fmax(fmax(pbc, arr) + mc.pbc_occ, 0.0);
+      pbc = fmax(fmax(pbc, arr) + pbc_occ, 0.0);
       cnt = cnt + 1.0;
       over = over + over_j;
       clk = ack_p;
@@ -1387,10 +1479,11 @@ struct Args {
   const double* ep_table;     // (Kc, E, N_EK + N_TEN * T + 2 * D1 + T)
   const double* ep_bounds;    // (Kc, E - 1)
   int E;                      // epochs: the grid's max(n_epochs)
-  // ---- macro-steps (MAC instantiations only) ----
-  const signed char* mlen;    // (K, C, L) the run plan
+  // ---- macro-steps (MAC instantiations only; ops then packs the run
+  // plan into each op word, OPS_MLEN_SHIFT) ----
   long long* macro_ops;       // (N,) trace slots run as macro-steps
   long long* macro_aborts;    // (N, N_REASONS) aborted live windows
+  MacSmem mlay;               // the replay's carve-up: byte offsets
 };
 
 }  // namespace
@@ -1588,30 +1681,43 @@ __global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
   bool ep_stale = false;
 
   // macro-steps: the window a committed head opened (its core and the
-  // steps left in it, which are no heads), the counters (lane 0's), and
-  // the replay's config scalars; n_switches and n_leaves from the chain
-  // and fabric tables, which every grid carries
+  // steps left in it, which are no heads), the counters (every lane's,
+  // each by a fixed index: the slots run as macro-steps, the aborted
+  // heads by reason), the replay's scratch in shared memory, and four
+  // scalars of the config: the gate a buffered scheme fails before the
+  // floor (fabric, else deep, from n_leaves and n_switches of the fabric
+  // and chain tables, which every grid carries; MAC_COMMIT for none),
+  // whether every latency of a replayed path is >= 0, so that no op
+  // completes before it issues (macro.floor_holds), and the two latency
+  // terms of a head's first bound that the read path does not hold
   int win_core = 0, win_left = 0;
-  long long mac_ops = 0, mac_ab[MAC ? N_REASONS : 1] = {};
-  MacCfg mc{};
-  double mac_nsw = 0.0, mac_nl = 0.0;
+  int mac_ops = 0, mac_ab[N_REASONS] = {};
+  MacSmem ms{};
+  int pb_gate = MAC_COMMIT;
+  bool floor_ok = false;
+  double mac_nvm_write = 0.0, mac_pbc_tag = 0.0;
   if constexpr (MAC) {
-    mc = MacCfg{sc[K_OW_CPU_PM], sc[K_NVM_READ], sc[K_NVM_R_OCC],
-                sc[K_NVM_WRITE], sc[K_NVM_W_OCC], sc[K_OW_CPU_SW1],
-                sc[K_PBC_PROC] + sc[K_TAG_NS], sc[K_DATA_NS],
-                sc[K_OW_SW1_PM], sc[K_PBC_OCC], crash, sc[K_LAT_TOL],
-                sc[K_EMPTY_SLACK], sc[K_LOW_WATER], sc[K_DRAIN_SCOPE] > 0.0,
-                false};
-    mc.floor_ok = mc.ow_cpu_pm >= 0.0 && mc.nvm_read >= 0.0 &&
-                  mc.nvm_write >= 0.0 && mc.ow_cpu_sw1 >= 0.0 &&
-                  sc[K_PBC_PROC] >= 0.0 && sc[K_TAG_NS] >= 0.0 &&
-                  mc.data_ns >= 0.0;
+    ms = rebase_mac(a.mlay, smem_raw);
+    mac_nvm_write = sc[K_NVM_WRITE];
+    mac_pbc_tag = sc[K_PBC_PROC] + sc[K_TAG_NS];  // the replay's own sum
+    floor_ok = sc[K_OW_CPU_PM] >= 0.0 && sc[K_NVM_READ] >= 0.0 &&
+               sc[K_NVM_WRITE] >= 0.0 && sc[K_OW_CPU_SW1] >= 0.0 &&
+               sc[K_PBC_PROC] >= 0.0 && sc[K_TAG_NS] >= 0.0 &&
+               sc[K_DATA_NS] >= 0.0;
     constexpr int D1 = D > 0 ? D : 1;
-    mac_nsw = a.chain_table[static_cast<size_t>(cf) * (N_CH + N_DK * D1) +
-                            C_N_SWITCHES];
-    mac_nl = a.fab_table[static_cast<size_t>(cf) * (N_FK + a.NL + T) +
-                         F_N_LEAVES];
+    const double nsw = a.chain_table[static_cast<size_t>(cf) *
+                                         (N_CH + N_DK * D1) + C_N_SWITCHES];
+    const double nl = a.fab_table[static_cast<size_t>(cf) *
+                                      (N_FK + a.NL + T) + F_N_LEAVES];
+    // (a D = 0 grid holds neither: its buffered configs have one switch)
+    if (D > 0 && scheme != 0)
+      pb_gate = nl >= 2.0 ? R_FABRIC : (nsw >= 2.0 ? R_DEEP : MAC_COMMIT);
   }
+  // a cell whose config gate settles every head and that never loses
+  // power runs no head at all: no window commits and no op is dead, so
+  // every slot is one step and one live head, and its reason follows
+  // from the run plan alone (counted once the cell ends)
+  const bool gate_only = MAC && pb_gate != MAC_COMMIT && crash >= INF * 0.5;
 
   long long steps = 0, lookups = 0;
 #ifdef CELL_SCAN_PROFILE
@@ -1705,7 +1811,9 @@ __global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
       }
     }
     if constexpr (MAC) {
-      if (win_left > 0) {
+      if (gate_only) {
+        // (counted once the cell ends)
+      } else if (win_left > 0) {
         // inside a committed window: its core's next op, no head
 #ifdef CELL_SCAN_WINDOW_CHECK
         CELL_SCAN_WINDOW_CHECK(c == win_core);
@@ -1714,15 +1822,13 @@ __global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
       } else {
         const int p = m.ptr[c], len = m.len[c];
         const int k_cap = clampi(len - p, 0, MAC_KMAX);
-        // the window's entries, lane j holding entry p + j (the host pads
-        // the trace axis by MAC_KMAX past every stream)
         const size_t w0 = static_cast<size_t>(c) * L + p;
-        const int jw = lane < MAC_KMAX ? lane : 0;
-        const float w_gap = gaps[w0 + jw];
         if (!(t_issue <= crash)) {
           // a dead run: every op of it a no-op that sets the clock to its
           // issue time; with all MAC_KMAX gaps >= 0 the next k_cap collapse
-          // into this step
+          // into this step (the host pads the trace axis by MAC_KMAX past
+          // every stream; lane j holds entry p + j)
+          const float w_gap = gaps[w0 + (lane < MAC_KMAX ? lane : 0)];
           const bool gaps_ok =
               __ballot_sync(FULL, lane >= MAC_KMAX || w_gap >= 0.0f) == FULL;
           if (k_cap >= 2 && gaps_ok) {
@@ -1748,62 +1854,124 @@ __global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
               m.cop[c] = ops[src];
               m.caddr[c] = addrs[src];
               m.cgap[c] = gaps[src];
-              mac_ops += k_cap;
             }
+            mac_ops += k_cap;
             steps += k_cap - 1;
             __syncwarp();
             PROF(SEC_MACRO);
             continue;
           }
         } else {
-          // a live head: one abort reason, or the window commits
-          const int k_live = min(
-              static_cast<int>(a.mlen[static_cast<size_t>(tr) * C * L + w0]),
-              k_cap);
+          // a live head: the window gate from the run plan in the op word,
+          // the config's gate, then bounds of the window's second issue
+          // time t_1 against the settling bound — under EP the next epoch
+          // boundary, else whether another core's key (the merge's, core
+          // k on lane k) is at or below it: one vote.  t_1 is the
+          // replay's first step on the clocks alone: op 0's completion,
+          // in its expressions, plus the first gap g1.  While no latency
+          // is negative (floor_ok), with the plan's gaps >= 0
+          // (traces.plan_runs: a run of two or more ops has none
+          // negative), every later op of the window issues at or after
+          // t_1, so the replay would stop there with this outcome.  The
+          // bounds, each <= t_1 (an fmax taken by its second term and
+          // the same adds in the same order: rounding is monotone): the
+          // lesser of a read's and a persist's completion with a free
+          // bank or PBC, from t_issue alone (so it waits on no load);
+          // then op 0's own kind plus g1 (the ring's entry p + 1); then
+          // t_1 itself, with op 0's bank or PBC clock loaded.
+          const int word = m.cop[c];
+          const int k_live = min(word >> OPS_MLEN_SHIFT, k_cap);
+          // the core's tenant and its leaf, loaded only past the gates
+          auto leaf_of = [&](int tid) { return FAB ? fs.lof[tid] : 0; };
+          // the other cores' least key: from the merge's keys (C <= 32),
+          // else each lane's cores again
+          auto others_least = [&] {
+            if (C <= 32) return warp_min_nonneg(lane == c ? INF : my_key);
+            double o = INF;
+            for (int k = lane; k < C; k += 32) {
+              const double key = key_of(k);
+              if (k != c && key < o) o = key;
+            }
+            for (int off = 16; off > 0; off >>= 1)
+              o = fmin(o, __shfl_xor_sync(FULL, o, off));
+            return o;
+          };
+          // the first gap, read from the ring only where a bound needs it
+          auto gap1 = [&] {
+            wg::cp_async_wait<RING - 2>();
+            return static_cast<double>(m.rgap[c * RING + (p + 1) % RING]);
+          };
           int why = MAC_COMMIT;
+          double om = INF;
           if (k_live < 2) {
             why = R_WINDOW;
-          } else if (scheme != 0 && mac_nl >= 2.0) {
-            why = R_FABRIC;
-          } else if (scheme != 0 && mac_nsw >= 2.0) {
-            why = R_DEEP;
-          } else {
-            // the other cores' least issue time: the keys of the merge
-            // (core k on lane k), else each lane's cores again
-            double om = INF;
-            if (C <= 32) {
-              om = warp_min_nonneg(lane == c ? INF : my_key);
-            } else {
-              for (int k = lane; k < C; k += 32) {
-                const double key = key_of(k);
-                if (k != c && key < om) om = key;
+          } else if (pb_gate != MAC_COMMIT) {
+            why = pb_gate;
+          } else if (floor_ok && (EP || C > 1)) {
+            // (a grid of one core has no other core to settle on)
+            auto settle = [&](double t1) {
+              if (EP) return t1 >= ep_hi ? R_EPOCH : MAC_COMMIT;
+              if (C <= 32)
+                return __any_sync(FULL, lane != c && my_key <= t1)
+                           ? R_INTERLEAVE : MAC_COMMIT;
+              if (!(om < INF)) om = others_least();
+              return om <= t1 ? R_INTERLEAVE : MAC_COMMIT;
+            };
+            // op 0's arrival (at PM; a buffered persist at the PBC) and
+            // its completion from its start
+            const double arr_rd = t_issue + rd.ow_cpu_pm;
+            const double arr_wr =
+                t_issue + (scheme != 0 ? rd.ow_cpu_sw1 : rd.ow_cpu_pm);
+            auto read_done = [&](double start) {
+              return start + rd.nvm_read + rd.ow_cpu_pm;
+            };
+            auto write_done = [&](double start) {
+              return scheme != 0
+                         ? start + mac_pbc_tag + rd.data_ns + rd.ow_cpu_sw1
+                         : start + mac_nvm_write + rd.ow_cpu_pm;
+            };
+            why = settle(fmin(read_done(arr_rd), write_done(arr_wr)));
+            if (why == MAC_COMMIT) {
+              const bool wr = op_code<true>(word) == OP_PERSIST;
+              const double arr = wr ? arr_wr : arr_rd;
+              auto done = [&](double start) {
+                return wr ? write_done(start) : read_done(start);
+              };
+              const double g1 = gap1();
+              why = settle(done(arr) + g1);
+              if (why == MAC_COMMIT) {
+                const double busy = wr && scheme != 0
+                                        ? m.pbc[leaf_of(m.tids[c])]
+                                        : m.pm_busy[bank_of(m.caddr[c])];
+                why = settle(done(fmax(busy, arr)) + g1);
               }
-              for (int off = 16; off > 0; off >>= 1)
-                om = fmin(om, __shfl_xor_sync(FULL, om, off));
             }
-            const int tid = m.tids[c];
-            int leaf = 0;
-            if constexpr (FAB) leaf = fs.lof[tid];
-            why = macro_verdict<SPL, EP>(
-                m, mc, stats + static_cast<size_t>(tid) * N_STATS, lane, c,
-                tid, scheme, k_live, t_issue, ops + w0, addrs + w0, w_gap,
-                om, EP ? ep_hi : INF, m.pbc[leaf], P, n_pbe, T, B, tiles,
-                bank_of);
           }
           if (why == MAC_COMMIT) {
-            win_core = c;
-            win_left = k_live - 1;
-            if (lane == 0) mac_ops += k_live;
-          } else if (lane == 0) {
-            ++mac_ab[why];
+            // not settled: the other cores' least key, then the floor and
+            // the replay
+            if (!(om < INF)) om = others_least();
+            const int tid = m.tids[c];
+            why = macro_verdict<SPL, EP, D == 0>(
+                m, ms, stats + static_cast<size_t>(tid) * N_STATS, lane, c,
+                tid, scheme, k_live, t_issue, floor_ok,
+                ops + w0, addrs + w0, gaps + w0, om, EP ? ep_hi : INF,
+                m.pbc[leaf_of(tid)], crash, n_pbe, T, B, tiles, bank_of);
+            if (why == MAC_COMMIT) {
+              win_core = c;
+              win_left = k_live - 1;
+              mac_ops += k_live;
+            }
           }
+#pragma unroll
+          for (int r = 0; r < N_REASONS; ++r) mac_ab[r] += why == r;
         }
       }
       PROF(SEC_MACRO);
     }
     // ops issuing after the power loss never happen (machine is off)
     const bool live = t_issue <= crash;
-    const int op = live ? m.cop[c] : OP_COMPUTE;
+    const int op = live ? op_code<MAC>(m.cop[c]) : OP_COMPUTE;
     const double t = live ? t_issue : m.clock[c];
     const int addr = m.caddr[c];
     const int tid = m.tids[c];
@@ -2517,6 +2685,25 @@ __global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
   }
 #endif
 
+  if (MAC && gate_only) {
+    // every slot a live head: a window's if its plan or its stream's end
+    // leaves it under two ops, else the gate's
+    int n_window = 0, n_slots = 0;
+    for (int k = 0; k < C; ++k) {
+      const int len = lens[k];
+      n_slots += len;
+#pragma unroll 4
+      for (int i = lane; i < len; i += 32) {
+        const int word = ops[static_cast<size_t>(k) * L + i];
+        n_window += min(word >> OPS_MLEN_SHIFT, clampi(len - i, 0, MAC_KMAX)) < 2;
+      }
+    }
+    n_window = warp_sum(n_window);
+    mac_ab[R_WINDOW] = n_window;
+    mac_ab[R_FABRIC] = pb_gate == R_FABRIC ? n_slots - n_window : 0;
+    mac_ab[R_DEEP] = pb_gate == R_DEEP ? n_slots - n_window : 0;
+  }
+
   // ---- recovery snapshot + runtime ----------------------------------------
   double rt = 0.0;
   for (int k = lane; k < C; k += 32) {
@@ -2583,6 +2770,7 @@ __global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
       a.lookups[cell] = lookups;
       if constexpr (MAC) {
         a.macro_ops[cell] = mac_ops;
+#pragma unroll
         for (int r = 0; r < N_REASONS; ++r)
           a.macro_aborts[static_cast<size_t>(cell) * N_REASONS + r] = mac_ab[r];
       }
@@ -2684,6 +2872,7 @@ __global__ void __launch_bounds__(32, (D > 0 || MAC) ? 1 : 0)
       a.lookups[cell] = lookups;
       if constexpr (MAC) {
         a.macro_ops[cell] = mac_ops;
+#pragma unroll
         for (int r = 0; r < N_REASONS; ++r)
           a.macro_aborts[static_cast<size_t>(cell) * N_REASONS + r] = mac_ab[r];
       }
@@ -2821,7 +3010,7 @@ extern "C" int cell_scan_launch(
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
     int* aver, const double* chain_table, double* recov_h,
     const double* fab_table, double* recov_l, const double* ep_table,
-    const double* ep_bounds, const signed char* mlen, long long* macro_ops,
+    const double* ep_bounds, long long* macro_ops,
     long long* macro_aborts, int n_cells, int C, int L, int P, int B, int A,
     int T, int n_track, int n_deep, int n_leaves, int n_epochs, int macro,
     cudaStream_t stream) {
@@ -2833,7 +3022,7 @@ extern "C" int cell_scan_launch(
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
          C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
          fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs,
-         mlen, macro_ops, macro_aborts};
+         macro_ops, macro_aborts, {}};
   if (n_deep < 0 || n_deep > MAX_DEEP || n_leaves < 1 ||
       n_leaves > MAX_LEAVES || (fab && n_deep < 1) || n_epochs < 1 ||
       n_epochs > MAX_EPOCHS)
@@ -2841,6 +3030,7 @@ extern "C" int cell_scan_launch(
   size_t smem = carve(a.lay, nullptr, C, P, B, T, NL);
   if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
   if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
+  if (macro) smem = carve_mac(a.mlay, nullptr, smem, P);
   return macro ? run_mac<true>(a, n_cells, n_deep, fab, ep, smem, stream)
                : run_mac<false>(a, n_cells, n_deep, fab, ep, smem, stream);
 }

@@ -1,10 +1,10 @@
 // flash_attention_tc: forward online-softmax attention on Hopper's tensor
-// cores, for bf16 inputs and for f32 inputs of head dim <= 128.
+// cores, for bf16 inputs and for f32 inputs (head dim <= 128, and 256 on
+// a kernel of its own, flash_tc_f32_wide_kernel).
 //
 // Replaces the Pallas kernel
 // repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _kernel); f32 inputs of head dim 256 keep the FMA kernel
-// (flash_attention.cu), see Shared memory.  The contract is
+// _kernel).  The contract is
 // flash_attention.cu's: out = softmax(q kᵀ · D^-0.5, masked) v per
 // (batch, head), causal mask (k <= q), optional window (k > q - window),
 // f32 running max, normalizer and accumulator, max(l, 1e-30) at the end,
@@ -48,11 +48,12 @@
 // V in three parts each and one stage (9 tiles: 72 KB at D = 64, 144 KB
 // at D = 128).  A stage of K and V in three parts is 48 KB at D = 64 and
 // 192 KB at D = 256: f32 at D = 256 would need 288 KB with one stage,
-// over the 227 KB a block may have, so it keeps the FMA kernel, and a
-// second f32 stage (120 KB at D = 64) would halve the blocks per SM.  In
-// its place, at D <= 64 the next tile's f32 K and V wait in registers
-// (32 floats a thread each) while the current tile is multiplied; at
-// D = 128 they are loaded after the tile's products.
+// over the 227 KB a block may have, so it takes its own kernel, with
+// 32-key tiles (192 KB; see flash_tc_f32_wide_kernel), and a second f32
+// stage (120 KB at D = 64) would halve the blocks per SM.  In its place,
+// at D <= 64 the next tile's f32 K and V wait in registers (32 floats a
+// thread each) while the current tile is multiplied; at D >= 128 they
+// are loaded after the tile's products.
 //
 // Design: one warpgroup (128 threads) per (batch·head, 64-query tile),
 // heaviest causal tiles first.  Tiles sit in shared memory in the
@@ -136,22 +137,23 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-// An f32 tile in registers: the 8 floats of each 16-byte bf16 chunk this
-// thread stores (chunk i = tid + j·NT of the tile, row i / CPR).
-template <int D>
+// An f32 tile of ROWS rows in registers: the 8 floats of each 16-byte
+// bf16 chunk this thread stores (chunk i = tid + j·NT of the tile, row
+// i / CPR).
+template <int D, int ROWS = 64>
 struct F32Tile {
   static constexpr int CPR = padded(D) / 8;
-  static constexpr int N = 64 * CPR / NT;
+  static constexpr int N = ROWS * CPR / NT;
   float4 v[N][2];
 };
 
-template <int D>
-__device__ __forceinline__ void load_f32(F32Tile<D>& t, const float* src,
-                                         long long ss, int row0, int S,
-                                         int tid) {
-  constexpr int CPR = F32Tile<D>::CPR;
+template <int D, int ROWS = 64>
+__device__ __forceinline__ void load_f32(F32Tile<D, ROWS>& t,
+                                         const float* src, long long ss,
+                                         int row0, int S, int tid) {
+  constexpr int CPR = F32Tile<D, ROWS>::CPR;
 #pragma unroll
-  for (int j = 0; j < F32Tile<D>::N; ++j) {
+  for (int j = 0; j < F32Tile<D, ROWS>::N; ++j) {
     const int i = tid + j * NT, r = i / CPR, cc = i % CPR, row = row0 + r;
     if (row < S && cc < D / 8) {
       const float4* p = reinterpret_cast<const float4*>(src + row * ss +
@@ -164,14 +166,16 @@ __device__ __forceinline__ void load_f32(F32Tile<D>& t, const float* src,
   }
 }
 
-// Store an f32 tile as PARTS bf16 tiles, part s at dst + s·TB.
-template <int D, int PARTS>
+// Store an f32 tile as PARTS bf16 tiles of TROWS rows, part s at
+// dst + s·TB, its rows from row r0 of them on.
+template <int D, int PARTS, int ROWS = 64, int TROWS = 64>
 __device__ __forceinline__ void store_parts(unsigned char* dst,
-                                            const F32Tile<D>& t, int tid) {
-  constexpr int CPR = F32Tile<D>::CPR;
-  constexpr uint32_t TB = tile_bytes(D);
+                                            const F32Tile<D, ROWS>& t,
+                                            int tid, int r0 = 0) {
+  constexpr int CPR = F32Tile<D, ROWS>::CPR;
+  constexpr uint32_t TB = TROWS * padded(D) * 2;
 #pragma unroll
-  for (int j = 0; j < F32Tile<D>::N; ++j) {
+  for (int j = 0; j < F32Tile<D, ROWS>::N; ++j) {
     const int i = tid + j * NT;
     uint32_t p[4][PARTS];
     wg::split_parts(t.v[j][0].x, t.v[j][0].y, p[0]);
@@ -180,7 +184,8 @@ __device__ __forceinline__ void store_parts(unsigned char* dst,
     wg::split_parts(t.v[j][1].z, t.v[j][1].w, p[3]);
 #pragma unroll
     for (int s = 0; s < PARTS; ++s)
-      *reinterpret_cast<uint4*>(dst + s * TB + sw128(i / CPR, i % CPR)) =
+      *reinterpret_cast<uint4*>(dst + s * TB +
+                                sw128(r0 + i / CPR, i % CPR, TROWS)) =
           make_uint4(p[0][s], p[1][s], p[2][s], p[3][s]);
   }
 }
@@ -434,6 +439,222 @@ __global__ void __launch_bounds__(NT) flash_tc_kernel(Args a) {
     }
 }
 
+
+// f32 at D = 256 (flash_attention_tc_f32_256_launch): the same three
+// bf16 parts, six cross products and fresh P·V accumulators, tiled to
+// fit a block's 227 KB.  Q in three parts is 3 x 32 KB; K and V come in
+// tiles of BK256 = 32 keys, 3 x 16 KB each, one stage: 192 KB.  S =
+// Q·Kᵀ is 16 k-steps of wgmma m64n32k16 a pair of parts (16 f32
+// registers a thread); P·V runs in four 64-column slices of O, each a
+// fresh accumulator of 32 registers added to O (128 registers a thread)
+// on the CUDA cores.  The next tile's K and V are read into registers
+// and split after the tile's products (no room for a second stage), Q
+// in two halves of 32 rows.
+constexpr int BK256 = 32;      // keys per tile
+constexpr int F32_WIDE_D = 256;
+
+__host__ __device__ constexpr int smem_bytes_f32_wide() {
+  return 3 * tile_bytes(F32_WIDE_D) + 2 * 3 * (tile_bytes(F32_WIDE_D) / 2) +
+         1024;
+}
+
+// One 32-row f32 tile of `src` from row `row0`, stored as three bf16 parts
+// of TROWS-row tiles at `dst`, from row r0 of them.
+template <int TROWS>
+__device__ __forceinline__ void stage_wide(unsigned char* dst,
+                                           const float* src, long long ss,
+                                           int row0, int r0, int S, int tid) {
+  F32Tile<F32_WIDE_D, 32> t;
+  load_f32<F32_WIDE_D, 32>(t, src, ss, row0, S, tid);
+  store_parts<F32_WIDE_D, 3, 32, TROWS>(dst, t, tid, r0);
+}
+
+__global__ void __launch_bounds__(NT) flash_tc_f32_wide_kernel(Args a) {
+  extern __shared__ unsigned char fatc_smem[];
+  constexpr int D = F32_WIDE_D, IN = 3;
+  constexpr int NB = D / 64;   // 64-column slices of O
+  constexpr int KS = D / 16;   // k-steps of Q·Kᵀ
+  constexpr uint32_t TQ = tile_bytes(D), TK = TQ / 2;
+  const uint32_t base = (wg::smem_u32(fatc_smem) + 1023u) & ~1023u;
+  unsigned char* const sm = fatc_smem + (base - wg::smem_u32(fatc_smem));
+  // part s of Q at sQ + s·TQ, of K at sK + s·TK, of V at sV + s·TK
+  const uint32_t sQ = base, sK = base + IN * TQ, sV = sK + IN * TK;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int S = a.S;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int BH = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / BH;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / a.H, h = bh % a.H, hk = h / a.g;
+  const int q0 = qt * BQ;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+
+  // keys any row of this tile can see: [k_lo, k_hi)
+  int k_lo = 0, k_hi = S;
+  if (a.causal) k_hi = min(S, q0 + BQ);
+  if (a.window > 0) k_lo = max(0, q0 - a.window + 1);
+  const int kt0 = (k_lo / BK256) * BK256;
+  const int n_tiles = (k_hi - kt0 + BK256 - 1) / BK256;
+
+  // Q in two halves of 32 rows, then the first K and V tiles
+  stage_wide<BQ>(sm, qp, a.q_ss, q0, 0, S, tid);
+  stage_wide<BQ>(sm, qp, a.q_ss, q0 + 32, 32, S, tid);
+  stage_wide<BK256>(sm + (sK - base), kp, a.k_ss, kt0, 0, S, tid);
+  stage_wide<BK256>(sm + (sV - base), vp, a.v_ss, kt0, 0, S, tid);
+
+  // this thread's rows of the tile and its running statistics
+  const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;
+  const int qi0 = q0 + r0, qi1 = q0 + r1;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  float o[NB][32];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+  const float sl2 = a.scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kt0 + it * BK256;
+    wg::fence_proxy_async();
+    __syncthreads();
+
+    // S = Q·Kᵀ over the kept pairs of parts: k-step kk reads bytes
+    // 32·(kk % 4) of column block kk / 4 (Q's 64 rows, K's 32)
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    wg::fence_acc(s);
+    wg::wgmma_fence();
+    wg::for_parts<IN, IN>([&](int pi, int pj, bool first) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wg::wgmma_ss_n32(
+            s, desc_sw128(sQ + pi * TQ + (kk / 4) * 8192 + (kk % 4) * 32, 16,
+                          1024),
+            desc_sw128(sK + pj * TK + (kk / 4) * 4096 + (kk % 4) * 32, 16,
+                       1024),
+            !(first && kk == 0));
+    });
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_acc(s);
+
+    // mask and scale; register 4j + e holds row r0 (e < 2) or r1, key
+    // column 8j + 2·quad + e % 2
+    const bool edge = (a.causal && k0 + BK256 - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + BQ - 1 - a.window) ||
+                      k0 + BK256 > S;
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + 8 * j + 2 * quad + e;
+        float& x0 = s[4 * j + e];
+        float& x1 = s[4 * j + 2 + e];
+        x0 = !edge || visible(kj, qi0, a) ? x0 * sl2 : NEG;
+        x1 = !edge || visible(kj, qi1, a) ? x1 * sl2 : NEG;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - n0), c1 = exp2f(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x0 = s[4 * j + e];
+        float& x1 = s[4 * j + 2 + e];
+        x0 = x0 > 0.5f * NEG ? exp2f(x0 - n0) : 0.f;
+        x1 = x1 > 0.5f * NEG ? exp2f(x1 - n1) : 0.f;
+        sum0 += x0;
+        sum1 += x1;
+      }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+    // P as the A operand in three parts: k-step kk (keys 16kk..16kk+15)
+    // is registers 8kk..8kk+7 of the score fragment
+    uint32_t pa[2][4][IN];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wg::split_parts(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1],
+                        pa[kk][i]);
+
+    // O += P·V a 64-column slice at a time: V MN-major, slice n in
+    // column block n (4096 bytes), k-step kk at key row 16kk (2048
+    // bytes); a fresh accumulator per slice, added to the rescaled O
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[n][4 * j] *= c0;
+        o[n][4 * j + 1] *= c0;
+        o[n][4 * j + 2] *= c1;
+        o[n][4 * j + 3] *= c1;
+      }
+      float pv[32];
+      wg::fence_acc(pv);
+      wg::wgmma_fence();
+      wg::for_parts<IN, IN>([&](int pi, int pj, bool first) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t frag[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) frag[i] = pa[kk][i][pi];
+          wg::wgmma_rs<1>(pv, frag,
+                          desc_sw128(sV + pj * TK + n * 4096 + kk * 2048,
+                                     1024, 1024),
+                          !(first && kk == 0));
+        }
+      });
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_acc(pv);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[n][i] += pv[i];
+    }
+    __syncthreads();  // the stage is free for the next tile
+    if (it + 1 < n_tiles) {
+      stage_wide<BK256>(sm + (sK - base), kp, a.k_ss, k0 + BK256, 0, S, tid);
+      stage_wide<BK256>(sm + (sV - base), vp, a.v_ss, k0 + BK256, 0, S, tid);
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * n + 8 * j + 2 * quad;
+      if (qi0 < S)
+        *reinterpret_cast<float2*>(op + qi0 * a.o_ss + col) =
+            make_float2(o[n][4 * j] / d0, o[n][4 * j + 1] / d0);
+      if (qi1 < S)
+        *reinterpret_cast<float2*>(op + qi1 * a.o_ss + col) =
+            make_float2(o[n][4 * j + 2] / d1, o[n][4 * j + 3] / d1);
+    }
+}
+
 }  // namespace fatc
 
 // ---- host entry point -------------------------------------------------
@@ -491,4 +712,26 @@ extern "C" int flash_attention_tc_f32_launch(
     int window, float scale, cudaStream_t stream) {
   return flash_tc_launch_t<float>(q, k, v, o, strides, B, H, S, D, g,
                                   causal, window, scale, stream);
+}
+
+// f32 q, k, v, out at D = fatc::F32_WIDE_D (the kernel of that width)
+extern "C" int flash_attention_tc_f32_256_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* strides, int B, int H, int S, int D, int g, int causal,
+    int window, float scale, cudaStream_t stream) {
+  if (D != fatc::F32_WIDE_D) return static_cast<int>(cudaErrorInvalidValue);
+  fatc::Args a{q, k, v, o,
+               strides[0], strides[1], strides[2],
+               strides[3], strides[4], strides[5],
+               strides[6], strides[7], strides[8],
+               strides[9], strides[10], strides[11],
+               H, S, g, causal, window, scale};
+  const int blocks = B * H * ((S + fatc::BQ - 1) / fatc::BQ);
+  const int smem = fatc::smem_bytes_f32_wide();
+  cudaError_t e = cudaFuncSetAttribute(
+      fatc::flash_tc_f32_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fatc::flash_tc_f32_wide_kernel<<<blocks, fatc::NT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,10 @@
 // Hopper primitives of the port's kernels, each behind a small device
 // function so that no kernel body holds inline PTX: shared-memory
 // addresses, cp.async copies (4 bytes, and 16 bytes with zero fill),
-// the async-proxy fence, and the warpgroup product
+// the async-proxy fence, and the warpgroup products
 // wgmma.mma_async m64n64k16 (f32 += bf16 x bf16) with A from shared
-// memory or from registers, and the flag accesses of a chain of
-// blocks.  tests/warp_emul/hopper.cuh is its twin for
+// memory or from registers and m64n32k16 with both from shared memory,
+// and the flag accesses of a chain of blocks.  tests/warp_emul/hopper.cuh is its twin for
 // the CPU: the same calls done in scalar C++ on the PTX ISA's documented
 // register-fragment and swizzled shared-memory layouts.
 #pragma once
@@ -74,9 +74,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // Order the accumulator registers against the asynchronous product:
 // nothing reads or writes them across this point.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -124,6 +125,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : WG_D32_OPS(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// d (64 x 32, f32 fragment: 16 registers) = A (64 x 16, K-major,
+// descriptor da) · B (16 x 32, K-major, descriptor db) + (scale_d ? d :
+// 0), wgmma.mma_async m64n32k16.  Asynchronous, as wgmma_ss.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 #undef WG_D32

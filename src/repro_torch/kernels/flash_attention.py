@@ -18,12 +18,18 @@ The route is fixed before launch by the dtype and the head dim (``ROUTES``;
   as three bf16 parts each, of whose cross products the six that reach
   f32 precision are kept (the source's Precision note), so the f32
   tolerance of 2e-5 holds on the tensor cores;
-* **f32 with D = 256 → the FMA kernel** (``csrc/flash_attention.cu``):
-  three parts of K and V do not fit the tensor-core kernel's shared
-  memory at that width.
+* **f32 with D = 256 → the same source's wide kernel**
+  (``flash_attention_tc_f32_256_launch``): the same three parts and six
+  products over 32-key tiles, so that three parts of Q, K and V fit a
+  block's shared memory at that width.
 
-Each route counts its launches (``launches_tc`` for both tensor-core
-entries, ``launches_fma``; ``launches`` is their sum).  A dtype or head
+The FMA kernel (``csrc/flash_attention.cu``, ``FMA_F32``) takes f32 at
+every head dim but is on no route; ``chip_smoke.py`` holds it and times
+it beside the tensor-core routes through :func:`launch`.
+
+Each route counts its launches (``launches_tc`` for every tensor-core
+entry, ``launches_fma``; ``launches`` is their sum; ``launches_by``
+per entry).  A dtype or head
 dim that no route takes raises; a failed build or launch raises too, and
 nothing falls back to another route or to the plain version.
 
@@ -53,20 +59,23 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-# Launches per route (one per wrapper call on CUDA), and their sum.
+# Launches per route (one per wrapper call on CUDA), their sum, and per
+# C entry.
 launches = 0
 launches_tc = 0
 launches_fma = 0
+launches_by: dict = {}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # A route: the kernel's library (csrc/<lib>.cu) and its C entry point.
 TC_BF16 = ("flash_attention_tc", "flash_attention_tc_launch")
 TC_F32 = ("flash_attention_tc", "flash_attention_tc_f32_launch")
+TC_F32_256 = ("flash_attention_tc", "flash_attention_tc_f32_256_launch")
 FMA_F32 = ("flash_attention", "flash_attention_launch")
 TC_F32_MAX_D = 128          # fatc::F32_MAX_D in the source
 # dtype -> ((largest head dim, route), ...): the first that takes D serves.
 ROUTES = {torch.bfloat16: ((256, TC_BF16),),
-          torch.float32: ((TC_F32_MAX_D, TC_F32), (256, FMA_F32))}
+          torch.float32: ((TC_F32_MAX_D, TC_F32), (256, TC_F32_256))}
 DTYPES = tuple(ROUTES)
 
 
@@ -110,7 +119,8 @@ def launch(lib, q, k, v, out, *, causal: bool, window: Optional[int],
     point's error code.  ``flash_attention_launch`` (the FMA kernel) takes
     f32 tensors whose last axis is unit-stride, the tensor-core entries
     (``flash_attention_tc_launch`` bf16, ``flash_attention_tc_f32_launch``
-    f32) tensors that :func:`_for_copies` accepts."""
+    f32 at D <= 128, ``flash_attention_tc_f32_256_launch`` f32 at D =
+    256) tensors that :func:`_for_copies` accepts."""
     b, h, s, d = q.shape
     strides = (ctypes.c_longlong * 12)(*(
         st for x in (q, k, v, out) for st in (x.stride(0), x.stride(1),
@@ -164,4 +174,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         launches_fma += 1
     launches += 1
+    launches_by[entry] = launches_by.get(entry, 0) + 1
     return out

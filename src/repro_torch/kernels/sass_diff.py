@@ -1,4 +1,5 @@
-"""Compare the cell scan's machine code with another source's.
+"""Compare the cell scan's (and the tensor-core attention's) machine code
+with another source's.
 
 Card-only tool (it needs ``nvcc`` and ``cuobjdump``): builds
 ``csrc/cell_scan.cu`` and the ``cell_scan.cu`` given on the command line
@@ -18,15 +19,20 @@ before the fabric) or, for D = 0, ``cell_scan_kernel<SPL>`` (before the
 chain); an older source has no ``MAC = true`` one, which is reported
 missing::
 
-    PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu [--all]
+    PYTHONPATH=src python -m repro_torch.kernels.sass_diff old.cu \
+        [--all] [--flash old_flash_attention_tc.cu]
 
 Prints each build's seconds, then per instantiation both instruction
 counts, the instructions that differ (branch targets aside, which only
 move when code after them changes length), ptxas's registers and stack
 frame, and the local-memory instructions (``LDL``/``STL``) in all and
 inside the step loop (the longest backward branch's span), the other
-source's beside this one's.  Exits 1 when a ``D = 0``, ``MAC = false``
-instantiation differs (every instantiation with ``--all``).
+source's beside this one's.  Exits 1 when a ``MAC = false``
+instantiation differs (every instantiation with ``--all``).  With
+``--flash``, every kernel of ``csrc/flash_attention_tc.cu`` that the
+other ``flash_attention_tc.cu`` also has (the bf16 and f32 routes' at
+each head dim) is compared the same way and must be identical; a kernel
+only this source has is listed with its registers and stack frame.
 """
 from __future__ import annotations
 
@@ -45,11 +51,12 @@ CUDA_BIN = Path("/usr/local/cuda/bin")
 MAX_DEEP = 3
 
 
-def sass(src: Path, out_dir: Path) -> dict:
+def sass(src: Path, out_dir: Path, lib: str = "cell_scan") -> dict:
     """``{function name: {"ins": [instruction, ...], "addr": [offset,
-    ...], "regs": n, "stack": bytes}}`` of ``src`` built into
-    ``out_dir``, one cubin per unit of a split source."""
-    flags = [f for f in _build.nvcc_flags("cell_scan")
+    ...], "regs": n, "stack": bytes}}`` of ``src`` built with library
+    ``lib``'s flags into ``out_dir``, one cubin per unit of a split
+    source."""
+    flags = [f for f in _build.nvcc_flags(lib)
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     units = {u: t for u, t in _build.unit_sources(src).items()
              if u != "entry"} or {"all": None}
@@ -151,14 +158,54 @@ def _usage(f: dict) -> str:
             f"LDL/STL {n} ({loop} in the step loop)")
 
 
-def main(other: str, strict_all: bool = False) -> int:
+def _diff(o: dict, n: dict, what: str, must: bool) -> bool:
+    """Print ``o`` (the other source's function) against ``n``; whether
+    they are identical or need not be."""
+    ops = difflib.SequenceMatcher(
+        a=[_no_target(x) for x in o["ins"]],
+        b=[_no_target(x) for x in n["ins"]], autojunk=False).get_opcodes()
+    diff = [op for op in ops if op[0] != "equal"]
+    ident = not diff and len(o["ins"]) == len(n["ins"])
+    print(f"{what}: other {len(o['ins'])} instructions, this "
+          f"{len(n['ins'])}, differing runs {len(diff)}"
+          + ("; identical" if ident else "")
+          + f"; other {_usage(o)}; this {_usage(n)}")
+    if must:
+        for tag, i1, i2, j1, j2 in diff[:4]:
+            print(f"  {tag}: {o['ins'][i1:i2][:4]} -> {n['ins'][j1:j2][:4]}")
+    return ident or not must
+
+
+def flash_main(old: dict, new: dict) -> bool:
+    """Every attention kernel both builds have, identical; the others
+    listed."""
+    same = True
+    for name in sorted(new):
+        if name in old:
+            same &= _diff(old[name], new[name], f"flash {name}", True)
+        else:
+            print(f"flash {name}: only this source; {_usage(new[name])}")
+    for name in sorted(set(old) - set(new)):
+        print(f"flash {name}: only the other source")
+        same = False
+    return same
+
+
+def main(other: str, strict_all: bool = False,
+         flash_other: str | None = None) -> int:
+    jobs = [(Path(other), "other", "cell_scan"),
+            (_build.CSRC / "cell_scan.cu", "this", "cell_scan")]
+    if flash_other:
+        jobs += [(Path(flash_other), "flash_other", "flash_attention_tc"),
+                 (_build.CSRC / "flash_attention_tc.cu", "flash_this",
+                  "flash_attention_tc")]
     with tempfile.TemporaryDirectory() as tmp, \
-            concurrent.futures.ThreadPoolExecutor(2) as ex:
-        (Path(tmp) / "other").mkdir()
-        (Path(tmp) / "this").mkdir()
-        old, new = ex.map(lambda a: sass(*a), (
-            (Path(other), Path(tmp) / "other"),
-            (_build.CSRC / "cell_scan.cu", Path(tmp) / "this")))
+            concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        for _, d, _ in jobs:
+            (Path(tmp) / d).mkdir()
+        built = list(ex.map(lambda j: sass(j[0], Path(tmp) / j[1], j[2]),
+                            jobs))
+    old, new = built[:2]
     same = True
     combos = [(spl, d, fab, ep, mac) for mac in (0, 1) for spl in (1, 2, 4)
               for d in range(MAX_DEEP + 1) for fab in ((0, 1) if d else (0,))
@@ -169,28 +216,20 @@ def main(other: str, strict_all: bool = False) -> int:
         n = _find(new, names[:1])
         what = (f"cell_scan_kernel SPL={spl} D={d} FAB={bool(fab)} "
                 f"EP={bool(ep)} MAC={bool(mac)}")
-        must = strict_all or (d == 0 and not mac)
+        must = strict_all or not mac
         if o is None or n is None:
             print(f"{what}: missing (other {o is not None}, this "
-                  f"{n is not None})")
+                  f"{n is not None})"
+                  + (f"; this {_usage(n)}" if n is not None else ""))
             same &= not must
             continue
-        ops = difflib.SequenceMatcher(
-            a=[_no_target(x) for x in o["ins"]],
-            b=[_no_target(x) for x in n["ins"]], autojunk=False).get_opcodes()
-        diff = [op for op in ops if op[0] != "equal"]
-        ident = not diff and len(o["ins"]) == len(n["ins"])
-        same &= ident or not must
-        print(f"{what}: other {len(o['ins'])} instructions, this "
-              f"{len(n['ins'])}, differing runs {len(diff)}"
-              + ("; identical" if ident else "")
-              + f"; other {_usage(o)}; this {_usage(n)}")
-        if must:
-            for tag, i1, i2, j1, j2 in diff[:4]:
-                print(f"  {tag}: {o['ins'][i1:i2][:4]} -> "
-                      f"{n['ins'][j1:j2][:4]}")
+        same &= _diff(o, n, what, must)
+    if flash_other:
+        same &= flash_main(*built[2:])
     return 0 if same else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1], "--all" in sys.argv[2:]))
+    args = sys.argv[1:]
+    flash = args[args.index("--flash") + 1] if "--flash" in args else None
+    sys.exit(main(args[0], "--all" in args, flash))

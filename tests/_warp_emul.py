@@ -1,4 +1,5 @@
-"""The CUDA kernels' own source, run on the CPU against the plain versions.
+"""The CUDA kernels' own source, run on the CPU against the plain
+versions: what ``tests/test_torch_warp_emul_*.py`` share.
 
 There is no ``nvcc`` on a CPU-only machine, but the bodies of the
 kernels in ``csrc/`` are plain C++ apart from a handful of CUDA
@@ -7,8 +8,14 @@ constructs.  ``warp_emul/cuda_emul.h`` supplies those for g++ (a warp =
 ``__syncthreads`` through a barrier) and ``warp_emul/cuda_bf16.h`` the
 bf16 type, so the kernels' logic — warp reductions, lane-owned slots,
 the read-then-write phases, the tiles shared by a block's threads — is
-checked here against the plain versions with the wrappers' own launch
-code.  The card itself is checked by ``chip_smoke.py``.
+checked against the plain versions with the wrappers' own launch code.
+The card itself is checked by ``chip_smoke.py``.
+
+The tests are split by kernel family, one file each, so that a run with
+``--dist loadfile`` spreads them over its workers; each file builds
+only the emulated libraries its own tests use (:func:`build`, every
+g++ at once), and a cell-scan library only the kernel instantiations
+its cases launch (``CELL_SCAN_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -24,12 +31,9 @@ import torch
 import repro_torch.core as P
 from repro_torch.core.engine import grid
 from repro_torch.kernels import cell_scan as cs
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
-from repro_torch.kernels import ssd_tc_probe
 from repro_torch.kernels import tat_lookup as tl
-from repro_torch.kernels.ref import (flash_attention_ref, ssd_scan_ref,
-                                     tat_lookup_ref)
+from repro_torch.kernels.ref import ssd_scan_ref
 
 CSRC = Path(tl.__file__).resolve().parent / "csrc"
 EMUL = Path(__file__).resolve().parent / "warp_emul"
@@ -48,36 +52,25 @@ static std::atomic<int> g_window_faults{0};
 
 CELL_SCAN_LAUNCH = r'''
 alignas(16) unsigned char smem_raw[1 << 20];
-// EMU_MAC / EMU_EP: the library's third of the instantiations, built
-// beside the others at once — with macro-steps off, every EP = false one
-// (EMU_EP 0) or the EP = true ones the scheduled cases need (EMU_EP 1:
-// SPL 1, and SPL 2 at D = 3); with them on (EMU_MAC 1), SPL 1's at every
-// D, FAB and EP; a grid outside the library's third is refused
+// EMU_SEL(SPL, D, FAB, EP, MAC): the instantiations this library holds
+// (each test file builds those its cases launch, all its libraries at
+// once); a grid outside them is refused
+template <int SPL, int D, bool FAB, bool EP, bool MAC>
+static bool emu_one(Args& a, int n_cells) {
+  if constexpr (EMU_SEL(SPL, D, FAB, EP, MAC)) {
+    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, EP, MAC>(a); });
+    return true;
+  } else {
+    return false;
+  }
+}
 template <int SPL, int D, bool FAB>
 static bool emu_ep(Args& a, int n_cells, bool ep, bool mac) {
-  if (mac != static_cast<bool>(EMU_MAC)) return false;
-#if EMU_MAC
-  if constexpr (SPL == 1) {
-    if (ep)
-      emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, true, true>(a); });
-    else
-      emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false, true>(a); });
-    return true;
-  }
-  return false;
-#else
-  if (ep != static_cast<bool>(EMU_EP)) return false;
-#if EMU_EP
-  if constexpr (SPL == 1 || (SPL == 2 && D == 3)) {
-    emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, true, false>(a); });
-    return true;
-  }
-  return false;
-#else
-  emu_run(n_cells, [&] { cell_scan_kernel<SPL, D, FAB, false, false>(a); });
-  return true;
-#endif
-#endif
+  if (mac)
+    return ep ? emu_one<SPL, D, FAB, true, true>(a, n_cells)
+              : emu_one<SPL, D, FAB, false, true>(a, n_cells);
+  return ep ? emu_one<SPL, D, FAB, true, false>(a, n_cells)
+            : emu_one<SPL, D, FAB, false, false>(a, n_cells);
 }
 template <int SPL, int D>
 static bool emu_d(Args& a, int n_cells, bool fab, bool ep, bool mac) {
@@ -104,7 +97,7 @@ extern "C" int cell_scan_launch(
     double* recov_ns, double* recov_t, long long* steps, long long* lookups,
     int* aver, const double* chain_table, double* recov_h,
     const double* fab_table, double* recov_l, const double* ep_table,
-    const double* ep_bounds, const signed char* mlen, long long* macro_ops,
+    const double* ep_bounds, long long* macro_ops,
     long long* macro_aborts, int n_cells, int C, int L, int P, int B, int A,
     int T, int n_track, int n_deep, int n_leaves, int n_epochs, int macro,
     cudaStream_t) {
@@ -116,13 +109,14 @@ extern "C" int cell_scan_launch(
          durable_ver, n_recov, recov_ns, recov_t, steps, lookups, aver,
          C, L, P, B, A, T, n_track, {}, chain_table, recov_h, {},
          fab_table, recov_l, {}, NL, ep_table, ep_bounds, n_epochs,
-         mlen, macro_ops, macro_aborts};
+         macro_ops, macro_aborts, {}};
   if (n_deep < 0 || n_deep > 3 || n_leaves < 1 || n_leaves > MAX_LEAVES ||
       (fab && n_deep < 1) || n_epochs < 1 || n_epochs > MAX_EPOCHS)
     return 1;
   size_t smem = carve(a.lay, nullptr, C, P, B, T, NL);
   if (n_deep > 0) smem = carve_chain(a.clay, nullptr, smem, P, B, n_deep);
   if (fab) smem = carve_fab(a.flay, nullptr, smem, T);
+  if (macro) smem = carve_mac(a.mlay, nullptr, smem, P);
   if (smem > sizeof(smem_raw)) return 1;
   wg::emu_smem_base = smem_raw;
   const bool mac = macro != 0;
@@ -161,7 +155,6 @@ extern "C" double chunk_sum(int Q, int n, const int* pos, const double* v) {
   return s.sum();
 }
 '''
-
 TAT_LOOKUP_LAUNCH = r'''
 int table[1 << 16];
 extern "C" int tat_lookup_launch(const int* req, const int* tat,
@@ -209,8 +202,9 @@ extern "C" int flash_attention_launch(
 
 FLASH_TC_LAUNCH = r'''
 namespace fatc {
-alignas(1024) unsigned char fatc_smem[smem_bytes(256, false)];
-static_assert(smem_bytes(F32_MAX_D, true) <= smem_bytes(256, false));
+alignas(1024) unsigned char fatc_smem[smem_bytes_f32_wide()];
+static_assert(smem_bytes(F32_MAX_D, true) <= smem_bytes_f32_wide());
+static_assert(smem_bytes(256, false) <= smem_bytes_f32_wide());
 }
 template <class T, int D>
 static int emu_flash_tc(const fatc::Args& a, int blocks) {
@@ -251,6 +245,19 @@ extern "C" int flash_attention_tc_f32_launch(
     int window, float scale, cudaStream_t) {
   return emu_flash_tc_t<float>(q, k, v, o, st, B, H, S, D, g, causal,
                                window, scale);
+}
+extern "C" int flash_attention_tc_f32_256_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* st, int B, int H, int S, int D, int g, int causal,
+    int window, float scale, cudaStream_t) {
+  if (D != fatc::F32_WIDE_D) return 1;
+  fatc::Args a{q, k, v, o, st[0], st[1], st[2], st[3], st[4], st[5],
+               st[6], st[7], st[8], st[9], st[10], st[11],
+               H, S, g, causal, window, scale};
+  wg::emu_smem_base = fatc::fatc_smem;
+  emu_run(B * H * ((S + fatc::BQ - 1) / fatc::BQ),
+          [&] { fatc::flash_tc_f32_wide_kernel(a); }, fatc::NT);
+  return 0;
 }
 '''
 
@@ -317,7 +324,7 @@ extern "C" int ssd_scan_tc_f32_launch(
 '''
 
 
-def _emulated_source(name: str, launcher: str, prelude: str = "") -> str:
+def emulated_source(name: str, launcher: str, prelude: str = "") -> str:
     src = (CSRC / f"{name}.cu").read_text()
     body = src.split("// ---- host entry point")[0]
     body = body.replace("#include <cuda_runtime.h>",
@@ -329,7 +336,7 @@ def _emulated_source(name: str, launcher: str, prelude: str = "") -> str:
     return prelude + body + launcher
 
 
-def _build(out: Path, sources) -> dict:
+def build(out: Path, sources) -> dict:
     """Each ``(library, kernel source, launcher[, prelude])`` of
     ``sources`` built by its own g++, all at once; ``{library:
     loaded}``."""
@@ -339,7 +346,7 @@ def _build(out: Path, sources) -> dict:
     procs = []
     for lib, name, launcher, *prelude in sources:
         cpp = out / f"{lib}.cpp"
-        cpp.write_text(_emulated_source(name, launcher, *prelude))
+        cpp.write_text(emulated_source(name, launcher, *prelude))
         so = out / f"lib{lib}.so"
         procs.append((lib, so, subprocess.Popen(
             [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
@@ -354,47 +361,32 @@ def _build(out: Path, sources) -> dict:
     return loaded
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    return _build(tmp_path_factory.mktemp("warp_emul"),
-                  tuple((lib, "cell_scan", f"#define EMU_EP {ep}\n"
-                         f"#define EMU_MAC {mac}\n" + CELL_SCAN_LAUNCH,
-                         CELL_SCAN_PRELUDE)
-                        for lib, ep, mac in (("cell_scan", 0, 0),
-                                             ("cell_scan_ep", 1, 0),
-                                             ("cell_scan_mac", 0, 1)))
-                  + (("tat_lookup", "tat_lookup", TAT_LOOKUP_LAUNCH),))
+
+# The cell-scan instantiations (SPL, D, FAB, EP, MAC) each family's
+# library holds (EMU_SEL): depth 1 with macro-steps off; switch chains;
+# fabrics; epoch schedules (SPL 1, and SPL 2 at D = 3); macro-steps (SPL
+# 1, every D, FAB and EP); none (the warp primitives and the chain's
+# commit-latency sum alone).
+CELL_SCAN_FAMILIES = {
+    "depth1": "!mac && !ep && d == 0",
+    "chain": "!mac && !ep && d >= 1 && !fab",
+    "fabric": "!mac && !ep && fab",
+    "epochs": "!mac && ep && (spl == 1 || (spl == 2 && d == 3))",
+    "macro": "mac && spl == 1",
+    "none": "false",
+}
 
 
-@pytest.fixture(scope="module")
-def model_libs(tmp_path_factory):
-    return _build(tmp_path_factory.mktemp("warp_emul_model"),
-                  tuple((n, n, launcher) for n, launcher in (
-                      ("flash_attention", FLASH_LAUNCH),
-                      ("flash_attention_tc", FLASH_TC_LAUNCH),
-                      ("ssd_scan", SSD_LAUNCH),
-                      ("ssd_scan_tc", SSD_TC_LAUNCH))))
+def cell_scan_source(family: str):
+    """The ``(library, source, launcher, prelude)`` of ``family``'s
+    emulated cell scan, for :func:`build`."""
+    return ("cell_scan", "cell_scan",
+            f"#define EMU_SEL(spl, d, fab, ep, mac) "
+            f"({CELL_SCAN_FAMILIES[family]})\n" + CELL_SCAN_LAUNCH,
+            CELL_SCAN_PRELUDE)
 
 
-@pytest.mark.parametrize("r,n", [(256, 16), (1024, 256), (8, 16), (37, 5)])
-def test_emulated_tat_lookup_equals_plain(libs, r, n):
-    rng = np.random.default_rng(r * 7 + n)
-    req, tat, st = (torch.tensor(rng.integers(lo, hi, k), dtype=torch.int32)
-                    for lo, hi, k in ((0, 2 * n, r), (0, 2 * n, n),
-                                      (0, 3, n)))
-    idx = torch.empty(r, dtype=torch.int32)
-    out = torch.empty(r, dtype=torch.int32)
-    fn = libs["tat_lookup"].tat_lookup_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    assert fn(req.data_ptr(), tat.data_ptr(), st.data_ptr(), idx.data_ptr(),
-              out.data_ptr(), r, n, 1, None) == 0
-    want = tat_lookup_ref(req, tat, st)
-    assert torch.equal(idx, want[0]) and torch.equal(out, want[1])
-
-
-def _cases():
+def cases():
     S = P.Scheme
     fz = [P.fuzz_trace(seed, n_cores=4, n_slots=100, n_tenants=2)[0]
           for seed in range(2)]
@@ -730,6 +722,51 @@ def _cases():
         "macro_many_cores": (many + [_staggered(36)],
                              [P.PCSConfig(scheme=s, n_pbe=16, n_tenants=2)
                               for s in S], 8),
+        # two cores in step (NoPB: each on banks of its own), so a head's
+        # key ties another core's: the floor settles it on the tie (beside
+        # one core alone, whose windows commit)
+        "macro_tie": ([_twins(30), _fig1_probe(20)],
+                      [P.PCSConfig(scheme=s) for s in S], 0),
+        # the window gate from the run plan packed in the op word: runs
+        # cut by a repeated line, a compute op and a stream cut short of
+        # its plan, beside runs that commit
+        "macro_window": ([_plan_probe()], [P.PCSConfig(scheme=s) for s in S]
+                         + [P.PCSConfig(scheme=S.PB_RF, n_pbe=4)], 8),
+        # replayed windows that commit beside windows whose replay clears
+        # the guard (reads that hit the PB; a PB_RF drain-down that fires)
+        "macro_guard": ([_fig1_probe(40, gap=300.0), _hit_probe(16)],
+                        [P.PCSConfig(scheme=s) for s in (S.PB, S.PB_RF)]
+                        + [P.PCSConfig(scheme=S.PB_RF, n_pbe=4)], 8),
+        # another core's issue times spread finely around each head's
+        # second issue time, so a head settled a little early or late
+        # shows: one core of persist/read pairs, one of computes and PM
+        # reads at random gaps
+        "macro_edges": ([_edges_probe(s) for s in range(2)],
+                        [P.PCSConfig(scheme=s) for s in S]
+                        + [P.PCSConfig(scheme=S.PB_RF, n_pbe=8)], 0),
+        # cells whose config gate (a fabric, a chain) settles every head,
+        # powered throughout (no head runs: the counts follow from the run
+        # plan) and losing power (a head every step, dead runs after)
+        "macro_gates": ([_plan_probe(), _fig1_probe(30, gap=300.0)],
+                        [P.PCSConfig(scheme=s, n_switches=2).with_crash(t)
+                         for s in (S.PB, S.PB_RF) for t in (INF_NS, 6e3)]
+                        + [P.PCSConfig(scheme=S.PB_RF, n_tenants=2,
+                                       fabric=P.FabricTopology(
+                                           2, (4, 4), 4, (0, 1)))
+                           .with_crash(t) for t in (INF_NS, 6e3)]
+                        + [P.PCSConfig(scheme=S.NOPB, n_switches=2)], 8),
+        # epoch boundaries inside windows (EP): settled by the floor's
+        # first gap, by its rest, and by the replay; one core and four
+        "macro_epochs": ([_fig1_probe(40, gap=700.0),
+                          _synth(5, 200, n_cores=4, L=60, gap=150.0)],
+                         [P.PCSConfig(scheme=s, policy=P.PBPolicy(
+                             drain=P.DrainPolicy(
+                                 threshold=Sch(bs, (0.75, 0.5, 0.875, 0.25)),
+                                 preset=0.125)))
+                          for s in (S.PB, S.PB_RF)
+                          for bs in ((3.1e3, 9.05e3, 2.2e4),
+                                     (1.2e3, 5.7e3, 3.3e4))]
+                         + [P.PCSConfig(scheme=S.NOPB)], 8),
     }
 
 
@@ -772,6 +809,53 @@ def _hit_probe(n=12):
 
 
 INF_NS = 1e30     # crash_at that never comes
+
+
+def _twins(n_pairs, gap=900.0):
+    """Two cores of persist/read pairs in step: the same ops and gaps,
+    lines of their own on PM banks of their own (0 and 2 of 4)."""
+    ops = np.tile(np.int32([int(P.Op.PERSIST), int(P.Op.PM_READ)]),
+                  (2, n_pairs))
+    addrs = (4 * np.arange(2 * n_pairs)[None, :]
+             + np.array([[0], [2]])).astype(np.int32)
+    return P.trace_from_arrays("twins", ops, addrs,
+                               np.full(ops.shape, gap, np.float32),
+                               np.full(2, ops.shape[1], np.int32))
+
+
+def _edges_probe(seed, n_pairs=60):
+    """Core 0: persist/read pairs to fresh lines, 40 ns apart; core 1:
+    computes and PM reads of its own lines at gaps uniform in [0, 600]
+    ns."""
+    rng = np.random.default_rng(seed)
+    L = 2 * n_pairs
+    ops = np.stack([np.tile(np.int32([int(P.Op.PERSIST),
+                                      int(P.Op.PM_READ)]), n_pairs),
+                    np.where(rng.random(L) < 0.3, int(P.Op.PM_READ),
+                             int(P.Op.COMPUTE))]).astype(np.int32)
+    addrs = np.stack([np.arange(L), (1 << 16) + np.arange(L)]).astype(
+        np.int32)
+    gaps = np.stack([np.full(L, 40.0), rng.uniform(0.0, 600.0, L)]).astype(
+        np.float32)
+    return P.trace_from_arrays(f"edges{seed}", ops, addrs, gaps,
+                               np.full(2, L, np.int32))
+
+
+def _plan_probe():
+    """Runs the plan cuts short, on two cores: a persist to a line just
+    persisted or read, a compute op between runs, a negative gap; core 1's
+    stream ends (its length) inside a planned run."""
+    pat = [(4, 0), (4, 1), (4, 1), (3, 2), (4, 3), (0, -1), (4, 4), (3, 5),
+           (4, 5), (3, 6), (3, 7), (4, 8), (4, 9), (3, 10), (4, 11),
+           (4, 12), (3, 13), (4, 14)]
+    ops = np.int32([[o for o, _ in pat] * 3] * 2)
+    addrs = np.array([[a + 32 * k for k in range(3) for _, a in pat]] * 2,
+                     np.int32) + np.array([[0], [1 << 12]], np.int32)
+    gaps = np.full(ops.shape, 250.0, np.float32)
+    gaps[:, 20] = -10.0
+    gaps[1] += 37.0
+    return P.trace_from_arrays("plan_probe", ops, addrs, gaps,
+                               np.array([ops.shape[1], 47], np.int32))
 
 
 def _fab(n_tenants, leaf_pbe, spine_pbe, mode, bp_high=None):
@@ -833,7 +917,16 @@ REACH = {
     "macro_commits": lambda r: r["window_max"] > 4,
     "macro_dead": lambda r: r["dead_max"] > 4 and r["window_max"] > 4,
     "macro_reasons": lambda r: r["window_max"] > 1,
+    "macro_tie": lambda r: r["ties"] > 0,
+    "macro_window": lambda r: r["cut"] > 0 and r["window_max"] > 1,
+    "macro_guard": lambda r: r["window_max"] > 4,
+    "macro_gates": lambda r: r["dead_max"] > 1,
 }
+# The abort reasons (engine/macro.py's order) a macro case must count.
+REASONS = {"macro_reasons": (0, 1, 2, 3, 4, 5), "macro_tie": (4,),
+           "macro_window": (0,), "macro_guard": (5,), "macro_epochs": (3, 4),
+           "macro_many_cores": (4,), "macro_edges": (4,),
+           "macro_gates": (0, 1, 2)}
 
 
 # The kernel instantiation a case must run: (SPL, D, FAB, EP, MAC).
@@ -841,8 +934,8 @@ INSTANTIATION = {"epochs_deep": (1, 3, False, True, False),
                  "epochs_d2": (1, 2, True, True, False),
                  "epochs_spl2": (2, 3, True, True, False),
                  "macro_commits": (1, 0, False, False, True),
-                 "macro_reasons": (1, 1, True, True, True)}
-
+                 "macro_reasons": (1, 1, True, True, True),
+                 "macro_epochs": (1, 0, False, True, True)}
 
 @pytest.fixture
 def chain_batches(monkeypatch):
@@ -853,12 +946,14 @@ def chain_batches(monkeypatch):
     hop holds at most one Dirty entry per line, and a packet bypasses a
     row only when it holds none for its line), the schedule epochs the
     steps resolved, the forwards run with no packet for a deep row left
-    over its drain count, and the longest committed macro window and
-    dead-run collapse (``window_max``, ``dead_max``, in trace slots)."""
+    over its drain count, the longest committed macro window and
+    dead-run collapse (``window_max``, ``dead_max``, in trace slots), the
+    live heads whose key ties another core's (``ties``) and those whose
+    stream ends inside their planned run (``cut``)."""
     from repro_torch.core.engine import chain, channels, policy, step
     r = dict(place=0, land=0, bank=0, place_split=0, land_split=0,
              coalesces=0, repeats=0, deferred=0, epochs=set(), pending=0,
-             pending_rows=set(), window_max=0, dead_max=0)
+             pending_rows=set(), window_max=0, dead_max=0, ties=0, cut=0)
     place, land = chain._place, chain._pm_land
     drain = policy.drain_threshold_preset
 
@@ -922,6 +1017,12 @@ def chain_batches(monkeypatch):
                     *a, **kw):
         out = macro_step(ctx, st, ops, addrs, gaps64, lengths, mlen, tsel,
                          live, *a, **kw)
+        c, i = int(ctx.c), a[1]
+        if live:
+            others = tsel.clone()
+            others[c] = float("inf")
+            r["ties"] += float(others.min()) == float(a[0])
+            r["cut"] += 2 <= int(lengths[c]) - i < int(mlen[c, i])
         if out[0] is not None:
             key = "window_max" if live else "dead_max"
             r[key] = max(r[key], out[1])
@@ -935,27 +1036,12 @@ def chain_batches(monkeypatch):
     return r
 
 
-@pytest.mark.parametrize("case", ["schemes", "crash", "tenants", "slots",
-                                  "short_cores", "many_cores", "chain_d1",
-                                  "chain_d2", "chain_d3", "chain_wide",
-                                  "chain_long_spl2", "chain_long_spl4",
-                                  "chain_bank", "chain_gate", "chain_dup",
-                                  "fabric_l2_packed", "fabric_l4_spread_bp",
-                                  "fabric_l8", "fabric_mixed",
-                                  "fabric_crash", "epochs_d0",
-                                  "epochs_fabric", "epochs_chain",
-                                  "epochs_mixed", "epochs_deep",
-                                  "epochs_d2", "epochs_spl2",
-                                  "macro_commits", "macro_reasons",
-                                  "macro_dead", "macro_tenants",
-                                  "macro_many_cores"])
-def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
-                                                   case):
-    """The emulated kernel against the eager ``scan_cell`` on every
-    output; the ``macro`` cases run the MAC library with macro-steps on
-    (the other cases with them off), its counters included, and every
+def check_cell_scan_case(lib, chain_batches, case):
+    """The emulated kernel of ``lib`` against the eager ``scan_cell`` on
+    every output of ``case``; the ``macro`` cases run with macro-steps on
+    (the other cases with them off), their counters included, and every
     step inside a committed window must select the window's core."""
-    traces, configs, track = _cases()[case]
+    traces, configs, track = cases()[case]
     macro = case.startswith("macro")
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
     args, kw = grid.cell_inputs(traces, configs, [p[0] for p in pairs],
@@ -967,8 +1053,6 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
         assert REACH[case](chain_batches), chain_batches
     got = cs._empty_out(len(pairs), kw["n_tenants_max"], max(track, 1),
                         kw["n_deep_max"], "cpu", kw["n_leaves_max"])
-    lib = libs["cell_scan_mac" if macro else "cell_scan_ep"
-               if args[11].shape[1] > 1 else "cell_scan"]
     assert cs.launch(lib, list(args), got,
                      max_pbe=kw["max_pbe"], pm_banks=kw["pm_banks"],
                      n_track=track, n_deep=kw["n_deep_max"],
@@ -981,8 +1065,8 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
     assert lib.window_faults() == 0
     if macro:
         assert int(want.macro_ops.sum()) > 0
-        if case == "macro_reasons":
-            assert bool((want.macro_aborts.sum(0) > 0).all()), \
+        for r in REASONS.get(case, ()):
+            assert int(want.macro_aborts[:, r].sum()) > 0, \
                 want.macro_aborts.sum(0)
     else:
         assert int(want.macro_ops.abs().sum()) == 0
@@ -1005,154 +1089,15 @@ def test_emulated_cell_scan_equals_eager_scan_cell(libs, chain_batches,
                                 macro) == INSTANTIATION[case]
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_emulated_warp_primitives(libs, seed):
-    """The emulation of __clz and __reduce_or_sync, and the chain's
-    tat_first_each (the lowest live slot with the lane's tag, or -1),
-    nth_set_bit and tat_first_key (the least key over the warp), against
-    their definitions."""
-    rng = np.random.default_rng(seed)
-    req = rng.integers(0, 12, 32).astype(np.int32)
-    tag = rng.integers(0, 12, 64).astype(np.int32)
-    live = (rng.random(64) < 0.5).astype(np.int32)
-    masks = rng.integers(1, 1 << 32, 32, dtype=np.uint64).astype(np.uint32)
-    masks[:3] = (1, 1 << 31, 0)
-    ks = np.array([rng.integers(0, max(bin(int(m)).count("1"), 1))
-                   for m in masks], np.int32)
-    keys = np.where(rng.random(32) < 0.7, 0x7fffffff,
-                    rng.integers(0, 3 << 8, 32)).astype(np.int32)
-    ored = np.zeros(32, np.uint32)
-    clz, first, nth, least = (np.zeros(32, np.int32) for _ in range(4))
-    fn = libs["cell_scan"].warp_primitives
-    fn.argtypes = [ctypes.c_void_p] * 11
-    fn(*(a.ctypes.data for a in (req, tag, live, masks, ks, keys, clz,
-                                 ored, first, nth, least)))
-    assert (ored == np.bitwise_or.reduce(masks)).all()
-    assert (least == keys.min()).all()
-    for lane in range(32):
-        assert clz[lane] == 32 - int(masks[lane]).bit_length()
-        hits = [s for s in range(64) if live[s] and tag[s] == req[lane]]
-        assert first[lane] == (hits[0] if hits else -1)
-        bits = [b for b in range(32) if int(masks[lane]) >> b & 1]
-        if bits:
-            assert nth[lane] == bits[ks[lane]]
-
-
-@pytest.mark.parametrize("q", [9, 32, 48, 64, 80, 130, 384])
-def test_emulated_chunk_sum_equals_xla_sum(libs, q):
-    """The kernel's commit-latency sum adds a batch's addends in the
-    order of the eager ``chain.xla_sum`` (the reference's XLA order)."""
-    from repro_torch.core.engine.chain import xla_sum
-    fn = libs["cell_scan"].chunk_sum
-    fn.restype = ctypes.c_double
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    rng = np.random.default_rng(q)
-    for _ in range(50):
-        v = rng.standard_normal(q) * 10.0 ** rng.integers(-3, 8, q)
-        v[rng.random(q) < 0.5] = 0.0
-        pos = np.flatnonzero(v).astype(np.int32)
-        vals = np.ascontiguousarray(v[pos])
-        got = fn(q, len(pos), pos.ctypes.data, vals.ctypes.data)
-        assert got == float(xla_sum(torch.tensor(v))), q
-
-
-@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype", [
-    (1, 2, 2, 128, 32, True, None, torch.float32),
-    (1, 2, 2, 128, 32, True, 48, torch.float32),
-    (1, 2, 2, 128, 32, False, None, torch.float32),
-    (1, 2, 2, 96, 16, False, 40, torch.float32),
-    (2, 4, 2, 70, 16, True, None, torch.float32),
-    (1, 3, 1, 64, 64, True, None, torch.bfloat16)])
-def test_emulated_flash_attention_equals_plain(model_libs, b, h, hkv, s, d,
-                                               causal, window, dtype):
-    """The FMA kernel (f32) and the tensor-core kernel (bf16) on strided
-    (B, S, H, D) views, as the model passes them; GQA; ragged S; bf16
-    loads and stores."""
-    rng = np.random.default_rng(s + d + h)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d))
-                                .astype(np.float32)).to(dtype)
-               .transpose(1, 2) for n in (h, hkv, hkv))
-    out = torch.empty_like(q)
-    assert out.stride() == q.stride()
-    name, entry = fa.FMA_F32 if dtype == torch.float32 else fa.TC_BF16
-    assert fa.launch(model_libs[name], q, k, v, out, causal=causal,
-                     window=window, stream=None, entry=entry) == 0
-    want = flash_attention_ref(q, k, v, causal=causal, window=window)
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
-    assert float((out.float() - want.float()).abs().max()) < tol
-
-
-def _by_dtype(rows):
+def by_dtype(rows):
     """Rows ending in a dtype: bf16 rows keep the ids they had before the
     dtype column, f32 rows get an ``f32-`` prefix."""
     return [pytest.param(*r, id=("f32-" if r[-1] == torch.float32 else "")
                          + "-".join(str(x) for x in r[:-1])) for r in rows]
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype", _by_dtype([
-    (1, 3, 1, 100, 64, True, None, torch.bfloat16),   # GQA g = 3, ragged S
-    (1, 3, 1, 200, 64, True, 64, torch.bfloat16),     # window: empty rows
-    (1, 2, 2, 96, 128, False, None, torch.bfloat16),
-    (1, 2, 1, 130, 128, True, 64, torch.bfloat16),
-    (1, 3, 1, 70, 256, True, None, torch.bfloat16),
-    (2, 2, 1, 64, 32, True, None, torch.bfloat16),    # D < 64: zero-padded
-    (1, 3, 1, 100, 64, True, None, torch.float32),
-    (1, 3, 1, 200, 64, True, 64, torch.float32),
-    (1, 2, 2, 96, 128, False, None, torch.float32),
-    (1, 2, 1, 130, 128, True, 64, torch.float32),
-    (2, 2, 1, 64, 32, True, None, torch.float32),
-    (1, 2, 1, 70, 16, False, 40, torch.float32)]))
-def test_emulated_flash_tc_equals_plain(model_libs, b, h, hkv, s, d, causal,
-                                        window, dtype):
-    """The tensor-core kernel's body, its wgmma, copies and swizzle done
-    by the twin header on the PTX ISA's documented layouts, in the
-    model's strided (B, S, H, D) layout: GQA, window, ragged S; bf16, and
-    f32 in three bf16 parts (its own entry) at the f32 limit."""
-    rng = np.random.default_rng(3 * s + d + h)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d))
-                                .astype(np.float32)).to(dtype)
-               .transpose(1, 2) for n in (h, hkv, hkv))
-    out = torch.empty_like(q)
-    name, entry = fa.route(dtype, d)
-    assert name == "flash_attention_tc"
-    assert fa.launch(model_libs[name], q, k, v, out, causal=causal,
-                     window=window, stream=None, entry=entry) == 0
-    want = flash_attention_ref(q, k, v, causal=causal, window=window)
-    assert bool(torch.isfinite(out.float()).all())
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
-    assert float((out.float() - want.float()).abs().max()) < tol
 
-
-def test_flash_routes_by_dtype(model_libs):
-    """bf16 takes the tensor-core kernel at every head dim, f32 takes it up
-    to D = 128 and the FMA kernel at D = 256; an f32 input at D = 256 run
-    through its route's emulated kernel holds 2e-5, the tensor-core
-    kernel refuses it, and a head dim no route takes raises."""
-    assert all(fa.route(torch.bfloat16, d) == fa.TC_BF16
-               for d in fa.HEAD_DIMS)
-    assert [fa.route(torch.float32, d) for d in fa.HEAD_DIMS] == \
-        [fa.TC_F32] * 4 + [fa.FMA_F32]
-    rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, n, 256))
-                                .astype(np.float32)).transpose(1, 2)
-               for n in (3, 1, 1))
-    out = torch.empty_like(q)
-    name, entry = fa.route(q.dtype, 256)
-    assert fa.launch(model_libs[name], q, k, v, out, causal=True,
-                     window=None, stream=None, entry=entry) == 0
-    want = flash_attention_ref(q, k, v, causal=True)
-    assert float((out - want).abs().max()) < 2e-5
-    assert fa.launch(model_libs["flash_attention_tc"], q, k, v, out,
-                     causal=True, window=None, stream=None,
-                     entry=fa.TC_F32[1]) != 0
-    with pytest.raises(AttributeError):   # the FMA library has no bf16 entry
-        model_libs[name].flash_attention_tc_launch
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
-
-
-def _ssd_case(seed, b, s, h, p, n, init, dtype):
+def ssd_case(seed, b, s, h, p, n, init, dtype):
     """x, B and C as strided slices of one projection, as in the model;
     dt and A in f32; a carried-in state or None."""
     rng = np.random.default_rng(seed)
@@ -1168,7 +1113,7 @@ def _ssd_case(seed, b, s, h, p, n, init, dtype):
     return x, dt, A, B, C, st
 
 
-def _run_ssd(model_libs, x, dt, A, B, C, st, *, chunk, route=None):
+def run_ssd(model_libs, x, dt, A, B, C, st, *, chunk, route=None):
     """The emulated kernel of ``route`` (default: the wrapper's route for
     x's dtype and shape); returns (y, fin).  Both start as NaN, so an
     output the kernel leaves unwritten fails the check."""
@@ -1185,140 +1130,6 @@ def _run_ssd(model_libs, x, dt, A, B, C, st, *, chunk, route=None):
     assert rc == 0
     return y, fin
 
-
-@pytest.mark.parametrize("s,chunk,init,dtype", [
-    (128, 64, False, torch.float32), (100, 64, True, torch.float32),
-    (200, 128, True, torch.float32), (64, 64, False, torch.bfloat16)])
-def test_emulated_ssd_scan_equals_plain(model_libs, s, chunk, init, dtype):
-    """The FMA kernel (f32) and the tensor-core kernel (bf16) on x, B and
-    C as strided slices of one projection, as in the model; ragged S; a
-    carried-in state."""
-    x, dt, A, B, C, st = _ssd_case(s + chunk, 1, s, 2, 16, 32, init, dtype)
-    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=chunk,
-                      route=ss.FMA_F32 if dtype == torch.float32 else None)
-    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=chunk, init_state=st)
-    tol = 1e-4 if dtype == torch.float32 else 1e-1
-    assert float((y.float() - wy.float()).abs().max()) < tol
-    assert float((fin - wfin).abs().max()) < tol
-
-
-@pytest.mark.parametrize("b,s,h,p,n,chunk,init,dtype", _by_dtype([
-    (1, 200, 2, 16, 32, 64, False, torch.bfloat16),  # 4 chunks, last ragged
-    (1, 300, 3, 64, 128, 128, True, torch.bfloat16),   # 3 chunks, 3 heads
-    (2, 197, 1, 64, 128, 64, True, torch.bfloat16),    # chunks of 64, N 128
-    (1, 256, 2, 32, 64, 128, False, torch.bfloat16),   # 2 full chunks
-    (1, 150, 5, 16, 32, 128, True, torch.bfloat16),    # 5 heads, P, N < 64
-    (1, 200, 2, 16, 32, 64, False, torch.float32),
-    (1, 300, 3, 64, 128, 128, True, torch.float32),
-    (2, 197, 1, 64, 128, 64, True, torch.float32),
-    (1, 150, 5, 16, 32, 128, True, torch.float32)]))
-def test_emulated_ssd_tc_equals_plain(model_libs, b, s, h, p, n, chunk,
-                                      init, dtype):
-    """The tensor-core kernel's body, its wgmma, copies, swizzle and
-    chain flags done by the twin header on the PTX ISA's documented
-    layouts: strided slices, ragged S over several chunks (so the carry
-    runs through the chain), a carried-in state, P and N padded to a
-    64-wide tile, several heads and batches; bf16, and f32 in two bf16
-    parts (its own entry) at the f32 limit."""
-    x, dt, A, B, C, st = _ssd_case(7 * s + p + n, b, s, h, p, n, init,
-                                   dtype)
-    assert ss.route(dtype, chunk, p, n)[0] == "ssd_scan_tc"
-    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=chunk)
-    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=chunk, init_state=st)
-    tol = 1e-3 if dtype == torch.float32 else 1e-1
-    assert bool(torch.isfinite(y.float()).all())
-    assert float((y.float() - wy.float()).abs().max()) < tol
-    assert float((fin - wfin).abs().max()) < tol
-
-
-def test_ssd_routes_by_dtype(model_libs):
-    """Inside the tensor-core limits both dtypes take the tensor-core
-    kernel; outside them (here chunk 32) f32 takes the FMA kernel, whose
-    emulated run holds 1e-4, and bf16 raises.  The FMA library has no
-    tensor-core entry."""
-    assert ss.route(torch.bfloat16, 128, 64, 128) == ss.TC_BF16
-    assert ss.route(torch.float32, 128, 64, 128) == ss.TC_F32
-    assert ss.route(torch.float32, 32, 16, 32) == ss.FMA_F32
-    assert ss.route(torch.float32, 128, 72, 128) == ss.FMA_F32
-    assert ss.route(torch.bfloat16, 32, 16, 32) is None
-    x, dt, A, B, C, st = _ssd_case(5, 1, 150, 3, 16, 32, True,
-                                   torch.float32)
-    y, fin = _run_ssd(model_libs, x, dt, A, B, C, st, chunk=32)
-    wy, wfin = ssd_scan_ref(x, dt, A, B, C, chunk=32, init_state=st)
-    assert float((y - wy).abs().max()) < 1e-4
-    assert float((fin - wfin).abs().max()) < 1e-4
-    with pytest.raises(ValueError, match="bf16 kernel takes"):
-        ss.ssd_scan(x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16(),
-                    chunk=32)
-    with pytest.raises(AttributeError):
-        model_libs["ssd_scan"].ssd_scan_tc_launch
-
-
-@pytest.fixture(scope="module")
-def ref():
-    from _torch_ref import reference
-    with reference() as r:
-        yield r
-
-
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
-def test_emulated_f32_tc_model_matches_reference(model_libs, ref,
-                                                 monkeypatch, arch):
-    """The f32 smoke model's prefill with its kernel call (attention or
-    SSD) served by the emulated f32 tensor-core kernel, the route the card
-    takes for f32, against the JAX reference's prefill on the same numpy
-    weights and tokens: 1e-4 of the largest logit, the bound of
-    ``test_torch_models`` for the plain versions."""
-    import jax
-    import jax.numpy as jnp
-
-    from repro_torch import configs as tconfigs
-    from repro_torch.models import attention as tattn
-    from repro_torch.models import ssm as tssm
-    from repro_torch.models import transformer as tt
-    from repro_torch.models.convert import (numpy_params,
-                                            params_from_reference)
-    launched = []
-
-    def emu_flash(q, k, v, *, causal=True, window=None):
-        name, entry = fa.route(q.dtype, q.shape[-1])
-        assert entry == fa.TC_F32[1]
-        q, k, v = (fa._for_copies(x) for x in (q, k, v))
-        out = torch.empty(q.shape, dtype=q.dtype)
-        assert fa.launch(model_libs[name], q, k, v, out, causal=causal,
-                         window=window, stream=None, entry=entry) == 0
-        launched.append(entry)
-        return out
-
-    def emu_ssd(x, dt, A, B, C, *, chunk, init_state=None):
-        name, entry = ss.route(x.dtype, chunk, x.shape[-1], B.shape[-1])
-        assert entry == ss.TC_F32[1]
-        x, B, C = (ss._for_copies(t) for t in (x, B, C))
-        b, s, h, p = x.shape
-        y = torch.empty(x.shape, dtype=x.dtype)
-        fin = torch.empty((b, h, p, B.shape[-1]))
-        init = None if init_state is None else init_state.contiguous()
-        assert ss.launch_tc(model_libs[name], x, dt, A.contiguous(), B, C,
-                            init, y, fin, ss.sync_buffer(x), chunk=chunk,
-                            stream=None) == 0
-        launched.append(entry)
-        return y, fin
-
-    monkeypatch.setattr(tattn, "flash_attention", emu_flash)
-    monkeypatch.setattr(tssm, "ssd_scan", emu_ssd)
-    jcfg = ref.configs.get_config(arch, smoke=True)
-    tcfg = tconfigs.get_config(arch, smoke=True)
-    tree = numpy_params(tcfg, 0)
-    model = params_from_reference(tcfg, tree, "cpu")
-    b, s = 2, 70
-    toks = np.random.default_rng(3).integers(0, tcfg.vocab, (b, s))
-    jl, _ = ref.transformer.prefill(jcfg, jax.tree.map(jnp.asarray, tree),
-                                    {"tokens": jnp.asarray(toks)}, s + 1)
-    with torch.inference_mode():
-        tl_, _ = tt.prefill(model, {"tokens": torch.from_numpy(toks)}, s + 1)
-    assert len(launched) == tcfg.n_layers
-    jl = np.asarray(jl, np.float64)
-    assert float(np.abs(tl_.numpy() - jl).max() / np.abs(jl).max()) < 1e-4
 
 
 SPLIT_LAUNCH = r'''
@@ -1337,7 +1148,7 @@ extern "C" void split_parts_n(const float* a, uint32_t* out, int n,
 '''
 
 
-def _split_values():
+def split_values():
     """Values near powers of two (a few ulps either side), subnormals,
     +-0 and random normals, in f32."""
     rng = np.random.default_rng(0)
@@ -1353,61 +1164,3 @@ def _split_values():
     vals = np.concatenate([vals, rand.astype(np.float32)])
     return vals if vals.size % 2 == 0 else np.append(vals, np.float32(1))
 
-
-@pytest.mark.parametrize("parts", [2, 3])
-def test_split_parts_exact(tmp_path, parts):
-    """``wg::split_parts`` (csrc/wgmma_tile.cuh): the first part is the
-    value rounded to bf16 (as torch rounds), each part rounds what the
-    parts before it left, three parts give back every f32 down to 2^-110
-    exactly (below, within half of bf16's smallest subnormal, 2^-134)
-    and two parts to 2^-17 relative; +-0 keeps its sign."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is needed to build the emulated kernels")
-    cpp = tmp_path / "split.cpp"
-    cpp.write_text(f'#include "{EMUL / "cuda_emul.h"}"\n'
-                   f'#include "{EMUL / "hopper.cuh"}"\n'
-                   f'#include "{CSRC / "wgmma_tile.cuh"}"\n' + SPLIT_LAUNCH)
-    so = tmp_path / "libsplit.so"
-    subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", f"-I{EMUL}", "-o", str(so),
-                    str(cpp)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    a = _split_values()
-    out = np.zeros(a.size // 2 * parts, np.uint32)
-    lib.split_parts_n.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_int, ctypes.c_int]
-    lib.split_parts_n(a.ctypes.data, out.ctypes.data, a.size, parts)
-    words = out.reshape(-1, parts)
-    # part s of value 2i is the low half of word s, of value 2i + 1 the high
-    halves = np.stack([words & 0xFFFF, words >> 16], axis=1)  # (n/2, 2, P)
-    bits = halves.reshape(-1, parts).astype(np.uint32) << 16
-    p = bits.view(np.float32).astype(np.float64)             # (n, parts)
-    hi = torch.from_numpy(a).bfloat16().float().numpy()
-    assert np.array_equal(p[:, 0].astype(np.float32).view(np.uint32),
-                          hi.view(np.uint32))
-    total = p.sum(axis=1)
-    err = np.abs(total - a.astype(np.float64))
-    if parts == 3:
-        big = np.abs(a) >= 2.0 ** -110
-        assert np.all(err[big] == 0)
-        assert np.all(err[~big] <= 2.0 ** -134)
-    else:
-        assert np.all(err <= 2.0 ** -17 * np.abs(a.astype(np.float64))
-                      + 2.0 ** -134)
-    zero = a == 0
-    assert np.array_equal(np.signbit(p[zero, 0]), np.signbit(a[zero]))
-
-
-@pytest.mark.parametrize("name", sorted(ssd_tc_probe.VARIANTS))
-def test_ssd_tc_probe_edits_apply(name):
-    """Each ablation and precision variant of the card probe finds its
-    anchors once in the tensor-core kernel's source and changes it (the
-    base build alone is the source as it is), and so does its f32-output
-    twin."""
-    text = (CSRC / "ssd_scan_tc.cu").read_text()
-    edits = ssd_tc_probe.VARIANTS[name]
-    edited = ssd_tc_probe.variant_source(text, edits)
-    assert (edited == text) == (name == "base")
-    assert ssd_tc_probe.variant_source(
-        text, edits + ssd_tc_probe.F32_OUT) != edited

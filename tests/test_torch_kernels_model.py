@@ -8,7 +8,8 @@ raises on every device).
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``
 phases 5-6); their source also runs here under the warp emulation
-(``tests/test_torch_warp_emul.py``).
+(``tests/test_torch_warp_emul_flash.py``,
+``tests/test_torch_warp_emul_ssd.py``).
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_ref import assert_same_result, ref_config, reference
 import repro_torch
@@ -297,6 +298,29 @@ def test_abort_reason_counted_as_reference(ref, reason):
     tr, configs = _reason_case(reason)
     _, _, ab = _same_grid(ref, [tr], configs, label=reason)
     assert ab[MACRO_ABORT_REASONS.index(reason)] > 0, ab
+
+
+def test_packed_op_words_carry_the_run_plan():
+    """The MAC kernel's op words (``cell_scan.pack_ops``, which the
+    wrapper hands the kernel when macro-steps are on) unpack to the
+    stacked ops and to ``plan_runs``' lengths, slot by slot, on fuzzed
+    traces, a dense workload and their padding."""
+    traces = [P.fuzz_trace(seed, n_cores=3, n_slots=60, n_addrs=5)[0]
+              for seed in range(3)] + [P.make_trace("radiosity",
+                                                    persist_budget=40)]
+    ops, addrs, gaps, _, mlen = pgrid._stack_traces(traces)
+    want = np.stack([plan_runs(ops[k], addrs[k], gaps[k], MACRO_KMAX)
+                     for k in range(len(traces))])
+    assert np.array_equal(mlen, want)
+    assert 1 <= int(mlen.min()) and int(mlen.max()) == MACRO_KMAX
+    words = cs.pack_ops(torch.from_numpy(ops),
+                        torch.from_numpy(mlen)).numpy()
+    assert words.dtype == np.int32
+    # the kernel's unpacking (csrc/cell_scan.cu op_code and the head's
+    # shift): the op code below OPS_MLEN_SHIFT, the plan above it
+    assert int(ops.max()) < 1 << cs.OPS_MLEN_SHIFT
+    assert np.array_equal(words & ((1 << cs.OPS_MLEN_SHIFT) - 1), ops)
+    assert np.array_equal(words >> cs.OPS_MLEN_SHIFT, mlen)
 
 
 def test_simulator_shim_reexports_the_engine():

@@ -5,7 +5,8 @@
 // stores in emu_smem_base; a "shared address" is a byte offset from it
 // (the array is 1024-byte aligned, as the card's window is in effect).
 // The products do what the PTX ISA documents for
-// wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16, independently
+// wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 (and m64n32k16,
+// whose accumulator is the first 16 registers' layout), independently
 // of how the kernel lays out its tiles:
 //   * a descriptor holds (start >> 4) in bits 0-13, the leading byte
 //     offset >> 4 in 16-29, the stride byte offset >> 4 in 32-45 and the
@@ -66,7 +67,8 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 template <int N>
 inline void wgmma_wait() {}
-inline void fence_acc(float (&)[32]) {}
+template <int N>
+inline void fence_acc(float (&)[N]) {}
 
 inline uint32_t pack_bf16x2(float lo, float hi) {
   return static_cast<uint32_t>(__float2bfloat16(lo).x) |
@@ -97,10 +99,10 @@ inline float mnmajor(const Desc& d, int k, int n) {
                  (k % 8) * 128 + 2 * (n % 64));
 }
 
-template <class A, class B>
-inline void emu_mma(float (&d)[32], A a_at, B b_at, int scale_d) {
+template <int N, class A, class B>
+inline void emu_mma(float (&d)[N], A a_at, B b_at, int scale_d) {
   const int t = static_cast<int>(threadIdx.x) % 128, w = t / 32, l = t % 32;
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int row = 16 * w + l / 4 + 8 * ((i % 4) / 2);
     const int col = 8 * (i / 4) + 2 * (l % 4) + i % 2;
     float acc = 0.f;
@@ -120,6 +122,15 @@ inline void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   emu_mma(
       d, [&](int m, int k) { return kmajor(a, m, k); },
       [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
+}
+
+// m64n32k16, both operands from shared memory (B K-major): 16 registers
+inline void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                         int scale_d) {
+  const Desc a = decode(da), b = decode(db);
+  emu_mma(
+      d, [&](int m, int k) { return kmajor(a, m, k); },
+      [&](int k, int n) { return kmajor(b, n, k); }, scale_d);
 }
 
 inline uint32_t emu_afrag[1024][4];
