@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs ten phases, each printing its own
+``build/repro_torch/``, and runs twelve phases, each printing its own
 lines:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -81,8 +81,9 @@ lines:
    crash cells at depths 1-3 on the card against the port's untimed
    oracle (``tests/_torch_crash_driver.py``).
 
-Then one JSON line with the serving numbers, one with every kernel's
-numbers, and as the last line
+Then one JSON line with the serving numbers, one with the training
+numbers (phase 12), one with every kernel's numbers, and as the last
+line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA.
@@ -164,6 +165,28 @@ without CUDA.
     macro-steps off, and the section profiles (phases 4, 8d, 9d, 10d)
     run the profile build, SPL 1 and ``MAC = false`` only, against the
     main path's state outputs.
+
+12. (run after phase 7) the training path, smollm-135m at full width
+    and depth through ``launch.steps.make_train_step`` and
+    ``launch.train``: (a) the f32 copy with ``numpy_params(cfg, 0)``,
+    ``SyntheticLMDataset(seed=0)`` batches of 2 x 128 tokens and
+    ``AdamWConfig(lr=1e-3, total_steps=20)``, each of 3 steps' loss, grad
+    norm and lr against ``src/repro_torch/testdata/train_ref.json`` (the
+    JAX reference's, made on the CPU); (b) the published bf16 config at
+    the train CLI's defaults (8 x 128 tokens, AdamW) in each of NoPB, PB
+    and PB_RF: 6 steps with a checkpoint every 3 through
+    ``launch.train.train`` into a fresh ``DurableStore`` in a temporary
+    directory (1 ms a write) behind a buffer that holds one checkpoint, a
+    restore right after the last persist (under PB_RF the buffer must
+    serve some of it), then ``crash()``, ``recover()`` and a restore
+    through a new manager, each into a model built with other weights and
+    equal to the live state bit for bit at version 6; persist and
+    restore seconds, the restores' buffer and store counts, checkpoint
+    bytes and peak memory per scheme; then the step's time (CUDA events,
+    warmed up) and tokens/s.  Every kernel's launch count over the phase
+    must be 0: the training path reaches no hand-written kernel, as the
+    reference's reaches no Pallas one.  ``python3 chip_smoke.py
+    --train-only`` runs phase 12 alone (no kernel build).
 
 ``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
 comparison of the package's cell scan with each other ``cell_scan.cu``
@@ -3036,6 +3059,268 @@ def phase_serve(torch, np):
     return out
 
 
+def kernel_counts():
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import cell_scan as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import tat_lookup as tl
+    return dict(tat_lookup=tl.launches, cell_scan=cs.launches,
+                flash_attention=fa.launches, ssd_scan=ss.launches)
+
+
+def zero_kernel_counts() -> None:
+    from repro_torch.kernels import cell_scan as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import tat_lookup as tl
+    tl.launches = cs.launches = 0
+    cs.launches_by = {}
+    fa.launches = fa.launches_tc = fa.launches_fma = 0
+    fa.launches_by = {}
+    ss.launches = ss.launches_tc = ss.launches_fma = 0
+
+
+def state_equal(torch, model_a, opt_a, model_b, opt_b) -> int:
+    """Fail unless two train states are equal bit for bit; returns the
+    number of tensors compared."""
+    n = 0
+    for (name, a), (name_b, b) in zip(model_a.named_parameters(),
+                                      model_b.named_parameters()):
+        if name != name_b or a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"restored parameter {name} differs from the live one")
+        n += 1
+    if set(opt_a) != set(opt_b) or not torch.equal(opt_a["step"],
+                                                   opt_b["step"]):
+        fail(f"restored optimizer step {opt_b.get('step')} differs")
+    for k in ("m", "v"):
+        for name, a in opt_a[k].items():
+            if not torch.equal(a, opt_b[k][name]):
+                fail(f"restored optimizer {k} of {name} differs")
+            n += 1
+    return n + 1
+
+
+def step_profile(torch, fn):
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activity): (device ms in all, host ms in all, the six ops with the
+    most device time and the six with the most host self time, each as
+    (name, ms, calls))."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in ev if e.self_device_time_total > 0),
+                 key=lambda r: -r[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in ev), key=lambda r: -r[1])
+    return (sum(r[1] for r in dev), sum(r[1] for r in host), dev[:6],
+            host[:6])
+
+
+def phase_train(torch, np, smi):
+    """Phase 12: the training path through the PCS checkpoint tier, for
+    smollm-135m at full width and depth: (a) the f32 copy's losses, grad
+    norms and learning rates against train_ref.json; (b) the published
+    bf16 config at the train CLI's defaults, trained, checkpointed,
+    crashed, recovered and restored bit for bit in each scheme."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import numpy_params, params_from_reference
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.persistence import (DurableStore, HostBufferTier,
+                                         PCSCheckpointManager, PersistScheme)
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "train_ref.json")) as f:
+        ref = json.load(f)
+    rtol = ref["rtol"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero_kernel_counts()
+    t_phase = time.time()
+    out = {}
+
+    # (a) the datum, f32
+    cfg = get_config(ref["arch"])
+    tree = numpy_params(cfg, ref["seed"])
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = params_from_reference(cfg32, tree, "cuda")
+    opt_cfg = AdamWConfig(**ref["opt"])
+    opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+    step = make_train_step(model, opt_cfg)
+    # the datum's batches: numpy does not promise one Generator.zipf
+    # stream across its versions, so the dataset may differ here
+    data = SyntheticLMDataset(cfg.vocab, ref["seq"], ref["batch"],
+                              seed=ref["seed"])
+    same_batches = True
+    worst = {k: 0.0 for k in ("loss", "grad_norm", "lr")}
+    for i, want in enumerate(ref["metrics"]):
+        tokens = np.asarray(ref["tokens"][i], np.int32)
+        labels = np.roll(tokens, -1, axis=1)
+        labels[:, -1] = -1
+        same_batches &= bool(np.array_equal(data.next_batch()["tokens"],
+                                            tokens))
+        opt, m = step(opt, {"tokens": tokens, "labels": labels})
+        for k, w in want.items():
+            got = float(m[k])
+            rel = abs(got - w) / abs(w)
+            worst[k] = max(worst[k], rel)
+            if not np.isfinite(got) or rel > rtol:
+                fail(f"train f32 step {i}: {k} {got!r}, train_ref.json "
+                     f"{w!r} ({rel:.3g} relative, limit {rtol})")
+    print(f"phase 12a {ref['arch']} f32 ({cfg.n_layers} layers, "
+          f"{ref['batch']} x {ref['seq']} tokens, {len(ref['metrics'])} "
+          f"AdamW steps): relative error against train_ref.json: loss "
+          f"{worst['loss']:.3g}, grad_norm {worst['grad_norm']:.3g}, lr "
+          f"{worst['lr']:.3g} (limit {rtol}); losses "
+          f"{[round(float(x['loss']), 6) for x in ref['metrics']]}; the "
+          f"datum's batches {'equal' if same_batches else 'differ from'} "
+          f"SyntheticLMDataset's here (numpy {np.__version__}, datum's "
+          f"{ref['numpy_version']}); {smi}")
+    out["f32_datum_rel_err"] = worst
+    out["f32_datum_batches_equal_dataset"] = same_batches
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # (b) the published bf16 config at the train CLI's defaults
+    batch, seq, steps, every = 8, 128, 6, 3
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=steps)
+    other = numpy_params(cfg, 1)
+    out["schemes"] = {}
+    for scheme in ("nopb", "pb", "pb_rf"):
+        torch.cuda.reset_peak_memory_stats()
+        model = params_from_reference(cfg, tree, "cuda")
+        opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+        ckpt_bytes = sum(t.numel() * t.element_size() for t in
+                         list(model.parameters()) + list(opt["m"].values())
+                         + list(opt["v"].values()) + [opt["step"]])
+        step = make_train_step(model, opt_cfg)
+        data = SyntheticLMDataset(cfg.vocab, seq, batch)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        mgrs = []
+
+        def manager():
+            mgrs.append(PCSCheckpointManager(
+                HostBufferTier(capacity_bytes=ckpt_bytes + (1 << 20)),
+                DurableStore(tmp, write_delay_s=1e-3),
+                scheme=PersistScheme(scheme)))
+            return mgrs[-1]
+        try:
+            mgr = manager()
+            run = tr.train(model, opt, data, step, mgr, start=0, steps=steps,
+                           ckpt_every=every, log=lambda _: None)
+            opt = run["opt_state"]
+            restores = []
+            for when in ("after persist", "after crash"):
+                if when == "after crash":
+                    mgr.crash()
+                    redrained = mgr.recover()
+                    mgr = manager()
+                target = params_from_reference(cfg, other, "cuda")
+                before = dict(mgr.stats)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                rec = tr.restore_state(mgr, target, adamw_init(
+                    opt_cfg, dict(target.named_parameters())))
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+                if rec is None or rec[0] != steps:
+                    fail(f"train {scheme}: restored version "
+                         f"{rec and rec[0]}, expected {steps}")
+                n = state_equal(torch, model, opt, rec[1], rec[2])
+                restores.append(dict(
+                    when=when, s=dt, tensors=n,
+                    from_buffer=mgr.stats["restore_forwarded"]
+                    - before["restore_forwarded"],
+                    from_store=mgr.stats["restore_from_store"]
+                    - before["restore_from_store"]))
+                del target, rec
+            if scheme == "pb_rf" and restores[0]["from_buffer"] == 0:
+                fail("train pb_rf: no restore right after the persist was "
+                     "served by the buffer")
+            stats = dict(mgrs[0].stats)
+        finally:
+            for mg in mgrs:
+                mg.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [x["loss"] for x in run["metrics"]]
+        if not all(np.isfinite(losses)):
+            fail(f"train {scheme}: losses {losses}")
+        out["schemes"][scheme] = dict(
+            losses=losses, step_s=run["step_s"], persist_s=run["persist_s"],
+            restores=restores, redrained_at_recovery=redrained,
+            stats=stats, checkpoint_bytes=ckpt_bytes, peak_gib=peak)
+        print(f"phase 12b {scheme}: smollm-135m bf16, {batch} x {seq} "
+              f"tokens, {steps} steps, a checkpoint every {every} "
+              f"({ckpt_bytes / 1e9:.3f} GB of state each, buffer of one); "
+              f"persist s per checkpoint "
+              f"{[round(x, 3) for x in run['persist_s']]}; restores "
+              + "; ".join(f"{r['when']}: {r['s']:.3f} s, {r['from_buffer']} "
+                          f"from the buffer, {r['from_store']} from the "
+                          f"store" for r in restores)
+              + f"; state equal bit for bit at version {steps} "
+              f"({restores[-1]['tensors']} tensors); {redrained} re-drained "
+              f"at recovery; stats {json.dumps(stats)}; peak "
+              f"{peak:.2f} GiB; {smi}")
+        if scheme != "pb_rf":
+            del model, opt, step
+            torch.cuda.empty_cache()
+
+    # step time, warmed up, on the last scheme's model
+    b = data.next_batch()
+    for _ in range(2):
+        opt, _ = step(opt, b)
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 5
+    start.record()
+    for _ in range(reps):
+        opt, _ = step(opt, b)
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / reps
+    out["step_ms"] = step_ms
+    out["tokens_per_s"] = batch * seq / (step_ms / 1e3)
+    holder = [opt]
+
+    def one_step():
+        holder[0], _ = step(holder[0], b)
+    dev_ms, host_ms, top_dev, top_host = step_profile(torch, one_step)
+    opt = holder[0]
+    out["profile"] = dict(device_ms=dev_ms, host_self_ms=host_ms,
+                          top_device=top_dev, top_host=top_host)
+    print(f"phase 12b one bf16 train step under torch.profiler: device "
+          f"{dev_ms:.2f} ms, host self time {host_ms:.2f} ms; {smi}")
+    for what, top in (("device", top_dev), ("host", top_host)):
+        for name, ms, calls in top:
+            print(f"  train step, {what}: {ms:9.3f} ms {calls:6d} calls  "
+                  f"{name[:90]}")
+    out["kernel_launches"] = kernel_counts()
+    if any(out["kernel_launches"].values()):
+        fail(f"the training path launched kernels: "
+             f"{out['kernel_launches']}")
+    out["phase_s"] = time.time() - t_phase
+    print(f"phase 12b smollm-135m bf16 train step (CUDA events, warmed up, "
+          f"{reps} steps): {step_ms:.2f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s; kernel launches in the phase "
+          f"{json.dumps(out['kernel_launches'])} (training runs no "
+          f"hand-written kernel, as the reference's runs no Pallas one); "
+          f"phase {out['phase_s']:.1f} s; {smi}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3050,6 +3335,9 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    if sys.argv[1:] == ["--train-only"]:
+        print(json.dumps({"train": phase_train(torch, np, smi)}))
+        return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--against":
         _build.build_all(("cell_scan", "cell_scan_profile"))
         print(json.dumps({"against": compare_against(torch, np,
@@ -3083,6 +3371,7 @@ def main() -> int:
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
+    trained = phase_train(torch, np, smi)
 
     eng = tat[(8, 16)]
     kernels = [
@@ -3423,6 +3712,7 @@ def main() -> int:
              shape="x (4, 1024, 64, 64), N=128, chunk 128, f32"),
     ]
     print(json.dumps({"serve": served}))
+    print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

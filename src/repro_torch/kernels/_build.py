@@ -210,3 +210,12 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if any input requires grad: the kernels have no backward, so
+    their outputs would carry no ``grad_fn``.  ``None`` inputs pass."""
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad, and the "
+                           f"kernel has no backward; attend or scan with "
+                           f"the model's own differentiable math instead")

@@ -47,7 +47,10 @@ aligned; an input that is not gets a contiguous copy first.
 Dispatch is by device: a CPU tensor takes the plain version
 (:func:`~repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
 launches its route's kernel or raises.  Both paths refuse what the
-kernels do not take.
+kernels do not take, and an input that requires grad: the kernels have
+no backward, and an output written through ``ctypes`` would carry no
+``grad_fn``, so a backward through it would silently give zero
+gradients (the training path attends with the model's own softmax).
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.ref import flash_attention_ref
 
 # Launches per route (one per wrapper call on CUDA), their sum, and per
@@ -151,6 +155,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, S, D), k/v: (B, Hkv, S, D) -> (B, H, S, D) in q's dtype."""
     global launches, launches_tc, launches_fma
+    refuse_grad("flash_attention", q, k, v)
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)

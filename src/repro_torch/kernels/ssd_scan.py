@@ -36,7 +36,8 @@ copy first.
 Dispatch is by device: a CPU tensor takes the plain version
 (:func:`~repro_torch.kernels.ref.ssd_scan_ref`); a CUDA tensor launches
 its route's kernel or raises.  Both paths refuse what the kernels do
-not take.
+not take, and an input that requires grad (the kernels have no
+backward; see ``flash_attention``).
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.ref import ssd_scan_ref
 
 # Launches per route (one per wrapper call on CUDA), and their sum.
@@ -208,6 +210,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Returns (y: (B, S, H, P) in x's dtype, final_state: (B, H, P, N) f32).
     """
     global launches, launches_tc, launches_fma
+    refuse_grad("ssd_scan", x, dt, A, B, C, init_state)
     _check_inputs(x, dt, A, B, C, chunk, init_state)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk=chunk,

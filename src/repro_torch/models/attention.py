@@ -8,7 +8,11 @@ query head ``h`` reads KV head ``h // g`` (the reference's
 ``qg.reshape(b, s, n_kv, g, hd)`` grouping), so those calls go to the
 flash wrapper (ROADMAP Fault F6: no JAX code path makes this call).
 Decode (``S == 1``) attends over the ring cache with ``_sdpa``, plain
-torch, as the reference does outside any kernel.
+torch, as the reference does outside any kernel.  So does training: when
+the queries record gradients, attention is the model's own masked
+softmax (``_sdpa`` with ``make_mask(positions, positions)``), as the
+reference model's is; the kernel has no backward, and its wrapper
+refuses inputs that require grad.
 
 Unlike the reference, the ring write updates the cache tensors in place
 (the decode loop owns its cache; this saves a copy of every layer's
@@ -110,9 +114,14 @@ class Attention(nn.Module):
         if cache is not None and s == 1:
             out = _sdpa(q.view(b, s, hkv, g, hd), cache.k, cache.v,
                         mask=make_mask(positions, cache.pos))
+        elif q.requires_grad:
+            # training: differentiable, causal over the fresh K/V
+            out = _sdpa(q.view(b, s, hkv, g, hd), k, v,
+                        mask=make_mask(positions, positions))
+            out = out.reshape(b, s, h, hd)
         else:
-            # prefill / training: causal over the fresh K/V (early queries
-            # need keys the ring may already have evicted)
+            # prefill / no-grad forward: causal over the fresh K/V (early
+            # queries need keys the ring may already have evicted)
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True)
             out = out.transpose(1, 2)

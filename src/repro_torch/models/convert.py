@@ -17,7 +17,13 @@ Layer ``r * len(block_pattern) + j`` is repetition ``r`` of position
 * :func:`numpy_params` makes such a tree from ``numpy.random
   .default_rng(seed)``, every leaf random at an init-like scale, so that
   a leaf carried to the wrong place shows; the tests and the datum
-  script feed the same tree to both packages.
+  script feed the same tree to both packages;
+* :func:`stack_layers` / :func:`unstack_layers` move any per-parameter
+  tree (the model's weights, the optimizer's moments) between the two
+  layouts, and :func:`opt_state_to_reference` /
+  :func:`opt_state_from_reference` carry the optimizer state:
+  ``{"m", "v", "step"}`` and, when compressing, ``"err"``, which the
+  port keeps in the reference's stacked layout (``launch.steps``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.transformer import ModelConfig, Transformer
 
 
@@ -40,22 +47,89 @@ def _nest(items) -> Dict[str, Any]:
     return out
 
 
-def _top_leaves(model: Transformer):
-    return {"embed.table": model.embed.table,
-            "final_norm.scale": model.final_norm.scale}
+TOP_LEAVES = ("embed.table", "final_norm.scale")
+
+
+def stack_layers(cfg: ModelConfig,
+                 named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A tree keyed by the model's parameter names (``layers.<i>.<leaf>``
+    and the top leaves) in the reference's stacked layout."""
+    p = len(cfg.block_pattern)
+    tree = _nest((name, named[name]) for name in TOP_LEAVES)
+    tree["blocks"] = []
+    for j in range(p):
+        leaves = [n.split(".", 2)[2] for n in named
+                  if n.startswith(f"layers.{j}.")]
+        tree["blocks"].append(_nest(
+            (leaf, torch.stack([named[f"layers.{r * p + j}.{leaf}"]
+                                for r in range(cfg.reps)]))
+            for leaf in leaves))
+    return tree
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A tensor of ``arr`` (copied only if it is a read-only array)."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.from_numpy(np.require(arr, requirements="W"))
+
+
+def unstack_layers(cfg: ModelConfig,
+                   tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`stack_layers`; leaves may be numpy arrays
+    (of dtypes torch has) or tensors, and come back as tensors."""
+    p = len(cfg.block_pattern)
+    out: Dict[str, torch.Tensor] = {}
+    for name, arr in _leaves(tree).items():
+        t = _tensor(arr)
+        if not name.startswith("blocks."):
+            out[name] = t
+            continue
+        _, j, leaf = name.split(".", 2)
+        for r in range(cfg.reps):
+            out[f"layers.{r * p + int(j)}.{leaf}"] = t[r]
+    return out
 
 
 def reference_tree(model: Transformer) -> Dict[str, Any]:
     """The model's weights in the reference's stacked layout."""
-    p = len(model.cfg.block_pattern)
-    tree = _nest(_top_leaves(model).items())
-    tree["blocks"] = []
-    for j in range(p):
-        layers = list(model.layers)[j::p]
-        tree["blocks"].append(_nest(
-            (name, torch.stack([l.get_parameter(name) for l in layers]))
-            for name, _ in layers[0].named_parameters()))
-    return tree
+    return stack_layers(model.cfg, dict(model.named_parameters()))
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
+def opt_state_to_reference(cfg: ModelConfig,
+                           state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's optimizer state as the reference's (numpy, stacked):
+    ``m`` and ``v`` restacked, ``step`` and ``err`` (already stacked)
+    as they are.  Leaves must have numpy dtypes (f32 moments, int32
+    step; ``err`` in the gradients' dtype)."""
+    out = {"m": _numpy(stack_layers(cfg, state["m"])),
+           "v": _numpy(stack_layers(cfg, state["v"])),
+           "step": _numpy(state["step"])}
+    if "err" in state:
+        out["err"] = _numpy(state["err"])
+    return out
+
+
+def opt_state_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
+                             device=None) -> Dict[str, Any]:
+    """The reference's optimizer state (numpy or tensors, stacked) as the
+    port's, on ``device``."""
+    dev = resolve_device(device)
+    on = lambda t: _tensor(t).to(dev)
+    state = {k: {n: on(t) for n, t in unstack_layers(cfg, tree[k]).items()}
+             for k in ("m", "v")}
+    state["step"] = on(tree["step"])
+    if "err" in tree:
+        state["err"] = _map_tree(tree["err"], lambda _, t: on(t))
+    return state
 
 
 def _map_dict(d: Dict[str, Any], fn: Callable[[str, Any], Any],
@@ -102,18 +176,9 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
         if tuple(np.shape(arr)) != want[name]:
             raise ValueError(f"{name}: shape {np.shape(arr)}, expected "
                              f"{want[name]}")
-    p = len(cfg.block_pattern)
     with torch.no_grad():
-        for name, param in _top_leaves(model).items():
-            param.copy_(torch.from_numpy(np.asarray(got[name])))
-        for name, arr in got.items():
-            if not name.startswith("blocks."):
-                continue
-            _, j, leaf = name.split(".", 2)
-            arr = np.asarray(arr)
-            for r in range(cfg.reps):
-                model.layers[r * p + int(j)].get_parameter(leaf).copy_(
-                    torch.from_numpy(arr[r]))
+        for name, t in unstack_layers(cfg, tree).items():
+            model.get_parameter(name).copy_(t)
     return model
 
 

@@ -12,7 +12,17 @@ This slice serves global-attention ("attn") and Mamba2 ("ssm") layers
 with dense or no feed-forward: ``smollm-135m`` and ``mamba2-1.3b``.
 MoE, softcaps, qk-norm, sliding-window layers, the vision prefix and the
 encoder-decoder raise ``NotImplementedError`` (ROADMAP Queue A), as do
-the training pieces (``loss_fn``, remat, sharding contexts).
+sharding contexts.
+
+Training: :func:`loss_fn` is the reference's next-token cross-entropy.
+Parameters are frozen (``requires_grad=False``) until
+:func:`set_trainable` turns them on, which only the training path
+(``launch.steps.make_train_step``) does; serving runs under
+``torch.inference_mode()``.  With ``cfg.remat`` the layer loop
+recomputes each layer's activations in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+its scanned block does; the numbers are the same either way.  Training a
+model with SSD layers raises (:func:`check_trainable`).
 
 Serving: the same blocks run prefill (S = prompt, writes the KV / SSM
 caches) and decode (S = 1 against the caches).  Caches are one entry per
@@ -26,7 +36,9 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, KVCache, init_kv_cache
@@ -186,7 +198,13 @@ class Transformer(nn.Module):
         return softcap(logits, self.cfg.final_softcap)
 
     def run(self, h, positions, caches=None):
-        """The layer loop (the reference's ``_run_stack``)."""
+        """The layer loop (the reference's ``_run_stack``); with
+        ``cfg.remat``, each layer of a forward that records gradients is
+        recomputed in the backward."""
+        if caches is None and self.cfg.remat and torch.is_grad_enabled():
+            for layer in self.layers:
+                h, _ = checkpoint(layer, h, positions, use_reentrant=False)
+            return h, None
         new = []
         for i, layer in enumerate(self.layers):
             h, c = layer(h, positions,
@@ -201,6 +219,40 @@ class Transformer(nn.Module):
         positions = torch.arange(h.shape[1], device=h.device)
         h, _ = self.run(h, positions)
         return self.logits_out(h)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot train."""
+    if any(s.kind == "ssm" for s in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training SSD layers is not ported: the port's "
+            f"only SSD math outside the ssd_scan kernel is the kernel's "
+            f"plain twin (ROADMAP Queue A, training items)")
+
+
+def set_trainable(model: Transformer, on: bool = True) -> None:
+    """Let the model's parameters record gradients (the training path)."""
+    check_trainable(model.cfg)
+    for p in model.parameters():
+        p.requires_grad_(on)
+
+
+def loss_fn(model: Transformer,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross-entropy (labels = batch['labels'], -1 = ignore),
+    in the reference's logsumexp / one-hot form.  The reference adds
+    ``0.01 * aux``, the MoE load-balance loss, which is 0 for every
+    ported configuration (no MoE)."""
+    check_trainable(model.cfg)
+    logits = model(batch["tokens"])
+    labels = batch["labels"]
+    valid = labels >= 0
+    lab = torch.where(valid, labels, 0).long()
+    log_z = torch.logsumexp(logits, dim=-1)
+    onehot = F.one_hot(lab, model.cfg.vocab).to(logits.dtype)
+    true_logit = torch.sum(logits * onehot, dim=-1)
+    nll = log_z - true_logit
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
 
 
 Cache = Union[KVCache, SSMCache]

@@ -8,8 +8,10 @@ side only:
 
 * it sets ``jax.experimental.enable_x64`` to a stand-in built on
   ``jax.enable_x64``, imports ``repro.core``, ``repro.core.engine``,
-  ``repro.kernels``, ``repro.models`` and ``repro.configs``, and deletes
-  the attribute again at once;
+  ``repro.kernels``, ``repro.models``, ``repro.configs``, the training
+  stack (``repro.persistence``, ``repro.optim``, ``repro.data``,
+  ``repro.runtime``, ``repro.launch.steps``, ``repro.launch.train``),
+  and deletes the attribute again at once;
 * on exit it takes every ``repro`` module it imported back out of
   ``sys.modules`` (and off its parent package), so the reference's own
   tests that run later in the same process see exactly the import state
@@ -52,6 +54,8 @@ def reference():
         from repro.kernels import ref as kref
         from repro import configs
         from repro.models import attention, layers, ssm, transformer
+        from repro import data, optim, persistence, runtime
+        from repro.launch import steps, train
         # the package re-exports the functions under the modules' names
         ktat = importlib.import_module("repro.kernels.tat_lookup")
         kflash = importlib.import_module("repro.kernels.flash_attention")
@@ -66,7 +70,9 @@ def reference():
             channels=channels, policy=policy, handlers=handlers, grid=grid,
             kref=kref, ktat=ktat, kflash=kflash, kssd=kssd, layers=layers,
             attention=attention, ssm=ssm, transformer=transformer,
-            configs=configs, x64=lambda: jax.enable_x64(True))
+            configs=configs, persistence=persistence, optim=optim,
+            data=data, runtime=runtime, steps=steps, train=train,
+            x64=lambda: jax.enable_x64(True))
     finally:
         for name in sorted(set(sys.modules) - before, reverse=True):
             if name != "repro" and not name.startswith("repro."):
