@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs twelve phases, each printing its own
+``build/repro_torch/``, and runs thirteen phases, each printing its own
 lines:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -19,7 +19,7 @@ lines:
 3. the cell-scan kernel against the eager ``scan_cell`` (run on the
    host, a pool of processes) on the 7 workloads x NoPB/PB/PB_RF at ``persist_budget=2000``,
    on PB/PB_RF crash cells with ``track_addrs=64``, and on the shortest
-   workload's three cells of the full-size paper grid (the main path's
+   workload's PB_RF cell of the full-size paper grid (the main path's
    own stacked inputs), exact on every output;
 4. the main path: ``simulate_grid`` over the paper grid (7 workloads x 3
    schemes, ``persist_budget=100_000``, Table I config) on the card,
@@ -73,17 +73,17 @@ lines:
    ``n_switches`` 2-4 and ``persist_budget=100_000`` (63 cells), each
    through ``simulate_grid`` with its launch counts, exact against
    ``src/repro_torch/testdata/chain_ref.json`` (all of (a) and (b)) and
-   the eager ``scan_cell`` (all of (a), lu_cont's cells of (b); a pool
-   of host processes), with each Fig. 1 row's persist latency over
+   the eager ``scan_cell`` (all of (a), lu_cont's 3 cells at
+   ``n_switches`` 4 of (b); a pool of host processes), with each Fig. 1 row's persist latency over
    depth-0 NoPB and its per-hop recovery; then (d) the section profile
    of a chained step (Fig. 1's PB/4 and PB_RF/4 cells, cholesky's cells
    at ``n_switches`` 4), exact against (a) and (b); then (c) 225 fuzzed
    crash cells at depths 1-3 on the card against the port's untimed
    oracle (``tests/_torch_crash_driver.py``).
 
-Then one JSON line with the serving numbers, one with the training
-numbers (phase 12), one with every kernel's numbers, and as the last
-line
+Then one JSON line with the serving numbers, one with the attention
+family's (phase 13), one with the training numbers (phase 12), one with
+every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA.
@@ -188,6 +188,36 @@ without CUDA.
     reference's reaches no Pallas one.  ``python3 chip_smoke.py
     --train-only`` runs phase 12 alone (no kernel build).
 
+13. (run after phase 7) the attention family: sliding windows and their
+    ring caches, logit softcaps, qk-norm, the prefix-LM and the
+    encoder-decoder.  (a) gemma2-2b (2 layers, 1 x 4160 prompt, window
+    4096), gemma3-12b (6 layers, 2 x 1100, window 1024), paligemma-3b (2
+    layers, 2 x 256 after 256 prefix embeddings) and
+    seamless-m4t-large-v2 (whole, 2 x 256 and 64 frames, decode given the
+    encoder output) at full width in f32 with ``numpy_params(cfg, 0)``
+    (drawn on a background thread during phases 8-11) against
+    ``src/repro_torch/testdata/serve_ref_families.json`` (the JAX
+    reference's logits and greedy tokens; every prompt is longer than its
+    window), with each prefill's launches by C entry exact: gemma3-12b 6
+    on the wide f32 kernel, seamless 24 on the f32 tensor-core kernel,
+    gemma2-2b and paligemma-3b none (softcap, prefix: the plain softmax);
+    (b) each of the five new configs served in bf16 at full width with
+    weights drawn on the card (``models.convert.device_fill``):
+    gemma3-12b whole at 4 x 2048 + 64 greedy steps (48 launches, 40 of
+    them windowed), gemma2-2b, paligemma-3b (after its 256 prefix
+    embeddings) and seamless (256 frames; 24 launches) whole and
+    deepseek-67b at 16 of its 95 layers (16 launches) at 4 x 1024 + 64,
+    each with its prefill ms, decode tokens/s and peak memory, the
+    prefill logits of each that launches the kernel against the same
+    model with the plain version swapped in (within a tenth of what
+    zeroing the kernel moves them), and gemma3-12b's device time by
+    kernel (``torch.profiler``); (c) the kernel at each new shape of
+    these paths against the plain version, timed beside
+    ``scaled_dot_product_attention`` (GQA, a boolean mask where there is a
+    window) with a bound that counts the pairs the mask keeps.
+    ``python3 chip_smoke.py --serve-only`` runs phases 5-7 and 13 alone
+    and builds only their kernels.
+
 ``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
 comparison of the package's cell scan with each other ``cell_scan.cu``
 (an earlier revision's, or a variant of
@@ -255,6 +285,9 @@ def stop_children() -> None:
         print(f"chip_smoke: ended child {pid}: {cmd[:200]}", file=sys.stderr)
 
 
+# the kernels of the serving path (phases 5-7 and 13)
+MODEL_SOURCES = ("flash_attention", "flash_attention_tc", "ssd_scan",
+                 "ssd_scan_tc")
 SPIN_CYCLES = 10 ** 8               # ~50 ms of the card's clock
 
 
@@ -450,7 +483,7 @@ def paper_grid():
 
 def phase_cell_scan_full(torch, traces, configs):
     """The kernel on all 21 full-size cells, with the main path's own
-    stacked inputs; the shortest workload's three cells also go through
+    stacked inputs; the shortest workload's PB_RF cell also goes through
     the eager ``scan_cell`` on a host copy of those inputs."""
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
@@ -459,13 +492,15 @@ def phase_cell_scan_full(torch, traces, configs):
                            [p[1] for p in pairs], device="cuda")
     got = cs.cell_scan(*args, **kw)
     torch.cuda.synchronize()
+    from repro_torch.core import Scheme
     i = min(range(len(traces)), key=lambda k: traces[k].total_ops)
-    sel = [k for k, p in enumerate(pairs) if p[0] == i]
+    sel = [k for k, p in enumerate(pairs)
+           if p[0] == i and configs[p[1]].scheme == Scheme.PB_RF]
     plain, plain_s, pool_s = eager_cells(torch, args, kw, sel)
     sel_t = torch.tensor(sel, device="cuda")
     err = compare_outputs(plain, cs.CellScanOut(*(x[sel_t] for x in got)),
                           f"paper grid {traces[i].name}")
-    print(f"phase 3 cell_scan full size: exact on the {len(sel)} cells of "
+    print(f"phase 3 cell_scan full size: exact on the PB_RF cell of "
           f"{traces[i].name} ({int(plain.steps.max())} steps, eager "
           f"scan_cell {plain_s:.1f} s of cells, {pool_s:.1f} s wall over a "
           f"pool)")
@@ -817,7 +852,8 @@ def phase_chains(torch, np, smem_ns):
     ``simulate_grid`` on the card (each with the launch counts zeroed
     just before and read just after), exact against
     ``testdata/chain_ref.json`` (all 21 + 63 cells) and against the
-    eager plain version (all of (a); lu_cont's cells of (b)); (d) the
+    eager plain version (all of (a); lu_cont's 3 cells at n_switches 4
+    of (b)); (d) the
     section profile of a chained step; then fuzzed crash cells at depths
     1-3 on the card against the port's untimed oracle."""
     from repro_torch.core import Scheme, simulate_grid
@@ -899,7 +935,8 @@ def phase_chains(torch, np, smem_ns):
     bgot = cs.cell_scan(*bargs, **bkw)
     torch.cuda.synchronize()
     ms_b = cuda_ms(lambda: cs.cell_scan(*bargs, **bkw), 1)
-    sel = [k for k, p in enumerate(bpairs) if names[p[0]] == "lu_cont"]
+    sel = [k for k, p in enumerate(bpairs)
+           if names[p[0]] == "lu_cont" and blabels[p[1]][1] == 4]
     bplain, bplain_s, bpool_s = eager_cells(torch, bargs, bkw, sel)
     sel_t = torch.tensor(sel, device="cuda")
     err = max(err, compare_outputs(
@@ -916,7 +953,8 @@ def phase_chains(torch, np, smem_ns):
           f"2-4, budget 100000, 63 cells) wall {wall_b:.3f} s; launches "
           f"{json.dumps(counts_b)}; exact against chain_ref.json on "
           f"{n_datum} cells and against the eager "
-          f"scan_cell on lu_cont's {len(sel)} cells ({bplain_s:.1f} s of "
+          f"scan_cell on lu_cont's {len(sel)} cells at n_switches 4 "
+          f"({bplain_s:.1f} s of "
           f"cells, {bpool_s:.1f} s wall over a pool); kernel {ms_b:.3f} ms, "
           f"longest cell {steps_b} steps ({ms_b * 1e6 / steps_b:.1f} "
           f"ns/step; latency bound {steps_b * smem_ns / 1e6:.3f} ms)")
@@ -2830,14 +2868,16 @@ def f32_prefill_device(torch, cfg, model, prompt, max_len):
     return tc, fma_run
 
 
-def breakdown(torch, model, prompt, steps: int):
-    """Device ms of one prefill and of ``steps`` greedy decode steps."""
+def breakdown(torch, model, batch, steps: int):
+    """Device ms of one prefill of ``batch`` (its tokens and stub inputs)
+    and of ``steps`` greedy decode steps."""
+    from repro_torch.launch.serve import prefix_len
     from repro_torch.models import transformer as T
-    s = prompt.shape[1]
+    s = batch["tokens"].shape[1] + prefix_len(model.cfg)
     with torch.inference_mode():
         pre = device_ms_by_kernel(torch, lambda: T.prefill(
-            model, {"tokens": prompt}, s + steps))
-        logits, caches = T.prefill(model, {"tokens": prompt}, s + steps)
+            model, batch, s + steps))
+        logits, caches = T.prefill(model, batch, s + steps)
 
         def decode():
             tok, c = logits.argmax(dim=-1)[:, None], caches
@@ -2855,7 +2895,7 @@ def breakdown(torch, model, prompt, steps: int):
 SSD_BF16_SERVE_RTOL = 0.011
 
 
-def ssd_plain_check(torch, model, prompt):
+def ssd_plain_check(torch, model, batch):
     """mamba2's bf16 prefill logits on the tensor-core route against the
     same model with ``ssd_scan_ref`` swapped into ``models.ssm`` (here
     only, never on the main path), and the same with the plain version at
@@ -2863,11 +2903,11 @@ def ssd_plain_check(torch, model, prompt):
     from repro_torch.kernels.ref import ssd_scan_ref
     from repro_torch.models import ssm
     from repro_torch.models import transformer as T
-    s = prompt.shape[1]
+    s = batch["tokens"].shape[1]
 
     def logits():
         with torch.inference_mode():
-            return T.prefill(model, {"tokens": prompt}, s + 1)[0].float()
+            return T.prefill(model, batch, s + 1)[0].float()
 
     def rel(a, b):
         return float(((a - b).abs().max(dim=1).values
@@ -2904,7 +2944,7 @@ def phase_serve(torch, np):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import tat_lookup as tl
-    from repro_torch.launch.serve import random_prompt, serve
+    from repro_torch.launch.serve import random_batch, serve
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import numpy_params, params_from_reference
     with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
@@ -2994,18 +3034,18 @@ def phase_serve(torch, np):
         torch.cuda.empty_cache()
         model = params_from_reference(cfg, tree, "cuda")
         del tree
-        prompt = random_prompt(cfg.vocab, 4, 1024, 0, "cuda")
+        batch = random_batch(cfg, 4, 1024, 0, "cuda")
         # warm-up at the served shape: builds, and the caching allocator's
         # blocks, so the timed run's prefill wall holds no first-call
         # cudaMalloc
-        serve(model, prompt, 2)
+        serve(model, batch, 2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.launches_tc = fa.launches_fma = 0
         fa.launches_by = {}
         ss.launches_tc = ss.launches_fma = 0
         tl.launches = cs.launches = 0
-        res = serve(model, prompt, 64)
+        res = serve(model, batch, 64)
         counts = dict(flash_attention_tc=fa.launches_tc,
                       flash_attention_fma=fa.launches_fma,
                       ssd_scan_tc=ss.launches_tc,
@@ -3030,7 +3070,7 @@ def phase_serve(torch, np):
               f"launches {json.dumps(counts)}; peak memory {peak:.2f} GiB; "
               f"first tokens {res.tokens[0, :8].tolist()}")
         (pre_ms, pre_top), (dec_ms, dec_top) = breakdown(torch, model,
-                                                         prompt, 8)
+                                                         batch, 8)
         step_wall = res.decode_s * 1e3 / 64
         print(f"phase 7b {arch} device time (torch.profiler): prefill "
               f"{pre_ms:.2f} ms, {100 * pre_ms / (res.prefill_s * 1e3):.1f}"
@@ -3041,7 +3081,7 @@ def phase_serve(torch, np):
             for name, ms, calls in top:
                 print(f"  {what}: {ms:9.3f} ms {calls:6d} calls  "
                       f"{name[:90]}")
-        plain_check = (ssd_plain_check(torch, model, prompt)
+        plain_check = (ssd_plain_check(torch, model, batch)
                        if cfg.attn_free else None)
         out[arch] = dict(counts=counts, counts_f32_datum=routes32,
                          counts_by_entry=by_entry,
@@ -3056,6 +3096,470 @@ def phase_serve(torch, np):
                          decode_step_device_ms=dec_ms / 8)
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 13: the attention family ---------------------------------------
+# The f32 datum's launches of flash_attention by C entry (a prefill; the
+# encoder-decoder's encoder and decoder self-attention, never its
+# cross-attention; softcapped and prefix-LM layers never).
+FAMILY_DATUM_LAUNCHES = {
+    "gemma2-2b": {}, "paligemma-3b": {},
+    "gemma3-12b": {"flash_attention_tc_f32_256_launch": 6},
+    "seamless-m4t-large-v2": {"flash_attention_tc_f32_launch": 24}}
+# The bf16 serves at full width with device-filled weights: arch ->
+# (layers served, None for all; prompt tokens; launches of
+# flash_attention_tc_launch a prefill makes).
+FAMILY_SERVE = {"gemma3-12b": (None, 2048, 48), "gemma2-2b": (None, 1024, 0),
+                "paligemma-3b": (None, 1024, 0),
+                "seamless-m4t-large-v2": (None, 1024, 24),
+                "deepseek-67b": (16, 1024, 16)}
+# The kernel at each new shape of these paths: (row, dtype name, b, h, hkv,
+# s, d, causal, window).
+FAMILY_SHAPES = (
+    ("gemma3-12b", "bfloat16", 4, 16, 8, 2048, 256, True, 1024),
+    ("gemma3-12b global", "bfloat16", 4, 16, 8, 2048, 256, True, None),
+    ("gemma3-12b f32 datum", "float32", 2, 16, 8, 1100, 256, True, 1024),
+    ("gemma3-12b f32 datum global", "float32", 2, 16, 8, 1100, 256, True,
+     None),
+    ("deepseek-67b", "bfloat16", 4, 64, 8, 1024, 128, True, None),
+    ("seamless-m4t-large-v2", "bfloat16", 4, 16, 16, 1024, 64, True, None),
+    ("seamless-m4t-large-v2 encoder", "bfloat16", 4, 16, 16, 256, 64, False,
+     None))
+
+
+def family_ref():
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "serve_ref_families.json")) as f:
+        return json.load(f)
+
+
+def datum_config(torch, arch, d):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=d["layers"],
+                               dtype=torch.float32)
+
+
+class DatumTrees:
+    """``numpy_params`` of each config of serve_ref_families.json, drawn
+    on a background thread (numpy's generator releases the GIL) while
+    phases 8-11 run; :meth:`get` waits for one and hands it over with its
+    fill seconds."""
+
+    def __init__(self, torch):
+        import threading
+        self.ref = family_ref()
+        self._out, self._err = {}, None
+        self._ready = {a: threading.Event() for a in self.ref["configs"]}
+        self._thread = threading.Thread(target=self._fill, args=(torch,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _fill(self, torch):
+        from repro_torch.models.convert import numpy_params
+        try:
+            for arch, d in self.ref["configs"].items():
+                t0 = time.time()
+                tree = numpy_params(datum_config(torch, arch, d), d["seed"])
+                self._out[arch] = (tree, time.time() - t0)
+                self._ready[arch].set()
+        except BaseException as e:      # handed to get(), which raises
+            self._err = e
+            for ev in self._ready.values():
+                ev.set()
+
+    def get(self, arch):
+        self._ready[arch].wait()
+        if self._err is not None:
+            fail(f"phase 13a: the numpy weight fill failed: {self._err!r}")
+        return self._out.pop(arch)
+
+
+# Phase 13a's limit on the card: each step's f32 logits within this share
+# of its largest stored |logit| (the datum's own rtol, 1e-3, bounds the
+# port on the CPU in the tests).  Sound runs read 1.87e-7 to 8.72e-7 on
+# the card; the planted faults below read above it (PERF.md).
+FAMILY_DATUM_RTOL = 1e-5
+
+
+def datum_run(torch, model, batch, d, s, enc):
+    """Prefill, then the datum's decode steps, each fed the reference's
+    greedy token: per step (logits, the stored ids, their stored logits),
+    and the prefill's launches by C entry."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    zero_kernel_counts()
+    logits, caches = T.prefill(model, batch, s + d["decode_steps"])
+    torch.cuda.synchronize()
+    launched = (dict(fa.launches_by), fa.launches_fma)
+    steps = []
+    for i, st in enumerate(d["steps"]):
+        ids = torch.tensor(st["ids"], device="cuda")
+        steps.append((logits, ids, torch.tensor(st["logits"],
+                                                device="cuda")))
+        if i == d["decode_steps"]:
+            break
+        logits, caches = T.decode_step(model, ids[:, :1], caches,
+                                       pos0=s + i, **enc)
+    torch.cuda.synchronize()
+    return steps, launched
+
+
+def step_rel(torch, logits, ids, want):
+    """The largest |logit - stored| over the stored ids, as a share of
+    the row's largest stored |logit|; the worst row."""
+    got = torch.gather(logits, 1, ids)
+    return float(((got - want).abs().max(dim=1).values
+                  / want.abs().max(dim=1).values).max())
+
+
+def datum_plants(cfg):
+    """The faults planted in a datum model to show what the limit sees:
+    the sliding window one key short (its prefill mask and its decode
+    ring), and the sliding layers' RoPE base set to the global layers'."""
+    if not cfg.window or not any(sp.kind == "swa"
+                                 for sp in cfg.block_pattern):
+        return ()
+    return (("window - 1",) + (("swa RoPE base = global",)
+                               if cfg.rope_theta != 10_000.0 else ()))
+
+
+def planted(model, what):
+    """Plant ``what`` (one of :func:`datum_plants`) in ``model``; returns
+    the function that takes it out."""
+    import dataclasses
+    cfg = model.cfg
+    blocks = [blk for blk in model.layers if blk.window]
+    saved = [(blk.window, blk.attn.rope_theta) for blk in blocks]
+    if what == "window - 1":
+        model.cfg = dataclasses.replace(cfg, window=cfg.window - 1)
+        for blk in blocks:
+            blk.window -= 1
+    else:
+        for blk in blocks:
+            blk.attn.rope_theta = cfg.rope_theta
+
+    def undo():
+        model.cfg = cfg
+        for blk, (w, theta) in zip(blocks, saved):
+            blk.window, blk.attn.rope_theta = w, theta
+    return undo
+
+
+def family_datum(torch, arch, d, trees):
+    """One config of serve_ref_families.json in f32 on the card, fed the
+    reference's greedy tokens: the worst relative logit error, greedy
+    tokens checked, the prefill's launches by C entry, and the worst
+    error of each planted fault (which must exceed the limit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prefix_len, random_batch
+    from repro_torch.models.convert import params_from_reference
+    rtol = FAMILY_DATUM_RTOL
+    cfg = datum_config(torch, arch, d)
+    tree, fill_s = trees.get(arch)
+    model = params_from_reference(cfg, tree, "cuda")
+    del tree
+    batch = random_batch(cfg, d["batch"], d["prompt_len"], d["seed"], "cuda")
+    if batch["tokens"].tolist() != d["prompt"]:
+        fail(f"phase 13a {arch}: the prompt drawn from the seed is not the "
+             f"datum's")
+    s = prefix_len(cfg) + d["prompt_len"]
+    worst, checked, agree = 0.0, 0, 0
+    with torch.inference_mode():
+        enc = {}
+        if cfg.is_enc_dec:
+            enc = dict(zip(("enc_out", "enc_pos"),
+                           model.encode(batch["enc_embeds"])))
+        steps, (by_entry, fma) = datum_run(torch, model, batch, d, s, enc)
+        for i, (logits, ids, want) in enumerate(steps):
+            rel = step_rel(torch, logits, ids, want)
+            worst = max(worst, rel)
+            if rel > rtol or not bool(torch.isfinite(logits).all()):
+                fail(f"phase 13a {arch} f32 step {i}: logits off the "
+                     f"reference by {rel:.3g} relative (limit {rtol})")
+            scale = want.abs().max(dim=1).values
+            margin = (want[:, 0] - want[:, 1]) / scale
+            top1 = logits.argmax(dim=1)
+            for j in range(ids.shape[0]):
+                if float(margin[j]) > rtol:
+                    checked += 1
+                    if int(top1[j]) != int(ids[j, 0]):
+                        fail(f"phase 13a {arch} f32 step {i} seq {j}: greedy "
+                             f"{int(top1[j])}, reference {int(ids[j, 0])}")
+                agree += int(top1[j]) == int(ids[j, 0])
+        del steps
+        plants = {}
+        for what in datum_plants(cfg):
+            undo = planted(model, what)
+            try:
+                steps, _ = datum_run(torch, model, batch, d, s, enc)
+            finally:
+                undo()
+            plants[what] = max(step_rel(torch, *st) for st in steps)
+            del steps
+    if by_entry != FAMILY_DATUM_LAUNCHES[arch] or fma:
+        fail(f"phase 13a {arch} f32 prefill launched {by_entry} (FMA {fma}),"
+             f" expected {FAMILY_DATUM_LAUNCHES[arch]}")
+    print(f"phase 13a {arch} f32 ({d['layers']} of {get_config(arch).n_layers}"
+          f" layers, {d['batch']} x {d['prompt_len']} prompt"
+          + (f" after {prefix_len(cfg)} prefix embeddings"
+             if prefix_len(cfg) else "")
+          + (f", {d['enc_frames']} frames, decode given the encoder output"
+             if cfg.is_enc_dec else "")
+          + f", window {cfg.window}, {d['decode_steps']} decode steps): "
+          f"logits within {worst:.3g} relative of serve_ref_families.json "
+          f"(limit {rtol}); greedy tokens equal on {checked} checked (margin "
+          f"> limit), {agree}/{len(d['steps']) * d['batch']} in all; prefill "
+          f"launches {json.dumps(by_entry)}; numpy weight fill {fill_s:.1f} s "
+          f"(on a background thread)"
+          + "".join(f"; planted {w}: {r:.3g}" for w, r in plants.items()))
+    for what, r in plants.items():
+        if not r > rtol:
+            fail(f"phase 13a {arch}: the planted fault '{what}' reads "
+                 f"{r:.3g}, within the limit {rtol}: the check cannot see it")
+    return dict(rel=worst, checked=checked, agree=agree, launches=by_entry,
+                fill_s=fill_s, planted=plants)
+
+
+def prefill_logits_vs_plain(torch, model, batch, max_len):
+    """The bf16 prefill's logits on the kernel against the same model with
+    ``flash_attention_ref`` swapped into ``models.attention`` (here only),
+    and against the kernel returning zeros (how much of it the logits
+    see): largest relative differences over rows, and greedy agreement."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    def logits():
+        with torch.inference_mode():
+            return T.prefill(model, batch, max_len)[0].float()
+
+    def rel(a, b):
+        return float(((a - b).abs().max(dim=1).values
+                      / b.abs().max(dim=1).values).max())
+    kernel = logits()
+    route = A.flash_attention
+    try:
+        A.flash_attention = lambda q, k, v, **kw: flash_attention_ref(
+            q, k, v, **kw)
+        plain = logits()
+        A.flash_attention = lambda q, k, v, **kw: torch.zeros_like(q)
+        zeroed = logits()
+    finally:
+        A.flash_attention = route
+    return dict(rel=rel(kernel, plain), zeroed_rel=rel(zeroed, plain),
+                greedy_agree=int((kernel.argmax(1) == plain.argmax(1)).sum()),
+                rows=kernel.shape[0])
+
+
+def family_serve(torch, arch, layers, prompt_len, want):
+    """The published bf16 config (``layers`` of it, or all) served at full
+    width with device-filled weights: 4 requests of ``prompt_len`` tokens
+    (after the vision prefix; 1/4 as many frames for the encoder), 64
+    greedy steps; launches asserted, the prefill's logits held against
+    the plain version swapped in."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import prefix_len, random_batch, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import device_fill
+    cfg = get_config(arch)
+    full = cfg.n_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    model = device_fill(T.Transformer(cfg, "cuda"), 0)
+    torch.cuda.synchronize()
+    fill_s = time.time() - t0
+    batch = random_batch(cfg, 4, prompt_len, 0, "cuda")
+    serve(model, batch, 2)          # warm-up at the served shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    res = serve(model, batch, 64)
+    counts = kernel_counts()
+    by_entry = dict(fa.launches_by)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if res.tokens.shape != (4, 64) or res.tokens.min() < 0 \
+            or res.tokens.max() >= cfg.vocab:
+        fail(f"phase 13b {arch} served tokens of shape {res.tokens.shape}")
+    want_by = {"flash_attention_tc_launch": want} if want else {}
+    if by_entry != want_by or counts != dict(
+            tat_lookup=0, cell_scan=0, flash_attention=want, ssd_scan=0):
+        fail(f"phase 13b {arch} serve launched {counts}, by entry "
+             f"{by_entry}; expected {want_by}")
+    tok_s = 4 * 64 / res.decode_s
+    max_len = prompt_len + prefix_len(cfg) + 64
+    check = (prefill_logits_vs_plain(torch, model, batch, max_len)
+             if want else None)
+    if check and not (check["rel"] <= check["zeroed_rel"] / 10):
+        fail(f"phase 13b {arch} bf16 prefill logits off the plain version "
+             f"by {check['rel']:.3g} relative, over a tenth of the "
+             f"{check['zeroed_rel']:.3g} that zeroing the kernel moves them")
+    shape = (f"4 x {prompt_len} prompt"
+             + (f" after {prefix_len(cfg)} prefix embeddings"
+                if prefix_len(cfg) else "")
+             + (f", {prompt_len // 4} frames" if cfg.is_enc_dec else ""))
+    print(f"phase 13b {arch} bf16 ({cfg.n_layers} of {full} layers"
+          + (", cut to fit one card" if layers else "") + f") served {shape}"
+          f" + 64 greedy steps: prefill {res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.decode_s * 1e3:.1f} ms ({tok_s:.1f} tokens/s); launches "
+          f"{json.dumps(by_entry)}; peak memory {peak:.2f} GiB; device fill "
+          f"{fill_s:.1f} s; first tokens {res.tokens[0, :8].tolist()}"
+          + (f"; prefill logits vs the plain version swapped in: "
+             f"{check['rel']:.3g} relative (zeroing the kernel: "
+             f"{check['zeroed_rel']:.3g}), greedy agree {check['greedy_agree']}"
+             f"/{check['rows']}" if check else ""))
+    out = dict(layers=cfg.n_layers, of_layers=full, shape=shape,
+               launches=by_entry, prefill_ms=res.prefill_s * 1e3,
+               decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
+               peak_gib=peak, fill_s=fill_s, vs_plain=check)
+    if arch == "gemma3-12b":
+        (pre_ms, pre_top), (dec_ms, dec_top) = breakdown(torch, model, batch,
+                                                         8)
+        step_wall = res.decode_s * 1e3 / 64
+        print(f"phase 13b {arch} device time (torch.profiler): prefill "
+              f"{pre_ms:.2f} ms, {100 * pre_ms / (res.prefill_s * 1e3):.1f}"
+              f" % of its wall; decode {dec_ms / 8:.3f} ms per step, "
+              f"{100 * dec_ms / 8 / step_wall:.1f} % of its "
+              f"{step_wall:.2f} ms wall")
+        for what, top in (("prefill", pre_top), ("decode x8", dec_top)):
+            for name, ms, calls in top:
+                print(f"  {what}: {ms:9.3f} ms {calls:6d} calls  "
+                      f"{name[:90]}")
+        out.update(prefill_device_ms=pre_ms, decode_step_device_ms=dec_ms / 8,
+                   prefill_top=pre_top, decode_top=dec_top)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 13c's bf16 limit: the largest |kernel - plain| over each output row
+# (b, h, query) as a share of that row's largest |plain|, two bf16 ulps of
+# the row's largest value.  TOL's absolute 3e-2 is ~0.6 of a typical output
+# at S = 2048 with a window of 1024 and sees no one-key fault.
+FAMILY_BF16_ROW_RTOL = 2.0 ** -6
+
+
+def row_rel(torch, got, want):
+    """The worst row's largest |got - want| over its largest |want|."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs().amax(-1) / w.abs().amax(-1)).max())
+
+
+def abs_err(torch, got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
+                  window):
+    """The kernel at one shape of these paths against the plain version,
+    timed with CUDA events beside ``scaled_dot_product_attention`` (GQA,
+    a boolean mask where there is a window); its route checked by the
+    per-entry counter; the bound counts only the pairs the mask keeps."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    dtype = getattr(torch, dtype_name)
+    rng = np.random.default_rng(s + d + h)
+    q, k, v = (torch.tensor(rng.standard_normal((b, s, n, d)),
+                            dtype=torch.float32, device="cuda")
+               .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+    kw = dict(causal=causal, window=window)
+    entry = fa.route(dtype, d)[1]
+    n0 = fa.launches_by.get(entry, 0)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if fa.launches_by.get(entry, 0) - n0 != 1:
+        fail(f"phase 13c {row}: {entry} not launched")
+    err = max_err(got, want, f"phase 13c {row}", TOL[dtype_name][0])
+    # bf16 is held per output row (an absolute limit at these shapes sits
+    # near a typical output value); f32 by its absolute limit.  Where there
+    # is a window, the plain version one key short stands for a planted
+    # window-edge fault, which must read above the limit.
+    if dtype == torch.bfloat16:
+        limit, how = FAMILY_BF16_ROW_RTOL, "of each row's largest |plain|"
+        measure = row_rel
+    else:
+        limit, how, measure = TOL[dtype_name][0], "absolute", abs_err
+    worst = measure(torch, got, want)
+    if not worst <= limit:
+        fail(f"phase 13c {row}: kernel off the plain version by {worst:.3g}"
+             f" {how} (limit {limit})")
+    plant = None
+    if window:
+        plant = measure(torch, got, flash_attention_ref(
+            q, k, v, causal=causal, window=window - 1))
+        if not plant > limit:
+            fail(f"phase 13c {row}: the plain version at window {window - 1}"
+                 f" reads {plant:.3g} {how}, within the limit {limit}: the "
+                 f"check cannot see a one-key window-edge fault")
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 3)
+    i = torch.arange(s, device="cuda")
+    mask = torch.ones((s, s), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window:
+        mask &= i[None, :] > i[:, None] - window
+    pairs = int(mask.sum())
+    sdpa_kw = (dict(attn_mask=mask) if window
+               else dict(is_causal=causal))
+    lib_out = F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                             **sdpa_kw)
+    torch.cuda.synchronize()
+    lib_err = float((lib_out.float() - want.float()).abs().max())
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **sdpa_kw), 20)
+    size = q.element_size()
+    flops = 4.0 * b * h * pairs * d
+    nbytes = size * (2.0 * b * h * s * d + 2.0 * b * hkv * s * d)
+    split = 6 if dtype == torch.float32 else 1
+    bound_ms, bound_by = bound(split * flops, nbytes)
+    print(f"phase 13c flash_attention ({entry}) {row}: q ({b}, {h}, {s}, {d})"
+          f", k/v {hkv} heads, {dtype_name}, causal={causal}, window={window}"
+          f": max abs error {err:.3g}, {worst:.3g} {how} (limit {limit}"
+          + (f"; window {window - 1} planted: {plant:.3g}" if window else "")
+          + f"); kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, scaled_dot_product_attention {lib:.4f} ms (its error "
+          f"{lib_err:.3g}); bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{flops / 1e9:.2f} GFLOP over {pairs} kept pairs"
+          + (" x 6 split products" if split > 1 else "")
+          + f", {nbytes / 1e6:.1f} MB); {ms / bound_ms:.2f}x the bound, "
+          f"{ms / lib:.2f}x SDPA")
+    return dict(entry=entry, max_abs_err=err, checked=worst,
+                checked_how=how, limit=limit, planted_window_fault=plant,
+                ms=ms, plain_ms=plain,
+                library_ms=lib, library_err=lib_err, bound_ms=bound_ms,
+                bound_by=bound_by, pairs=pairs,
+                shape=f"q ({b}, {h}, {s}, {d}), k/v ({b}, {hkv}, {s}, {d}),"
+                      f" {dtype_name}, causal={causal}, window={window}")
+
+
+def phase_family(torch, np, trees):
+    """Phase 13: the attention family (sliding windows, softcaps, qk-norm,
+    the prefix-LM, the encoder-decoder): (a) four configs in f32 against
+    serve_ref_families.json (their weights from ``trees``, a
+    :class:`DatumTrees`), (b) five served in bf16 at full width, (c) the
+    kernel at each new shape."""
+    ref = trees.ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    out = {"datum": {}, "serve": {}, "kernel": {}}
+    for arch, d in ref["configs"].items():
+        out["datum"][arch] = family_datum(torch, arch, d, trees)
+        torch.cuda.empty_cache()
+    for arch, (layers, s, want) in FAMILY_SERVE.items():
+        out["serve"][arch] = family_serve(torch, arch, layers, s, want)
+    for row, *shape in FAMILY_SHAPES:
+        out["kernel"][row] = family_kernel(torch, np, row, *shape)
+    out["phase_s"] = time.time() - t0
+    print(f"phase 13 done in {out['phase_s']:.1f} s")
     return out
 
 
@@ -3338,6 +3842,21 @@ def main() -> int:
     if sys.argv[1:] == ["--train-only"]:
         print(json.dumps({"train": phase_train(torch, np, smi)}))
         return 0
+    if sys.argv[1:] == ["--serve-only"]:
+        t0 = time.time()
+        _build.build_all(MODEL_SOURCES)
+        print(f"phase 1 kernels built in {time.time() - t0:.1f} s "
+              f"({', '.join(MODEL_SOURCES)})")
+        flash = phase_flash(torch, np)
+        ssd = phase_ssd(torch, np)
+        served = phase_serve(torch, np)
+        family = phase_family(torch, np, DatumTrees(torch))
+        print(json.dumps({"flash": flash, "ssd": ssd, "serve": served,
+                          "family": family}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--against":
         _build.build_all(("cell_scan", "cell_scan_profile"))
         print(json.dumps({"against": compare_against(torch, np,
@@ -3363,6 +3882,10 @@ def main() -> int:
     full = phase_cell_scan_full(torch, traces, configs)
     main_path = phase_main_path(torch, np, smem_ns, traces, configs, full)
     scan_profile = phase_cell_scan_profile(torch, traces, configs, full)
+    # phase 13's weights, drawn meanwhile: phases 8-11 time single long
+    # launches and share the host with process pools anyway, while the
+    # thread would slow the host-bound numbers of phases 4 and 5-7
+    trees = DatumTrees(torch)
     chains = phase_chains(torch, np, smem_ns)
     fab = phase_fabric(torch, np, smem_ns, traces, sass_against)
     epochs = phase_epochs(torch, np, smem_ns, traces)
@@ -3371,6 +3894,7 @@ def main() -> int:
     flash = phase_flash(torch, np)
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
+    family = phase_family(torch, np, trees)
     trained = phase_train(torch, np, smi)
 
     eng = tat[(8, 16)]
@@ -3608,15 +4132,15 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
              entry="flash_attention_tc_f32_256_launch",
-             launches=served["smollm-135m"]["counts_by_entry"].get(
-                 "flash_attention_tc_f32_256_launch", 0)
-             + served["smollm-135m"]["counts_f32_datum_by_entry"].get(
+             launches=family["datum"]["gemma3-12b"]["launches"].get(
                  "flash_attention_tc_f32_256_launch", 0),
-             main_path="the f32 route of flash_attention at D = 256: not "
-                       "launched by the bf16 serve or the f32 datum "
-                       "prefill (D = 64); held over 8 seeds and timed at "
-                       "gemma2-2b's head layout in phase 5, in turns with "
-                       "the FMA kernel",
+             main_path="the f32 route of flash_attention at D = 256: "
+                       "gemma3-12b's f32 datum prefill of phase 13a (2 x "
+                       "1100 prompt, 6 layers, 5 windowed), one launch per "
+                       "layer; held over 8 seeds and timed at gemma2-2b's "
+                       "head layout in phase 5, in turns with the FMA "
+                       "kernel, and at the datum's shapes in phase 13c "
+                       "(row flash_attention_tc_f32_256_gemma3_12b)",
              max_abs_err=flash["f32_256"]["max_abs_err"],
              over_counts=flash["f32_256"]["over_counts"],
              ms=flash["f32_256"]["ms"],
@@ -3711,7 +4235,67 @@ def main() -> int:
              library_ms=None,
              shape="x (4, 1024, 64, 64), N=128, chunk 128, f32"),
     ]
+    fk, fs = family["kernel"], family["serve"]
+
+    def family_row(name, row, launches, main_path, extra_rows=()):
+        k = fk[row]
+        rec = dict(name=name, route="cuda",
+                   source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                   replaces="src/repro/kernels/flash_attention.py:68",
+                   entry=k["entry"], launches=launches, main_path=main_path,
+                   max_abs_err=k["max_abs_err"], ms=k["ms"],
+                   plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                   bound_by=k["bound_by"], library_ms=k["library_ms"],
+                   library="scaled_dot_product_attention (enable_gqa; a "
+                           "boolean mask where there is a window)",
+                   library_err=k["library_err"], kept_pairs=k["pairs"],
+                   shape=k["shape"], checked_err=k["checked"],
+                   checked_how=k["checked_how"], checked_limit=k["limit"],
+                   planted_window_fault=k["planted_window_fault"])
+        for key, other in extra_rows:
+            rec[key] = {f: fk[other][f] for f in (
+                "shape", "max_abs_err", "checked", "planted_window_fault",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "pairs")}
+        return rec
+    kernels += [
+        family_row("flash_attention_tc_gemma3_12b", "gemma3-12b",
+                   fs["gemma3-12b"]["launches"].get(
+                       "flash_attention_tc_launch", 0),
+                   "gemma3-12b bf16 serve at full width and depth, 4 x 2048 "
+                   "prompt + 64 decode steps (phase 13b): one launch per "
+                   "layer at prefill, 40 with window 1024 (this row's "
+                   "shape) and 8 global",
+                   (("global_shape", "gemma3-12b global"),)),
+        family_row("flash_attention_tc_f32_256_gemma3_12b",
+                   "gemma3-12b f32 datum",
+                   family["datum"]["gemma3-12b"]["launches"].get(
+                       "flash_attention_tc_f32_256_launch", 0),
+                   "gemma3-12b f32 datum prefill of phase 13a (6 layers, 2 "
+                   "x 1100 prompt): one launch per layer, 5 with window "
+                   "1024 (this row's shape) and 1 global; S is not a "
+                   "multiple of the 32-key tile",
+                   (("global_shape", "gemma3-12b f32 datum global"),)),
+        family_row("flash_attention_tc_deepseek_67b", "deepseek-67b",
+                   fs["deepseek-67b"]["launches"].get(
+                       "flash_attention_tc_launch", 0),
+                   "deepseek-67b bf16 serve at full width, 16 of 95 layers "
+                   "(one card), 4 x 1024 prompt + 64 decode steps (phase "
+                   "13b): one launch per layer at prefill"),
+        family_row("flash_attention_tc_seamless_m4t_large_v2",
+                   "seamless-m4t-large-v2",
+                   fs["seamless-m4t-large-v2"]["launches"].get(
+                       "flash_attention_tc_launch", 0),
+                   "seamless-m4t-large-v2 bf16 serve at full width and "
+                   "depth, 4 x 1024 prompt and 256 frames + 64 decode steps "
+                   "(phase 13b): one launch per self-attention layer at "
+                   "prefill, 12 in the decoder (this row's shape) and 12 "
+                   "non-causal in the encoder; cross-attention takes the "
+                   "plain softmax",
+                   (("encoder_shape", "seamless-m4t-large-v2 encoder"),)),
+    ]
     print(json.dumps({"serve": served}))
+    print(json.dumps({"family": family}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

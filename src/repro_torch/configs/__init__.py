@@ -1,9 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``ARCHS`` (port of
 ``repro.configs``).
 
-The ids are the reference's.  This slice ports two of them,
-``smollm-135m`` and ``mamba2-1.3b``; ``get_config`` raises
-``NotImplementedError`` for the other eight (ROADMAP Queue A).  Each
+The ids are the reference's.  The port serves seven of them (``PORTED``);
+``get_config`` raises ``NotImplementedError`` for the three MoE ids,
+whose expert layers are not ported yet (ROADMAP Queue A item 9c).  Each
 ported ``<id>.py`` module exports
 
     config()        -> the full published configuration
@@ -26,7 +26,8 @@ ARCHS: List[str] = [
     "mamba2-1.3b",
     "paligemma-3b",
 ]
-PORTED = ("smollm-135m", "mamba2-1.3b")
+PORTED = ("smollm-135m", "mamba2-1.3b", "gemma2-2b", "gemma3-12b",
+          "paligemma-3b", "seamless-m4t-large-v2", "deepseek-67b")
 
 _ALIASES = {
     "phi3.5-moe-42b-a6.6b": "phi3.5-moe-42b",
@@ -40,8 +41,8 @@ def get_config(arch_id: str, *, smoke: bool = False):
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCHS}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP Queue A); the port "
-            f"serves {PORTED}")
+            f"{arch_id} is not ported yet (ROADMAP Queue A item 9c, MoE); "
+            f"the port serves {PORTED}")
     name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.smoke_config() if smoke else mod.config()

@@ -4,12 +4,16 @@ The reference's ``init_params`` tree is nested dicts of arrays::
 
     {"embed": {"table"}, "final_norm": {"scale"},
      "blocks": [<one dict per block position, every leaf with a leading
-                 reps axis>]}
+                 reps axis>],
+     # an encoder-decoder also has
+     "enc_blocks": [<one dict: n_enc_layers plain "attn" layers>],
+     "enc_norm": {"scale"}}
 
-and the port holds one ``Block`` per layer, whose parameter names are
-the same paths joined by dots (``attn.wq.w``, ``ssm.A_log``, ...).
-Layer ``r * len(block_pattern) + j`` is repetition ``r`` of position
-``j``.
+and the port holds one ``Block`` per layer (``layers``, and the
+encoder's ``enc_layers``), whose parameter names are the same paths
+joined by dots (``attn.wq.w``, ``attn.q_norm.scale``, ``cross.wk.w``,
+``ssm.A_log``, ...).  Layer ``r * len(block_pattern) + j`` is repetition
+``r`` of position ``j``.
 
 * :func:`reference_tree` reads a model back into that layout (on the
   meta device it gives the shapes alone);
@@ -18,6 +22,9 @@ Layer ``r * len(block_pattern) + j`` is repetition ``r`` of position
   .default_rng(seed)``, every leaf random at an init-like scale, so that
   a leaf carried to the wrong place shows; the tests and the datum
   script feed the same tree to both packages;
+* :func:`device_fill` draws the same leaf rules straight into a model's
+  parameters on its own device (for full-width runs on the card, where
+  a host fill would take minutes);
 * :func:`stack_layers` / :func:`unstack_layers` move any per-parameter
   tree (the model's weights, the optimizer's moments) between the two
   layouts, and :func:`opt_state_to_reference` /
@@ -33,7 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import ModelConfig, Transformer
+from repro_torch.models.transformer import (ENC_PATTERN, ModelConfig,
+                                            Transformer)
 
 
 def _nest(items) -> Dict[str, Any]:
@@ -47,23 +55,37 @@ def _nest(items) -> Dict[str, Any]:
     return out
 
 
-TOP_LEAVES = ("embed.table", "final_norm.scale")
+# (reference key, the port's module list) of each stacked layer group
+STACKS = (("blocks", "layers"), ("enc_blocks", "enc_layers"))
+
+
+def _stack_shape(cfg: ModelConfig, key: str):
+    """(block pattern, repetitions) of the stack under ``key``."""
+    if key == "blocks":
+        return cfg.block_pattern, cfg.reps
+    return ENC_PATTERN, cfg.n_enc_layers
 
 
 def stack_layers(cfg: ModelConfig,
                  named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """A tree keyed by the model's parameter names (``layers.<i>.<leaf>``
-    and the top leaves) in the reference's stacked layout."""
-    p = len(cfg.block_pattern)
-    tree = _nest((name, named[name]) for name in TOP_LEAVES)
-    tree["blocks"] = []
-    for j in range(p):
-        leaves = [n.split(".", 2)[2] for n in named
-                  if n.startswith(f"layers.{j}.")]
-        tree["blocks"].append(_nest(
-            (leaf, torch.stack([named[f"layers.{r * p + j}.{leaf}"]
-                                for r in range(cfg.reps)]))
-            for leaf in leaves))
+    """A tree keyed by the model's parameter names (``layers.<i>.<leaf>``,
+    ``enc_layers.<i>.<leaf>`` and the top leaves) in the reference's
+    stacked layout."""
+    mods = tuple(f"{mod}." for _, mod in STACKS)
+    tree = _nest((n, t) for n, t in named.items() if not n.startswith(mods))
+    for key, mod in STACKS:
+        if key == "enc_blocks" and not cfg.is_enc_dec:
+            continue
+        pattern, reps = _stack_shape(cfg, key)
+        p = len(pattern)
+        tree[key] = []
+        for j in range(p):
+            leaves = [n.split(".", 2)[2] for n in named
+                      if n.startswith(f"{mod}.{j}.")]
+            tree[key].append(_nest(
+                (leaf, torch.stack([named[f"{mod}.{r * p + j}.{leaf}"]
+                                    for r in range(reps)]))
+                for leaf in leaves))
     return tree
 
 
@@ -78,16 +100,18 @@ def unstack_layers(cfg: ModelConfig,
                    tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`stack_layers`; leaves may be numpy arrays
     (of dtypes torch has) or tensors, and come back as tensors."""
-    p = len(cfg.block_pattern)
+    mods = dict(STACKS)
     out: Dict[str, torch.Tensor] = {}
     for name, arr in _leaves(tree).items():
         t = _tensor(arr)
-        if not name.startswith("blocks."):
+        key, _, rest = name.partition(".")
+        if key not in mods:
             out[name] = t
             continue
-        _, j, leaf = name.split(".", 2)
-        for r in range(cfg.reps):
-            out[f"layers.{r * p + int(j)}.{leaf}"] = t[r]
+        j, leaf = rest.split(".", 1)
+        pattern, reps = _stack_shape(cfg, key)
+        for r in range(reps):
+            out[f"{mods[key]}.{r * len(pattern) + int(j)}.{leaf}"] = t[r]
     return out
 
 
@@ -140,12 +164,16 @@ def _map_dict(d: Dict[str, Any], fn: Callable[[str, Any], Any],
 
 def _map_tree(tree: Dict[str, Any],
               fn: Callable[[str, Any], Any]) -> Dict[str, Any]:
-    """``fn(name, leaf)`` over a reference tree, in layout order; names
-    are dotted paths, with ``blocks.<j>.`` before a block's leaves."""
-    out = _map_dict({k: v for k, v in tree.items() if k != "blocks"}, fn,
+    """``fn(name, leaf)`` over a reference tree, in layout order (the top
+    leaves, then ``blocks``, then ``enc_blocks``); names are dotted
+    paths, with ``blocks.<j>.`` before a block's leaves."""
+    keys = [k for k, _ in STACKS]
+    out = _map_dict({k: v for k, v in tree.items() if k not in keys}, fn,
                     "")
-    out["blocks"] = [_map_dict(blk, fn, f"blocks.{j}.")
-                     for j, blk in enumerate(tree["blocks"])]
+    for key in keys:
+        if key in tree:
+            out[key] = [_map_dict(blk, fn, f"{key}.{j}.")
+                        for j, blk in enumerate(tree[key])]
     return out
 
 
@@ -214,3 +242,38 @@ def numpy_params(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     rng = np.random.default_rng(seed)
     return _map_tree(param_shapes(cfg),
                      lambda name, shape: _init_leaf(rng, name, shape))
+
+
+@torch.no_grad()
+def device_fill(model: Transformer, seed: int) -> Transformer:
+    """Fill ``model``'s parameters in place on their own device, by the
+    leaf rules of :func:`numpy_params` (normals at the same scales, the
+    SSD leaves' uniform draws mapped the same way), drawn from a
+    ``torch.Generator`` seeded with ``seed``, in the parameters' dtype.
+
+    The numbers differ from ``numpy_params``'s: use it for timing and
+    launch counts at full width, never against a datum made from
+    ``numpy_params``.
+    """
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for name, t in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "w" or leaf in _NORMAL_STD:
+            std = (1.0 / np.sqrt(t.shape[-2]) if leaf == "w"
+                   else _NORMAL_STD[leaf])
+            t.normal_(0.0, float(std), generator=gen)
+            continue
+        u = torch.rand(t.shape, generator=gen, device=dev)
+        if leaf == "A_log":
+            t.copy_(torch.log1p(15.0 * u))
+        elif leaf == "D":
+            t.copy_(0.5 + u)
+        elif leaf == "dt_bias":
+            lo, hi = np.log(1e-3), np.log(0.1)
+            dt = torch.exp(lo + u * (hi - lo))
+            t.copy_(dt + torch.log(-torch.expm1(-dt)))
+        else:
+            raise ValueError(f"no init rule for leaf {name}")
+    return model

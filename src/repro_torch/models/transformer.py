@@ -1,5 +1,4 @@
-"""Decoder-only LM stack (port of ``repro.models.transformer``, serving
-slice).
+"""Composable transformer stack (port of ``repro.models.transformer``).
 
 A model is a ``ModelConfig`` whose ``block_pattern`` is a short
 repeating tuple of layer specs.  The reference stacks each block
@@ -8,10 +7,17 @@ position's parameters over the repetitions and runs the stack with
 ``r * len(pattern) + j`` is repetition ``r`` of position ``j``) and runs
 them in a Python loop.  ``models.convert`` maps between the two layouts.
 
-This slice serves global-attention ("attn") and Mamba2 ("ssm") layers
-with dense or no feed-forward: ``smollm-135m`` and ``mamba2-1.3b``.
-MoE, softcaps, qk-norm, sliding-window layers, the vision prefix and the
-encoder-decoder raise ``NotImplementedError`` (ROADMAP Queue A), as do
+Layer kinds: ``"attn"`` (global self-attention, RoPE base
+``cfg.rope_theta``), ``"swa"`` (sliding-window self-attention, RoPE base
+10 000, a ring cache of ``min(max_len, window)`` slots) and ``"ssm"``
+(Mamba2 SSD), each with a dense SwiGLU feed-forward (absent when
+``d_ff == 0``).  Topologies: decoder-only LMs, the prefix-LM with stub
+patch embeddings (``frontend="vision"``: ``prefix_embeds`` go before the
+tokens, attended bidirectionally, and are stripped before the logits)
+and the encoder-decoder with stub frame embeddings (``n_enc_layers >
+0``: a non-causal encoder stack, then a cross-attention sublayer in every
+decoder block).  This covers seven of the ten configurations; MoE
+layers raise ``NotImplementedError`` (ROADMAP Queue A item 9c), as do
 sharding contexts.
 
 Training: :func:`loss_fn` is the reference's next-token cross-entropy.
@@ -26,8 +32,8 @@ model with SSD layers raises (:func:`check_trainable`).
 
 Serving: the same blocks run prefill (S = prompt, writes the KV / SSM
 caches) and decode (S = 1 against the caches).  Caches are one entry per
-layer.  Prefill reads out only the last position, which is all the
-reference returns from it.
+decoder layer.  Prefill reads out only the last position, which is all
+the reference returns from it.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ from repro_torch.models.layers import (MLP, Embedding, RMSNorm, embed,
                                        softcap, unembed)
 from repro_torch.models.ssm import SSDBlock, SSMCache, init_ssm_cache
 
-SCOPE = "ROADMAP Queue A: model-side configurations beyond this slice"
+SCOPE = "ROADMAP Queue A item 9c: MoE layers"
 
 
 class LayerSpec(NamedTuple):
@@ -104,6 +110,11 @@ class ModelConfig:
     def attn_free(self) -> bool:
         return all(s.kind == "ssm" for s in self.block_pattern)
 
+    @property
+    def full_attention_only(self) -> bool:
+        """True when every token-mixing layer is global attention."""
+        return all(s.kind == "attn" for s in self.block_pattern)
+
     def param_count(self) -> int:
         """Total parameters, counted on a model built on the meta device."""
         model = Transformer(self, device="meta")
@@ -111,23 +122,9 @@ class ModelConfig:
 
 
 def check_scope(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
-    out = []
+    """Raise ``NotImplementedError`` for what the port does not run."""
     if cfg.n_experts or any(s.moe for s in cfg.block_pattern):
-        out.append("MoE")
-    if cfg.attn_softcap is not None or cfg.final_softcap is not None:
-        out.append("softcap")
-    if cfg.qk_norm:
-        out.append("qk_norm")
-    if any(s.kind not in ("attn", "ssm") for s in cfg.block_pattern):
-        out.append("sliding-window (swa) layers")
-    if cfg.frontend is not None:
-        out.append(f"the {cfg.frontend} frontend")
-    if cfg.is_enc_dec:
-        out.append("encoder-decoder")
-    if out:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(out)} not ported ({SCOPE})")
+        raise NotImplementedError(f"{cfg.name}: MoE not ported ({SCOPE})")
 
 
 def _device(device) -> torch.device:
@@ -137,44 +134,68 @@ def _device(device) -> torch.device:
 
 
 class Block(nn.Module):
-    """One layer: pre-norm mixer (attention or SSD) and dense SwiGLU FFN
-    (absent when ``d_ff == 0``), with residuals."""
+    """One layer: pre-norm mixer (attention or SSD), the cross-attention
+    sublayer in a decoder block of an encoder-decoder (``cross``), and a
+    dense SwiGLU FFN (absent when ``d_ff == 0``), with residuals."""
 
-    def __init__(self, spec: LayerSpec, cfg: ModelConfig, device=None):
+    def __init__(self, spec: LayerSpec, cfg: ModelConfig, cross: bool,
+                 device=None):
         super().__init__()
         self.kind = spec.kind
+        self.window = cfg.window if spec.kind == "swa" else None
         self.ln1 = RMSNorm(cfg.d_model, device)
-        if spec.kind == "attn":
+        if spec.kind in ("attn", "swa"):
+            theta = cfg.rope_theta if spec.kind == "attn" else 10_000.0
             self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.hd, rope_theta=cfg.rope_theta,
+                                  cfg.hd, rope_theta=theta,
+                                  cap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
                                   dtype=cfg.dtype, device=device)
         else:
             self.ssm = SSDBlock(cfg.d_model, d_state=cfg.ssm_state,
                                 expand=cfg.ssm_expand,
                                 head_dim=cfg.ssm_head_dim, dtype=cfg.dtype,
                                 device=device)
+        if cross:
+            self.ln_cross = RMSNorm(cfg.d_model, device)
+            self.cross = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.hd, cross=True, dtype=cfg.dtype,
+                                   device=device)
         if cfg.d_ff > 0:
             self.ln2 = RMSNorm(cfg.d_model, device)
             self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
 
-    def forward(self, h, positions, cache=None):
+    def forward(self, h, positions, cache=None, *, causal=True,
+                prefix_len=None, enc_out=None, enc_pos=None):
         hin = self.ln1(h)
-        if self.kind == "attn":
-            y, new_cache = self.attn(hin, positions, cache)
-        else:
+        if self.kind == "ssm":
             y, new_cache = self.ssm(hin, cache=cache)
+        else:
+            y, new_cache = self.attn(hin, positions, cache, causal=causal,
+                                     window=self.window,
+                                     prefix_len=prefix_len)
         h = h + y
+        if hasattr(self, "cross"):
+            y, _ = self.cross(self.ln_cross(h), positions, causal=False,
+                              kv_x=enc_out, kv_positions=enc_pos,
+                              use_rope=False)
+            h = h + y
         if hasattr(self, "ffn"):
             h = h + self.ffn(self.ln2(h))
         return h, new_cache
 
 
+ENC_PATTERN = (LayerSpec("attn"),)
+
+
 class Transformer(nn.Module):
-    """The model: tied embedding, ``n_layers`` blocks, final norm.
+    """The model: tied embedding, ``n_layers`` decoder blocks, final norm;
+    with ``n_enc_layers``, an encoder of that many plain ``attn`` blocks
+    (``enc_layers``) and its norm (``enc_norm``).
 
     ``device=None`` means CUDA (and raises without it); ``"meta"`` builds
     the shapes alone.  Weights start at zero: ``models.convert`` fills
-    them from a reference-layout tree.
+    them from a reference-layout tree, or on the device
+    (``convert.device_fill``).
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -186,7 +207,13 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dev)
         pat = cfg.block_pattern
         self.layers = nn.ModuleList(
-            Block(pat[i % len(pat)], cfg, dev) for i in range(cfg.n_layers))
+            Block(pat[i % len(pat)], cfg, cfg.is_enc_dec, dev)
+            for i in range(cfg.n_layers))
+        if cfg.is_enc_dec:
+            self.enc_layers = nn.ModuleList(
+                Block(ENC_PATTERN[0], cfg, False, dev)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = RMSNorm(cfg.d_model, dev)
 
     def embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
         h = embed(self.embed.table, tokens) * math.sqrt(self.cfg.d_model)
@@ -197,28 +224,68 @@ class Transformer(nn.Module):
         logits = unembed(self.embed.table, h).float()
         return softcap(logits, self.cfg.final_softcap)
 
-    def run(self, h, positions, caches=None):
-        """The layer loop (the reference's ``_run_stack``); with
+    def run(self, h, positions, caches=None, *, layers=None, **kw):
+        """The layer loop (the reference's ``_run_stack``) over ``layers``
+        (the decoder's by default); ``kw`` goes to every block.  With
         ``cfg.remat``, each layer of a forward that records gradients is
         recomputed in the backward."""
+        layers = self.layers if layers is None else layers
         if caches is None and self.cfg.remat and torch.is_grad_enabled():
-            for layer in self.layers:
-                h, _ = checkpoint(layer, h, positions, use_reentrant=False)
+            for layer in layers:
+                h, _ = checkpoint(layer, h, positions, use_reentrant=False,
+                                  **kw)
             return h, None
         new = []
-        for i, layer in enumerate(self.layers):
+        for i, layer in enumerate(layers):
             h, c = layer(h, positions,
-                         caches[i] if caches is not None else None)
+                         caches[i] if caches is not None else None, **kw)
             new.append(c)
         return h, (new if caches is not None else None)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def encode(self, enc_embeds: torch.Tensor):
+        """The (stub-fronted) encoder over precomputed frame embeddings:
+        (encoder output, its positions), as the reference's ``_encode``."""
+        pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
+        h, _ = self.run(enc_embeds.to(self.cfg.dtype), pos,
+                        layers=self.enc_layers, causal=False)
+        return self.enc_norm(h), pos
+
+    def inputs(self, batch: Dict[str, torch.Tensor]):
+        """The decoder's input stream and keywords from a batch: the token
+        embeddings after any vision prefix (cast to the model dtype, not
+        scaled), ``prefix_len``, and the encoder output of an enc-dec."""
+        h = self.embed_in(batch["tokens"])
+        kw: Dict[str, Any] = {}
+        if self.cfg.frontend == "vision" and "prefix_embeds" in batch:
+            pre = batch["prefix_embeds"].to(self.cfg.dtype)
+            h = torch.cat([pre, h], dim=1)
+            kw["prefix_len"] = pre.shape[1]
+        if self.cfg.is_enc_dec:
+            kw["enc_out"], kw["enc_pos"] = self.encode(batch["enc_embeds"])
+        return h, kw
+
+    def forward(self, tokens: torch.Tensor, **stubs) -> torch.Tensor:
         """Training-mode forward (the reference's ``forward`` without the
-        MoE aux loss): (B, S) ids -> (B, S, vocab) f32 logits."""
-        h = self.embed_in(tokens)
+        MoE aux loss): (B, S) ids and the batch's stub inputs
+        (``STUB_INPUTS``) -> (B, S, vocab) f32 logits."""
+        h, kw = self.inputs({"tokens": tokens, **stubs})
         positions = torch.arange(h.shape[1], device=h.device)
-        h, _ = self.run(h, positions)
+        h, _ = self.run(h, positions, **kw)
+        if "prefix_len" in kw:
+            h = h[:, kw["prefix_len"]:]
         return self.logits_out(h)
+
+
+STUB_INPUTS = ("enc_embeds", "prefix_embeds")
+
+
+def forward(model: Transformer, batch: Dict[str, torch.Tensor]):
+    """The reference's ``forward(cfg, params, batch)``: (logits, aux),
+    where aux, the MoE load-balance loss, is 0 (no MoE is ported)."""
+    logits = model(batch["tokens"], **{k: batch[k] for k in STUB_INPUTS
+                                       if k in batch})
+    return logits, torch.zeros((), dtype=torch.float32,
+                               device=logits.device)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -242,9 +309,10 @@ def loss_fn(model: Transformer,
     """Next-token cross-entropy (labels = batch['labels'], -1 = ignore),
     in the reference's logsumexp / one-hot form.  The reference adds
     ``0.01 * aux``, the MoE load-balance loss, which is 0 for every
-    ported configuration (no MoE)."""
+    ported configuration (no MoE).  ``batch`` may hold the reference's
+    ``enc_embeds`` / ``prefix_embeds``."""
     check_trainable(model.cfg)
-    logits = model(batch["tokens"])
+    logits, _ = forward(model, batch)
     labels = batch["labels"]
     valid = labels >= 0
     lab = torch.where(valid, labels, 0).long()
@@ -260,8 +328,9 @@ Cache = Union[KVCache, SSMCache]
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> List[Cache]:
-    """One cache per layer (the reference stacks them per block
-    position)."""
+    """One cache per decoder layer (the reference stacks them per block
+    position); a sliding-window layer's ring has ``min(max_len, window)``
+    slots."""
     check_scope(cfg)
     dev = resolve_device(device)
     caches: List[Cache] = []
@@ -273,36 +342,43 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
                 dtype=cfg.dtype, device=dev))
         else:
-            caches.append(init_kv_cache(batch, max_len, cfg.n_kv_heads,
+            win = cfg.window if spec.kind == "swa" else None
+            alloc = min(max_len, win) if win else max_len
+            caches.append(init_kv_cache(batch, alloc, cfg.n_kv_heads,
                                         cfg.hd, cfg.dtype, device=dev))
     return caches
 
 
 def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
             max_len: int):
-    """Run the prompt through the model, seeding the caches.  Returns the
-    last position's logits (B, vocab) and the caches."""
-    tokens = batch["tokens"]
-    h = model.embed_in(tokens)
-    caches = init_caches(model.cfg, tokens.shape[0], max_len, tokens.device)
+    """Run the prompt through the model, seeding the caches.  ``batch``
+    holds ``tokens`` and, per config, ``enc_embeds`` / ``prefix_embeds``.
+    Returns the last position's logits (B, vocab) and the caches."""
+    h, kw = model.inputs(batch)
+    caches = init_caches(model.cfg, h.shape[0], max_len, h.device)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches = model.run(h, positions, caches)
+    h, caches = model.run(h, positions, caches, **kw)
     return model.logits_out(h[:, -1:])[:, -1], caches
 
 
 def decode_step(model: Transformer, tokens_last: torch.Tensor,
-                caches: List[Cache], *, pos0=None):
+                caches: List[Cache], *, pos0=None, enc_out=None,
+                enc_pos=None):
     """One decode step.  tokens_last: (B, 1).  Returns (logits, caches).
 
     ``pos0`` overrides the query position (required for attention-free
-    models, whose caches carry no position counter).
+    models, whose caches carry no position counter).  ``enc_out`` /
+    ``enc_pos`` are an encoder-decoder's encoder output and positions
+    (``Transformer.encode``); without them its cross-attention attends
+    over the decoded token alone, as the reference's does.
     """
     if pos0 is None:
         pos0 = _cache_len(model.cfg, caches)
     h = model.embed_in(tokens_last)
     positions = pos0 + torch.arange(tokens_last.shape[1],
                                     device=h.device)
-    h, caches = model.run(h, positions, caches)
+    h, caches = model.run(h, positions, caches, enc_out=enc_out,
+                          enc_pos=enc_pos)
     return model.logits_out(h)[:, -1], caches
 
 

@@ -155,6 +155,42 @@ def test_wrappers_cpu_take_plain_versions():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan",
+                                  "tat_lookup"])
+def test_ops_exports_match_reference_ops(ref, name):
+    """``kernels.ops`` exports each wrapper under the reference's
+    ``kernels.ops`` name, and on CPU tensors it gives what the reference's
+    wrapper gives (the Pallas kernel in interpret mode there)."""
+    import importlib
+
+    import jax.numpy as jnp
+    from repro_torch.kernels import ops
+    rops = importlib.import_module("repro.kernels.ops")
+    assert ops.__all__ == ["flash_attention", "ssd_scan", "tat_lookup"]
+    if name == "flash_attention":
+        args = _qkv(11, 1, 2, 128, 32)
+        kw = dict(causal=True, window=48)
+    elif name == "ssd_scan":
+        args = _ssd_case(12, 1, 128, 2, 16, 32)
+        kw = dict(chunk=64)
+    else:
+        rng = np.random.default_rng(13)
+        args = (rng.integers(0, 32, 256).astype(np.int32),
+                rng.integers(0, 32, 16).astype(np.int32),
+                rng.integers(0, 3, 16).astype(np.int32))
+        kw = {}
+    got = getattr(ops, name)(*map(_t, args), **kw)
+    want = getattr(rops, name)(*map(jnp.asarray, args), **kw)
+    if name == "flash_attention":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        if name == "tat_lookup":
+            assert np.array_equal(g.numpy(), np.asarray(w))
+        else:
+            _close((g,), (w,), tol=TOL if name == "flash_attention"
+                   else SSD_TOL)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "heads", "window",
                                  "mixed"])
 def test_flash_wrapper_raises_on_what_it_does_not_take(bad):

@@ -10,8 +10,9 @@ layer outputs and 1e-4 relative to the largest logit on whole models.
 
 Also here: the full-width layout (on the meta device, no allocation)
 against ``jax.eval_shape`` of the reference's ``init_params``; the shape
-of ``serve_ref.json``; import hygiene; the scope and device rules; and
-the serve CLI.
+of ``serve_ref.json``; import hygiene; the scope rule (MoE alone
+raises; the changes it once refused match the reference) and the device
+rule; and the serve CLI.
 """
 from __future__ import annotations
 
@@ -250,7 +251,7 @@ def test_forward_matches_reference_and_decode(ref, arch):
 
 
 # ------------------------------------------------------- full-width layout
-@pytest.mark.parametrize("arch", SMOKE)
+@pytest.mark.parametrize("arch", tconfigs.PORTED)
 def test_full_width_layout_matches_reference_init_params(ref, arch):
     """Built on the meta device (nothing allocated): the port's weights in
     the reference layout have exactly the leaf shapes of the reference's
@@ -328,10 +329,7 @@ def test_unported_archs_raise(arch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(n_experts=4, block_pattern=(tt.LayerSpec("attn", moe=True),)),
-    dict(attn_softcap=50.0), dict(final_softcap=30.0), dict(qk_norm=True),
-    dict(window=8, block_pattern=(tt.LayerSpec("swa"),)),
-    dict(frontend="vision", frontend_seq=4), dict(n_enc_layers=2)])
+    dict(n_experts=4, block_pattern=(tt.LayerSpec("attn", moe=True),))])
 def test_out_of_slice_configs_raise(change):
     import dataclasses
     cfg = dataclasses.replace(tconfigs.get_config("smollm-135m", smoke=True),
@@ -340,6 +338,41 @@ def test_out_of_slice_configs_raise(change):
         tt.Transformer(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.init_caches(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(attn_softcap=50.0), dict(final_softcap=30.0), dict(qk_norm=True),
+    dict(window=8, block_pattern=(tt.LayerSpec("swa"),)),
+    dict(frontend="vision", frontend_seq=4), dict(n_enc_layers=2)])
+def test_former_scope_changes_match_reference(ref, change):
+    """Each change that the scope guard once refused now builds, and its
+    forward matches the reference's on the same tree and inputs."""
+    import dataclasses
+    import jax.numpy as jnp
+    cfg = dataclasses.replace(tconfigs.get_config("smollm-135m", smoke=True),
+                              **change)
+    jcfg = dataclasses.replace(
+        ref.configs.get_config("smollm-135m", smoke=True), **{
+            k: (tuple(ref.transformer.LayerSpec(*x) for x in v)
+                if k == "block_pattern" else v) for k, v in change.items()})
+    tree = numpy_params(cfg, 2)
+    model = params_from_reference(cfg, tree, "cpu")
+    rng = np.random.default_rng(6)
+    b, s = 2, 20
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s))}
+    if cfg.is_enc_dec:
+        batch["enc_embeds"] = rng.standard_normal(
+            (b, 5, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        batch["prefix_embeds"] = rng.standard_normal(
+            (b, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    jl, _ = ref.transformer.forward(jcfg, _jtree(tree),
+                                    {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+    with torch.inference_mode():
+        tl, _ = tt.forward(model, {k: _t(v) for k, v in batch.items()})
+    assert tl.shape == (b, s, cfg.vocab)
+    assert _rel(tl, jl) < MODEL_RTOL
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -366,8 +399,9 @@ def test_serve_cli_matches_reference_greedy_decode(ref, arch, capsys):
                        "--gen", str(gen), "--seed", "5"])
     assert "first sequence:" in capsys.readouterr().out
     jcfg = ref.configs.get_config(arch, smoke=True)
-    params = _jtree(numpy_params(tconfigs.get_config(arch, smoke=True), 5))
-    prompt = tserve.random_prompt(jcfg.vocab, b, s, 5, "cpu").numpy()
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    params = _jtree(numpy_params(tcfg, 5))
+    prompt = tserve.random_batch(tcfg, b, s, 5, "cpu")["tokens"].numpy()
     logits, caches = ref.transformer.prefill(
         jcfg, params, {"tokens": jnp.asarray(prompt)}, s + gen)
     want = []

@@ -66,7 +66,13 @@ def test_emulated_flash_attention_equals_plain(model_libs, b, h, hkv, s, d,
     (1, 2, 1, 70, 16, False, 40, torch.float32),
     (1, 2, 1, 70, 256, True, None, torch.float32),    # D = 256: GQA, tail S
     (1, 2, 2, 100, 256, True, 48, torch.float32),     # window
-    (1, 2, 2, 64, 256, False, None, torch.float32)]))
+    (1, 2, 2, 64, 256, False, None, torch.float32),
+    # gemma3's local layers cut down: a window over several key tiles
+    # with a ragged last tile, and a window inside one tile
+    (1, 2, 1, 300, 256, True, 100, torch.bfloat16),
+    (1, 2, 1, 200, 256, True, 20, torch.bfloat16),
+    (1, 2, 1, 300, 256, True, 100, torch.float32),
+    (1, 2, 1, 150, 256, True, 20, torch.float32)]))
 def test_emulated_flash_tc_equals_plain(model_libs, b, h, hkv, s, d, causal,
                                         window, dtype):
     """The tensor-core kernel's body, its wgmma, copies and swizzle done
