@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs thirteen phases, each printing its own
+``build/repro_torch/``, and runs fourteen phases, each printing its own
 lines:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -73,8 +73,9 @@ lines:
    ``n_switches`` 2-4 and ``persist_budget=100_000`` (63 cells), each
    through ``simulate_grid`` with its launch counts, exact against
    ``src/repro_torch/testdata/chain_ref.json`` (all of (a) and (b)) and
-   the eager ``scan_cell`` (all of (a), lu_cont's 3 cells at
-   ``n_switches`` 4 of (b); a pool of host processes), with each Fig. 1 row's persist latency over
+   the eager ``scan_cell`` ((a)'s 6 cells at depths 0 and 4, lu_cont's
+   3 cells at ``n_switches`` 4 of (b); a pool of host processes), with
+   each Fig. 1 row's persist latency over
    depth-0 NoPB and its per-hop recovery; then (d) the section profile
    of a chained step (Fig. 1's PB/4 and PB_RF/4 cells, cholesky's cells
    at ``n_switches`` 4), exact against (a) and (b); then (c) 225 fuzzed
@@ -82,7 +83,8 @@ lines:
    oracle (``tests/_torch_crash_driver.py``).
 
 Then one JSON line with the serving numbers, one with the attention
-family's (phase 13), one with the training numbers (phase 12), one with
+family's (phase 13), one with the MoE family's (phase 14), one with the
+training numbers (phase 12), one with
 every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
@@ -100,8 +102,9 @@ without CUDA.
    ``src/repro_torch/testdata/fabric_ref.json`` (all 52 + 28 cells),
    timed with its bounds beside the same traces under the plain 2-hop
    chain (the ``FAB = false`` kernel); (c) the kernel against the eager
-   ``scan_cell`` (a pool of host processes) on all 52 cells of (a) at
-   fig_fabric's smoke size (150 pairs); (d) the section profile of a
+   ``scan_cell`` (a pool of host processes) on the 20 cells of (a) with
+   1 or 8 leaves at fig_fabric's smoke size (150 pairs), and against
+   fabric_ref.json on all 52; (d) the section profile of a
    fabric step (cholesky's 4 cells of (b)); (e) 300 fuzzed fabric crash
    cells on the card against the port's oracle; and, given
    ``--sass-against OLD.cu [OLD_FLASH.cu]``, (f)
@@ -160,8 +163,8 @@ without CUDA.
     macro_ref.json's (the JAX reference's, cell by cell), both timed in
     turns (off, on, on, off) with the hit rate and the reasons; (c) the
     MAC kernel against the eager ``scan_cell`` with macro-steps on (a
-    pool) on phase 3's budget-2000 grid and crash cells, counters
-    included.  Phase 3 itself runs the grid and crash cells with
+    pool) on phase 3's budget-2000 grid's PB_RF cells and crash cells,
+    counters included.  Phase 3 itself runs the grid and crash cells with
     macro-steps off, and the section profiles (phases 4, 8d, 9d, 10d)
     run the profile build, SPL 1 and ``MAC = false`` only, against the
     main path's state outputs.
@@ -185,8 +188,16 @@ without CUDA.
     bytes and peak memory per scheme; then the step's time (CUDA events,
     warmed up) and tokens/s.  Every kernel's launch count over the phase
     must be 0: the training path reaches no hand-written kernel, as the
-    reference's reaches no Pallas one.  ``python3 chip_smoke.py
-    --train-only`` runs phase 12 alone (no kernel build).
+    reference's reaches no Pallas one; (c) training through SSD layers
+    (``models.ssm.ssd_chunked``), mamba2-1.3b at full width: the f32 copy
+    at 2 of its 48 layers, ``train_ref_ssd.json``'s batches and
+    optimizer, each of 3 steps' loss, grad norm and lr against
+    ``src/repro_torch/testdata/train_ref_ssd.json``; then the published
+    bf16 config at full width and depth (weights drawn on the card) at
+    the train CLI's defaults, its step time (CUDA events over 3 steps
+    after 2), tokens/s and peak memory; again no kernel launch in the
+    phase.  ``python3 chip_smoke.py --train-only`` runs phase 12 alone
+    (no kernel build).
 
 13. (run after phase 7) the attention family: sliding windows and their
     ring caches, logit softcaps, qk-norm, the prefix-LM and the
@@ -207,16 +218,40 @@ without CUDA.
     them windowed), gemma2-2b, paligemma-3b (after its 256 prefix
     embeddings) and seamless (256 frames; 24 launches) whole and
     deepseek-67b at 16 of its 95 layers (16 launches) at 4 x 1024 + 64,
-    each with its prefill ms, decode tokens/s and peak memory, the
-    prefill logits of each that launches the kernel against the same
-    model with the plain version swapped in (within a tenth of what
-    zeroing the kernel moves them), and gemma3-12b's device time by
+    each with its prefill ms, decode tokens/s and peak memory, for each
+    that launches the kernel every kernel call of its prefill against the
+    plain version on the same inputs (within 2^-6 of ||plain||) and the
+    prefill logits against the same model with the plain version swapped
+    in (within a tenth of what zeroing the kernel moves them, both as
+    ||diff|| / ||plain||), and gemma3-12b's device time by
     kernel (``torch.profiler``); (c) the kernel at each new shape of
     these paths against the plain version, timed beside
     ``scaled_dot_product_attention`` (GQA, a boolean mask where there is a
     window) with a bound that counts the pairs the mask keeps.
-    ``python3 chip_smoke.py --serve-only`` runs phases 5-7 and 13 alone
-    and builds only their kernels.
+    ``python3 chip_smoke.py --serve-only`` runs phases 5-7, 13 and 14
+    alone and builds only their kernels.
+
+14. (run after phase 13) the MoE family: top-2 expert FFNs, each
+    expert's buffer as long as the token group at serving
+    (``drop=False``).  (a) mixtral-8x7b (1 layer, 1 x 4160 prompt, window
+    4096) and phi3.5-moe-42b (1 layer, 2 x 256) at full width in f32 with
+    ``numpy_params(cfg, 0)`` (drawn on phase 13's background thread)
+    against ``src/repro_torch/testdata/serve_ref_moe.json`` within 1e-5 of
+    each step's largest |logit|, greedy tokens equal, each prefill 1
+    launch of the f32 D <= 128 kernel; (b) the three MoE ids served in
+    bf16 at full width with device-filled weights, cut in depth to fit
+    one card: mixtral-8x7b 16 of 32 layers at 2 x 4160 + 64 greedy steps
+    (16 windowed ``flash_attention_tc`` launches), phi3.5-moe-42b 16 of
+    32 at 4 x 1024 + 64 (16), jamba-1.5-large-398b's first 5 layers
+    (ssm, ssm+MoE, ssm, ssm+MoE, attn) at 2 x 1024 + 64 (1 and 4
+    ``ssd_scan_tc``), each with prefill ms, decode tokens/s and peak
+    memory, every kernel call of its prefill against the plain version
+    on the same inputs and its prefill logits against the same model
+    with each plain version swapped in (as in 13b), and mixtral's
+    prefill device time by kernel and by the op
+    that launched it; (c) the kernels at each new shape against their
+    plain versions, the attention timed beside
+    ``scaled_dot_product_attention``, each with its bound.
 
 ``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
 comparison of the package's cell scan with each other ``cell_scan.cu``
@@ -888,20 +923,31 @@ def phase_chains(torch, np, smem_ns):
     got = cs.cell_scan(*args, **kw)
     torch.cuda.synchronize()
     ms_a = cuda_ms(lambda: cs.cell_scan(*args, **kw), 3)
-    plain, plain_s, pool_s = eager_cells(torch, args, kw, pairs)
-    err = compare_outputs(plain, got, "Fig. 1 sweep")
-    steps_a = int(plain.steps.max())
+    # the eager twin on the depth-0 and depth-4 cells (6 of 21; the kernel
+    # on those alone is timed beside it); chain_ref.json holds all 21
+    sel = [k for k, lab in enumerate(labels) if lab[1] in (0, 4)]
+    plain, plain_s, pool_s = eager_cells(torch, args, kw, sel)
+    sel_t = torch.tensor(sel, device="cuda")
+    err = compare_outputs(plain, cs.CellScanOut(*(x[sel_t] for x in got)),
+                          "Fig. 1 sweep")
+    sargs, skw = cell_inputs([tr], configs, [0] * len(sel), sel,
+                             device="cuda")
+    ms_sel = cuda_ms(lambda: cs.cell_scan(*sargs, **skw), 3)
+    steps_a = int(got.steps.max())
     bound_a = cell_bytes([tr], len(pairs), 1, 1, len(configs),
                          kw["n_deep_max"]) / HBM_BYTES_PER_S * 1e3
     print(f"phase 8a simulate_grid (Fig. 1 sweep, 21 cells, D = "
           f"{kw['n_deep_max']}) wall {wall_a:.3f} s; launches "
-          f"{json.dumps(counts_a)}; exact against chain_ref.json and the "
-          f"eager scan_cell on all 21 cells (eager {plain_s:.1f} s of cells, "
-          f"{pool_s:.1f} s wall over a pool); kernel {ms_a:.3f} ms, longest "
+          f"{json.dumps(counts_a)}; exact against chain_ref.json on all 21 "
+          f"cells and the eager scan_cell on the {len(sel)} at depths 0 and "
+          f"4 (eager {plain_s:.1f} s of cells, {pool_s:.1f} s wall over a "
+          f"pool; the kernel on those {ms_sel:.3f} ms); kernel {ms_a:.3f} "
+          f"ms, longest "
           f"cell {steps_a} steps ({ms_a * 1e6 / steps_a:.1f} ns/step; "
           f"latency bound {steps_a * smem_ns / 1e6:.3f} ms)")
     out["fig1"] = dict(counts=counts_a, wall_s=wall_a, ms=ms_a,
-                       plain_s=plain_s, pool_s=pool_s, bound_ms=bound_a,
+                       plain_s=plain_s, pool_s=pool_s, plain_cells=len(sel),
+                       ms_plain_cells=ms_sel, bound_ms=bound_a,
                        steps=steps_a, max_abs_err=err,
                        persist_norm={f"{n}/{d}": r.persist_lat_ns / base
                                      for (n, d, c), r in zip(labels, cells)
@@ -1509,20 +1555,24 @@ def phase_fabric(torch, np, smem_ns, paper_traces, sass_against=None):
                          chain_control=ctl_b)
 
     # (c) the kernel against the eager plain version at the smoke size
+    # (the eager twin on the 1- and 8-leaf cells, 20 of 52, live and
+    # crashed; fabric_ref.json holds all 52)
     str_, slabels, sconfigs = fig_fabric_grid(np, FAB_SMOKE_OPS)
+    sel = [j for j, c in enumerate(sconfigs) if c.fabric.n_leaves in (1, 8)]
     ins_c, num_c = grid_timing(torch, smem_ns, [str_], sconfigs,
-                               "fig_fabric at its smoke size")
-    sel = list(range(len(sconfigs)))
+                               "fig_fabric at its smoke size, 1 and 8 "
+                               "leaves", pairs=[(0, j) for j in sel])
     plain, plain_s, pool_s = eager_cells(torch, ins_c["args"], ins_c["kw"],
-                                         sel)
+                                         list(range(len(sel))))
     err = compare_outputs(plain, ins_c["got"], "fig_fabric smoke size")
     scells = simulate_grid([str_], sconfigs)[0]
     for lab, r in zip(slabels, scells):
         same_as_datum(np, r, ref["fig_smoke"][lab], f"fabric smoke {lab}")
     print(f"phase 9c cell_scan on fig_fabric's 52 cells at its smoke size "
-          f"({FAB_SMOKE_OPS} pairs a core): exact against the eager "
+          f"({FAB_SMOKE_OPS} pairs a core): exact against fabric_ref.json, "
+          f"and on the {len(sel)} with 1 or 8 leaves against the eager "
           f"scan_cell ({plain_s:.1f} s of cells, {pool_s:.1f} s wall over "
-          f"a pool) and fabric_ref.json")
+          f"a pool)")
     out["smoke"] = dict(num_c, plain_s=plain_s, pool_s=pool_s,
                         max_abs_err=err)
 
@@ -1944,6 +1994,9 @@ def phase_epochs(torch, np, smem_ns, paper_traces):
 COVER_PBE = {1: 16, 2: 40, 4: 100}     # the largest hop's PBEs selects SPL
 COVER_BOUND = 1e4                      # the schedules' boundary, ns
 COVER_BUDGET = 150
+# one trace: the configs select the instantiations, and a second trace
+# only doubled the eager twin's load
+COVER_TRACES = ("radiosity",)
 
 
 def coverage_configs(target):
@@ -1989,7 +2042,7 @@ def coverage_configs(target):
 def phase_coverage(torch):
     """Phase 10g: every instantiation of ``cell_scan_kernel<SPL, D, FAB,
     EP, MAC>`` (``cell_scan.INSTANTIATIONS``) launched once through
-    ``simulate_grid`` on smoke-size traces (radiosity and raytrace at
+    ``simulate_grid`` on smoke-size traces (``COVER_TRACES`` at
     ``persist_budget`` COVER_BUDGET) x :func:`coverage_configs`, with
     macro-steps on and off, the instantiation read from the wrapper's
     launch record, and every output exact against the eager ``scan_cell``
@@ -2000,7 +2053,7 @@ def phase_coverage(torch):
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
     traces = [make_trace(n, persist_budget=COVER_BUDGET)
-              for n in ("radiosity", "raytrace")]
+              for n in COVER_TRACES]
     t0 = time.time()
     grids, ran, gots = [], {}, []
     targets = sorted({t[:4] for t in cs.INSTANTIATIONS})
@@ -2272,8 +2325,10 @@ def phase_macro(torch, np, smem_ns, paper_traces, paper_configs, scan):
     out["fig1_ns_per_step"] = prof
 
     # (c) the MAC kernel against its eager twin (macro-steps on) on phase
-    # 3's grid and crash cells
+    # 3's grid, its PB_RF column (7 of 21 cells), and its crash cells
+    from repro_torch.core import Scheme
     gtraces, gconfigs, gpairs, _ = scan["grid"]
+    gpairs = [p for p in gpairs if gconfigs[p[1]].scheme == Scheme.PB_RF]
     grids = []
     for trs, cfgs, prs, track in ((gtraces, gconfigs, gpairs, 0),
                                   (ctraces, ccfgs, cpairs, 64)):
@@ -2827,9 +2882,9 @@ def phase_ssd(torch, np):
     return out
 
 
-def device_ms_by_kernel(torch, fn):
+def device_ms_by_kernel(torch, fn, top=6):
     """Device time of the kernels ``fn()`` launches (``torch.profiler``,
-    CUDA activity): (total ms, the six largest as (name, ms, calls))."""
+    CUDA activity): (total ms, the ``top`` largest as (name, ms, calls))."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2838,7 +2893,7 @@ def device_ms_by_kernel(torch, fn):
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:6]
+    return sum(r[1] for r in rows), rows[:top]
 
 
 def f32_prefill_device(torch, cfg, model, prompt, max_len):
@@ -3128,10 +3183,14 @@ FAMILY_SHAPES = (
      None))
 
 
-def family_ref():
+def family_ref(name="serve_ref_families.json"):
     with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
-                           "serve_ref_families.json")) as f:
+                           name)) as f:
         return json.load(f)
+
+
+def moe_ref():
+    return family_ref("serve_ref_moe.json")
 
 
 def datum_config(torch, arch, d):
@@ -3142,16 +3201,17 @@ def datum_config(torch, arch, d):
 
 
 class DatumTrees:
-    """``numpy_params`` of each config of serve_ref_families.json, drawn
-    on a background thread (numpy's generator releases the GIL) while
-    phases 8-11 run; :meth:`get` waits for one and hands it over with its
-    fill seconds."""
+    """``numpy_params`` of each config of serve_ref_families.json, then of
+    serve_ref_moe.json, drawn on a background thread (numpy's generator
+    releases the GIL) while phases 8-11 run; :meth:`get` waits for one and
+    hands it over with its fill seconds."""
 
     def __init__(self, torch):
         import threading
-        self.ref = family_ref()
+        self.ref, self.moe_ref = family_ref(), moe_ref()
+        self.configs = {**self.ref["configs"], **self.moe_ref["configs"]}
         self._out, self._err = {}, None
-        self._ready = {a: threading.Event() for a in self.ref["configs"]}
+        self._ready = {a: threading.Event() for a in self.configs}
         self._thread = threading.Thread(target=self._fill, args=(torch,),
                                         daemon=True)
         self._thread.start()
@@ -3159,7 +3219,7 @@ class DatumTrees:
     def _fill(self, torch):
         from repro_torch.models.convert import numpy_params
         try:
-            for arch, d in self.ref["configs"].items():
+            for arch, d in self.configs.items():
                 t0 = time.time()
                 tree = numpy_params(datum_config(torch, arch, d), d["seed"])
                 self._out[arch] = (tree, time.time() - t0)
@@ -3172,7 +3232,8 @@ class DatumTrees:
     def get(self, arch):
         self._ready[arch].wait()
         if self._err is not None:
-            fail(f"phase 13a: the numpy weight fill failed: {self._err!r}")
+            fail(f"phase 13a/14a: the numpy weight fill failed: "
+                 f"{self._err!r}")
         return self._out.pop(arch)
 
 
@@ -3247,11 +3308,14 @@ def planted(model, what):
     return undo
 
 
-def family_datum(torch, arch, d, trees):
-    """One config of serve_ref_families.json in f32 on the card, fed the
-    reference's greedy tokens: the worst relative logit error, greedy
-    tokens checked, the prefill's launches by C entry, and the worst
-    error of each planted fault (which must exceed the limit)."""
+def family_datum(torch, arch, d, trees, phase="13a",
+                 launches=FAMILY_DATUM_LAUNCHES, plant=True,
+                 datum="serve_ref_families.json"):
+    """One config of ``datum`` in f32 on the card, fed the reference's
+    greedy tokens: the worst relative logit error, greedy tokens checked,
+    the prefill's launches by C entry (``launches[arch]``), and with
+    ``plant`` the worst error of each planted fault (which must exceed
+    the limit)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prefix_len, random_batch
     from repro_torch.models.convert import params_from_reference
@@ -3262,8 +3326,8 @@ def family_datum(torch, arch, d, trees):
     del tree
     batch = random_batch(cfg, d["batch"], d["prompt_len"], d["seed"], "cuda")
     if batch["tokens"].tolist() != d["prompt"]:
-        fail(f"phase 13a {arch}: the prompt drawn from the seed is not the "
-             f"datum's")
+        fail(f"phase {phase} {arch}: the prompt drawn from the seed is not "
+             f"the datum's")
     s = prefix_len(cfg) + d["prompt_len"]
     worst, checked, agree = 0.0, 0, 0
     with torch.inference_mode():
@@ -3276,7 +3340,7 @@ def family_datum(torch, arch, d, trees):
             rel = step_rel(torch, logits, ids, want)
             worst = max(worst, rel)
             if rel > rtol or not bool(torch.isfinite(logits).all()):
-                fail(f"phase 13a {arch} f32 step {i}: logits off the "
+                fail(f"phase {phase} {arch} f32 step {i}: logits off the "
                      f"reference by {rel:.3g} relative (limit {rtol})")
             scale = want.abs().max(dim=1).values
             margin = (want[:, 0] - want[:, 1]) / scale
@@ -3285,12 +3349,13 @@ def family_datum(torch, arch, d, trees):
                 if float(margin[j]) > rtol:
                     checked += 1
                     if int(top1[j]) != int(ids[j, 0]):
-                        fail(f"phase 13a {arch} f32 step {i} seq {j}: greedy "
+                        fail(f"phase {phase} {arch} f32 step {i} seq {j}: "
+                             f"greedy "
                              f"{int(top1[j])}, reference {int(ids[j, 0])}")
                 agree += int(top1[j]) == int(ids[j, 0])
         del steps
         plants = {}
-        for what in datum_plants(cfg):
+        for what in (datum_plants(cfg) if plant else ()):
             undo = planted(model, what)
             try:
                 steps, _ = datum_run(torch, model, batch, d, s, enc)
@@ -3298,17 +3363,18 @@ def family_datum(torch, arch, d, trees):
                 undo()
             plants[what] = max(step_rel(torch, *st) for st in steps)
             del steps
-    if by_entry != FAMILY_DATUM_LAUNCHES[arch] or fma:
-        fail(f"phase 13a {arch} f32 prefill launched {by_entry} (FMA {fma}),"
-             f" expected {FAMILY_DATUM_LAUNCHES[arch]}")
-    print(f"phase 13a {arch} f32 ({d['layers']} of {get_config(arch).n_layers}"
+    if by_entry != launches[arch] or fma:
+        fail(f"phase {phase} {arch} f32 prefill launched {by_entry} (FMA "
+             f"{fma}), expected {launches[arch]}")
+    print(f"phase {phase} {arch} f32 ({d['layers']} of "
+          f"{get_config(arch).n_layers}"
           f" layers, {d['batch']} x {d['prompt_len']} prompt"
           + (f" after {prefix_len(cfg)} prefix embeddings"
              if prefix_len(cfg) else "")
           + (f", {d['enc_frames']} frames, decode given the encoder output"
              if cfg.is_enc_dec else "")
           + f", window {cfg.window}, {d['decode_steps']} decode steps): "
-          f"logits within {worst:.3g} relative of serve_ref_families.json "
+          f"logits within {worst:.3g} relative of {datum} "
           f"(limit {rtol}); greedy tokens equal on {checked} checked (margin "
           f"> limit), {agree}/{len(d['steps']) * d['batch']} in all; prefill "
           f"launches {json.dumps(by_entry)}; numpy weight fill {fill_s:.1f} s "
@@ -3316,41 +3382,123 @@ def family_datum(torch, arch, d, trees):
           + "".join(f"; planted {w}: {r:.3g}" for w, r in plants.items()))
     for what, r in plants.items():
         if not r > rtol:
-            fail(f"phase 13a {arch}: the planted fault '{what}' reads "
+            fail(f"phase {phase} {arch}: the planted fault '{what}' reads "
                  f"{r:.3g}, within the limit {rtol}: the check cannot see it")
     return dict(rel=worst, checked=checked, agree=agree, launches=by_entry,
                 fill_s=fill_s, planted=plants)
 
 
-def prefill_logits_vs_plain(torch, model, batch, max_len):
-    """The bf16 prefill's logits on the kernel against the same model with
-    ``flash_attention_ref`` swapped into ``models.attention`` (here only),
-    and against the kernel returning zeros (how much of it the logits
-    see): largest relative differences over rows, and greedy agreement."""
-    from repro_torch.kernels.ref import flash_attention_ref
-    from repro_torch.models import attention as A
+def swapped_logits(torch, model, batch, max_len, swaps):
+    """The prefill's last-position logits (f32) with ``swaps`` (module,
+    attribute, function) set for the call only."""
     from repro_torch.models import transformer as T
-
-    def logits():
+    saved = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    try:
+        for m, a, fn in swaps:
+            setattr(m, a, fn)
         with torch.inference_mode():
             return T.prefill(model, batch, max_len)[0].float()
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
+# Each kernel call of a full-width bf16 prefill (phases 13b and 14b) may
+# differ from its plain version on the same inputs by at most this share of
+# ||plain||, over the call's whole output (y for the SSD): the per-row limit
+# of phase 13c, which the norm over a call reads below.
+SITE_BF16_RTOL = 2.0 ** -6
+
+
+def logits_vs_plain(torch, model, batch, max_len, kernels):
+    """The bf16 prefill on the kernels, every kernel call held at its site
+    against its plain version on the same inputs (``site``: the largest
+    ||kernel - plain|| / ||plain|| over the kernel's calls); and the
+    prefill's logits against the same model with one plain version swapped
+    in at a time (``flash_attention_ref`` into ``models.attention``,
+    ``ssd_scan_ref`` into ``models.ssm``; here only) and, for each, against
+    that plain model with the kernel's place returning zeros (how much of
+    it the logits see), as ||a - b|| / ||b|| over all the logits; where
+    there are two kernels, also against every plain version at once;
+    greedy agreement with the all-plain model."""
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import ssm
+
+    def zero_ssd(x, dt, A_, B, C, chunk, init_state=None):
+        b, _, h, p = x.shape
+        return (torch.zeros_like(x), torch.zeros(
+            (b, h, p, B.shape[-1]), dtype=torch.float32, device=x.device))
+    plain = {"flash_attention": (A, "flash_attention", flash_attention_ref),
+             "ssd_scan": (ssm, "ssd_scan", ssd_scan_ref)}
+    zero = {"flash_attention": lambda q, k, v, **kw: torch.zeros_like(q),
+            "ssd_scan": zero_ssd}
 
     def rel(a, b):
-        return float(((a - b).abs().max(dim=1).values
-                      / b.abs().max(dim=1).values).max())
-    kernel = logits()
-    route = A.flash_attention
-    try:
-        A.flash_attention = lambda q, k, v, **kw: flash_attention_ref(
-            q, k, v, **kw)
-        plain = logits()
-        A.flash_attention = lambda q, k, v, **kw: torch.zeros_like(q)
-        zeroed = logits()
-    finally:
-        A.flash_attention = route
-    return dict(rel=rel(kernel, plain), zeroed_rel=rel(zeroed, plain),
-                greedy_agree=int((kernel.argmax(1) == plain.argmax(1)).sum()),
-                rows=kernel.shape[0])
+        a, b = a.float(), b.float()
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    site = {k: [] for k in kernels}
+
+    def held(k):
+        m, a, ref_fn = plain[k]
+        kern = getattr(m, a)
+
+        def call(*args, **kw):
+            got, want = kern(*args, **kw), ref_fn(*args, **kw)
+            first = (lambda t: t[0] if isinstance(t, tuple) else t)
+            site[k].append(rel(first(got), first(want)))
+            return got
+        return m, a, call
+
+    def logits(swaps):
+        return swapped_logits(torch, model, batch, max_len, swaps)
+    kernel = logits([held(k) for k in kernels])
+    out = {"site": {k: max(v) for k, v in site.items()},
+           "site_calls": {k: len(v) for k, v in site.items()},
+           "rel": {}, "zeroed_rel": {}}
+    for k in kernels:
+        m, a, _ = plain[k]
+        ref = logits([plain[k]])
+        out["rel"][k] = rel(kernel, ref)
+        out["zeroed_rel"][k] = rel(logits([(m, a, zero[k])]), ref)
+    every = logits([plain[k] for k in kernels]) if len(kernels) > 1 else ref
+    out.update(rel_all_plain=rel(kernel, every),
+               greedy_agree=int((kernel.argmax(1) == every.argmax(1)).sum()),
+               rows=kernel.shape[0])
+    return out
+
+
+def plain_check_failure(check):
+    """What of ``logits_vs_plain``'s check failed, or None: a kernel call
+    off its plain version by more than ``SITE_BF16_RTOL``, or logits off
+    the plain version swapped in by more than a tenth of what zeroing the
+    kernel moves them."""
+    site = {k: r for k, r in check["site"].items()
+            if not r <= SITE_BF16_RTOL}
+    logits = {k: r for k, r in check["rel"].items()
+              if not r <= check["zeroed_rel"][k] / 10}
+    if site:
+        return (f"a kernel call off its plain version on the same inputs by "
+                f"{site} relative (limit {SITE_BF16_RTOL})")
+    if logits:
+        return (f"prefill logits off the plain version by {logits} "
+                f"relative, over a tenth of what zeroing the kernel moves "
+                f"them ({check['zeroed_rel']})")
+    return None
+
+
+def plain_check_text(check):
+    """``logits_vs_plain``'s readings, for a phase's line."""
+    return (f"each kernel call vs its plain version on the same inputs, "
+            f"largest ||diff|| / ||plain||: {json.dumps(check['site'])} over "
+            f"{json.dumps(check['site_calls'])} calls (limit "
+            f"{SITE_BF16_RTOL}); prefill logits vs each plain version "
+            f"swapped in: {json.dumps(check['rel'])} (limit a tenth of what "
+            f"zeroing that kernel moves them: "
+            f"{json.dumps(check['zeroed_rel'])}); vs every plain version "
+            f"{check['rel_all_plain']:.3g}, greedy agree "
+            f"{check['greedy_agree']}/{check['rows']}")
 
 
 def family_serve(torch, arch, layers, prompt_len, want):
@@ -3393,12 +3541,9 @@ def family_serve(torch, arch, layers, prompt_len, want):
              f"{by_entry}; expected {want_by}")
     tok_s = 4 * 64 / res.decode_s
     max_len = prompt_len + prefix_len(cfg) + 64
-    check = (prefill_logits_vs_plain(torch, model, batch, max_len)
-             if want else None)
-    if check and not (check["rel"] <= check["zeroed_rel"] / 10):
-        fail(f"phase 13b {arch} bf16 prefill logits off the plain version "
-             f"by {check['rel']:.3g} relative, over a tenth of the "
-             f"{check['zeroed_rel']:.3g} that zeroing the kernel moves them")
+    check = (logits_vs_plain(torch, model, batch, max_len,
+                             ["flash_attention"]) if want else None)
+    failed = plain_check_failure(check) if check else None
     shape = (f"4 x {prompt_len} prompt"
              + (f" after {prefix_len(cfg)} prefix embeddings"
                 if prefix_len(cfg) else "")
@@ -3409,10 +3554,9 @@ def family_serve(torch, arch, layers, prompt_len, want):
           f"{res.decode_s * 1e3:.1f} ms ({tok_s:.1f} tokens/s); launches "
           f"{json.dumps(by_entry)}; peak memory {peak:.2f} GiB; device fill "
           f"{fill_s:.1f} s; first tokens {res.tokens[0, :8].tolist()}"
-          + (f"; prefill logits vs the plain version swapped in: "
-             f"{check['rel']:.3g} relative (zeroing the kernel: "
-             f"{check['zeroed_rel']:.3g}), greedy agree {check['greedy_agree']}"
-             f"/{check['rows']}" if check else ""))
+          + (f"; {plain_check_text(check)}" if check else ""))
+    if failed:
+        fail(f"phase 13b {arch} bf16: {failed}")
     out = dict(layers=cfg.n_layers, of_layers=full, shape=shape,
                launches=by_entry, prefill_ms=res.prefill_s * 1e3,
                decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
@@ -3455,7 +3599,7 @@ def abs_err(torch, got, want):
 
 
 def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
-                  window):
+                  window, phase="13c"):
     """The kernel at one shape of these paths against the plain version,
     timed with CUDA events beside ``scaled_dot_product_attention`` (GQA,
     a boolean mask where there is a window); its route checked by the
@@ -3475,8 +3619,8 @@ def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
     want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     if fa.launches_by.get(entry, 0) - n0 != 1:
-        fail(f"phase 13c {row}: {entry} not launched")
-    err = max_err(got, want, f"phase 13c {row}", TOL[dtype_name][0])
+        fail(f"phase {phase} {row}: {entry} not launched")
+    err = max_err(got, want, f"phase {phase} {row}", TOL[dtype_name][0])
     # bf16 is held per output row (an absolute limit at these shapes sits
     # near a typical output value); f32 by its absolute limit.  Where there
     # is a window, the plain version one key short stands for a planted
@@ -3488,14 +3632,16 @@ def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
         limit, how, measure = TOL[dtype_name][0], "absolute", abs_err
     worst = measure(torch, got, want)
     if not worst <= limit:
-        fail(f"phase 13c {row}: kernel off the plain version by {worst:.3g}"
+        fail(f"phase {phase} {row}: kernel off the plain version by "
+             f"{worst:.3g}"
              f" {how} (limit {limit})")
     plant = None
     if window:
         plant = measure(torch, got, flash_attention_ref(
             q, k, v, causal=causal, window=window - 1))
         if not plant > limit:
-            fail(f"phase 13c {row}: the plain version at window {window - 1}"
+            fail(f"phase {phase} {row}: the plain version at window "
+                 f"{window - 1}"
                  f" reads {plant:.3g} {how}, within the limit {limit}: the "
                  f"check cannot see a one-key window-edge fault")
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
@@ -3520,7 +3666,8 @@ def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
     nbytes = size * (2.0 * b * h * s * d + 2.0 * b * hkv * s * d)
     split = 6 if dtype == torch.float32 else 1
     bound_ms, bound_by = bound(split * flops, nbytes)
-    print(f"phase 13c flash_attention ({entry}) {row}: q ({b}, {h}, {s}, {d})"
+    print(f"phase {phase} flash_attention ({entry}) {row}: q ({b}, {h}, {s}, "
+          f"{d})"
           f", k/v {hkv} heads, {dtype_name}, causal={causal}, window={window}"
           f": max abs error {err:.3g}, {worst:.3g} {how} (limit {limit}"
           + (f"; window {window - 1} planted: {plant:.3g}" if window else "")
@@ -3560,6 +3707,253 @@ def phase_family(torch, np, trees):
         out["kernel"][row] = family_kernel(torch, np, row, *shape)
     out["phase_s"] = time.time() - t0
     print(f"phase 13 done in {out['phase_s']:.1f} s")
+    return out
+
+
+# ---- phase 14: the MoE family ---------------------------------------------
+# The f32 datum's prefill launches of flash_attention by C entry: the one
+# layer's self-attention on the f32 D <= 128 kernel.
+MOE_DATUM_LAUNCHES = {"mixtral-8x7b": {"flash_attention_tc_f32_launch": 1},
+                      "phi3.5-moe-42b": {"flash_attention_tc_f32_launch": 1}}
+# The bf16 serves at full width with device-filled weights, cut in depth to
+# fit one card: arch -> (layers served, requests, prompt tokens, launches
+# of flash_attention_tc_launch and of ssd_scan_tc_launch a prefill makes).
+# jamba's cut keeps the first 5 layers of its 8-layer block (ssm, ssm+MoE,
+# ssm, ssm+MoE, attn), so its block pattern is cut with it.
+MOE_SERVE = {"mixtral-8x7b": (16, 2, 4160, 16, 0),
+             "phi3.5-moe-42b": (16, 4, 1024, 16, 0),
+             "jamba-1.5-large-398b": (5, 2, 1024, 1, 4)}
+# The kernels at each new shape of these paths: flash_attention as in
+# FAMILY_SHAPES, and jamba's SSD (b, s, h, p, n, chunk) in bf16.
+MOE_FLASH_SHAPES = (
+    ("mixtral-8x7b", "bfloat16", 2, 32, 8, 4160, 128, True, 4096),
+    ("mixtral-8x7b f32 datum", "float32", 1, 32, 8, 4160, 128, True, 4096),
+    ("phi3.5-moe-42b", "bfloat16", 4, 32, 8, 1024, 128, True, None),
+    ("phi3.5-moe-42b f32 datum", "float32", 2, 32, 8, 256, 128, True, None),
+    ("jamba-1.5-large-398b", "bfloat16", 2, 64, 8, 1024, 128, True, None))
+MOE_SSD_SHAPE = (2, 1024, 256, 64, 128, 128)
+
+
+def moe_config(arch, layers):
+    """The published config of ``arch`` cut to its first ``layers``
+    layers (and, where the block is longer, its block pattern with it)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    pattern = cfg.block_pattern
+    if layers % len(pattern):
+        pattern = pattern[:layers]
+    return dataclasses.replace(cfg, n_layers=layers, block_pattern=pattern)
+
+
+def moe_device_breakdown(torch, model, batch, max_len):
+    """Device time of one bf16 prefill (``torch.profiler``): in all, by
+    kernel, and by the op that launched it: the expert products
+    (``aten::bmm``), the other GEMMs (``aten::mm``), attention (the
+    flash kernel), dispatch and combine (indexing, scatter, gather,
+    cumsum, argmax, one-hot, concatenation) and the rest (elementwise,
+    casts, reductions)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            T.prefill(model, batch, max_len)
+        torch.cuda.synchronize()
+    kernels, ops = [], {}
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if e.device_type == DeviceType.CPU:
+            ops[e.key] = ops.get(e.key, 0.0) + ms
+        elif ms > 0:
+            kernels.append((e.key, ms, e.count))
+    kernels.sort(key=lambda r: -r[1])
+    total, top = sum(r[1] for r in kernels), kernels[:12]
+    dispatch = ("aten::index_put_", "aten::index", "aten::index_add",
+                "aten::index_add_", "aten::cumsum", "aten::gather",
+                "aten::argmax", "aten::one_hot", "aten::cat",
+                "aten::scatter_", "aten::repeat", "aten::where",
+                "aten::eq", "aten::lt")
+    groups = {"expert products (aten::bmm)": ops.get("aten::bmm", 0.0),
+              "other GEMM (aten::mm)": ops.get("aten::mm", 0.0)
+              + ops.get("aten::addmm", 0.0),
+              "attention (flash kernel)": sum(
+                  r[1] for r in kernels if "flash_tc_kernel" in r[0]),
+              "dispatch and combine": sum(ops.get(k, 0.0)
+                                          for k in dispatch)}
+    groups["rest"] = total - sum(groups.values())
+    return total, groups, top
+
+
+def moe_serve(torch, arch, layers, n_req, prompt_len, want_fa, want_ssd):
+    """The published bf16 config cut to ``layers`` served at full width
+    with device-filled weights: ``n_req`` requests of ``prompt_len``
+    tokens, 64 greedy steps; launches asserted, the prefill's logits held
+    against the plain versions swapped in."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.serve import random_batch, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import device_fill
+    from repro_torch.configs import get_config
+    full = get_config(arch).n_layers
+    cfg = moe_config(arch, layers)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    model = device_fill(T.Transformer(cfg, "cuda"), 0)
+    torch.cuda.synchronize()
+    fill_s = time.time() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch = random_batch(cfg, n_req, prompt_len, 0, "cuda")
+    serve(model, batch, 2)          # warm-up at the served shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    res = serve(model, batch, 64)
+    counts = kernel_counts()
+    by_entry = dict(fa.launches_by)
+    ssd_tc = ss.launches_tc
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if res.tokens.shape != (n_req, 64) or res.tokens.min() < 0 \
+            or res.tokens.max() >= cfg.vocab:
+        fail(f"phase 14b {arch} served tokens of shape {res.tokens.shape}")
+    want_by = {"flash_attention_tc_launch": want_fa} if want_fa else {}
+    if by_entry != want_by or ssd_tc != want_ssd or counts != dict(
+            tat_lookup=0, cell_scan=0, flash_attention=want_fa,
+            ssd_scan=want_ssd):
+        fail(f"phase 14b {arch} serve launched {counts}, flash by entry "
+             f"{by_entry}, ssd_scan_tc {ssd_tc}; expected {want_by}, "
+             f"{want_ssd}")
+    tok_s = n_req * 64 / res.decode_s
+    max_len = prompt_len + 64
+    kernels = [k for k, n in (("flash_attention", want_fa),
+                              ("ssd_scan", want_ssd)) if n]
+    check = logits_vs_plain(torch, model, batch, max_len, kernels)
+    failed = plain_check_failure(check)
+    print(f"phase 14b {arch} bf16 ({cfg.n_layers} of {full} layers, cut to "
+          f"fit one card; {weights / 2 ** 30:.2f} GiB of weights) served "
+          f"{n_req} x {prompt_len} prompt + 64 greedy steps: prefill "
+          f"{res.prefill_s * 1e3:.1f} ms, decode {res.decode_s * 1e3:.1f} ms "
+          f"({tok_s:.1f} tokens/s); launches flash {json.dumps(by_entry)}, "
+          f"ssd_scan_tc {ssd_tc}; peak memory {peak:.2f} GiB; device fill "
+          f"{fill_s:.1f} s; first tokens {res.tokens[0, :8].tolist()}; "
+          f"{plain_check_text(check)}")
+    if failed:
+        fail(f"phase 14b {arch} bf16: {failed}")
+    out = dict(layers=cfg.n_layers, of_layers=full, requests=n_req,
+               prompt_len=prompt_len, weights_gib=weights / 2 ** 30,
+               launches=by_entry, ssd_scan_tc_launches=ssd_tc,
+               counts=counts, prefill_ms=res.prefill_s * 1e3,
+               decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
+               peak_gib=peak, fill_s=fill_s, vs_plain=check)
+    if arch == "mixtral-8x7b":
+        dev_ms, groups, top = moe_device_breakdown(torch, model, batch,
+                                                   max_len)
+        print(f"phase 14b {arch} prefill device time (torch.profiler): "
+              f"{dev_ms:.2f} ms, {100 * dev_ms / (res.prefill_s * 1e3):.1f} %"
+              f" of its wall; by kind: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()))
+        for name, ms, calls in top:
+            print(f"  prefill: {ms:9.3f} ms {calls:6d} calls  {name[:90]}")
+        out.update(prefill_device_ms=dev_ms, prefill_by_kind=groups,
+                   prefill_top=top)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def past_abs_or_ulp(torch, got, want, lim) -> int:
+    """Elements of ``got`` off ``want`` by more than ``lim`` or one bf16 ulp
+    of max(|got|, |want|), whichever is larger."""
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -120)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return int(((g - w).abs() > torch.clamp(ulp, min=lim)).sum())
+
+
+def moe_ssd_kernel(torch, np, b, s, h, p, n, q):
+    """``ssd_scan_tc`` in bf16 at jamba's shape against the plain version
+    and the f64 evaluation rounded to bf16 (``ssd_tc_probe.exact_y``),
+    timed beside the plain version, with its bound.  y is held to phase
+    6's absolute 1e-1, or one bf16 ulp of the output where that is larger
+    (|y| >= 16, which this shape's 256 heads reach: there two roundings
+    of one f32 value to bf16 differ by 0.125); the f32 final state to
+    1e-1."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ssd_tc_probe as probe
+    from repro_torch.kernels.ref import ssd_scan_ref
+    rng = np.random.default_rng(s + h)
+    args = ssd_inputs(torch, rng, b, s, h, p, n, torch.bfloat16)
+    n0 = ss.launches_tc
+    y, fin = ss.ssd_scan(*args, chunk=q)
+    wy, wfin = ssd_scan_ref(*args, chunk=q)
+    exact = probe.exact_y(torch, *args, q).bfloat16()
+    torch.cuda.synchronize()
+    if ss.launches_tc - n0 != 1:
+        fail("phase 14c ssd_scan_tc not launched at jamba's shape")
+    if not bool(torch.isfinite(y.float()).all()):
+        fail("phase 14c ssd_scan_tc y, jamba: non-finite output")
+    lim = TOL["bfloat16"][1]
+    d = (y.float() - wy.float()).abs()
+    err = float(d.max())
+    past = d > lim
+    state_err = max_err(fin, wfin, "phase 14c ssd_scan_tc state, jamba", lim)
+    over = dict(plain=past_abs_or_ulp(torch, y, wy, lim),
+                exact=past_abs_or_ulp(torch, y, exact, lim),
+                plain_vs_exact=past_abs_or_ulp(torch, wy, exact, lim))
+    least_y = (float(torch.maximum(y.float().abs(), wy.float().abs())[past]
+                     .min()) if bool(past.any()) else None)
+    if over["plain"] or over["exact"]:
+        fail(f"phase 14c ssd_scan_tc y, jamba: outputs past {lim} and one "
+             f"bf16 ulp, of the plain version / the f64 value: {over}")
+    ms = cuda_ms(lambda: ss.ssd_scan(*args, chunk=q), 20)
+    plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=q), 3)
+    nc, tri = s // q, q * (q + 1) / 2
+    flops = 2.0 * (b * nc * tri * n + b * h * nc * (tri * p + 2 * q * n * p))
+    nbytes = (2 * 2.0 * b * s * h * p + 4.0 * b * s * h + 4.0 * h
+              + 2 * 2.0 * b * s * n + 4.0 * b * h * p * n)
+    bound_ms, bound_by = bound(flops, nbytes)
+    shape = f"x ({b}, {s}, {h}, {p}), N={n}, chunk {q}, bf16"
+    print(f"phase 14c ssd_scan_tc (ssd_scan_tc_launch) jamba-1.5-large-398b: "
+          f"{shape}: max abs error {err:.3g}; {int(past.sum())} outputs past "
+          f"{lim}, the least of them at |y| {least_y}; past {lim} and one "
+          f"bf16 ulp: {json.dumps(over)}; |y| up to "
+          f"{float(wy.float().abs().max()):.1f}; state {state_err:.3g} "
+          f"(limit {lim}); kernel {ms:.4f} ms, plain {plain:.4f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); {ms / bound_ms:.2f}x the bound")
+    return dict(entry="ssd_scan_tc_launch", max_abs_err=err,
+                past_abs_limit=int(past.sum()), least_y_past=least_y,
+                abs_limit=lim, over_abs_and_ulp=over, state_err=state_err,
+                ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, shape=shape)
+
+
+def phase_moe(torch, np, trees):
+    """Phase 14: the MoE family: (a) mixtral-8x7b and phi3.5-moe-42b in f32
+    against serve_ref_moe.json (their weights from ``trees``, a
+    :class:`DatumTrees`), (b) the three MoE ids served in bf16 at full
+    width, cut in depth, (c) the kernels at each new shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    out = {"datum": {}, "serve": {}, "kernel": {}}
+    for arch, d in trees.moe_ref["configs"].items():
+        out["datum"][arch] = family_datum(
+            torch, arch, d, trees, phase="14a", launches=MOE_DATUM_LAUNCHES,
+            plant=False, datum="serve_ref_moe.json")
+        torch.cuda.empty_cache()
+    for arch, shape in MOE_SERVE.items():
+        out["serve"][arch] = moe_serve(torch, arch, *shape)
+    for row, *shape in MOE_FLASH_SHAPES:
+        out["kernel"][row] = family_kernel(torch, np, row, *shape,
+                                           phase="14c")
+    out["kernel"]["jamba-1.5-large-398b ssd"] = moe_ssd_kernel(
+        torch, np, *MOE_SSD_SHAPE)
+    out["phase_s"] = time.time() - t0
+    print(f"phase 14 done in {out['phase_s']:.1f} s")
     return out
 
 
@@ -3626,6 +4020,35 @@ def step_profile(torch, fn):
             host[:6])
 
 
+def train_datum_steps(np, ref, step, opt, vocab, what):
+    """Feed a training datum's batches (its ``tokens``; labels the ids
+    shifted left, the last -1) through ``step`` from ``opt``: the worst
+    relative error of loss, grad norm and lr against its ``metrics``
+    (failing past its ``rtol``), and whether ``SyntheticLMDataset``
+    reproduces its batches here (numpy does not promise one
+    ``Generator.zipf`` stream across its versions)."""
+    from repro_torch.data import SyntheticLMDataset
+    data = SyntheticLMDataset(vocab, ref["seq"], ref["batch"],
+                              seed=ref["seed"])
+    same_batches = True
+    worst = {k: 0.0 for k in ("loss", "grad_norm", "lr")}
+    for i, want in enumerate(ref["metrics"]):
+        tokens = np.asarray(ref["tokens"][i], np.int32)
+        labels = np.roll(tokens, -1, axis=1)
+        labels[:, -1] = -1
+        same_batches &= bool(np.array_equal(data.next_batch()["tokens"],
+                                            tokens))
+        opt, m = step(opt, {"tokens": tokens, "labels": labels})
+        for k, w in want.items():
+            got = float(m[k])
+            rel = abs(got - w) / abs(w)
+            worst[k] = max(worst[k], rel)
+            if not np.isfinite(got) or rel > ref["rtol"]:
+                fail(f"{what} f32 step {i}: {k} {got!r}, datum {w!r} "
+                     f"({rel:.3g} relative, limit {ref['rtol']})")
+    return worst, same_batches
+
+
 def phase_train(torch, np, smi):
     """Phase 12: the training path through the PCS checkpoint tier, for
     smollm-135m at full width and depth: (a) the f32 copy's losses, grad
@@ -3661,26 +4084,8 @@ def phase_train(torch, np, smi):
     opt_cfg = AdamWConfig(**ref["opt"])
     opt = adamw_init(opt_cfg, dict(model.named_parameters()))
     step = make_train_step(model, opt_cfg)
-    # the datum's batches: numpy does not promise one Generator.zipf
-    # stream across its versions, so the dataset may differ here
-    data = SyntheticLMDataset(cfg.vocab, ref["seq"], ref["batch"],
-                              seed=ref["seed"])
-    same_batches = True
-    worst = {k: 0.0 for k in ("loss", "grad_norm", "lr")}
-    for i, want in enumerate(ref["metrics"]):
-        tokens = np.asarray(ref["tokens"][i], np.int32)
-        labels = np.roll(tokens, -1, axis=1)
-        labels[:, -1] = -1
-        same_batches &= bool(np.array_equal(data.next_batch()["tokens"],
-                                            tokens))
-        opt, m = step(opt, {"tokens": tokens, "labels": labels})
-        for k, w in want.items():
-            got = float(m[k])
-            rel = abs(got - w) / abs(w)
-            worst[k] = max(worst[k], rel)
-            if not np.isfinite(got) or rel > rtol:
-                fail(f"train f32 step {i}: {k} {got!r}, train_ref.json "
-                     f"{w!r} ({rel:.3g} relative, limit {rtol})")
+    worst, same_batches = train_datum_steps(np, ref, step, opt, cfg.vocab,
+                                            "phase 12a train_ref.json")
     print(f"phase 12a {ref['arch']} f32 ({cfg.n_layers} layers, "
           f"{ref['batch']} x {ref['seq']} tokens, {len(ref['metrics'])} "
           f"AdamW steps): relative error against train_ref.json: loss "
@@ -3825,6 +4230,101 @@ def phase_train(torch, np, smi):
     return out
 
 
+def phase_train_ssd(torch, np, smi):
+    """Phase 12c: training through SSD layers (``models.ssm.ssd_chunked``),
+    mamba2-1.3b at full width: the f32 copy cut to the datum's depth
+    against train_ref_ssd.json, then the published bf16 config at full
+    width and depth at the train CLI's defaults, timed; no kernel
+    launches in the phase."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import (device_fill, numpy_params,
+                                            params_from_reference)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "train_ref_ssd.json")) as f:
+        ref = json.load(f)
+    rtol = ref["rtol"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero_kernel_counts()
+    t_phase = time.time()
+    out = {}
+
+    # the datum, f32, cut in depth
+    cfg = get_config(ref["arch"])
+    cfg32 = dataclasses.replace(cfg, n_layers=ref["layers"],
+                                dtype=torch.float32)
+    model = params_from_reference(cfg32, numpy_params(cfg32, ref["seed"]),
+                                  "cuda")
+    opt_cfg = AdamWConfig(**ref["opt"])
+    opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+    step = make_train_step(model, opt_cfg)
+    worst, same_batches = train_datum_steps(np, ref, step, opt, cfg.vocab,
+                                            "phase 12c train_ref_ssd.json")
+    print(f"phase 12c {ref['arch']} f32 ({ref['layers']} of {cfg.n_layers} "
+          f"layers, {ref['batch']} x {ref['seq']} tokens, "
+          f"{len(ref['metrics'])} AdamW steps through ssd_chunked): relative "
+          f"error against train_ref_ssd.json: loss {worst['loss']:.3g}, "
+          f"grad_norm {worst['grad_norm']:.3g}, lr {worst['lr']:.3g} (limit "
+          f"{rtol}); the datum's batches "
+          f"{'equal' if same_batches else 'differ from'} SyntheticLMDataset's"
+          f" here; {smi}")
+    out["f32_datum_rel_err"] = worst
+    out["f32_datum_batches_equal_dataset"] = same_batches
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # the published bf16 config at the train CLI's defaults (8 x 128
+    # tokens, lr 3e-4), weights drawn on the card
+    batch, seq, warm, reps = 8, 128, 2, 3
+    torch.cuda.reset_peak_memory_stats()
+    model = device_fill(T.Transformer(cfg, "cuda"), 0)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=50)
+    opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+    step = make_train_step(model, opt_cfg)
+    data = SyntheticLMDataset(cfg.vocab, seq, batch)
+    losses = []
+    for _ in range(warm):
+        opt, m = step(opt, data.next_batch())
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ms = []
+    for _ in range(reps):
+        opt, m = step(opt, data.next_batch())
+        ms.append(m)
+    stop.record()
+    torch.cuda.synchronize()
+    losses += [float(m["loss"]) for m in ms]
+    step_ms = start.elapsed_time(stop) / reps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        fail(f"phase 12c mamba2-1.3b bf16 losses {losses}")
+    out["kernel_launches"] = kernel_counts()
+    if any(out["kernel_launches"].values()):
+        fail(f"phase 12c: the training path launched kernels: "
+             f"{out['kernel_launches']}")
+    out.update(step_ms=step_ms, tokens_per_s=batch * seq / (step_ms / 1e3),
+               losses=losses, peak_gib=peak,
+               phase_s=time.time() - t_phase)
+    print(f"phase 12c mamba2-1.3b bf16 train step at full width and depth "
+          f"({cfg.n_layers} layers, {batch} x {seq} tokens, AdamW, remat "
+          f"{cfg.remat}; CUDA events over {reps} steps after {warm}): "
+          f"{step_ms:.2f} ms, {out['tokens_per_s']:.0f} tokens/s; losses "
+          f"{[round(x, 4) for x in losses]}; peak memory {peak:.2f} GiB; "
+          f"kernel launches in the phase "
+          f"{json.dumps(out['kernel_launches'])}; phase "
+          f"{out['phase_s']:.1f} s; {smi}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3840,7 +4340,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     if sys.argv[1:] == ["--train-only"]:
-        print(json.dumps({"train": phase_train(torch, np, smi)}))
+        print(json.dumps({"train": phase_train(torch, np, smi),
+                          "train_ssd": phase_train_ssd(torch, np, smi)}))
         return 0
     if sys.argv[1:] == ["--serve-only"]:
         t0 = time.time()
@@ -3850,9 +4351,11 @@ def main() -> int:
         flash = phase_flash(torch, np)
         ssd = phase_ssd(torch, np)
         served = phase_serve(torch, np)
-        family = phase_family(torch, np, DatumTrees(torch))
+        trees = DatumTrees(torch)
+        family = phase_family(torch, np, trees)
+        moe = phase_moe(torch, np, trees)
         print(json.dumps({"flash": flash, "ssd": ssd, "serve": served,
-                          "family": family}))
+                          "family": family, "moe": moe}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3895,7 +4398,9 @@ def main() -> int:
     ssd = phase_ssd(torch, np)
     served = phase_serve(torch, np)
     family = phase_family(torch, np, trees)
+    moe = phase_moe(torch, np, trees)
     trained = phase_train(torch, np, smi)
+    trained_ssd = phase_train_ssd(torch, np, smi)
 
     eng = tat[(8, 16)]
     kernels = [
@@ -3945,8 +4450,11 @@ def main() -> int:
              launches_chained_grid=chains["grid_b"]["counts"]["cell_scan"],
              max_abs_err=chains["max_abs_err"], ms=chains["fig1"]["ms"],
              plain_ms=chains["fig1"]["plain_s"] * 1e3,
-             plain_note="the eager scan_cell's seconds summed over the 21 "
-                        "cells (run on the host, a pool of processes)",
+             plain_note="the eager scan_cell's seconds summed over the 6 "
+                        "cells at depths 0 and 4 (run on the host, a pool "
+                        "of processes); the kernel on the same cells: "
+                        "ms_plain_cells",
+             ms_plain_cells=chains["fig1"]["ms_plain_cells"],
              bound_ms=chains["fig1"]["bound_ms"], bound_by="bytes",
              library_ms=None,
              shape="Fig. 1 sweep: 1 core, 2000 persist/read pairs, NoPB "
@@ -3983,9 +4491,9 @@ def main() -> int:
              max_abs_err=fab["max_abs_err"], ms=fab["fig"]["ms"],
              plain_ms=fab["smoke"]["plain_s"] * 1e3,
              plain_note="the eager scan_cell's seconds summed over "
-                        "fig_fabric's 52 cells at its smoke size (150 "
-                        "pairs a core; run on the host, a pool of "
-                        "processes); the kernel on the same cells: "
+                        "fig_fabric's 20 cells with 1 or 8 leaves at its "
+                        "smoke size (150 pairs a core; run on the host, a "
+                        "pool of processes); the kernel on the same cells: "
                         "smoke_ms",
              smoke_ms=fab["smoke"]["ms"],
              bound_ms=fab["fig"]["bound_ms"], bound_by="bytes",
@@ -4066,11 +4574,11 @@ def main() -> int:
              max_abs_err=macro["plain"]["max_abs_err"],
              ms=macro["plain"]["ms"], plain_ms=macro["plain"]["plain_ms"],
              plain_note="the eager scan_cell with macro-steps on, seconds "
-                        "summed over the 21 cells (run on the host, a "
+                        "summed over the 7 cells (run on the host, a "
                         "pool of processes)",
              bound_ms=macro["plain"]["bound_ms"], bound_by="bytes",
              library_ms=None,
-             shape="7 workloads x 3 schemes at persist_budget=2000",
+             shape="7 workloads x PB_RF at persist_budget=2000",
              latency_bound_ms=macro["plain"]["latency_bound_ms"],
              main_path_ms=macro["paper_grid"]["ms_on"],
              main_path_ms_mac_false=macro["paper_grid"]["ms_off"],
@@ -4237,8 +4745,10 @@ def main() -> int:
     ]
     fk, fs = family["kernel"], family["serve"]
 
-    def family_row(name, row, launches, main_path, extra_rows=()):
-        k = fk[row]
+    mk, ms_ = moe["kernel"], moe["serve"]
+
+    def family_row(name, row, launches, main_path, extra_rows=(), table=fk):
+        k = table[row]
         rec = dict(name=name, route="cuda",
                    source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                    replaces="src/repro/kernels/flash_attention.py:68",
@@ -4253,7 +4763,7 @@ def main() -> int:
                    checked_how=k["checked_how"], checked_limit=k["limit"],
                    planted_window_fault=k["planted_window_fault"])
         for key, other in extra_rows:
-            rec[key] = {f: fk[other][f] for f in (
+            rec[key] = {f: table[other][f] for f in (
                 "shape", "max_abs_err", "checked", "planted_window_fault",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "pairs")}
@@ -4293,10 +4803,58 @@ def main() -> int:
                    "non-causal in the encoder; cross-attention takes the "
                    "plain softmax",
                    (("encoder_shape", "seamless-m4t-large-v2 encoder"),)),
+        family_row("flash_attention_tc_mixtral_8x7b", "mixtral-8x7b",
+                   ms_["mixtral-8x7b"]["launches"].get(
+                       "flash_attention_tc_launch", 0),
+                   "mixtral-8x7b bf16 serve at full width, 16 of 32 layers "
+                   "(one card), 2 x 4160 prompt + 64 decode steps (phase "
+                   "14b): one launch per layer at prefill, window 4096 "
+                   "(windowed D = 128 in bf16)", table=mk),
+        family_row("flash_attention_tc_f32_mixtral_8x7b",
+                   "mixtral-8x7b f32 datum",
+                   moe["datum"]["mixtral-8x7b"]["launches"].get(
+                       "flash_attention_tc_f32_launch", 0),
+                   "mixtral-8x7b f32 datum prefill of phase 14a (1 layer, 1 "
+                   "x 4160 prompt, window 4096)", table=mk),
+        family_row("flash_attention_tc_phi3_5_moe_42b", "phi3.5-moe-42b",
+                   ms_["phi3.5-moe-42b"]["launches"].get(
+                       "flash_attention_tc_launch", 0),
+                   "phi3.5-moe-42b bf16 serve at full width, 16 of 32 "
+                   "layers (one card), 4 x 1024 prompt + 64 decode steps "
+                   "(phase 14b): one launch per layer at prefill", table=mk),
+        family_row("flash_attention_tc_f32_phi3_5_moe_42b",
+                   "phi3.5-moe-42b f32 datum",
+                   moe["datum"]["phi3.5-moe-42b"]["launches"].get(
+                       "flash_attention_tc_f32_launch", 0),
+                   "phi3.5-moe-42b f32 datum prefill of phase 14a (1 layer, "
+                   "2 x 256 prompt)", table=mk),
+        family_row("flash_attention_tc_jamba_1_5_large_398b",
+                   "jamba-1.5-large-398b",
+                   ms_["jamba-1.5-large-398b"]["launches"].get(
+                       "flash_attention_tc_launch", 0),
+                   "jamba-1.5-large-398b bf16 serve at full width, the first "
+                   "5 of 72 layers (one card), 2 x 1024 prompt + 64 decode "
+                   "steps (phase 14b): its one attn layer at prefill",
+                   table=mk),
     ]
+    js = mk["jamba-1.5-large-398b ssd"]
+    kernels.append(dict(
+        name="ssd_scan_tc_jamba_1_5_large_398b", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
+        replaces="src/repro/kernels/ssd_scan.py:68", entry=js["entry"],
+        launches=ms_["jamba-1.5-large-398b"]["ssd_scan_tc_launches"],
+        main_path="jamba-1.5-large-398b bf16 serve at full width, the first "
+                  "5 of 72 layers, 2 x 1024 prompt + 64 decode steps (phase "
+                  "14b): one launch per ssm layer at prefill (4), 256 heads",
+        max_abs_err=js["max_abs_err"], past_abs_limit=js["past_abs_limit"],
+        least_y_past=js["least_y_past"],
+        over_abs_and_ulp=js["over_abs_and_ulp"],
+        ms=js["ms"], plain_ms=js["plain_ms"], bound_ms=js["bound_ms"],
+        bound_by=js["bound_by"], library_ms=None, shape=js["shape"]))
     print(json.dumps({"serve": served}))
     print(json.dumps({"family": family}))
-    print(json.dumps({"train": trained}))
+    print(json.dumps({"moe": moe}))
+    print(json.dumps({"train": trained, "train_ssd": trained_ssd}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

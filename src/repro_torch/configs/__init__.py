@@ -1,10 +1,8 @@
 """Architecture registry: ``get_config(arch_id)`` / ``ARCHS`` (port of
 ``repro.configs``).
 
-The ids are the reference's.  The port serves seven of them (``PORTED``);
-``get_config`` raises ``NotImplementedError`` for the three MoE ids,
-whose expert layers are not ported yet (ROADMAP Queue A item 9c).  Each
-ported ``<id>.py`` module exports
+The ids are the reference's, and the port serves all ten (``PORTED``
+lists them).  Each ``<id>.py`` module exports
 
     config()        -> the full published configuration
     smoke_config()  -> a reduced same-family configuration for CPU tests
@@ -27,7 +25,8 @@ ARCHS: List[str] = [
     "paligemma-3b",
 ]
 PORTED = ("smollm-135m", "mamba2-1.3b", "gemma2-2b", "gemma3-12b",
-          "paligemma-3b", "seamless-m4t-large-v2", "deepseek-67b")
+          "paligemma-3b", "seamless-m4t-large-v2", "deepseek-67b",
+          "mixtral-8x7b", "phi3.5-moe-42b", "jamba-1.5-large-398b")
 
 _ALIASES = {
     "phi3.5-moe-42b-a6.6b": "phi3.5-moe-42b",
@@ -39,10 +38,6 @@ def get_config(arch_id: str, *, smoke: bool = False):
     arch_id = _ALIASES.get(arch_id, arch_id)
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCHS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP Queue A item 9c, MoE); "
-            f"the port serves {PORTED}")
     name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.smoke_config() if smoke else mod.config()

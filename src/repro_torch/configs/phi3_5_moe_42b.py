@@ -1,0 +1,24 @@
+"""phi3.5-moe-42b-a6.6b [moe] — 16 experts top-2 [hf:microsoft/Phi-3.5-MoE].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=6400 vocab=32064, every layer MoE.
+"""
+import torch
+
+from repro_torch.models.transformer import LayerSpec, ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="phi3.5-moe-42b",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=6400,
+        vocab=32064, head_dim=128, n_experts=16, top_k=2,
+        block_pattern=(LayerSpec("attn", moe=True),),
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="phi-moe-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=96, vocab=512, head_dim=16, n_experts=4, top_k=2,
+        block_pattern=(LayerSpec("attn", moe=True),),
+        remat=False, dtype=torch.float32)

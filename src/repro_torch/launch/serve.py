@@ -19,6 +19,9 @@ without the encoder output (its ``prefill`` does not return it and its
 cross-attention attends over the decoded token alone.  :func:`serve`
 reproduces that; ``transformer.decode_step`` itself takes and honours
 ``enc_out`` / ``enc_pos``.
+
+``--temperature`` is parsed and never read, as in the reference's
+launcher: decoding is greedy whatever its value.
 """
 from __future__ import annotations
 
@@ -116,7 +119,9 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="accepted and not read: decoding is greedy at "
+                         "any value, as the reference's launcher's is")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -124,9 +129,6 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
                     help="draw the weights on the device "
                          "(models.convert.device_fill)")
     args = ap.parse_args(argv)
-    if args.temperature != 0.0:
-        raise NotImplementedError("only greedy decoding (temperature 0), "
-                                  "as the reference does")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -4,8 +4,9 @@ The reference's step is a pure function of (params, opt_state, batch);
 the port's model holds its parameters, so the step updates them in place
 and threads only the optimizer state.  Gradients are those of
 ``models.transformer.loss_fn``, whose attention is the model's own
-masked softmax: no hand-written kernel runs in training, as none runs in
-the reference's (its model never calls its Pallas kernels).
+masked softmax and whose SSD layers run ``models.ssm.ssd_chunked``: no
+hand-written kernel runs in training, as none runs in the reference's
+(its model never calls its Pallas kernels).
 
 The reference's prefill and decode steps wrap ``prefill`` and
 ``decode_step``; the port's serve launcher calls those directly.

@@ -198,7 +198,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    T.check_trainable(cfg)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
     model = params_from_reference(cfg, numpy_params(cfg, 0), dev)
     opt_state = adamw_init(opt_cfg, dict(model.named_parameters()))

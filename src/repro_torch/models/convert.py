@@ -12,7 +12,7 @@ The reference's ``init_params`` tree is nested dicts of arrays::
 and the port holds one ``Block`` per layer (``layers``, and the
 encoder's ``enc_layers``), whose parameter names are the same paths
 joined by dots (``attn.wq.w``, ``attn.q_norm.scale``, ``cross.wk.w``,
-``ssm.A_log``, ...).  Layer ``r * len(block_pattern) + j`` is repetition
+``ssm.A_log``, ``moe.router.w``, ``moe.gate``, ...).  Layer ``r * len(block_pattern) + j`` is repetition
 ``r`` of position ``j``.
 
 * :func:`reference_tree` reads a model back into that layout (on the
@@ -210,7 +210,12 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
     return model
 
 
-# Standard deviations of the normal leaves; "w" takes 1/sqrt(d_in).  The
+# Leaves drawn as normals at 1/sqrt(d_in), d_in = shape[-2]: a linear
+# layer's "w" (the MoE router's too) and the stacked expert weights, the
+# reference's init_moe scales (1/sqrt(d) for gate and up, 1/sqrt(f) for
+# down).
+_FAN_IN = ("w", "gate", "up", "down")
+# Standard deviations of the other normal leaves.  The
 # conv taps and bias take 0.3, about PyTorch's Conv1d default (uniform
 # within 1/sqrt(4), std 0.29): at the reference's 0.1 the conv output is
 # so small that the SSD scan barely moves mamba2's logits, and a check
@@ -221,9 +226,10 @@ _NORMAL_STD = {"table": 0.02, "scale": 0.1, "conv_w": 0.3, "conv_b": 0.3}
 def _init_leaf(rng: np.random.Generator, name: str,
                shape: Tuple[int, ...]) -> np.ndarray:
     leaf = name.rsplit(".", 1)[-1]
-    if leaf == "w" or leaf in _NORMAL_STD:
+    if leaf in _FAN_IN or leaf in _NORMAL_STD:
         a = rng.standard_normal(shape, dtype=np.float32)
-        a *= (1.0 / np.sqrt(shape[-2])) if leaf == "w" else _NORMAL_STD[leaf]
+        a *= ((1.0 / np.sqrt(shape[-2])) if leaf in _FAN_IN
+              else _NORMAL_STD[leaf])
         return a
     u = rng.random(shape, dtype=np.float32)
     if leaf == "A_log":                   # A = -exp(A_log) in [-16, -1]
@@ -260,8 +266,8 @@ def device_fill(model: Transformer, seed: int) -> Transformer:
     gen.manual_seed(seed)
     for name, t in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "w" or leaf in _NORMAL_STD:
-            std = (1.0 / np.sqrt(t.shape[-2]) if leaf == "w"
+        if leaf in _FAN_IN or leaf in _NORMAL_STD:
+            std = (1.0 / np.sqrt(t.shape[-2]) if leaf in _FAN_IN
                    else _NORMAL_STD[leaf])
             t.normal_(0.0, float(std), generator=gen)
             continue

@@ -1,12 +1,22 @@
 """Mamba2 SSD mixer (port of ``repro.models.ssm``).
 
-Prefill and the training-mode forward run the chunked SSD scan through
-the ``ssd_scan`` wrapper (the CUDA kernel on the card, its plain version
-``kernels.ref.ssd_scan_ref`` on the CPU), seeded from the cached state
-when one is threaded through; decode runs the one-token recurrence
-``ssd_decode_step`` in plain torch, as the reference does outside any
-kernel.  The projections, the depthwise causal conv and the gate stay
-plain torch.
+The SSD scan takes one of two routes, fixed by the call's contract (as
+``Attention.kernel`` fixes attention's), never by trying:
+
+* **prefill and the no-grad forward** run the chunked scan through the
+  ``ssd_scan`` wrapper (the CUDA kernel on the card, its plain version
+  ``kernels.ref.ssd_scan_ref`` on the CPU), seeded from the cached state
+  when one is threaded through;
+* **a forward that records gradients** (no cache, an input of the scan
+  requiring grad) runs ``ssd_chunked``, the reference model's own
+  chunked SSD math in plain torch with autograd: the kernel's plain
+  version ``kernels.ref.ssd_scan_ref`` under the reference's name.  The
+  kernel has no backward, and its wrapper refuses inputs that require
+  grad.
+
+Decode runs the one-token recurrence ``ssd_decode_step`` in plain torch,
+as the reference does outside any kernel.  The projections, the
+depthwise causal conv and the gate stay plain torch.
 
 Decode keeps O(1) per-token state: ``state: (B, H, P, N)`` plus a
 depthwise-conv ring of the last ``K - 1`` inputs.
@@ -19,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.ref import ssd_scan_ref as ssd_chunked
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import Linear
 
@@ -103,7 +114,8 @@ class SSDBlock(nn.Module):
         self.out_proj = Linear(d_inner, d_model, dtype, device)
 
     def forward(self, x: torch.Tensor, cache: Optional[SSMCache] = None):
-        """Training/prefill: x (B,S,d).  Decode: x (B,1,d) + cache."""
+        """Training/prefill: x (B,S,d).  Decode: x (B,1,d) + cache.  The
+        scan's route is the module docstring's."""
         b, s, _ = x.shape
         d_inner, d_state, hd = self.d_inner, self.d_state, self.head_dim
         h = d_inner // hd
@@ -125,6 +137,9 @@ class SSDBlock(nn.Module):
             y1, new_state = ssd_decode_step(
                 xh[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], cache.state)
             y = y1[:, None].to(x.dtype)
+        elif cache is None and any(t.requires_grad for t in (xh, dt, A, B,
+                                                             C)):
+            y, new_state = ssd_chunked(xh, dt, A, B, C, chunk=self.chunk)
         else:
             y, new_state = ssd_scan(
                 xh, dt, A, B, C, chunk=self.chunk,

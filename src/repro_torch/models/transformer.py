@@ -10,15 +10,21 @@ them in a Python loop.  ``models.convert`` maps between the two layouts.
 Layer kinds: ``"attn"`` (global self-attention, RoPE base
 ``cfg.rope_theta``), ``"swa"`` (sliding-window self-attention, RoPE base
 10 000, a ring cache of ``min(max_len, window)`` slots) and ``"ssm"``
-(Mamba2 SSD), each with a dense SwiGLU feed-forward (absent when
-``d_ff == 0``).  Topologies: decoder-only LMs, the prefix-LM with stub
-patch embeddings (``frontend="vision"``: ``prefix_embeds`` go before the
+(Mamba2 SSD), each with a SwiGLU feed-forward (absent when ``d_ff ==
+0``): dense, or the expert FFN of ``models.moe`` where the spec says
+``moe``.  Topologies: decoder-only LMs, the prefix-LM with stub patch
+embeddings (``frontend="vision"``: ``prefix_embeds`` go before the
 tokens, attended bidirectionally, and are stripped before the logits)
 and the encoder-decoder with stub frame embeddings (``n_enc_layers >
 0``: a non-causal encoder stack, then a cross-attention sublayer in every
-decoder block).  This covers seven of the ten configurations; MoE
-layers raise ``NotImplementedError`` (ROADMAP Queue A item 9c), as do
-sharding contexts.
+decoder block).  This covers all ten configurations.
+
+MoE layers are called as the reference calls them: ``drop=cache is
+None`` (training and the no-cache forward drop tokens past an expert's
+capacity; prefill and decode keep every token) and ``groups`` from the
+innermost :class:`moe_groups` context (1 outside any).  The layers' load
+balance losses are summed into ``forward``'s aux, which ``loss_fn`` adds
+at 0.01.
 
 Training: :func:`loss_fn` is the reference's next-token cross-entropy.
 Parameters are frozen (``requires_grad=False``) until
@@ -27,8 +33,8 @@ Parameters are frozen (``requires_grad=False``) until
 ``torch.inference_mode()``.  With ``cfg.remat`` the layer loop
 recomputes each layer's activations in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
-its scanned block does; the numbers are the same either way.  Training a
-model with SSD layers raises (:func:`check_trainable`).
+its scanned block does; the numbers, the aux included, are the same
+either way.
 
 Serving: the same blocks run prefill (S = prompt, writes the KV / SSM
 caches) and decode (S = 1 against the caches).  Caches are one entry per
@@ -50,14 +56,31 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, KVCache, init_kv_cache
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, embed,
                                        softcap, unembed)
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSDBlock, SSMCache, init_ssm_cache
-
-SCOPE = "ROADMAP Queue A item 9c: MoE layers"
 
 
 class LayerSpec(NamedTuple):
     kind: str          # "attn" | "swa" | "ssm"
     moe: bool = False
+
+
+# GShard-style MoE routing groups (see models/moe.py): the launcher sets
+# this to the data-parallel shard count so dispatch stays shard-local.
+_MOE_GROUPS: list = [1]
+
+
+class moe_groups:
+    """Context manager: route MoE layers in ``n`` token groups."""
+
+    def __init__(self, n: int):
+        self.n = max(int(n), 1)
+
+    def __enter__(self):
+        _MOE_GROUPS.append(self.n)
+
+    def __exit__(self, *exc):
+        _MOE_GROUPS.pop()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,11 +143,15 @@ class ModelConfig:
         model = Transformer(self, device="meta")
         return sum(p.numel() for p in model.parameters())
 
-
-def check_scope(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run."""
-    if cfg.n_experts or any(s.moe for s in cfg.block_pattern):
-        raise NotImplementedError(f"{cfg.name}: MoE not ported ({SCOPE})")
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of n_experts)."""
+        total = self.param_count()
+        if self.n_experts == 0:
+            return total
+        n_moe = sum(s.moe for s in self.block_pattern) * self.reps
+        expert = 3 * self.d_model * self.d_ff
+        inactive = n_moe * (self.n_experts - self.top_k) * expert
+        return total - inactive
 
 
 def _device(device) -> torch.device:
@@ -136,7 +163,8 @@ def _device(device) -> torch.device:
 class Block(nn.Module):
     """One layer: pre-norm mixer (attention or SSD), the cross-attention
     sublayer in a decoder block of an encoder-decoder (``cross``), and a
-    dense SwiGLU FFN (absent when ``d_ff == 0``), with residuals."""
+    SwiGLU FFN, dense (``ffn``) or expert (``moe``, where the spec says
+    so), absent when ``d_ff == 0``; with residuals."""
 
     def __init__(self, spec: LayerSpec, cfg: ModelConfig, cross: bool,
                  device=None):
@@ -162,10 +190,18 @@ class Block(nn.Module):
                                    device=device)
         if cfg.d_ff > 0:
             self.ln2 = RMSNorm(cfg.d_model, device)
-            self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
+            if spec.moe:
+                self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                               cfg.dtype, device)
+                self.moe_kw = dict(top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+            else:
+                self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
 
     def forward(self, h, positions, cache=None, *, causal=True,
-                prefix_len=None, enc_out=None, enc_pos=None):
+                prefix_len=None, enc_out=None, enc_pos=None, groups=1):
+        """(h, the layer's new cache, its MoE aux loss or None);
+        ``groups``: the MoE layer's routing groups."""
         hin = self.ln1(h)
         if self.kind == "ssm":
             y, new_cache = self.ssm(hin, cache=cache)
@@ -179,9 +215,14 @@ class Block(nn.Module):
                               kv_x=enc_out, kv_positions=enc_pos,
                               use_rope=False)
             h = h + y
+        aux = None
         if hasattr(self, "ffn"):
             h = h + self.ffn(self.ln2(h))
-        return h, new_cache
+        elif hasattr(self, "moe"):
+            y, aux = self.moe(self.ln2(h), drop=cache is None,
+                              groups=groups, **self.moe_kw)
+            h = h + y
+        return h, new_cache, aux
 
 
 ENC_PATTERN = (LayerSpec("attn"),)
@@ -200,7 +241,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_scope(cfg)
         dev = _device(device)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, cfg.dtype, dev)
@@ -226,28 +266,36 @@ class Transformer(nn.Module):
 
     def run(self, h, positions, caches=None, *, layers=None, **kw):
         """The layer loop (the reference's ``_run_stack``) over ``layers``
-        (the decoder's by default); ``kw`` goes to every block.  With
+        (the decoder's by default); ``kw`` goes to every block.  Returns
+        (h, the new caches or None, the summed MoE aux loss, f32).  With
         ``cfg.remat``, each layer of a forward that records gradients is
-        recomputed in the backward."""
+        recomputed in the backward; the checkpoint returns its aux with
+        ``h``.  The MoE routing groups are read here, once, so that a
+        recomputation outside the caller's :class:`moe_groups` routes as
+        the forward did."""
         layers = self.layers if layers is None else layers
-        if caches is None and self.cfg.remat and torch.is_grad_enabled():
-            for layer in layers:
-                h, _ = checkpoint(layer, h, positions, use_reentrant=False,
-                                  **kw)
-            return h, None
+        kw = dict(kw, groups=_MOE_GROUPS[-1])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        remat = caches is None and self.cfg.remat and torch.is_grad_enabled()
         new = []
         for i, layer in enumerate(layers):
-            h, c = layer(h, positions,
-                         caches[i] if caches is not None else None, **kw)
+            c = caches[i] if caches is not None else None
+            if remat:
+                h, c, a = checkpoint(layer, h, positions, use_reentrant=False,
+                                     **kw)
+            else:
+                h, c, a = layer(h, positions, c, **kw)
             new.append(c)
-        return h, (new if caches is not None else None)
+            if a is not None:
+                aux = aux + a
+        return h, (new if caches is not None else None), aux
 
     def encode(self, enc_embeds: torch.Tensor):
         """The (stub-fronted) encoder over precomputed frame embeddings:
         (encoder output, its positions), as the reference's ``_encode``."""
         pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
-        h, _ = self.run(enc_embeds.to(self.cfg.dtype), pos,
-                        layers=self.enc_layers, causal=False)
+        h, _, _ = self.run(enc_embeds.to(self.cfg.dtype), pos,
+                           layers=self.enc_layers, causal=False)
         return self.enc_norm(h), pos
 
     def inputs(self, batch: Dict[str, torch.Tensor]):
@@ -264,16 +312,20 @@ class Transformer(nn.Module):
             kw["enc_out"], kw["enc_pos"] = self.encode(batch["enc_embeds"])
         return h, kw
 
-    def forward(self, tokens: torch.Tensor, **stubs) -> torch.Tensor:
-        """Training-mode forward (the reference's ``forward`` without the
-        MoE aux loss): (B, S) ids and the batch's stub inputs
-        (``STUB_INPUTS``) -> (B, S, vocab) f32 logits."""
+    def logits_and_aux(self, tokens: torch.Tensor, **stubs):
+        """Training-mode forward (the reference's ``forward``): (B, S) ids
+        and the batch's stub inputs (``STUB_INPUTS``) -> ((B, S, vocab)
+        f32 logits, the summed MoE aux loss)."""
         h, kw = self.inputs({"tokens": tokens, **stubs})
         positions = torch.arange(h.shape[1], device=h.device)
-        h, _ = self.run(h, positions, **kw)
+        h, _, aux = self.run(h, positions, **kw)
         if "prefix_len" in kw:
             h = h[:, kw["prefix_len"]:]
-        return self.logits_out(h)
+        return self.logits_out(h), aux
+
+    def forward(self, tokens: torch.Tensor, **stubs) -> torch.Tensor:
+        """The training-mode forward's (B, S, vocab) f32 logits."""
+        return self.logits_and_aux(tokens, **stubs)[0]
 
 
 STUB_INPUTS = ("enc_embeds", "prefix_embeds")
@@ -281,25 +333,14 @@ STUB_INPUTS = ("enc_embeds", "prefix_embeds")
 
 def forward(model: Transformer, batch: Dict[str, torch.Tensor]):
     """The reference's ``forward(cfg, params, batch)``: (logits, aux),
-    where aux, the MoE load-balance loss, is 0 (no MoE is ported)."""
-    logits = model(batch["tokens"], **{k: batch[k] for k in STUB_INPUTS
-                                       if k in batch})
-    return logits, torch.zeros((), dtype=torch.float32,
-                               device=logits.device)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot train."""
-    if any(s.kind == "ssm" for s in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training SSD layers is not ported: the port's "
-            f"only SSD math outside the ssd_scan kernel is the kernel's "
-            f"plain twin (ROADMAP Queue A, training items)")
+    where aux is the MoE layers' summed load-balance loss (0 without
+    MoE)."""
+    return model.logits_and_aux(
+        batch["tokens"], **{k: batch[k] for k in STUB_INPUTS if k in batch})
 
 
 def set_trainable(model: Transformer, on: bool = True) -> None:
     """Let the model's parameters record gradients (the training path)."""
-    check_trainable(model.cfg)
     for p in model.parameters():
         p.requires_grad_(on)
 
@@ -307,12 +348,10 @@ def set_trainable(model: Transformer, on: bool = True) -> None:
 def loss_fn(model: Transformer,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross-entropy (labels = batch['labels'], -1 = ignore),
-    in the reference's logsumexp / one-hot form.  The reference adds
-    ``0.01 * aux``, the MoE load-balance loss, which is 0 for every
-    ported configuration (no MoE).  ``batch`` may hold the reference's
+    in the reference's logsumexp / one-hot form, plus ``0.01 * aux``, the
+    MoE load-balance loss.  ``batch`` may hold the reference's
     ``enc_embeds`` / ``prefix_embeds``."""
-    check_trainable(model.cfg)
-    logits, _ = forward(model, batch)
+    logits, aux = forward(model, batch)
     labels = batch["labels"]
     valid = labels >= 0
     lab = torch.where(valid, labels, 0).long()
@@ -320,7 +359,8 @@ def loss_fn(model: Transformer,
     onehot = F.one_hot(lab, model.cfg.vocab).to(logits.dtype)
     true_logit = torch.sum(logits * onehot, dim=-1)
     nll = log_z - true_logit
-    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
+    loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
+    return loss + 0.01 * aux
 
 
 Cache = Union[KVCache, SSMCache]
@@ -331,7 +371,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """One cache per decoder layer (the reference stacks them per block
     position); a sliding-window layer's ring has ``min(max_len, window)``
     slots."""
-    check_scope(cfg)
     dev = resolve_device(device)
     caches: List[Cache] = []
     for i in range(cfg.n_layers):
@@ -357,7 +396,7 @@ def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
     h, kw = model.inputs(batch)
     caches = init_caches(model.cfg, h.shape[0], max_len, h.device)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches = model.run(h, positions, caches, **kw)
+    h, caches, _ = model.run(h, positions, caches, **kw)
     return model.logits_out(h[:, -1:])[:, -1], caches
 
 
@@ -377,8 +416,8 @@ def decode_step(model: Transformer, tokens_last: torch.Tensor,
     h = model.embed_in(tokens_last)
     positions = pos0 + torch.arange(tokens_last.shape[1],
                                     device=h.device)
-    h, caches = model.run(h, positions, caches, enc_out=enc_out,
-                          enc_pos=enc_pos)
+    h, caches, _ = model.run(h, positions, caches, enc_out=enc_out,
+                             enc_pos=enc_pos)
     return model.logits_out(h)[:, -1], caches
 
 

@@ -8,7 +8,8 @@ side only:
 
 * it sets ``jax.experimental.enable_x64`` to a stand-in built on
   ``jax.enable_x64``, imports ``repro.core``, ``repro.core.engine``,
-  ``repro.kernels``, ``repro.models``, ``repro.configs``, the training
+  ``repro.kernels``, ``repro.models`` (``moe`` among them),
+  ``repro.configs``, the training
   stack (``repro.persistence``, ``repro.optim``, ``repro.data``,
   ``repro.runtime``, ``repro.launch.steps``, ``repro.launch.train``),
   and deletes the attribute again at once;
@@ -53,7 +54,7 @@ def reference():
                                        policy, state)
         from repro.kernels import ref as kref
         from repro import configs
-        from repro.models import attention, layers, ssm, transformer
+        from repro.models import attention, layers, moe, ssm, transformer
         from repro import data, optim, persistence, runtime
         from repro.launch import steps, train
         # the package re-exports the functions under the modules' names
@@ -69,7 +70,7 @@ def reference():
             traces=traces, state=state, fabric=fabric,
             channels=channels, policy=policy, handlers=handlers, grid=grid,
             kref=kref, ktat=ktat, kflash=kflash, kssd=kssd, layers=layers,
-            attention=attention, ssm=ssm, transformer=transformer,
+            attention=attention, ssm=ssm, moe=moe, transformer=transformer,
             configs=configs, persistence=persistence, optim=optim,
             data=data, runtime=runtime, steps=steps, train=train,
             x64=lambda: jax.enable_x64(True))

@@ -15,7 +15,7 @@ Also here: twins of ``tests/test_models.py``'s softcap, qk-norm,
 encoder-decoder and vision-prefix tests with the decode-versus-forward
 contract (the enc-dec decoding given its encoder output), the kernel's
 route per layer contract, the serve CLI against the reference's launcher
-(F15 included), the shape of ``testdata/serve_ref_families.json``, and
+(F15 and F16 included, the MoE ids too), the shape of ``testdata/serve_ref_families.json``, and
 two train steps of the frontend and softcap configs against the
 reference's ``make_train_step``.
 """
@@ -362,16 +362,26 @@ def test_kernel_route_is_fixed_by_the_layer_contract(monkeypatch, arch):
 
 
 # --------------------------------------------------------------- serve CLI
-@pytest.mark.parametrize("arch", NEW)
-def test_serve_cli_matches_reference_launcher(ref, arch, capsys):
+MOE = ("mixtral-8x7b", "phi3.5-moe-42b", "jamba-1.5-large-398b")
+
+
+@pytest.mark.parametrize("arch,temperature", [
+    *(pytest.param(a, 0.0, id=a) for a in NEW + MOE),
+    pytest.param("mixtral-8x7b", 0.8, id="mixtral-8x7b-temperature-0.8")])
+def test_serve_cli_matches_reference_launcher(ref, arch, temperature,
+                                              capsys):
     """The CLI's greedy tokens equal the reference launcher's loop on the
     same weights and stub inputs, drawn in its order: prefix positions
-    counted, and the enc-dec decoded without its encoder output (F15)."""
+    counted, the enc-dec decoded without its encoder output (F15), and
+    ``--temperature`` taken and not read, so that decoding stays greedy
+    at any value (F16: the reference's launcher parses it and never
+    reads it)."""
     import jax.numpy as jnp
     b, s, gen = 2, 24, 12
     res = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--batch", str(b), "--prompt-len", str(s),
-                       "--gen", str(gen), "--seed", "5"])
+                       "--gen", str(gen), "--seed", "5",
+                       "--temperature", str(temperature)])
     assert "first sequence:" in capsys.readouterr().out
     jcfg = ref.configs.get_config(arch, smoke=True)
     cfg = tconfigs.get_config(arch, smoke=True)

@@ -10,9 +10,8 @@ layer outputs and 1e-4 relative to the largest logit on whole models.
 
 Also here: the full-width layout (on the meta device, no allocation)
 against ``jax.eval_shape`` of the reference's ``init_params``; the shape
-of ``serve_ref.json``; import hygiene; the scope rule (MoE alone
-raises; the changes it once refused match the reference) and the device
-rule; and the serve CLI.
+of ``serve_ref.json``; import hygiene; the changes the scope rule once
+refused, against the reference; the device rule; and the serve CLI.
 """
 from __future__ import annotations
 
@@ -255,7 +254,8 @@ def test_forward_matches_reference_and_decode(ref, arch):
 def test_full_width_layout_matches_reference_init_params(ref, arch):
     """Built on the meta device (nothing allocated): the port's weights in
     the reference layout have exactly the leaf shapes of the reference's
-    ``init_params`` and its parameter count."""
+    ``init_params``, its parameter count and its active parameter count
+    (MoE: top_k of n_experts)."""
     import jax
     jcfg = ref.configs.get_config(arch)
     tcfg = tconfigs.get_config(arch)
@@ -272,6 +272,8 @@ def test_full_width_layout_matches_reference_init_params(ref, arch):
     total = jcfg.param_count()
     assert tcfg.param_count() == total
     assert sum(p.numel() for p in model.parameters()) == total
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+    assert (tcfg.active_param_count() < total) == bool(tcfg.n_experts)
 
 
 def test_serve_ref_datum_has_the_shape_chip_smoke_reads():
@@ -319,25 +321,6 @@ def test_importing_the_port_pulls_in_no_jax_or_reference():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) >= 40
-
-
-@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
-                                  if a not in tconfigs.PORTED])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config(arch)
-
-
-@pytest.mark.parametrize("change", [
-    dict(n_experts=4, block_pattern=(tt.LayerSpec("attn", moe=True),))])
-def test_out_of_slice_configs_raise(change):
-    import dataclasses
-    cfg = dataclasses.replace(tconfigs.get_config("smollm-135m", smoke=True),
-                              **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_caches(cfg, 1, 8, device="cpu")
 
 
 @pytest.mark.parametrize("change", [

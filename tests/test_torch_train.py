@@ -11,7 +11,7 @@ for bit.
 
 Also here: ``remat`` leaves the numbers unchanged; no kernel runs in
 training and both kernel wrappers refuse inputs that require grad;
-mamba2 training raises; twins of ``tests/test_system.py`` (train, crash,
+twins of ``tests/test_system.py`` (train, crash,
 recover, resume in each scheme; restore by buffer forwarding; the CLI);
 and the shape of ``testdata/train_ref.json``, which ``chip_smoke.py``
 reads.
@@ -230,16 +230,6 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(which):
         bad[i] = bad[i].clone().requires_grad_(True)
         with pytest.raises(RuntimeError, match="requires grad"):
             call(bad)
-
-
-def test_mamba2_training_raises_naming_roadmap():
-    cfg = get_config("mamba2-1.3b", smoke=True)
-    model = params_from_reference(cfg, numpy_params(cfg, 0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(model, OPT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.loss_fn(model, {k: torch.as_tensor(v)
-                           for k, v in _batches(1)[0].items()})
 
 
 # ----------------------------------------- twins of tests/test_system.py
