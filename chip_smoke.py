@@ -8,8 +8,8 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs fourteen phases, each printing its own
-lines:
+``build/repro_torch/``, and runs fifteen phases, each printing its own
+lines (and, before the kernels' line, each phase's wall seconds):
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
    the latency of one dependent shared-memory load (``smem_probe.cu``),
@@ -84,8 +84,8 @@ lines:
 
 Then one JSON line with the serving numbers, one with the attention
 family's (phase 13), one with the MoE family's (phase 14), one with the
-training numbers (phase 12), one with
-every kernel's numbers, and as the last line
+training numbers (phase 12), one with the launch layer's (phase 15), one
+with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA.
@@ -196,8 +196,15 @@ without CUDA.
     bf16 config at full width and depth (weights drawn on the card) at
     the train CLI's defaults, its step time (CUDA events over 3 steps
     after 2), tokens/s and peak memory; again no kernel launch in the
-    phase.  ``python3 chip_smoke.py --train-only`` runs phase 12 alone
-    (no kernel build).
+    phase; (d) bf16 training through MoE layers (``moe._BmmF32``'s
+    gradient): the port's bf16 loss and gradients of one ``moe_ffn``
+    against ``src/repro_torch/testdata/moe_grad_bf16_ref.json`` (the JAX
+    reference's ``jax.grad``, made on the CPU) within 2^-6 of each leaf's
+    norm and in its dtypes, then mixtral-8x7b at full width, 2 of its 32
+    layers, weights drawn on the card, 2 bf16 steps at the train CLI's 8
+    x 128 tokens with f32 moments: each step's time, tokens/s, peak
+    memory, a finite loss and no kernel launch.  ``python3 chip_smoke.py
+    --train-only`` runs phase 12 alone (no kernel build).
 
 13. (run after phase 7) the attention family: sliding windows and their
     ring caches, logit softcaps, qk-norm, the prefix-LM and the
@@ -252,6 +259,22 @@ without CUDA.
     that launched it; (c) the kernels at each new shape against their
     plain versions, the attention timed beside
     ``scaled_dot_product_attention``, each with its bound.
+
+15. (run after phase 12) the launch layer: (a) ``python -m
+    repro_torch.launch.dryrun --arch all --shape all --mesh both`` in a
+    subprocess that sees no CUDA device (its fake process group of 256
+    or 512 ranks stays out of this process): exit 0 and ``dry-run: 70
+    ok, 10 skipped, 0 FAILED``, each ok row's parameter and optimizer
+    bytes per device equal to the specs' arithmetic, its seconds against
+    the 120 s aim and the five largest per-device residents; (b)
+    ``make_host_mesh()``, a 1 x 1 CUDA mesh on NCCL (world size 1), on
+    which ``shard_tree`` places smollm-135m's full-width parameters and
+    AdamW state whole, its group destroyed on exit; then smollm-135m
+    with phase 7b's weights and batch served through
+    ``make_prefill_step`` / ``make_decode_step`` (4 x 1024 + 64 greedy
+    steps): 30 ``flash_attention_tc`` launches at prefill, every step's
+    logits bit for bit those of ``prefill`` / ``decode_step`` called
+    directly, the tokens those phase 7b's ``serve`` returned.
 
 ``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
 comparison of the package's cell scan with each other ``cell_scan.cu``
@@ -3148,7 +3171,8 @@ def phase_serve(torch, np):
                          decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
                          peak_gib=peak, datum_rel=worst,
                          prefill_device_ms=pre_ms,
-                         decode_step_device_ms=dec_ms / 8)
+                         decode_step_device_ms=dec_ms / 8,
+                         tokens=res.tokens.tolist())
         del model
         torch.cuda.empty_cache()
     return out
@@ -4325,6 +4349,315 @@ def phase_train_ssd(torch, np, smi):
     return out
 
 
+def moe_grad_datum(torch, np, device):
+    """``src/repro_torch/testdata/moe_grad_bf16_ref.json`` on ``device``:
+    the port's ``moe_ffn`` at training's settings in bf16, the datum's
+    loss ``sum(y.f32 * c) + 0.01 * aux`` and its gradients, each leaf's
+    ``||port - ref|| / ||ref||`` and dtype; fails past the datum's
+    ``rel_limit`` or on a dtype other than the reference's."""
+    from repro_torch.models.moe import moe_ffn
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "moe_grad_bf16_ref.json")) as f:
+        ref = json.load(f)
+    b, s, d, f_, e = (ref[k] for k in ("batch", "seq", "d_model", "d_ff",
+                                       "n_experts"))
+    shapes = {"x": (b, s, d), "router": (d, e), "gate": (e, d, f_),
+              "up": (e, d, f_), "down": (e, f_, d), "c": (b, s, d)}
+
+    def leaf(vals, name):
+        a = np.asarray(vals)
+        t = (torch.from_numpy(a.astype(np.float32)) if name in ("router", "c")
+             else torch.from_numpy(a.astype(np.uint16).view(np.int16))
+             .view(torch.bfloat16))
+        return t.reshape(shapes[name]).to(device)
+    ins = {k: leaf(v, k).requires_grad_(k != "c")
+           for k, v in ref["inputs"].items()}
+    p = {"router": {"w": ins["router"]}, "gate": ins["gate"],
+         "up": ins["up"], "down": ins["down"]}
+    y, aux = moe_ffn(p, ins["x"], top_k=ref["top_k"],
+                     capacity_factor=ref["capacity_factor"], drop=True,
+                     groups=1)
+    loss = torch.sum(y.float() * ins["c"]) + 0.01 * aux
+    loss.backward()
+    out = {"loss_rel": abs(float(loss.detach()) - ref["loss"]) / abs(ref["loss"]),
+           "rel": {}, "dtypes": {}, "limit": ref["rel_limit"]}
+    for k, want in ref["grads"].items():
+        g = ins[k].grad
+        out["dtypes"][k] = str(g.dtype).replace("torch.", "")
+        w = leaf(want, k).double()
+        out["rel"][k] = float(torch.linalg.vector_norm(g.double() - w)
+                              / torch.linalg.vector_norm(w))
+    bad = {k: v for k, v in out["rel"].items() if not v <= out["limit"]}
+    if out["loss_rel"] > out["limit"] or bad or out["dtypes"] != ref["dtypes"]:
+        fail(f"bf16 MoE gradients against moe_grad_bf16_ref.json: loss "
+             f"{out['loss_rel']:.3g}, leaves over {out['limit']}: {bad}, "
+             f"dtypes {out['dtypes']} (the reference's {ref['dtypes']})")
+    return out
+
+
+# phase 12d: mixtral-8x7b at full width, cut in depth, trained in bf16 at
+# the train CLI's batch and length
+TRAIN_MOE = ("mixtral-8x7b", 2, 8, 128, 2)   # arch, layers, batch, seq, steps
+
+
+def phase_train_moe(torch, np, smi):
+    """Phase 12d: bf16 training through MoE layers (``moe._BmmF32``'s
+    gradient): the port's bf16 gradients against moe_grad_bf16_ref.json,
+    then mixtral-8x7b at full width, cut in depth, trained a few steps in
+    bf16 (weights drawn on the card), each step timed; no kernel launches
+    in the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import device_fill
+    from repro_torch.optim import AdamWConfig, adamw_init
+    zero_kernel_counts()
+    t_phase = time.time()
+    out = {"datum": moe_grad_datum(torch, np, "cuda")}
+    dat = out["datum"]
+    print(f"phase 12d bf16 MoE gradients against moe_grad_bf16_ref.json "
+          f"(||port - ref|| / ||ref||, limit {dat['limit']}): loss "
+          f"{dat['loss_rel']:.3g}, "
+          + ", ".join(f"{k} {v:.3g}" for k, v in dat["rel"].items())
+          + f"; dtypes {dat['dtypes']}; {smi}")
+
+    arch, layers, batch, seq, steps = TRAIN_MOE
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_config(arch, layers)
+    model = device_fill(T.Transformer(cfg, "cuda"), 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=50)
+    opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+    step = make_train_step(model, opt_cfg)
+    data = SyntheticLMDataset(cfg.vocab, seq, batch)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        b = data.next_batch()
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        opt, m = step(opt, b)
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        fail(f"phase 12d {arch} bf16 losses {losses}")
+    out["kernel_launches"] = kernel_counts()
+    if any(out["kernel_launches"].values()):
+        fail(f"phase 12d: the training path launched kernels: "
+             f"{out['kernel_launches']}")
+    out.update(arch=arch, layers=layers, params=n_params, step_ms=step_ms,
+               tokens_per_s=[batch * seq / (t / 1e3) for t in step_ms],
+               losses=losses, peak_gib=peak, phase_s=time.time() - t_phase)
+    print(f"phase 12d {arch} bf16 train steps at full width, {layers} of "
+          f"{get_config(arch).n_layers} layers ({n_params / 1e9:.3f} B "
+          f"parameters, {batch} x {seq} tokens, AdamW f32 moments, remat "
+          f"{cfg.remat}; CUDA events, each step): "
+          f"{[round(t, 2) for t in step_ms]} ms, "
+          f"{[round(t) for t in out['tokens_per_s']]} tokens/s; losses "
+          f"{[round(x, 4) for x in losses]}; peak memory {peak:.2f} GiB; "
+          f"kernel launches in the phase "
+          f"{json.dumps(out['kernel_launches'])}; phase "
+          f"{out['phase_s']:.1f} s; {smi}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 15: the launch layer ---------------------------------------------
+DRYRUN_SUMMARY = "dry-run: 70 ok, 10 skipped, 0 FAILED"
+DRYRUN_LIMIT_S = 120.0     # the whole run's aim, reported (a host-CPU time)
+
+
+def dryrun_arithmetic(torch, rows):
+    """Each ok row's parameter and optimizer bytes per device from the
+    specs alone (a leaf's bytes over the product of the mesh axes its
+    spec splits it by; the default FLAGS), by (arch, shape, mesh)."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as T
+    meshes = {"single": (("data", "model"), (16, 16)),
+              "multi": (("pod", "data", "model"), (2, 16, 16))}
+    params, out = {}, {}
+    for r in rows:
+        if r["status"] != "ok":
+            continue
+        if r["arch"] not in params:
+            params[r["arch"]] = dict(T.Transformer(
+                get_config(r["arch"]), device="meta").named_parameters())
+        names, sizes = meshes[r["mesh"]]
+        mesh = types.SimpleNamespace(mesh_dim_names=names, shape=sizes)
+        pb = ob = 0
+        moment = getattr(torch, r["moment_dtype"]).itemsize
+        for name, t in params[r["arch"]].items():
+            split = 1
+            for e in sh.param_spec(mesh, name, t):
+                if e is not None:
+                    split *= sh._axis_size(mesh, e)
+            pb += t.numel() * t.element_size() // split
+            ob += 2 * t.numel() * moment // split
+        train = r["shape"] == "train_4k"
+        out[r["arch"], r["shape"], r["mesh"]] = (pb, ob + 4 if train else 0)
+    return out
+
+
+def phase_dryrun(torch):
+    """Phase 15a: ``python -m repro_torch.launch.dryrun --arch all --shape
+    all --mesh both`` in a subprocess that sees no CUDA device (its fake
+    process group stays out of this process): its summary, exit code and
+    seconds, each row's parameter and optimizer bytes per device against
+    :func:`dryrun_arithmetic`, and the five largest per-device residents."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dryrun.json")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "all", "--shape", "all", "--mesh", "both", "--out", path],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=900)
+        secs = time.time() - t0
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0 or not lines or lines[-1] != DRYRUN_SUMMARY:
+            fail(f"phase 15a dry-run exit {proc.returncode}, last lines "
+                 f"{lines[-3:]}; stderr {proc.stderr[-2000:]}")
+        with open(path) as f:
+            rows = json.load(f)
+    want = dryrun_arithmetic(torch, rows)
+    for r in rows:
+        if r["status"] != "ok":
+            continue
+        got = (r["param_bytes_per_device"], r["opt_bytes_per_device"])
+        if got != want[r["arch"], r["shape"], r["mesh"]]:
+            fail(f"phase 15a {r['arch']} x {r['shape']} x {r['mesh']}: "
+                 f"parameter and optimizer bytes per device {got}, the "
+                 f"specs' arithmetic {want[r['arch'], r['shape'], r['mesh']]}")
+    keys = ("param", "opt", "batch", "cache")
+    res = {(r["arch"], r["shape"], r["mesh"]):
+           sum(r[f"{k}_bytes_per_device"] for k in keys)
+           for r in rows if r["status"] == "ok"}
+    top = sorted(res.items(), key=lambda kv: -kv[1])[:5]
+    print(f"phase 15a dry-run of every (arch x shape x mesh) cell on the meta "
+          f"device over the fake 256- and 512-rank groups: {lines[-1]}, in "
+          f"{secs:.1f} s ({'within' if secs <= DRYRUN_LIMIT_S else 'PAST'} "
+          f"the {DRYRUN_LIMIT_S} s aim; {os.cpu_count()} host cores); "
+          f"parameter and optimizer bytes per device equal to the "
+          f"specs' arithmetic on all {len(res)} ok rows; the five largest "
+          f"per-device residents (parameters + optimizer + batch + caches):"
+          + "".join(f"\n  {a} x {s} x {m}: {b / 2 ** 30:.3f} GiB"
+                    for (a, s, m), b in top))
+    return {"seconds": secs, "within_aim": secs <= DRYRUN_LIMIT_S,
+            "summary": lines[-1], "rows": len(rows),
+            "ok_rows": len(res),
+            "largest_resident_gib": [[*k, b / 2 ** 30] for k, b in top],
+            "meta_pass_s_sum": sum(r.get("meta_pass_s", 0.0) for r in rows)}
+
+
+def phase_launch_host(torch, np, smi, served_tokens):
+    """Phase 15b: the launch layer on the card.  ``make_host_mesh()`` is a
+    1 x 1 CUDA mesh (NCCL, world size 1) on which ``shard_tree`` places
+    smollm-135m's full-width parameters and AdamW state whole; the group
+    is destroyed on leaving it.  Then smollm-135m (phase 7b's weights and
+    batch) served through ``make_prefill_step`` / ``make_decode_step``:
+    every step's logits bit for bit those of ``transformer.prefill`` /
+    ``decode_step`` called directly, the tokens phase 7b's ``serve``
+    returned, 30 ``flash_attention_tc`` launches at prefill."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import random_batch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import numpy_params, params_from_reference
+    from repro_torch.optim import AdamWConfig, adamw_init
+    with open(os.path.join(ROOT, "src", "repro_torch", "testdata",
+                           "serve_ref.json")) as f:
+        seed = json.load(f)["configs"]["smollm-135m"]["seed"]
+    cfg = get_config("smollm-135m")
+    model = params_from_reference(cfg, numpy_params(cfg, seed), "cuda")
+    params = dict(model.named_parameters())
+    opt = adamw_init(AdamWConfig(), params)
+    out = {}
+    with make_host_mesh() as mesh:
+        if (mesh.device_type, tuple(mesh.shape), dist.get_backend(),
+                dist.get_world_size()) != ("cuda", (1, 1), "nccl", 1):
+            fail(f"phase 15b host mesh {mesh} on {dist.get_backend()}")
+        n = 0
+        for what, tree in (("parameter", params), ("AdamW state", opt)):
+            src = sh.leaves(tree)
+            for name, dt in sh.leaves(sh.shard_tree(mesh, tree)).items():
+                loc = dt.to_local()
+                if loc.shape != src[name].shape or loc.device.type != \
+                        "cuda" or not torch.equal(loc, src[name]):
+                    fail(f"phase 15b {what} {name}: local {tuple(loc.shape)}"
+                         f" on {loc.device}, global "
+                         f"{tuple(src[name].shape)}")
+                n += 1
+        out["leaves_placed"] = n
+        out["mesh"] = str(mesh)
+    if dist.is_initialized():
+        fail("phase 15b: the host mesh left its process group behind")
+    del opt
+
+    batch = random_batch(cfg, 4, 1024, 0, "cuda")
+    gen, s = 64, 1024
+
+    def run(prefill, decode):
+        logits_all, toks = [], []
+        with torch.inference_mode():
+            logits, caches = prefill(batch)
+            launches = (fa.launches_tc, fa.launches_fma)
+            tok = logits.argmax(dim=-1)[:, None]
+            for i in range(gen):
+                logits_all.append(logits)
+                toks.append(tok[:, 0])
+                logits, caches = decode(tok, caches, s + i)
+                tok = logits.argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
+        return logits_all, torch.stack(toks, dim=1).cpu().numpy(), launches
+
+    fa.launches_tc = fa.launches_fma = 0
+    got, tokens, launches = run(
+        make_prefill_step(model, s + gen), make_decode_step(model))
+    if launches != (cfg.n_layers, 0) or cfg.n_layers != 30:
+        fail(f"phase 15b prefill step launched flash_attention_tc / fma "
+             f"{launches}, expected (30, 0)")
+    want, want_tokens, _ = run(
+        lambda b: T.prefill(model, b, s + gen),
+        lambda t, c, p: T.decode_step(model, t, c, pos0=p))
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if not torch.equal(a, b)]
+    if differ or not np.array_equal(tokens, want_tokens):
+        fail(f"phase 15b steps' logits differ from prefill / decode_step "
+             f"at steps {differ[:8]}")
+    if served_tokens is not None and not np.array_equal(
+            tokens, np.asarray(served_tokens)):
+        fail("phase 15b steps' tokens differ from phase 7b's serve")
+    out.update(launches_tc=launches[0], steps=len(got),
+               logits_equal_direct=True,
+               tokens_equal_phase_7b=served_tokens is not None)
+    print(f"phase 15b make_host_mesh(): {out['mesh']} on NCCL, world size 1,"
+          f" its group destroyed on exit; shard_tree placed {n} smollm-135m "
+          f"parameter and AdamW-state leaves whole; make_prefill_step / "
+          f"make_decode_step served 4 x {s} + {gen} greedy steps: "
+          f"{launches[0]} flash_attention_tc launches at prefill, all "
+          f"{len(got)} steps' logits bit for bit those of prefill / "
+          f"decode_step, tokens "
+          f"{'equal to phase 7b serve' if served_tokens is not None else '(phase 7b not run)'}"
+          f"; {smi}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4341,7 +4674,8 @@ def main() -> int:
     print(smi)
     if sys.argv[1:] == ["--train-only"]:
         print(json.dumps({"train": phase_train(torch, np, smi),
-                          "train_ssd": phase_train_ssd(torch, np, smi)}))
+                          "train_ssd": phase_train_ssd(torch, np, smi),
+                          "train_moe": phase_train_moe(torch, np, smi)}))
         return 0
     if sys.argv[1:] == ["--serve-only"]:
         t0 = time.time()
@@ -4377,30 +4711,48 @@ def main() -> int:
     print(f"phase 1 kernels built in {time.time() - t0:.1f} s "
           f"({', '.join(sources)})")
 
-    smem_ns = smem_round_trip_ns(torch)
+    walls = {"1": time.time() - t0}
+
+    def timed(phase, fn, *args):
+        t = time.time()
+        res = fn(*args)
+        walls[phase] = walls.get(phase, 0.0) + time.time() - t
+        return res
+    smem_ns = timed("1", smem_round_trip_ns, torch)
     print(f"phase 1 one dependent shared-memory load: {smem_ns:.3f} ns")
-    tat = phase_tat_lookup(torch, np)
-    scan = phase_cell_scan(torch, smem_ns)
+    tat = timed("2", phase_tat_lookup, torch, np)
+    scan = timed("3", phase_cell_scan, torch, smem_ns)
     traces, configs = paper_grid()
-    full = phase_cell_scan_full(torch, traces, configs)
-    main_path = phase_main_path(torch, np, smem_ns, traces, configs, full)
-    scan_profile = phase_cell_scan_profile(torch, traces, configs, full)
+    full = timed("3", phase_cell_scan_full, torch, traces, configs)
+    main_path = timed("4", phase_main_path, torch, np, smem_ns, traces,
+                      configs, full)
+    scan_profile = timed("4", phase_cell_scan_profile, torch, traces,
+                         configs, full)
     # phase 13's weights, drawn meanwhile: phases 8-11 time single long
     # launches and share the host with process pools anyway, while the
     # thread would slow the host-bound numbers of phases 4 and 5-7
     trees = DatumTrees(torch)
-    chains = phase_chains(torch, np, smem_ns)
-    fab = phase_fabric(torch, np, smem_ns, traces, sass_against)
-    epochs = phase_epochs(torch, np, smem_ns, traces)
-    epochs["coverage"] = phase_coverage(torch)
-    macro = phase_macro(torch, np, smem_ns, traces, configs, scan)
-    flash = phase_flash(torch, np)
-    ssd = phase_ssd(torch, np)
-    served = phase_serve(torch, np)
-    family = phase_family(torch, np, trees)
-    moe = phase_moe(torch, np, trees)
-    trained = phase_train(torch, np, smi)
-    trained_ssd = phase_train_ssd(torch, np, smi)
+    chains = timed("8", phase_chains, torch, np, smem_ns)
+    fab = timed("9", phase_fabric, torch, np, smem_ns, traces, sass_against)
+    epochs = timed("10", phase_epochs, torch, np, smem_ns, traces)
+    epochs["coverage"] = timed("10g", phase_coverage, torch)
+    macro = timed("11", phase_macro, torch, np, smem_ns, traces, configs,
+                  scan)
+    flash = timed("5", phase_flash, torch, np)
+    ssd = timed("6", phase_ssd, torch, np)
+    served = timed("7", phase_serve, torch, np)
+    family = timed("13", phase_family, torch, np, trees)
+    moe = timed("14", phase_moe, torch, np, trees)
+    trained = timed("12", phase_train, torch, np, smi)
+    trained_ssd = timed("12c", phase_train_ssd, torch, np, smi)
+    trained_moe = timed("12d", phase_train_moe, torch, np, smi)
+    launch = {"dryrun": timed("15a", phase_dryrun, torch),
+              "host": timed("15b", phase_launch_host, torch, np, smi,
+                            served["smollm-135m"]["tokens"])}
+    launch["phase_wall_s"] = walls
+    print("phase walls (s): " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in walls.items())
+          + f"; in all {time.time() - t0:.1f}")
 
     eng = tat[(8, 16)]
     kernels = [
@@ -4854,7 +5206,9 @@ def main() -> int:
     print(json.dumps({"serve": served}))
     print(json.dumps({"family": family}))
     print(json.dumps({"moe": moe}))
-    print(json.dumps({"train": trained, "train_ssd": trained_ssd}))
+    print(json.dumps({"train": trained, "train_ssd": trained_ssd,
+                      "train_moe": trained_moe}))
+    print(json.dumps({"launch": launch}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

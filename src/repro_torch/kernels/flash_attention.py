@@ -45,7 +45,9 @@ other strides must be multiples of 16 bytes and their data 16-byte
 aligned; an input that is not gets a contiguous copy first.
 
 Dispatch is by device: a CPU tensor takes the plain version
-(:func:`~repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
+(:func:`~repro_torch.kernels.ref.flash_attention_ref`), and so does a meta
+tensor, for its shapes alone (the launch layer's dry-run; the meta
+device holds no data and runs no kernel); a CUDA tensor
 launches its route's kernel or raises.  Both paths refuse what the
 kernels do not take, and an input that requires grad: the kernels have
 no backward, and an output written through ``ctypes`` would carry no
@@ -157,7 +159,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches, launches_tc, launches_fma
     refuse_grad("flash_attention", q, k, v)
     _check_inputs(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

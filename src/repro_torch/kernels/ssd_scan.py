@@ -34,7 +34,9 @@ their data 16-byte aligned, and an input that is not gets a contiguous
 copy first.
 
 Dispatch is by device: a CPU tensor takes the plain version
-(:func:`~repro_torch.kernels.ref.ssd_scan_ref`); a CUDA tensor launches
+(:func:`~repro_torch.kernels.ref.ssd_scan_ref`), and so does a meta
+tensor, for its shapes alone (the launch layer's dry-run; the meta
+device holds no data and runs no kernel); a CUDA tensor launches
 its route's kernel or raises.  Both paths refuse what the kernels do
 not take, and an input that requires grad (the kernels have no
 backward; see ``flash_attention``).
@@ -212,7 +214,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     global launches, launches_tc, launches_fma
     refuse_grad("ssd_scan", x, dt, A, B, C, init_state)
     _check_inputs(x, dt, A, B, C, chunk, init_state)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
                             init_state=init_state)
     if x.device.type != "cuda":

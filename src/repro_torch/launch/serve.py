@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import (device_fill, numpy_params,
                                         params_from_reference)
@@ -59,7 +60,8 @@ def prefix_len(cfg) -> int:
 def serve(model: T.Transformer, batch: Dict[str, torch.Tensor],
           gen: int) -> ServeResult:
     """Prefill ``batch`` (its ``tokens`` (B, S) and the config's stub
-    inputs) and decode ``gen`` greedy tokens.
+    inputs) and decode ``gen`` greedy tokens, through
+    ``launch.steps.make_prefill_step`` and ``make_decode_step``.
 
     As in the reference, the token fed to each decode step is recorded,
     so the result holds the prefill's greedy token and ``gen - 1``
@@ -71,9 +73,10 @@ def serve(model: T.Transformer, batch: Dict[str, torch.Tensor],
     prompt = batch["tokens"]
     dev = prompt.device
     s = prompt.shape[1] + prefix_len(model.cfg)
+    prefill, decode = make_prefill_step(model, s + gen), make_decode_step(model)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = T.prefill(model, batch, s + gen)
+    logits, caches = prefill(batch)
     tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -82,7 +85,7 @@ def serve(model: T.Transformer, batch: Dict[str, torch.Tensor],
     t0 = time.perf_counter()
     for i in range(gen):
         out.append(tok[:, 0])
-        logits, caches = T.decode_step(model, tok, caches, pos0=s + i)
+        logits, caches = decode(tok, caches, s + i)
         tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
     t_decode = time.perf_counter() - t0

@@ -1,4 +1,4 @@
-"""The train step (port of ``repro.launch.steps.make_train_step``).
+"""The train, prefill and decode steps (port of ``repro.launch.steps``).
 
 The reference's step is a pure function of (params, opt_state, batch);
 the port's model holds its parameters, so the step updates them in place
@@ -8,8 +8,9 @@ masked softmax and whose SSD layers run ``models.ssm.ssd_chunked``: no
 hand-written kernel runs in training, as none runs in the reference's
 (its model never calls its Pallas kernels).
 
-The reference's prefill and decode steps wrap ``prefill`` and
-``decode_step``; the port's serve launcher calls those directly.
+:func:`make_prefill_step` and :func:`make_decode_step` wrap
+``transformer.prefill`` and ``decode_step`` as the reference's do; the
+serve launcher and the dry-run call them.
 """
 from __future__ import annotations
 
@@ -85,4 +86,21 @@ def make_train_step(model: T.Transformer, opt_cfg: AdamWConfig,
         metrics["loss"] = loss
         return opt_state, metrics
 
+    return step
+
+
+def make_prefill_step(model: T.Transformer, max_len: int):
+    """``batch -> (last position's logits, caches)`` with room for
+    ``max_len`` positions."""
+    def step(batch):
+        return T.prefill(model, batch, max_len)
+    return step
+
+
+def make_decode_step(model: T.Transformer):
+    """``(tokens_last, caches, pos0, enc_out=None, enc_pos=None) ->
+    (logits, caches)``."""
+    def step(tokens_last, caches, pos0, enc_out=None, enc_pos=None):
+        return T.decode_step(model, tokens_last, caches, pos0=pos0,
+                             enc_out=enc_out, enc_pos=enc_pos)
     return step

@@ -66,6 +66,20 @@ def _stack_shape(cfg: ModelConfig, key: str):
     return ENC_PATTERN, cfg.n_enc_layers
 
 
+def reference_path(cfg: ModelConfig, name: str) -> Tuple[str, int]:
+    """(the reference's dotted path, the repetition) of the port's
+    parameter ``name``: ``layers.<r * len(pattern) + j>.<leaf>`` is
+    ``blocks.<j>.<leaf>`` at repetition ``r`` (``enc_layers`` likewise
+    under ``enc_blocks``); a top leaf is its own path, repetition -1."""
+    mod, _, rest = name.partition(".")
+    for key, m in STACKS:
+        if mod == m:
+            i, leaf = rest.split(".", 1)
+            p = len(_stack_shape(cfg, key)[0])
+            return f"{key}.{int(i) % p}.{leaf}", int(i) // p
+    return name, -1
+
+
 def stack_layers(cfg: ModelConfig,
                  named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """A tree keyed by the model's parameter names (``layers.<i>.<leaf>``,

@@ -38,13 +38,38 @@ from torch import nn
 from repro_torch.models.layers import Linear
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched ``a @ b`` in the operands' dtype with an f32 result.  A
-    bf16 product takes ``out_dtype``, which the CPU build of torch lacks
-    (``aten::bmm.dtype``): bf16 experts run on the card."""
-    if a.dtype == torch.float32:
-        return torch.bmm(a, b)
-    return torch.bmm(a, b, out_dtype=torch.float32)
+class _BmmF32(torch.autograd.Function):
+    """Batched ``a @ b`` in the operands' dtype with an f32 result, and
+    its gradient.  A bf16 product takes ``out_dtype``, which the CPU
+    build of torch lacks (``aten::bmm.dtype``): bf16 experts run on the
+    card.  Autograd has no formula for that overload, so the backward is
+    written out.
+
+    It is what ``jax.grad`` makes of the reference's ``einsum(...,
+    preferred_element_type=f32)``: the f32 cotangent times the other
+    operand upcast to f32, an f32 product, each gradient cast to its
+    operand's dtype (bf16 gradients for bf16 operands).  For f32
+    operands these are autograd's own products for ``torch.bmm``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dtype == torch.float32:
+            return torch.bmm(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = g.bmm(b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = a.float().transpose(1, 2).bmm(g).to(b.dtype)
+        return ga, gb
+
+
+_bmm_f32 = _BmmF32.apply
 
 
 def moe_ffn(p: Dict[str, Any], x: torch.Tensor, *, top_k: int = 2,

@@ -65,6 +65,34 @@ class LayerSpec(NamedTuple):
     moe: bool = False
 
 
+# The activation spec a launcher chose (``launch.sharding.FLAGS
+# ["act_shard"]``): the reference constrains the residual stream to it in
+# every block; the port records it only.
+_ACT_SPEC: list = [None]
+
+
+class activation_sharding:
+    """Context manager: record ``spec``, the (B, S, d) activations' spec
+    in the launch layer's form, as the innermost choice
+    (:func:`activation_spec` reads it).  It applies no constraint: the
+    reference's is a hint to XLA's partitioner, and no partitioner runs
+    in the port (the dry-run records the choice in its rows)."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+    def __enter__(self):
+        _ACT_SPEC.append(self.spec)
+
+    def __exit__(self, *exc):
+        _ACT_SPEC.pop()
+
+
+def activation_spec():
+    """The innermost :class:`activation_sharding`'s spec (None outside)."""
+    return _ACT_SPEC[-1]
+
+
 # GShard-style MoE routing groups (see models/moe.py): the launcher sets
 # this to the data-parallel shard count so dispatch stays shard-local.
 _MOE_GROUPS: list = [1]
@@ -370,8 +398,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> List[Cache]:
     """One cache per decoder layer (the reference stacks them per block
     position); a sliding-window layer's ring has ``min(max_len, window)``
-    slots."""
-    dev = resolve_device(device)
+    slots.  ``device``: as :class:`Transformer`'s (``"meta"`` gives the
+    shapes alone)."""
+    dev = _device(device)
     caches: List[Cache] = []
     for i in range(cfg.n_layers):
         spec = cfg.block_pattern[i % len(cfg.block_pattern)]

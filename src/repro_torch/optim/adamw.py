@@ -92,16 +92,19 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     """One AdamW step.  Returns (new_params, new_state, metrics)."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = tree_map(lambda g: g.to(torch.promote_types(
-            g.dtype, scale.dtype)) * scale, grads)
     lr = cosine_schedule(cfg, step)
     b1t = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2t = 1.0 - cfg.b2 ** step.to(torch.float32)
     md = cfg.moment_dtype
 
     def upd(p, g, m, v):
+        # clipped leaf by leaf, so that no second copy of every gradient
+        # is alive at once
+        if scale is not None:
+            g = g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
         g32 = g.to(md)
         m2 = cfg.b1 * m + (1 - cfg.b1) * g32
         v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)

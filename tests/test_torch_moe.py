@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import types
 from pathlib import Path
 
 import numpy as np
@@ -442,3 +443,197 @@ def test_chip_smoke_plain_check_holds_each_kernel_call(kernel):
     assert off["site"][kernel] > 0.02 > SITE_BF16_RTOL
     assert off["rel"][kernel] <= off["zeroed_rel"][kernel] / 10
     assert kernel in plain_check_failure(off)
+
+
+# ------------------------------------------- bf16 gradients (_BmmF32)
+def _emulated_bmm(real):
+    """``torch.bmm`` with ``out_dtype`` for the CPU, whose build lacks
+    ``aten::bmm.dtype``: the operands upcast, an f32 product."""
+    def bmm(a, b, *, out_dtype=None):
+        if out_dtype is None:
+            return real(a, b)
+        return real(a.to(out_dtype), b.to(out_dtype))
+    return bmm
+
+
+def test_bf16_moe_model_backward_on_the_meta_device():
+    """bf16 training through MoE layers: ``mixtral-8x7b`` at full width,
+    two layers, forward and backward on the meta device (shapes only).
+    Autograd has no formula for ``bmm`` with ``out_dtype``, so without
+    ``_BmmF32`` this raises."""
+    cfg = dataclasses.replace(tconfigs.get_config("mixtral-8x7b"),
+                              n_layers=2)
+    model = tt.Transformer(cfg, device="meta")
+    tt.set_trainable(model, True)
+    ids = torch.zeros((2, 64), dtype=torch.long, device="meta")
+    loss = tt.loss_fn(model, {"tokens": ids, "labels": ids})
+    loss.backward()
+    assert loss.dtype == torch.float32
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.dtype == p.dtype, name
+        assert p.grad.shape == p.shape, name
+
+
+def test_bmm_f32_gradients_in_f32_are_autograds():
+    """For f32 operands ``_BmmF32`` gives torch.bmm's output and autograd's
+    gradients of it, bit for bit."""
+    rng = np.random.default_rng(3)
+    a0 = _t(rng.standard_normal((3, 5, 7)).astype(np.float32))
+    b0 = _t(rng.standard_normal((3, 7, 4)).astype(np.float32))
+    g = _t(rng.standard_normal((3, 5, 4)).astype(np.float32))
+    a, b = a0.clone().requires_grad_(), b0.clone().requires_grad_()
+    a2, b2 = a0.clone().requires_grad_(), b0.clone().requires_grad_()
+    y = tmoe._bmm_f32(a, b)
+    y2 = torch.bmm(a2, b2)
+    assert torch.equal(y, y2)
+    y.backward(g)
+    y2.backward(g)
+    assert torch.equal(a.grad, a2.grad) and torch.equal(b.grad, b2.grad)
+    # one operand alone
+    b3 = b0.clone().requires_grad_()
+    tmoe._bmm_f32(a0, b3).backward(g)
+    assert torch.equal(b3.grad, b2.grad)
+
+
+def test_bmm_f32_backward_in_bf16_is_jax_grad_of_the_einsum(ref):
+    """bf16 operands: the gradients are what ``jax.vjp`` makes of the
+    reference's ``einsum("ecd,edf->ecf", ..., preferred_element_type=f32)``
+    for an f32 cotangent: bf16, within one bf16 rounding of JAX's (the
+    f32 products sum in another order)."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(4)
+    a32 = rng.standard_normal((3, 6, 8)).astype(np.float32)
+    b32 = rng.standard_normal((3, 8, 5)).astype(np.float32)
+    g = rng.standard_normal((3, 6, 5)).astype(np.float32)
+    ja, jb = jnp.asarray(a32, jnp.bfloat16), jnp.asarray(b32, jnp.bfloat16)
+    y, vjp = jax.vjp(lambda a, b: jnp.einsum(
+        "ecd,edf->ecf", a, b, preferred_element_type=jnp.float32), ja, jb)
+    want_a, want_b = vjp(jnp.asarray(g))
+    a = _t(a32).to(torch.bfloat16).requires_grad_()
+    b = _t(b32).to(torch.bfloat16).requires_grad_()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "bmm", _emulated_bmm(torch.bmm))
+        got = tmoe._bmm_f32(a, b)
+    assert got.dtype == torch.float32
+    assert _rel(got.detach(), np.asarray(y)) <= 1e-6
+    got.backward(_t(g))
+    for t, want in ((a, want_a), (b, want_b)):
+        assert want.dtype == jnp.bfloat16 and t.grad.dtype == torch.bfloat16
+        assert _rel(t.grad.float(), np.asarray(want, np.float32)) <= 2 ** -7
+
+
+def test_moe_grad_bf16_datum_on_the_cpu():
+    """``chip_smoke.py`` phase 12d's datum check on the CPU, the bf16
+    expert products emulated (f32 products of the upcast operands, what
+    XLA's CPU backend computes for the reference): the loss and every
+    gradient leaf within the datum's limit, in the reference's dtypes;
+    and the datum's shape."""
+    from chip_smoke import moe_grad_datum
+    d = json.loads((ROOT / "src" / "repro_torch" / "testdata"
+                    / "moe_grad_bf16_ref.json").read_text())
+    assert d["dtypes"] == {"x": "bfloat16", "router": "float32",
+                           "gate": "bfloat16", "up": "bfloat16",
+                           "down": "bfloat16"}
+    assert d["rel_limit"] == 2.0 ** -6 and d["margin"] > 1e-3
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "bmm", _emulated_bmm(torch.bmm))
+        got = moe_grad_datum(torch, np, "cpu")
+    assert set(got["rel"]) == {"x", "router", "gate", "up", "down"}
+    assert max(got["rel"].values()) <= 1e-4
+    assert got["loss_rel"] <= 1e-3
+
+
+# ------------------------------- the wrappers' three arms, and the meta pass
+def _wrapper_inputs(kernel, device):
+    """Inputs of ``kernel`` (bf16, a shape its tensor-core route takes) on
+    ``device``."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if kernel == "flash_attention":
+        return (t(1, 2, 64, 64), t(1, 1, 64, 64), t(1, 1, 64, 64)), {}
+    return ((t(1, 128, 2, 64), t(1, 128, 2, dtype=torch.float32),
+             t(2, dtype=torch.float32), t(1, 128, 64), t(1, 128, 64)),
+            {"chunk": 128})
+
+
+@pytest.mark.parametrize("kernel", ("flash_attention", "ssd_scan"))
+def test_wrappers_plain_on_cpu_shapes_on_meta_kernel_on_cuda(kernel):
+    """No wrapper falls back.  A CPU tensor takes the plain version; a meta
+    tensor takes it too, for the output's shapes alone (no data, no
+    launch); a CUDA tensor never does: it goes to its route's kernel
+    (here, with no card, as fake tensors, it reaches the library build,
+    which the test makes raise)."""
+    import warnings
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kss
+    mod = kfa if kernel == "flash_attention" else kss
+    wrapper = getattr(mod, kernel)
+    plain = getattr(mod, f"{kernel}_ref")
+    args, kw = _wrapper_inputs(kernel, "cpu")
+    want = plain(*args, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    got = wrapper(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    before = mod.launches
+    margs, kw = _wrapper_inputs(kernel, "meta")
+    out = wrapper(*margs, **kw)
+    out = out if isinstance(out, tuple) else (out,)
+    assert [(o.device.type, o.shape, o.dtype) for o in out] \
+        == [("meta", w.shape, w.dtype) for w in want]
+    assert mod.launches == before
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version on a CUDA tensor")
+
+    def library(name):
+        raise RuntimeError(f"launch {name}")
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # fake tensors' data_ptr
+        mp.setattr(mod, f"{kernel}_ref", no_plain)
+        mp.setattr(_build, "library", library)
+        mp.setattr(torch.cuda, "current_stream",
+                   lambda *a: types.SimpleNamespace(cuda_stream=0))
+        with FakeTensorMode():
+            cargs, kw = _wrapper_inputs(kernel, "cuda")
+            with pytest.raises(RuntimeError, match=f"launch {kernel}_tc"):
+                wrapper(*cargs, **kw)
+    assert mod.launches == before
+
+
+@pytest.mark.parametrize("arch", ("jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2"))
+def test_meta_prefill_and_decode_trace_shapes_only(arch):
+    """A model on the meta device prefills and decodes (``init_caches`` on
+    ``"meta"``, both kernels' wrappers taking their meta arm): the logits'
+    and every cache leaf's shapes are those of the same calls on the CPU,
+    and no kernel counts a launch."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kss
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    cfg = tconfigs.get_config(arch, smoke=True)
+    before = (kfa.launches, kss.launches)
+    shapes = {}
+    for dev in ("cpu", "meta"):
+        model = (params_from_reference(cfg, numpy_params(cfg, 0), "cpu")
+                 if dev == "cpu" else tt.Transformer(cfg, device="meta"))
+        batch = {k: v.to(dev) for k, v in
+                 tserve.random_batch(cfg, 2, 16, 0, "cpu").items()}
+        with torch.inference_mode():
+            logits, caches = make_prefill_step(model, 20)(batch)
+            tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+            logits2, caches = make_decode_step(model)(tok, caches, 16)
+        assert all(t.device.type == dev for c in caches for t in c)
+        shapes[dev] = ([tuple(logits.shape), tuple(logits2.shape)]
+                       + [tuple(t.shape) for c in caches for t in c])
+    assert shapes["meta"] == shapes["cpu"]
+    assert (kfa.launches, kss.launches) == before
+    caches = tt.init_caches(cfg, 2, 20, "meta")
+    assert len(caches) == cfg.n_layers
+    assert all(t.device.type == "meta" for c in caches for t in c)
+    with pytest.raises(ValueError):
+        tt.init_caches(cfg, 2, 20, "xpu")
