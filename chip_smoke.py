@@ -8,7 +8,7 @@ CUDA toolkit:
 
 It imports only ``repro_torch`` (never JAX or the ``repro`` package),
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``build/repro_torch/``, and runs fifteen phases, each printing its own
+``build/repro_torch/``, and runs sixteen phases, each printing its own
 lines (and, before the kernels' line, each phase's wall seconds):
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build, and
@@ -85,7 +85,8 @@ lines (and, before the kernels' line, each phase's wall seconds):
 Then one JSON line with the serving numbers, one with the attention
 family's (phase 13), one with the MoE family's (phase 14), one with the
 training numbers (phase 12), one with the launch layer's (phase 15), one
-with every kernel's numbers, and as the last line
+with the static analysis's (phase 16), one with every kernel's numbers,
+and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA.
@@ -275,6 +276,17 @@ without CUDA.
     steps): 30 ``flash_attention_tc`` launches at prefill, every step's
     logits bit for bit those of ``prefill`` / ``decode_step`` called
     directly, the tokens those phase 7b's ``serve`` returned.
+
+16. (last) the static invariant analysis: (a) ``python -m
+    repro_torch.analysis --fail-on-findings --json FILE``'s ``main`` in
+    this process, on the host (the mirror, twin, retrace and dtypes
+    passes over the port's sources, the kernel's operand tables and the
+    plain ``scan_cell``; any finding fails the run), then (b) the
+    analysis's exemplar cell (a 2-leaf fabric, 2 tenants, a 2-epoch
+    schedule, macro-steps; ``analysis/_engine.py``) through the
+    cell-scan kernel on the card under every scheme, every output but
+    the lookup counts exactly the plain version's; its wall is printed
+    beside its aim of 30 s.
 
 ``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
 comparison of the package's cell scan with each other ``cell_scan.cu``
@@ -4658,6 +4670,70 @@ def phase_launch_host(torch, np, smi, served_tokens):
     return out
 
 
+# ---- phase 16: the static analysis ------------------------------------------
+ANALYSIS_LIMIT_S = 30.0    # phase 16's aim, reported (a host-CPU time)
+
+
+def phase_analysis(torch):
+    """Phase 16: the port's analysis CLI in-process (a) and its exemplar
+    cell through the cell-scan kernel under every scheme (b)."""
+    import tempfile
+    from repro_torch.analysis import __main__ as analysis_cli
+    from repro_torch.analysis import _engine
+    from repro_torch.kernels import cell_scan as cs
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "analysis.json")
+        rc = analysis_cli.main(["--fail-on-findings", "--json", path])
+        with open(path) as fh:
+            summary = json.load(fh)
+    if rc != 0 or summary["total_findings"]:
+        fail(f"phase 16a analysis exit {rc}, "
+             f"{summary['total_findings']} finding(s): "
+             f"{summary['findings'][:5]}")
+    cli_s = time.time() - t0
+    print(f"phase 16a python -m repro_torch.analysis --fail-on-findings: "
+          f"{len(summary['passes'])} passes clean "
+          f"({', '.join(sorted(summary['passes']))}) in {cli_s:.1f} s")
+
+    (ops, addrs, gaps, lengths, mlen), statics, sc = _engine.example_inputs()
+    schemes = _engine.schemes()
+    n = len(schemes)
+    tables = cs.pack_configs([sc] * n, statics["n_tenants_max"], "cpu")
+    args = ([ops[None], addrs[None], gaps[None], lengths[None],
+             torch.zeros(n, dtype=torch.int32),
+             torch.arange(n, dtype=torch.int32),
+             torch.tensor(schemes, dtype=torch.int32)] + list(tables)
+            + [mlen[None]])
+    kw = dict(max_pbe=statics["max_pbe"], pm_banks=statics["pm_banks"],
+              n_track=statics["n_track"],
+              n_tenants_max=statics["n_tenants_max"],
+              n_deep_max=statics["n_deep_max"],
+              n_leaves_max=statics["n_leaves_max"], macro=statics["macro"])
+    plain = cs.cell_scan(*args, **kw)
+    before = cs.launches
+    got = cs.cell_scan(*[a.cuda() for a in args], **kw)
+    torch.cuda.synchronize()
+    if cs.launches != before + 1:
+        fail("phase 16b: the exemplar did not launch the cell-scan kernel")
+    err = compare_outputs(plain, got, "phase 16b analysis exemplar")
+    n_epochs = tables[4].shape[1]       # the epoch table's (K, E, ...)
+    key = cs.instantiation(statics["max_pbe"], statics["n_deep_max"],
+                           statics["n_leaves_max"], n_epochs,
+                           statics["macro"])
+    wall = time.time() - t0
+    print(f"phase 16b analysis exemplar through cell_scan{list(key)} under "
+          f"{n} schemes: exact on every output but lookups (runtimes "
+          f"{got.runtime.tolist()}, slots {got.steps.tolist()}, macro "
+          f"slots {got.macro_ops.tolist()})")
+    print(f"phase 16 wall {wall:.1f} s (aim {ANALYSIS_LIMIT_S:.0f} s)")
+    return dict(cli_s=cli_s, wall_s=wall, aim_s=ANALYSIS_LIMIT_S,
+                passes=sorted(summary["passes"]),
+                total_findings=summary["total_findings"],
+                exemplar_cells=n, exemplar_instantiation=list(key),
+                max_abs_err=err)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4749,6 +4825,7 @@ def main() -> int:
     launch = {"dryrun": timed("15a", phase_dryrun, torch),
               "host": timed("15b", phase_launch_host, torch, np, smi,
                             served["smollm-135m"]["tokens"])}
+    analysis = timed("16", phase_analysis, torch)
     launch["phase_wall_s"] = walls
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in walls.items())
@@ -5209,6 +5286,7 @@ def main() -> int:
     print(json.dumps({"train": trained, "train_ssd": trained_ssd,
                       "train_moe": trained_moe}))
     print(json.dumps({"launch": launch}))
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.engine import channels, fabric, policy
+from repro_torch.core.engine.handlers import _add_stats
 from repro_torch.core.engine.state import (DIRTY, EMPTY, H_FWD_CNT,
                                            H_FWD_SUM, INF, S_ACKED,
                                            S_DURABLE, S_LAT_HIST0,
@@ -243,17 +244,18 @@ def replay(ctx, st, w_ops, w_addr, w_gap, k_live, t_issue, stop=None):
                 # serving-SLO tightening mirror (the handler's tight, from
                 # the stats row including this persist)
                 lat_p = ack_p - t_j
-                over_p = _f64(lat_p > sc["lat_target"])
-                cnt1 = stats_cur[tenant, S_PERSIST_CNT] + 1.0
-                over1 = stats_cur[tenant, S_SLO_OVER] + over_p
-                tight = over1 > sc["lat_tol"] * cnt1
-                thr = torch.where(tight, 1.0, thr)
-                pre = torch.where(tight, 0.0, pre)
-                do_drain = dirty_cnt >= thr
-                k_thresh = torch.where(do_drain, dirty_cnt - pre, 0.0)
-                k_low = torch.where(
-                    empty_cnt <= sc["empty_slack"],
-                    torch.minimum(sc["low_water"], _f64(dirty_cnt)), 0.0)
+                over_p = _f64(lat_p > sc["lat_target"])  # lint: mirror(slo-over)
+                cnt1 = stats_cur[tenant, S_PERSIST_CNT] + 1.0  # lint: mirror(slo-cnt)
+                over1 = stats_cur[tenant, S_SLO_OVER] + over_p  # lint: mirror(slo-run)
+                tight = over1 > sc["lat_tol"] * cnt1  # lint: mirror(slo-tight)
+                thr = torch.where(tight, 1.0, thr)  # lint: mirror(rf-tight-thr)
+                pre = torch.where(tight, 0.0, pre)  # lint: mirror(rf-tight-pre)
+                do_drain = dirty_cnt >= thr  # lint: mirror(rf-do-drain)
+                k_thresh = torch.where(do_drain, dirty_cnt - pre, 0.0)  # lint: mirror(rf-k-thresh)
+                k_low = torch.where(empty_cnt <= sc["empty_slack"],  # lint: mirror(rf-k-low)
+                                    torch.minimum(sc["low_water"],
+                                                  dirty_cnt.to(torch.float64)),
+                                    0.0)
                 rf_zero = torch.maximum(k_thresh, k_low) == 0.0
                 g_wr = g_wr & ~has_dirty & rf_zero
                 # RF with k == 0 is a no-op drain policy: state, dd and
@@ -284,19 +286,22 @@ def replay(ctx, st, w_ops, w_addr, w_gap, k_live, t_issue, stop=None):
         aver_cur[a_idx] += tracked.to(aver_cur.dtype)
         pm_ver_cur = _set(pm_ver_cur, a_idx, torch.maximum(
             pm_ver_cur[a_idx], torch.where(tracked & pv_ok, v_new, 0)))
-        # stats, one add per column as the reference's fused scatter
+        # stats: the handlers' fused add over distinct columns
+        # lint: exempt(stats-columns, S_COALESCES S_READ_HITS S_PI_DETOURS): guard aborts PB-hit/coalesce windows
+        # lint: exempt(stats-columns, S_STALL_TIME S_VICTIM_CNT): guard aborts stall/eviction windows
         lat_j = ack - t_j
-        over_j = _f64(lat_j > sc["lat_target"])
-        stats_cur = stats_cur.clone()
+        over_j = _f64(lat_j > sc["lat_target"])  # lint: mirror(slo-over)
+        hist_col = S_LAT_HIST0 + int(lat_bin(lat_j))  # lint: mirror(lat-bin)
+        one = torch.ones_like(lat_j)
+        cols = [S_PERSIST_SUM, S_PERSIST_CNT, S_SLO_OVER, S_PM_WRITES,
+                S_ACKED, S_DURABLE, hist_col]
+        parts = [lat_j, one, over_j, one * pm_writes, acked, one * durable,
+                 one]
         if pb_like:
-            stats_cur[tenant, S_PBCQ_SUM] += pbcq_inc
-        stats_cur[tenant, S_PERSIST_SUM] += lat_j
-        stats_cur[tenant, S_PERSIST_CNT] += 1.0
-        stats_cur[tenant, S_SLO_OVER] += over_j
-        stats_cur[tenant, S_PM_WRITES] += pm_writes
-        stats_cur[tenant, S_ACKED] += acked
-        stats_cur[tenant, S_DURABLE] += durable
-        stats_cur[tenant, S_LAT_HIST0 + int(lat_bin(lat_j))] += 1.0
+            cols.append(S_PBCQ_SUM)
+            parts.append(pbcq_inc)
+        vals = torch.stack(parts)
+        stats_cur = _add_stats(stats_cur, tenant, cols, vals)  # lint: mirror(stats-scatter)
     pbc_kw = (dict(lpbc=_set(st.lpbc, my_leaf.long(), pbc_cur)) if NL > 0
               else dict(pbc_busy=pbc_cur))
     st_live = st._replace(

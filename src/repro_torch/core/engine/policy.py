@@ -165,11 +165,11 @@ def drain_threshold_preset(sc, n_banks, slot_active, t_written,
                       sc["threshold_count"])
     pre = torch.where(scoped, sc["t_preset"][tenant], sc["preset_count"])
     if tight is not None:
-        thr = torch.where(tight, 1.0, thr)
-        pre = torch.where(tight, 0.0, pre)
-    do_drain = dirty_cnt >= thr
-    k_thresh = torch.where(do_drain, dirty_cnt - pre, 0.0)
-    k_low = torch.where(empty_cnt <= sc["empty_slack"],
+        thr = torch.where(tight, 1.0, thr)  # lint: mirror(rf-tight-thr)
+        pre = torch.where(tight, 0.0, pre)  # lint: mirror(rf-tight-pre)
+    do_drain = dirty_cnt >= thr  # lint: mirror(rf-do-drain)
+    k_thresh = torch.where(do_drain, dirty_cnt - pre, 0.0)  # lint: mirror(rf-k-thresh)
+    k_low = torch.where(empty_cnt <= sc["empty_slack"],  # lint: mirror(rf-k-low)
                         torch.minimum(sc["low_water"],
                                       dirty_cnt.to(torch.float64)),
                         0.0)

@@ -93,7 +93,8 @@ def tenant_map(lengths, n_tenants, n_tenants_max: int):
 def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
               max_pbe: int, pm_banks: int, n_track: int = 0,
               n_tenants_max: int = 1, n_deep_max: int = 0,
-              n_leaves_max: int = 1, mlen=None, macro: bool = False):
+              n_leaves_max: int = 1, mlen=None, macro: bool = False,
+              return_state: bool = False):
     """Simulate one (trace, config) cell, one Python iteration per step.
 
     ``ops``/``addrs`` (C, L) int32, ``gaps`` (C, L) f32 and ``lengths``
@@ -114,7 +115,10 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
     of trace slots consumed (``n_steps``, whatever ``macro`` is) before
     its macro telemetry — the slots run as macro-steps and the
     per-reason aborts (:data:`~repro_torch.core.engine.macro.
-    MACRO_ABORT_REASONS` order, all zero with ``macro`` off).
+    MACRO_ABORT_REASONS` order, all zero with ``macro`` off), plus the
+    final :class:`~repro_torch.core.engine.state.MachineState` when
+    ``return_state`` is set (the reference's keyword; the static
+    analysis reads the carry's dtypes from it).
     """
     dev = ops.device
     C = ops.shape[0]
@@ -207,6 +211,6 @@ def scan_cell(ops, addrs, gaps, lengths, scheme: int, sc, *,
     (durable_ver, n_recov, recov_ns, recov_t, recov_h,
      recov_l) = recovery_snapshot(st, scheme, sc, slot_active, pm_banks,
                                   n_track)
-    return (runtime, st.stats, durable_ver, n_recov, recov_ns, recov_t,
-            st.hop_stats, recov_h, recov_l, n_steps, macro_ops,
-            macro_aborts)
+    out = (runtime, st.stats, durable_ver, n_recov, recov_ns, recov_t,
+           st.hop_stats, recov_h, recov_l, n_steps, macro_ops, macro_aborts)
+    return out + (st,) if return_state else out

@@ -7,12 +7,17 @@ imports the engine.  :func:`reference` gets round this on the tests'
 side only:
 
 * it sets ``jax.experimental.enable_x64`` to a stand-in built on
-  ``jax.enable_x64``, imports ``repro.core``, ``repro.core.engine``,
-  ``repro.kernels``, ``repro.models`` (``moe`` among them),
-  ``repro.configs``, the training
+  ``jax.enable_x64`` (:func:`x64_stand_in`), imports ``repro.core``,
+  ``repro.core.engine``, ``repro.kernels``, ``repro.models`` (``moe``
+  among them), ``repro.configs``, the training
   stack (``repro.persistence``, ``repro.optim``, ``repro.data``,
-  ``repro.runtime``, ``repro.launch.steps``, ``repro.launch.train``),
-  and deletes the attribute again at once;
+  ``repro.runtime``, ``repro.launch.steps``, ``repro.launch.train``)
+  and the static analysis (``repro.analysis`` and its passes), and
+  deletes the attribute again at once;
+* reference functions that import ``enable_x64`` when called (the
+  analysis's ``_engine.trace_engine`` and ``final_state_shapes``,
+  ``dtypes.check_f32_leaks``) run inside the namespace's ``stand_in()``,
+  which puts the stand-in back for the body only;
 * on exit it takes every ``repro`` module it imported back out of
   ``sys.modules`` (and off its parent package), so the reference's own
   tests that run later in the same process see exactly the import state
@@ -36,16 +41,30 @@ MEANS = ("persist_lat_ns", "read_lat_ns")
 
 
 @contextlib.contextmanager
-def reference():
-    """Yield a namespace with the reference modules and ``x64()``."""
+def x64_stand_in():
+    """``jax.experimental.enable_x64`` as a stand-in built on
+    ``jax.enable_x64`` for the body only (where jax lacks it)."""
     import jax
     import jax.experimental
 
-    before = set(sys.modules)
     added = not hasattr(jax.experimental, "enable_x64")
     if added:
         jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
     try:
+        yield
+    finally:
+        if added:
+            del jax.experimental.enable_x64
+
+
+@contextlib.contextmanager
+def reference():
+    """Yield a namespace with the reference modules, ``x64()`` and
+    ``stand_in()``."""
+    import jax
+
+    before = set(sys.modules)
+    with x64_stand_in():
         import repro.core
         import repro.core.engine
         import repro.kernels
@@ -57,13 +76,15 @@ def reference():
         from repro.models import attention, layers, moe, ssm, transformer
         from repro import data, optim, persistence, runtime
         from repro.launch import steps, train
+        import repro.analysis.__main__ as amain
+        from repro.analysis import (_engine as aengine, common as acommon,
+                                    dtypes as adtypes, mirror as amirror,
+                                    retrace as aretrace, sweeps as asweeps,
+                                    twin as atwin)
         # the package re-exports the functions under the modules' names
         ktat = importlib.import_module("repro.kernels.tat_lookup")
         kflash = importlib.import_module("repro.kernels.flash_attention")
         kssd = importlib.import_module("repro.kernels.ssd_scan")
-    finally:
-        if added:
-            del jax.experimental.enable_x64
     try:
         yield types.SimpleNamespace(
             core=repro.core, params=params, semantics=semantics,
@@ -73,7 +94,11 @@ def reference():
             attention=attention, ssm=ssm, moe=moe, transformer=transformer,
             configs=configs, persistence=persistence, optim=optim,
             data=data, runtime=runtime, steps=steps, train=train,
-            x64=lambda: jax.enable_x64(True))
+            analysis=types.SimpleNamespace(
+                main=amain, engine=aengine, common=acommon, dtypes=adtypes,
+                mirror=amirror, retrace=aretrace, sweeps=asweeps,
+                twin=atwin),
+            x64=lambda: jax.enable_x64(True), stand_in=x64_stand_in)
     finally:
         for name in sorted(set(sys.modules) - before, reverse=True):
             if name != "repro" and not name.startswith("repro."):
