@@ -31,14 +31,18 @@ lines (and, before the kernels' line, each phase's wall seconds):
    same kernel built with ``-DCELL_SCAN_PROFILE`` on the three cholesky
    cells (the longest), cycles and ns per step of each section;
 5. every route of ``flash_attention`` against the plain version on the
-   card: the JAX sweep (bf16 and f32 on the tensor-core kernels, f32 at
-   head dim 256 on the wide one, causal with and without a window, one
-   non-causal case each; 2e-5 / 3e-2; each case's route checked by its
-   launch counters), the tensor-core kernel's bf16 outputs past 3e-2
-   over 8 seeds at smollm-135m's prefill shape (none allowed), and that
-   shape in bf16 (the main path) and f32 (the f32 tensor-core route
-   beside the FMA kernel, run through ``launch``), timed beside the plain
-   version and ``scaled_dot_product_attention``; then f32 at D = 256 in
+   card: the JAX sweep's shapes (bf16 on the warp-specialised kernel
+   from head dim 64 and on the tensor-core kernel at 32, f32 on the
+   tensor-core kernels, at head dim 256 on the wide one, causal with and
+   without a window, one non-causal case each; 2e-5 / 3e-2; each case's
+   route checked by its launch counters), the bf16 route's outputs past
+   3e-2 over 8 seeds at smollm-135m's prefill shape and at gemma3-12b's
+   global one (none allowed), ptxas's registers and spills of the
+   warp-specialised kernel (no spill allowed), and smollm's shape in
+   bf16 (the main path, in turns with the present tensor-core kernel run
+   through ``launch``) and f32 (the f32 tensor-core route beside the FMA
+   kernel, run through ``launch``), timed beside the plain version and
+   ``scaled_dot_product_attention``; then f32 at D = 256 in
    gemma2-2b's head layout, q (4, 8, 1024, 256) and k/v (4, 4, 1024,
    256), causal: the wide kernel's outputs past 2e-5 over 8 seeds (none
    allowed) and its launches by entry, and its time in turns with the
@@ -74,7 +78,7 @@ lines (and, before the kernels' line, each phase's wall seconds):
    through ``simulate_grid`` with its launch counts, exact against
    ``src/repro_torch/testdata/chain_ref.json`` (all of (a) and (b)) and
    the eager ``scan_cell`` ((a)'s 6 cells at depths 0 and 4, lu_cont's
-   3 cells at ``n_switches`` 4 of (b); a pool of host processes), with
+   PB_RF cell at ``n_switches`` 4 of (b); a pool of host processes), with
    each Fig. 1 row's persist latency over
    depth-0 NoPB and its per-hop recovery; then (d) the section profile
    of a chained step (Fig. 1's PB/4 and PB_RF/4 cells, cholesky's cells
@@ -235,7 +239,9 @@ without CUDA.
     kernel (``torch.profiler``); (c) the kernel at each new shape of
     these paths against the plain version, timed beside
     ``scaled_dot_product_attention`` (GQA, a boolean mask where there is a
-    window) with a bound that counts the pairs the mask keeps.
+    window) with a bound that counts the pairs the mask keeps; in bf16 the
+    route's warp-specialised kernel in turns with the present
+    tensor-core kernel (through ``launch``, held to the same limit).
     ``python3 chip_smoke.py --serve-only`` runs phases 5-7, 13 and 14
     alone and builds only their kernels.
 
@@ -249,7 +255,7 @@ without CUDA.
     launch of the f32 D <= 128 kernel; (b) the three MoE ids served in
     bf16 at full width with device-filled weights, cut in depth to fit
     one card: mixtral-8x7b 16 of 32 layers at 2 x 4160 + 64 greedy steps
-    (16 windowed ``flash_attention_tc`` launches), phi3.5-moe-42b 16 of
+    (16 windowed ``flash_attention_ws`` launches), phi3.5-moe-42b 16 of
     32 at 4 x 1024 + 64 (16), jamba-1.5-large-398b's first 5 layers
     (ssm, ssm+MoE, ssm, ssm+MoE, attn) at 2 x 1024 + 64 (1 and 4
     ``ssd_scan_tc``), each with prefill ms, decode tokens/s and peak
@@ -259,7 +265,8 @@ without CUDA.
     prefill device time by kernel and by the op
     that launched it; (c) the kernels at each new shape against their
     plain versions, the attention timed beside
-    ``scaled_dot_product_attention``, each with its bound.
+    ``scaled_dot_product_attention`` (in bf16 in turns with the present
+    tensor-core kernel, as in 13c), each with its bound.
 
 15. (run after phase 12) the launch layer: (a) ``python -m
     repro_torch.launch.dryrun --arch all --shape all --mesh both`` in a
@@ -273,9 +280,10 @@ without CUDA.
     AdamW state whole, its group destroyed on exit; then smollm-135m
     with phase 7b's weights and batch served through
     ``make_prefill_step`` / ``make_decode_step`` (4 x 1024 + 64 greedy
-    steps): 30 ``flash_attention_tc`` launches at prefill, every step's
-    logits bit for bit those of ``prefill`` / ``decode_step`` called
-    directly, the tokens those phase 7b's ``serve`` returned.
+    steps): 30 tensor-core ``flash_attention`` launches at prefill,
+    every step's logits bit for bit those of ``prefill`` /
+    ``decode_step`` called directly, the tokens those phase 7b's
+    ``serve`` returned.
 
 16. (last) the static invariant analysis: (a) ``python -m
     repro_torch.analysis --fail-on-findings --json FILE``'s ``main`` in
@@ -356,8 +364,8 @@ def stop_children() -> None:
 
 
 # the kernels of the serving path (phases 5-7 and 13)
-MODEL_SOURCES = ("flash_attention", "flash_attention_tc", "ssd_scan",
-                 "ssd_scan_tc")
+MODEL_SOURCES = ("flash_attention", "flash_attention_tc",
+                 "flash_attention_ws", "ssd_scan", "ssd_scan_tc")
 SPIN_CYCLES = 10 ** 8               # ~50 ms of the card's clock
 
 
@@ -481,7 +489,12 @@ def cell_bytes(traces, n_cells: int, T: int, A: int, n_cfg: int,
     return float(inputs + outputs)
 
 
-def phase_cell_scan(torch, smem_ns):
+def phase_cell_scan(torch, smem_ns, ftraces, fconfigs):
+    """Phase 3: the kernel against the eager ``scan_cell`` on the
+    budget-2000 grid, on its crash cells and on the shortest full-size
+    workload's PB_RF cell (:func:`full_size`), the eager cells of all
+    three over one pool.  Returns the grid's record and the full-size
+    grid's ``(args, kw, got, err)``."""
     from repro_torch.core import PCSConfig, Scheme, WORKLOADS, make_trace
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
@@ -493,12 +506,34 @@ def phase_cell_scan(torch, smem_ns):
     # version (phase 11 runs the MAC one on the same grid)
     args, kw = cell_inputs(traces, configs, [p[0] for p in pairs],
                            [p[1] for p in pairs], macro=False, device="cpu")
-    plain, plain_s, pool_s = eager_cells(torch, args, kw,
-                                         list(range(len(pairs))))
-    plain_ms = plain_s * 1e3
     dargs = [a.cuda() for a in args]
     got = cs.cell_scan(*dargs, **kw)
     torch.cuda.synchronize()
+
+    # crash cells: PB / PB_RF on two workloads, three power-loss points
+    # each (fractions of the workload's no-crash PB runtime, the kernel's:
+    # held exactly against the eager version's below)
+    crash_traces, crash_cfgs, cpairs = [], [], []
+    for w in ("radiosity", "lu_cont"):
+        i = names.index(w)
+        t_pb = float(got.runtime[i * len(configs) + int(Scheme.PB)])
+        crash_traces.append(traces[i])
+        for s in (Scheme.PB, Scheme.PB_RF):
+            for f in (0.25, 0.5, 0.75):
+                cpairs.append((len(crash_traces) - 1, len(crash_cfgs)))
+                crash_cfgs.append(PCSConfig(scheme=s).with_crash(f * t_pb))
+    cargs, ckw = cell_inputs(crash_traces, crash_cfgs,
+                             [p[0] for p in cpairs], [p[1] for p in cpairs],
+                             track_addrs=64, macro=False, device="cpu")
+    cgot = cs.cell_scan(*[a.cuda() for a in cargs], **ckw)
+    torch.cuda.synchronize()
+    fargs, fkw, fgot, fsel = full_size(torch, ftraces, fconfigs)
+
+    (plain, plain_s, pool_s), (cplain, _, _), (fplain, fplain_s, _) = \
+        eager_grids(torch, [(args, kw, list(range(len(pairs)))),
+                            (cargs, ckw, list(range(len(cpairs)))),
+                            (fargs, fkw, fsel)])
+    plain_ms = plain_s * 1e3
     err = compare_outputs(plain, got, "budget-2000 grid")
     ms = cuda_ms(lambda: cs.cell_scan(*dargs, **kw), 3)
     max_steps = int(plain.steps.max())
@@ -508,36 +543,27 @@ def phase_cell_scan(torch, smem_ns):
     print(f"phase 3 cell_scan grid (7 workloads x 3 schemes, budget 2000): "
           f"exact on {len(pairs)} cells, kernel {ms:.3f} ms, eager "
           f"scan_cell {plain_s:.1f} s of cells ({pool_s:.1f} s wall over a "
-          f"pool), longest cell "
+          f"pool with the crash and full-size cells), longest cell "
           f"{max_steps} steps ({ms * 1e6 / max_steps:.1f} ns/step; latency "
           f"bound {latency_bound:.3f} ms at one {smem_ns:.2f} ns "
           f"shared-memory round trip per step)")
-
-    # crash cells: PB / PB_RF on two workloads, three power-loss points
-    # each (fractions of the workload's no-crash PB runtime)
-    crash_traces, crash_cfgs, cpairs = [], [], []
-    for w in ("radiosity", "lu_cont"):
-        i = names.index(w)
-        t_pb = float(plain.runtime[i * len(configs) + int(Scheme.PB)])
-        crash_traces.append(traces[i])
-        for s in (Scheme.PB, Scheme.PB_RF):
-            for f in (0.25, 0.5, 0.75):
-                cpairs.append((len(crash_traces) - 1, len(crash_cfgs)))
-                crash_cfgs.append(PCSConfig(scheme=s).with_crash(f * t_pb))
-    cargs, ckw = cell_inputs(crash_traces, crash_cfgs,
-                             [p[0] for p in cpairs], [p[1] for p in cpairs],
-                             track_addrs=64, macro=False, device="cpu")
-    cplain = eager_cells(torch, cargs, ckw, list(range(len(cpairs))))[0]
-    cgot = cs.cell_scan(*[a.cuda() for a in cargs], **ckw)
-    torch.cuda.synchronize()
     err = max(err, compare_outputs(cplain, cgot, "crash cells"))
     print(f"phase 3 cell_scan crash cells: exact on {len(cpairs)} cells "
           f"(durable_ver, recovery_entries {cplain.n_recov.tolist()}, "
           f"recovery_ns)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
-                max_steps=max_steps, latency_bound_ms=latency_bound,
-                grid=(traces, configs, pairs, plain),
-                crash=(crash_traces, crash_cfgs, cpairs, cplain))
+    sel_t = torch.tensor(fsel, device="cuda")
+    name = ftraces[fsel[0] // len(fconfigs)].name
+    ferr = compare_outputs(fplain,
+                           cs.CellScanOut(*(x[sel_t] for x in fgot)),
+                           f"paper grid {name}")
+    print(f"phase 3 cell_scan full size: exact on the PB_RF cell of "
+          f"{name} ({int(fplain.steps.max())} steps, eager scan_cell "
+          f"{fplain_s:.1f} s of cells)")
+    return (dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
+                 max_steps=max_steps, latency_bound_ms=latency_bound,
+                 grid=(traces, configs, pairs, plain),
+                 crash=(crash_traces, crash_cfgs, cpairs, cplain)),
+            (fargs, fkw, fgot, ferr))
 
 
 def paper_grid():
@@ -551,10 +577,12 @@ def paper_grid():
     return traces, [PCSConfig(scheme=s) for s in Scheme]
 
 
-def phase_cell_scan_full(torch, traces, configs):
+def full_size(torch, traces, configs):
     """The kernel on all 21 full-size cells, with the main path's own
-    stacked inputs; the shortest workload's PB_RF cell also goes through
-    the eager ``scan_cell`` on a host copy of those inputs."""
+    stacked inputs: ``(args, kw, got, sel)``, ``sel`` the shortest
+    workload's PB_RF cell, which phase 3 also runs through the eager
+    ``scan_cell`` on a host copy of those inputs."""
+    from repro_torch.core import Scheme
     from repro_torch.core.engine.grid import cell_inputs
     from repro_torch.kernels import cell_scan as cs
     pairs = [(i, j) for i in range(len(traces)) for j in range(len(configs))]
@@ -562,19 +590,10 @@ def phase_cell_scan_full(torch, traces, configs):
                            [p[1] for p in pairs], device="cuda")
     got = cs.cell_scan(*args, **kw)
     torch.cuda.synchronize()
-    from repro_torch.core import Scheme
     i = min(range(len(traces)), key=lambda k: traces[k].total_ops)
     sel = [k for k, p in enumerate(pairs)
            if p[0] == i and configs[p[1]].scheme == Scheme.PB_RF]
-    plain, plain_s, pool_s = eager_cells(torch, args, kw, sel)
-    sel_t = torch.tensor(sel, device="cuda")
-    err = compare_outputs(plain, cs.CellScanOut(*(x[sel_t] for x in got)),
-                          f"paper grid {traces[i].name}")
-    print(f"phase 3 cell_scan full size: exact on the PB_RF cell of "
-          f"{traces[i].name} ({int(plain.steps.max())} steps, eager "
-          f"scan_cell {plain_s:.1f} s of cells, {pool_s:.1f} s wall over a "
-          f"pool)")
-    return args, kw, got, err
+    return args, kw, got, sel
 
 
 def phase_main_path(torch, np, smem_ns, traces, configs, full):
@@ -922,8 +941,8 @@ def phase_chains(torch, np, smem_ns):
     ``simulate_grid`` on the card (each with the launch counts zeroed
     just before and read just after), exact against
     ``testdata/chain_ref.json`` (all 21 + 63 cells) and against the
-    eager plain version (all of (a); lu_cont's 3 cells at n_switches 4
-    of (b)); (d) the
+    eager plain version (all of (a); lu_cont's PB_RF cell at n_switches
+    4 of (b)); (d) the
     section profile of a chained step; then fuzzed crash cells at depths
     1-3 on the card against the port's untimed oracle."""
     from repro_torch.core import Scheme, simulate_grid
@@ -959,37 +978,9 @@ def phase_chains(torch, np, smem_ns):
     torch.cuda.synchronize()
     ms_a = cuda_ms(lambda: cs.cell_scan(*args, **kw), 3)
     # the eager twin on the depth-0 and depth-4 cells (6 of 21; the kernel
-    # on those alone is timed beside it); chain_ref.json holds all 21
+    # on those alone is timed beside it); chain_ref.json holds all 21.  It
+    # runs over one pool with (b)'s cells, below.
     sel = [k for k, lab in enumerate(labels) if lab[1] in (0, 4)]
-    plain, plain_s, pool_s = eager_cells(torch, args, kw, sel)
-    sel_t = torch.tensor(sel, device="cuda")
-    err = compare_outputs(plain, cs.CellScanOut(*(x[sel_t] for x in got)),
-                          "Fig. 1 sweep")
-    sargs, skw = cell_inputs([tr], configs, [0] * len(sel), sel,
-                             device="cuda")
-    ms_sel = cuda_ms(lambda: cs.cell_scan(*sargs, **skw), 3)
-    steps_a = int(got.steps.max())
-    bound_a = cell_bytes([tr], len(pairs), 1, 1, len(configs),
-                         kw["n_deep_max"]) / HBM_BYTES_PER_S * 1e3
-    print(f"phase 8a simulate_grid (Fig. 1 sweep, 21 cells, D = "
-          f"{kw['n_deep_max']}) wall {wall_a:.3f} s; launches "
-          f"{json.dumps(counts_a)}; exact against chain_ref.json on all 21 "
-          f"cells and the eager scan_cell on the {len(sel)} at depths 0 and "
-          f"4 (eager {plain_s:.1f} s of cells, {pool_s:.1f} s wall over a "
-          f"pool; the kernel on those {ms_sel:.3f} ms); kernel {ms_a:.3f} "
-          f"ms, longest "
-          f"cell {steps_a} steps ({ms_a * 1e6 / steps_a:.1f} ns/step; "
-          f"latency bound {steps_a * smem_ns / 1e6:.3f} ms)")
-    out["fig1"] = dict(counts=counts_a, wall_s=wall_a, ms=ms_a,
-                       plain_s=plain_s, pool_s=pool_s, plain_cells=len(sel),
-                       ms_plain_cells=ms_sel, bound_ms=bound_a,
-                       steps=steps_a, max_abs_err=err,
-                       persist_norm={f"{n}/{d}": r.persist_lat_ns / base
-                                     for (n, d, c), r in zip(labels, cells)
-                                     if not c},
-                       hop_recovery={f"{n}/{d}": r.hop_recovery.tolist()
-                                     for (n, d, c), r in zip(labels, cells)
-                                     if c})
 
     # (b) the chained paper grid
     t0 = time.time()
@@ -1016,10 +1007,43 @@ def phase_chains(torch, np, smem_ns):
     bgot = cs.cell_scan(*bargs, **bkw)
     torch.cuda.synchronize()
     ms_b = cuda_ms(lambda: cs.cell_scan(*bargs, **bkw), 1)
-    sel = [k for k, p in enumerate(bpairs)
-           if names[p[0]] == "lu_cont" and blabels[p[1]][1] == 4]
-    bplain, bplain_s, bpool_s = eager_cells(torch, bargs, bkw, sel)
+    bsel = [k for k, p in enumerate(bpairs)
+            if names[p[0]] == "lu_cont" and blabels[p[1]] == ("PB_RF", 4)]
+    # (a)'s and (b)'s eager cells over one pool: (a)'s short cells run
+    # beside (b)'s long ones
+    (plain, plain_s, pool_s), (bplain, bplain_s, bpool_s) = eager_grids(
+        torch, [(args, kw, sel), (bargs, bkw, bsel)])
     sel_t = torch.tensor(sel, device="cuda")
+    err = compare_outputs(plain, cs.CellScanOut(*(x[sel_t] for x in got)),
+                          "Fig. 1 sweep")
+    sargs, skw = cell_inputs([tr], configs, [0] * len(sel), sel,
+                             device="cuda")
+    ms_sel = cuda_ms(lambda: cs.cell_scan(*sargs, **skw), 3)
+    steps_a = int(got.steps.max())
+    bound_a = cell_bytes([tr], len(pairs), 1, 1, len(configs),
+                         kw["n_deep_max"]) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 8a simulate_grid (Fig. 1 sweep, 21 cells, D = "
+          f"{kw['n_deep_max']}) wall {wall_a:.3f} s; launches "
+          f"{json.dumps(counts_a)}; exact against chain_ref.json on all 21 "
+          f"cells and the eager scan_cell on the {len(sel)} at depths 0 and "
+          f"4 (eager {plain_s:.1f} s of cells, {pool_s:.1f} s wall over a "
+          f"pool shared with 8b's; the kernel on those {ms_sel:.3f} ms); "
+          f"kernel {ms_a:.3f} "
+          f"ms, longest "
+          f"cell {steps_a} steps ({ms_a * 1e6 / steps_a:.1f} ns/step; "
+          f"latency bound {steps_a * smem_ns / 1e6:.3f} ms)")
+    out["fig1"] = dict(counts=counts_a, wall_s=wall_a, ms=ms_a,
+                       plain_s=plain_s, pool_s=pool_s, plain_cells=len(sel),
+                       ms_plain_cells=ms_sel, bound_ms=bound_a,
+                       steps=steps_a, max_abs_err=err,
+                       persist_norm={f"{n}/{d}": r.persist_lat_ns / base
+                                     for (n, d, c), r in zip(labels, cells)
+                                     if not c},
+                       hop_recovery={f"{n}/{d}": r.hop_recovery.tolist()
+                                     for (n, d, c), r in zip(labels, cells)
+                                     if c})
+
+    sel_t = torch.tensor(bsel, device="cuda")
     err = max(err, compare_outputs(
         bplain, cs.CellScanOut(*(x[sel_t] for x in bgot)),
         "chained grid lu_cont"))
@@ -1034,7 +1058,7 @@ def phase_chains(torch, np, smem_ns):
           f"2-4, budget 100000, 63 cells) wall {wall_b:.3f} s; launches "
           f"{json.dumps(counts_b)}; exact against chain_ref.json on "
           f"{n_datum} cells and against the eager "
-          f"scan_cell on lu_cont's {len(sel)} cells at n_switches 4 "
+          f"scan_cell on lu_cont's PB_RF cell at n_switches 4 "
           f"({bplain_s:.1f} s of "
           f"cells, {bpool_s:.1f} s wall over a pool); kernel {ms_b:.3f} ms, "
           f"longest cell {steps_b} steps ({ms_b * 1e6 / steps_b:.1f} "
@@ -2406,7 +2430,8 @@ def phase_macro(torch, np, smem_ns, paper_traces, paper_configs, scan):
 # ---- the model side: flash_attention, ssd_scan, serving ----------------
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-FLASH_SWEEP = ((2, 2, 256, 64), (1, 4, 128, 128), (1, 1, 512, 256))
+FLASH_SWEEP = ((2, 2, 256, 64), (1, 4, 128, 128), (1, 1, 512, 256),
+               (1, 2, 256, 32))
 SSD_SWEEP = ((2, 256, 3, 64, 128, 128), (1, 128, 2, 32, 64, 64),
              (2, 512, 1, 64, 128, 128), (1, 256, 4, 64, 64, 128))
 TOL = {"float32": (2e-5, 1e-3), "bfloat16": (3e-2, 1e-1)}  # flash, ssd
@@ -2446,15 +2471,19 @@ def flash_exact(torch, q, k, v):
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1), vd)
 
 
-def flash_over_counts(torch, np, seeds=range(8), limit=3e-2):
-    """``flash_attention_tc``'s outputs past ``limit`` at smollm-135m's
-    prefill shape, per seed, against the plain version and against the
-    f64 evaluation rounded to bf16 (``phase_flash`` fails on any)."""
+def flash_over_counts(torch, np, shape=(4, 9, 3, 1024, 64),
+                      seeds=range(8), limit=3e-2):
+    """The bf16 route's outputs past ``limit`` at a causal prefill shape
+    ``(b, h, hkv, s, d)`` (smollm-135m's unless given), per seed, against
+    the plain version and against the f64 evaluation rounded to bf16
+    (``phase_flash`` fails on any)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
-    b, h, hkv, s, d = 4, 9, 3, 1024, 64
+    b, h, hkv, s, d = shape
+    entry = fa.route(torch.bfloat16, d)[1]
     out = dict(limit=limit, seeds=list(seeds), over_plain=[],
-               over_exact=[], plain_over_exact=[], max_abs_err=[])
+               over_exact=[], plain_over_exact=[], max_abs_err=[],
+               entry=entry, shape=list(shape))
     for seed in seeds:
         rng = np.random.default_rng(seed)
         q, k, v = (torch.tensor(rng.standard_normal((b, s, n, d)),
@@ -2469,8 +2498,10 @@ def flash_over_counts(torch, np, seeds=range(8), limit=3e-2):
         out["over_exact"].append(int(((got - exact).abs() > limit).sum()))
         out["plain_over_exact"].append(int(((plain - exact).abs() > limit)
                                            .sum()))
-    print(f"phase 5 flash_attention_tc outputs past {limit} at (4, 9, 1024, "
-          f"64) bf16 causal over seeds {out['seeds']}: vs the plain version "
+        del got, plain, exact
+    print(f"phase 5 flash_attention ({entry}) outputs past {limit} at "
+          f"({b}, {h}, {s}, {d}), {hkv} KV heads, bf16 causal over seeds "
+          f"{out['seeds']}: vs the plain version "
           f"{out['over_plain']}, vs the f64 evaluation rounded to bf16 "
           f"{out['over_exact']} (the plain version vs it "
           f"{out['plain_over_exact']}); max abs error vs the plain version "
@@ -2478,14 +2509,76 @@ def flash_over_counts(torch, np, seeds=range(8), limit=3e-2):
     return out
 
 
+# gemma3-12b's global layers: the widest bf16 shape of the paths
+FLASH_OVER_WIDE = (4, 16, 8, 2048, 256)
+
+
+def ptxas_ws():
+    """ptxas's registers, stack frame and spills of each
+    ``flash_ws_kernel`` instantiation, from its build log (``-Xptxas
+    -v``): ``{mangled name: {registers, stack, spill_stores,
+    spill_loads}}``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    out, fn = {}, None
+    with open(_build._lib_path(fa.WS_BF16[0]).with_suffix(".log")) as f:
+        for line in f:
+            m = re.search(r"[Ff]unction properties for (\S+)", line) or \
+                re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1) if "flash_ws_kernel" in m.group(1) else None
+                if fn:
+                    out.setdefault(fn, {})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if fn and m:
+                out[fn].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if fn and m:
+                out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def flash_turns(torch, q, k, v, kw, reps=20):
+    """The bf16 route's kernel (through the wrapper) and the present
+    kernel it took over from (``TC_BF16``, through ``launch``) on the
+    same inputs, timed in turns (route, present, present, route):
+    ``(the present kernel's output, {"route": [ms, ms], "present": [ms,
+    ms]})``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    lib = _build.library(fa.TC_BF16[0])
+    old = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def present():
+        _build.check(fa.launch(lib, q, k, v, old, stream=stream,
+                               entry=fa.TC_BF16[1], **kw), fa.TC_BF16[1])
+    present()
+    torch.cuda.synchronize()
+    ms = {"route": [], "present": []}
+    for which in ("route", "present", "present", "route"):
+        ms[which].append(cuda_ms(
+            present if which == "present"
+            else (lambda: fa.flash_attention(q, k, v, **kw)), reps))
+    return old, ms
+
+
 def phase_flash(torch, np):
     """Every route of ``flash_attention`` against the plain version: the
-    JAX sweep (bf16 and f32 up to D = 128 on the tensor-core kernel, f32
-    at D = 256 on the FMA kernel; each case's route checked by the
-    per-route launch counters), then smollm-135m's prefill shape: the
-    bf16 outputs past 3e-2 over 8 seeds, and each dtype's route timed
-    beside the plain version and ``scaled_dot_product_attention``; the
-    FMA kernel, through ``launch``, is held and timed there in f32 too."""
+    JAX sweep's shapes (bf16 on the warp-specialised kernel from D = 64
+    and on the present tensor-core kernel at D = 32, f32 on the
+    tensor-core kernels; each case's route checked by the per-route
+    launch counters); the bf16 outputs past 3e-2 over 8 seeds at
+    smollm-135m's prefill shape and at gemma3-12b's global one; ptxas's
+    registers and spills of the warp-specialised kernel (none allowed);
+    then smollm-135m's prefill shape: each dtype's route timed beside the
+    plain version and ``scaled_dot_product_attention``, bf16 in turns
+    with the present kernel and f32 with the FMA kernel (both held too,
+    through ``launch``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -2512,7 +2605,7 @@ def phase_flash(torch, np):
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         served = (fa.launches_tc - tc0, fa.launches_fma - fma0)
-        tc = fa.route(dtype, d)[0] == "flash_attention_tc"
+        tc = fa.route(dtype, d)[0] in fa.TC_LIBS
         if served != ((1, 0) if tc else (0, 1)):
             fail(f"flash_attention {name} D={d} served by (tc, fma) = "
                  f"{served}")
@@ -2527,8 +2620,20 @@ def phase_flash(torch, np):
           f"{n_served['tc']} launches, {n_served['fma']} on the FMA "
           f"kernel)")
     f8 = flash_over_counts(torch, np)
-    if any(f8["over_plain"]) or any(f8["over_exact"]):
-        fail(f"flash_attention_tc bf16 outputs past 3e-2: {f8}")
+    f8_wide = flash_over_counts(torch, np, FLASH_OVER_WIDE)
+    for f in (f8, f8_wide):
+        if any(f["over_plain"]) or any(f["over_exact"]):
+            fail(f"flash_attention bf16 outputs past 3e-2: {f}")
+    usage = ptxas_ws()
+    spills = {k: v for k, v in usage.items()
+              if v.get("spill_stores") or v.get("spill_loads") or
+              v.get("stack")}
+    print(f"phase 5 ptxas of flash_attention_ws.cu's kernels (registers "
+          f"at launch, before the consumers' setmaxnreg): "
+          f"{json.dumps(usage)}")
+    if spills or len(usage) != 3:
+        fail(f"flash_attention_ws.cu: ptxas reports spills or a missing "
+             f"instantiation: {usage}")
 
     # the serving shape: smollm-135m prefill, 4 x 1024 tokens, 9 query
     # heads on 3 KV heads, head dim 64, causal; bf16 is the main path,
@@ -2536,7 +2641,7 @@ def phase_flash(torch, np):
     b, h, hkv, s, d = 4, 9, 3, 1024, 64
     pairs = s * (s + 1) // 2                        # causal (q, k) pairs
     flops = 4.0 * b * h * pairs * d                 # q·k and p·v
-    out = {"f8_counts": f8}
+    out = {"f8_counts": f8, "f8_counts_wide": f8_wide, "ptxas_ws": usage}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         size = 2 if dtype == torch.bfloat16 else 4
@@ -2547,7 +2652,16 @@ def phase_flash(torch, np):
         e = max_err(got, want, f"flash_attention serving shape {name}",
                     TOL[name][0])
         err[name] = max(err[name], e)
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 50)
+        if dtype == torch.bfloat16:
+            # the present kernel on the same inputs, in turns with the route
+            old, turns = flash_turns(torch, q, k, v,
+                                     dict(causal=True, window=None), 50)
+            e_old = max_err(old, want, "flash_attention present bf16 kernel"
+                            ", serving shape", TOL[name][0])
+            ms = sum(turns["route"]) / 2
+        else:
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                         50)
         plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
                         10)
         # the library yardstick on the same inputs with K/V repeated per
@@ -2561,7 +2675,12 @@ def phase_flash(torch, np):
                    max_abs_err=err[name], serving_shape_err=e)
         if dtype == torch.bfloat16:
             rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
-            extra = ""
+            rec.update(ms_turns=turns["route"], present_ms=turns["present"],
+                       present_err=e_old)
+            extra = (f"; the present kernel ({fa.TC_BF16[1]}, through "
+                     f"launch) {turns['present']} ms beside the route's "
+                     f"{turns['route']} (order route, present, present, "
+                     f"route), max abs error {e_old:.3g}")
         else:
             # f32 work: at the f32 FMA rate, or as the six bf16 products
             # of three parts a product at the bf16 tensor-core rate
@@ -3150,9 +3269,12 @@ def phase_serve(torch, np):
                     else 0, flash_attention_fma=0,
                     ssd_scan_tc=cfg.n_layers if cfg.attn_free else 0,
                     ssd_scan_fma=0, tat_lookup=0, cell_scan=0)
-        if counts != want:
-            fail(f"{arch} serve launched {counts}, expected {want} (one "
-                 f"prefill launch per layer)")
+        want_by = ({} if cfg.attn_free else
+                   {fa.route(torch.bfloat16, cfg.hd)[1]: cfg.n_layers})
+        if counts != want or by_entry != want_by:
+            fail(f"{arch} serve launched {counts}, by entry {by_entry}, "
+                 f"expected {want}, {want_by} (one prefill launch per "
+                 f"layer)")
         tok_s = 4 * 64 / res.decode_s
         print(f"phase 7b {arch} bf16 served 4 x 1024 prompt + 64 greedy "
               f"steps: prefill {res.prefill_s * 1e3:.1f} ms, decode "
@@ -3199,8 +3321,8 @@ FAMILY_DATUM_LAUNCHES = {
     "gemma3-12b": {"flash_attention_tc_f32_256_launch": 6},
     "seamless-m4t-large-v2": {"flash_attention_tc_f32_launch": 24}}
 # The bf16 serves at full width with device-filled weights: arch ->
-# (layers served, None for all; prompt tokens; launches of
-# flash_attention_tc_launch a prefill makes).
+# (layers served, None for all; prompt tokens; launches of the bf16
+# route's entry at the config's head dim a prefill makes).
 FAMILY_SERVE = {"gemma3-12b": (None, 2048, 48), "gemma2-2b": (None, 1024, 0),
                 "paligemma-3b": (None, 1024, 0),
                 "seamless-m4t-large-v2": (None, 1024, 24),
@@ -3570,7 +3692,7 @@ def family_serve(torch, arch, layers, prompt_len, want):
     if res.tokens.shape != (4, 64) or res.tokens.min() < 0 \
             or res.tokens.max() >= cfg.vocab:
         fail(f"phase 13b {arch} served tokens of shape {res.tokens.shape}")
-    want_by = {"flash_attention_tc_launch": want} if want else {}
+    want_by = {fa.route(torch.bfloat16, cfg.hd)[1]: want} if want else {}
     if by_entry != want_by or counts != dict(
             tat_lookup=0, cell_scan=0, flash_attention=want, ssd_scan=0):
         fail(f"phase 13b {arch} serve launched {counts}, by entry "
@@ -3639,7 +3761,10 @@ def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
     """The kernel at one shape of these paths against the plain version,
     timed with CUDA events beside ``scaled_dot_product_attention`` (GQA,
     a boolean mask where there is a window); its route checked by the
-    per-entry counter; the bound counts only the pairs the mask keeps."""
+    per-entry counter; the bound counts only the pairs the mask keeps.
+    Where the route is the warp-specialised bf16 kernel, the present
+    kernel (``TC_BF16``) is held to the same limit and timed in turns
+    with it."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
@@ -3650,6 +3775,7 @@ def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
                .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
     kw = dict(causal=causal, window=window)
     entry = fa.route(dtype, d)[1]
+    ws = entry == fa.WS_BF16[1]
     n0 = fa.launches_by.get(entry, 0)
     got = fa.flash_attention(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
@@ -3680,7 +3806,23 @@ def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
                  f"{window - 1}"
                  f" reads {plant:.3g} {how}, within the limit {limit}: the "
                  f"check cannot see a one-key window-edge fault")
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
+    present = None
+    if ws:
+        # the kernel the route took over from, held to the same limit and
+        # timed in turns with it
+        old, turns = flash_turns(torch, q, k, v, kw)
+        present = dict(ms=turns["present"], route_ms=turns["route"],
+                       max_abs_err=max_err(old, want, f"phase {phase} {row} "
+                                           f"present kernel",
+                                           TOL[dtype_name][0]),
+                       checked=measure(torch, old, want))
+        if not present["checked"] <= limit:
+            fail(f"phase {phase} {row}: the present kernel off the plain "
+                 f"version by {present['checked']:.3g} {how}")
+        ms = sum(turns["route"]) / 2
+        del old
+    else:
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 3)
     i = torch.arange(s, device="cuda")
     mask = torch.ones((s, s), dtype=torch.bool, device="cuda")
@@ -3713,8 +3855,13 @@ def family_kernel(torch, np, row, dtype_name, b, h, hkv, s, d, causal,
           f"{flops / 1e9:.2f} GFLOP over {pairs} kept pairs"
           + (" x 6 split products" if split > 1 else "")
           + f", {nbytes / 1e6:.1f} MB); {ms / bound_ms:.2f}x the bound, "
-          f"{ms / lib:.2f}x SDPA")
-    return dict(entry=entry, max_abs_err=err, checked=worst,
+          f"{ms / lib:.2f}x SDPA"
+          + (f"; the present kernel ({fa.TC_BF16[1]}, through launch) "
+             f"{present['ms']} ms beside {present['route_ms']} (order "
+             f"route, present, present, route), max abs error "
+             f"{present['max_abs_err']:.3g}, {present['checked']:.3g} "
+             f"{how}" if present else ""))
+    return dict(entry=entry, max_abs_err=err, checked=worst, present=present,
                 checked_how=how, limit=limit, planted_window_fault=plant,
                 ms=ms, plain_ms=plain,
                 library_ms=lib, library_err=lib_err, bound_ms=bound_ms,
@@ -3753,7 +3900,8 @@ MOE_DATUM_LAUNCHES = {"mixtral-8x7b": {"flash_attention_tc_f32_launch": 1},
                       "phi3.5-moe-42b": {"flash_attention_tc_f32_launch": 1}}
 # The bf16 serves at full width with device-filled weights, cut in depth to
 # fit one card: arch -> (layers served, requests, prompt tokens, launches
-# of flash_attention_tc_launch and of ssd_scan_tc_launch a prefill makes).
+# of the bf16 attention route's entry and of ssd_scan_tc_launch a prefill
+# makes).
 # jamba's cut keeps the first 5 layers of its 8-layer block (ssm, ssm+MoE,
 # ssm, ssm+MoE, attn), so its block pattern is cut with it.
 MOE_SERVE = {"mixtral-8x7b": (16, 2, 4160, 16, 0),
@@ -3816,7 +3964,8 @@ def moe_device_breakdown(torch, model, batch, max_len):
               "other GEMM (aten::mm)": ops.get("aten::mm", 0.0)
               + ops.get("aten::addmm", 0.0),
               "attention (flash kernel)": sum(
-                  r[1] for r in kernels if "flash_tc_kernel" in r[0]),
+                  r[1] for r in kernels
+                  if "flash_tc_kernel" in r[0] or "flash_ws_kernel" in r[0]),
               "dispatch and combine": sum(ops.get(k, 0.0)
                                           for k in dispatch)}
     groups["rest"] = total - sum(groups.values())
@@ -3855,7 +4004,8 @@ def moe_serve(torch, arch, layers, n_req, prompt_len, want_fa, want_ssd):
     if res.tokens.shape != (n_req, 64) or res.tokens.min() < 0 \
             or res.tokens.max() >= cfg.vocab:
         fail(f"phase 14b {arch} served tokens of shape {res.tokens.shape}")
-    want_by = {"flash_attention_tc_launch": want_fa} if want_fa else {}
+    want_by = ({fa.route(torch.bfloat16, cfg.hd)[1]: want_fa} if want_fa
+               else {})
     if by_entry != want_by or ssd_tc != want_ssd or counts != dict(
             tat_lookup=0, cell_scan=0, flash_attention=want_fa,
             ssd_scan=want_ssd):
@@ -4579,7 +4729,7 @@ def phase_launch_host(torch, np, smi, served_tokens):
     batch) served through ``make_prefill_step`` / ``make_decode_step``:
     every step's logits bit for bit those of ``transformer.prefill`` /
     ``decode_step`` called directly, the tokens phase 7b's ``serve``
-    returned, 30 ``flash_attention_tc`` launches at prefill."""
+    returned, 30 tensor-core ``flash_attention`` launches at prefill."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -4640,7 +4790,8 @@ def phase_launch_host(torch, np, smi, served_tokens):
     got, tokens, launches = run(
         make_prefill_step(model, s + gen), make_decode_step(model))
     if launches != (cfg.n_layers, 0) or cfg.n_layers != 30:
-        fail(f"phase 15b prefill step launched flash_attention_tc / fma "
+        fail(f"phase 15b prefill step launched tensor-core / FMA "
+             f"flash_attention "
              f"{launches}, expected (30, 0)")
     want, want_tokens, _ = run(
         lambda b: T.prefill(model, b, s + gen),
@@ -4660,7 +4811,8 @@ def phase_launch_host(torch, np, smi, served_tokens):
           f" its group destroyed on exit; shard_tree placed {n} smollm-135m "
           f"parameter and AdamW-state leaves whole; make_prefill_step / "
           f"make_decode_step served 4 x {s} + {gen} greedy steps: "
-          f"{launches[0]} flash_attention_tc launches at prefill, all "
+          f"{launches[0]} tensor-core flash_attention launches at "
+          f"prefill, all "
           f"{len(got)} steps' logits bit for bit those of prefill / "
           f"decode_step, tokens "
           f"{'equal to phase 7b serve' if served_tokens is not None else '(phase 7b not run)'}"
@@ -4741,6 +4893,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
 
     # ---- phase 1: the card and the build --------------------------------
     smi = subprocess.run(
@@ -4797,9 +4950,9 @@ def main() -> int:
     smem_ns = timed("1", smem_round_trip_ns, torch)
     print(f"phase 1 one dependent shared-memory load: {smem_ns:.3f} ns")
     tat = timed("2", phase_tat_lookup, torch, np)
-    scan = timed("3", phase_cell_scan, torch, smem_ns)
     traces, configs = paper_grid()
-    full = timed("3", phase_cell_scan_full, torch, traces, configs)
+    scan, full = timed("3", phase_cell_scan, torch, smem_ns, traces,
+                       configs)
     main_path = timed("4", phase_main_path, torch, np, smem_ns, traces,
                       configs, full)
     scan_profile = timed("4", phase_cell_scan_profile, torch, traces,
@@ -5023,17 +5176,44 @@ def main() -> int:
                     if k not in ("plain", "cholesky_sections",
                                  "fig1_ns_per_step")},
              cholesky_section_ns_per_step=macro["cholesky_sections"]),
+        dict(name=fa.WS_BF16[0], route="cuda",
+             source=f"src/repro_torch/kernels/csrc/{fa.WS_BF16[0]}.cu",
+             replaces="src/repro/kernels/flash_attention.py:68",
+             entry=fa.WS_BF16[1],
+             launches=served["smollm-135m"]["counts_by_entry"].get(
+                 fa.WS_BF16[1], 0),
+             main_path="smollm-135m bf16 serve, 4 x 1024 prompt + 64 "
+                       "decode steps: one launch per layer at prefill "
+                       "(the bf16 route of flash_attention from D = 64)",
+             f8_counts=flash["f8_counts"],
+             f8_counts_wide=flash["f8_counts_wide"],
+             ptxas=flash["ptxas_ws"],
+             max_abs_err=flash["bfloat16"]["max_abs_err"],
+             ms=flash["bfloat16"]["ms"],
+             ms_turns=flash["bfloat16"]["ms_turns"],
+             present_kernel_ms=flash["bfloat16"]["present_ms"],
+             plain_ms=flash["bfloat16"]["plain_ms"],
+             bound_ms=flash["bfloat16"]["bound_ms"],
+             bound_by=flash["bfloat16"]["bound_by"],
+             library_ms=flash["bfloat16"]["library_ms"],
+             library="scaled_dot_product_attention (K/V repeated per "
+                     "query head)",
+             shape="q (4, 9, 1024, 64), k/v (4, 3, 1024, 64), bf16, "
+                   "causal"),
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              replaces="src/repro/kernels/flash_attention.py:68",
              entry="flash_attention_tc_launch",
-             launches=served["smollm-135m"]["counts"]["flash_attention_tc"],
-             main_path="smollm-135m bf16 serve, 4 x 1024 prompt + 64 "
-                       "decode steps: one launch per layer at prefill "
-                       "(the bf16 route of flash_attention)",
-             f8_counts=flash["f8_counts"],
-             max_abs_err=flash["bfloat16"]["max_abs_err"],
-             ms=flash["bfloat16"]["ms"],
+             launches=served["smollm-135m"]["counts_by_entry"].get(
+                 "flash_attention_tc_launch", 0),
+             main_path="the bf16 route of flash_attention at D <= 32 (the "
+                       "JAX sweep's head dims; phase 5), not launched by "
+                       "any served model; held and timed through launch in "
+                       "turns with flash_attention_ws at every bf16 path "
+                       "shape",
+             max_abs_err=flash["bfloat16"]["present_err"],
+             ms=sum(flash["bfloat16"]["present_ms"]) / 2,
+             ms_turns=flash["bfloat16"]["present_ms"],
              plain_ms=flash["bfloat16"]["plain_ms"],
              bound_ms=flash["bfloat16"]["bound_ms"],
              bound_by=flash["bfloat16"]["bound_by"],
@@ -5173,13 +5353,15 @@ def main() -> int:
              shape="x (4, 1024, 64, 64), N=128, chunk 128, f32"),
     ]
     fk, fs = family["kernel"], family["serve"]
+    WS_ENTRY = fa.WS_BF16[1]
 
     mk, ms_ = moe["kernel"], moe["serve"]
 
     def family_row(name, row, launches, main_path, extra_rows=(), table=fk):
         k = table[row]
+        lib = fa.WS_BF16[0] if k["entry"] == WS_ENTRY else fa.TC_BF16[0]
         rec = dict(name=name, route="cuda",
-                   source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                   source=f"src/repro_torch/kernels/csrc/{lib}.cu",
                    replaces="src/repro/kernels/flash_attention.py:68",
                    entry=k["entry"], launches=launches, main_path=main_path,
                    max_abs_err=k["max_abs_err"], ms=k["ms"],
@@ -5190,17 +5372,18 @@ def main() -> int:
                    library_err=k["library_err"], kept_pairs=k["pairs"],
                    shape=k["shape"], checked_err=k["checked"],
                    checked_how=k["checked_how"], checked_limit=k["limit"],
-                   planted_window_fault=k["planted_window_fault"])
+                   planted_window_fault=k["planted_window_fault"],
+                   present_kernel=k["present"])
         for key, other in extra_rows:
             rec[key] = {f: table[other][f] for f in (
                 "shape", "max_abs_err", "checked", "planted_window_fault",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "pairs")}
+                "pairs", "present")}
         return rec
     kernels += [
-        family_row("flash_attention_tc_gemma3_12b", "gemma3-12b",
+        family_row("flash_attention_ws_gemma3_12b", "gemma3-12b",
                    fs["gemma3-12b"]["launches"].get(
-                       "flash_attention_tc_launch", 0),
+                       WS_ENTRY, 0),
                    "gemma3-12b bf16 serve at full width and depth, 4 x 2048 "
                    "prompt + 64 decode steps (phase 13b): one launch per "
                    "layer at prefill, 40 with window 1024 (this row's "
@@ -5215,16 +5398,16 @@ def main() -> int:
                    "1024 (this row's shape) and 1 global; S is not a "
                    "multiple of the 32-key tile",
                    (("global_shape", "gemma3-12b f32 datum global"),)),
-        family_row("flash_attention_tc_deepseek_67b", "deepseek-67b",
+        family_row("flash_attention_ws_deepseek_67b", "deepseek-67b",
                    fs["deepseek-67b"]["launches"].get(
-                       "flash_attention_tc_launch", 0),
+                       WS_ENTRY, 0),
                    "deepseek-67b bf16 serve at full width, 16 of 95 layers "
                    "(one card), 4 x 1024 prompt + 64 decode steps (phase "
                    "13b): one launch per layer at prefill"),
-        family_row("flash_attention_tc_seamless_m4t_large_v2",
+        family_row("flash_attention_ws_seamless_m4t_large_v2",
                    "seamless-m4t-large-v2",
                    fs["seamless-m4t-large-v2"]["launches"].get(
-                       "flash_attention_tc_launch", 0),
+                       WS_ENTRY, 0),
                    "seamless-m4t-large-v2 bf16 serve at full width and "
                    "depth, 4 x 1024 prompt and 256 frames + 64 decode steps "
                    "(phase 13b): one launch per self-attention layer at "
@@ -5232,9 +5415,9 @@ def main() -> int:
                    "non-causal in the encoder; cross-attention takes the "
                    "plain softmax",
                    (("encoder_shape", "seamless-m4t-large-v2 encoder"),)),
-        family_row("flash_attention_tc_mixtral_8x7b", "mixtral-8x7b",
+        family_row("flash_attention_ws_mixtral_8x7b", "mixtral-8x7b",
                    ms_["mixtral-8x7b"]["launches"].get(
-                       "flash_attention_tc_launch", 0),
+                       WS_ENTRY, 0),
                    "mixtral-8x7b bf16 serve at full width, 16 of 32 layers "
                    "(one card), 2 x 4160 prompt + 64 decode steps (phase "
                    "14b): one launch per layer at prefill, window 4096 "
@@ -5245,9 +5428,9 @@ def main() -> int:
                        "flash_attention_tc_f32_launch", 0),
                    "mixtral-8x7b f32 datum prefill of phase 14a (1 layer, 1 "
                    "x 4160 prompt, window 4096)", table=mk),
-        family_row("flash_attention_tc_phi3_5_moe_42b", "phi3.5-moe-42b",
+        family_row("flash_attention_ws_phi3_5_moe_42b", "phi3.5-moe-42b",
                    ms_["phi3.5-moe-42b"]["launches"].get(
-                       "flash_attention_tc_launch", 0),
+                       WS_ENTRY, 0),
                    "phi3.5-moe-42b bf16 serve at full width, 16 of 32 "
                    "layers (one card), 4 x 1024 prompt + 64 decode steps "
                    "(phase 14b): one launch per layer at prefill", table=mk),
@@ -5257,10 +5440,10 @@ def main() -> int:
                        "flash_attention_tc_f32_launch", 0),
                    "phi3.5-moe-42b f32 datum prefill of phase 14a (1 layer, "
                    "2 x 256 prompt)", table=mk),
-        family_row("flash_attention_tc_jamba_1_5_large_398b",
+        family_row("flash_attention_ws_jamba_1_5_large_398b",
                    "jamba-1.5-large-398b",
                    ms_["jamba-1.5-large-398b"]["launches"].get(
-                       "flash_attention_tc_launch", 0),
+                       WS_ENTRY, 0),
                    "jamba-1.5-large-398b bf16 serve at full width, the first "
                    "5 of 72 layers (one card), 2 x 1024 prompt + 64 decode "
                    "steps (phase 14b): its one attn layer at prefill",

@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # chip_smoke.py's bound, not a kernel of the port) and the VARIANTS are
 # built only when asked for by name.
 SOURCES = ("tat_lookup", "cell_scan", "flash_attention",
-           "flash_attention_tc", "ssd_scan", "ssd_scan_tc")
+           "flash_attention_tc", "flash_attention_ws", "ssd_scan",
+           "ssd_scan_tc")
 # Libraries built from another library's source with extra flags:
 # name -> (source, flags, units).  ``units``: the (SPL, D, MAC) units of a
 # split source the library keeps (None: all of them); its source is then

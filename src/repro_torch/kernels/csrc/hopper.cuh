@@ -1,10 +1,13 @@
 // Hopper primitives of the port's kernels, each behind a small device
 // function so that no kernel body holds inline PTX: shared-memory
 // addresses, cp.async copies (4 bytes, and 16 bytes with zero fill),
-// the async-proxy fence, and the warpgroup products
+// the async-proxy fence, the warpgroup products
 // wgmma.mma_async m64n64k16 (f32 += bf16 x bf16) with A from shared
-// memory or from registers and m64n32k16 with both from shared memory,
-// and the flag accesses of a chain of blocks.  tests/warp_emul/hopper.cuh is its twin for
+// memory or from registers, m64n32k16 and m64n128k16 with
+// both from shared memory, the flag accesses of a chain of blocks, and
+// what a warp-specialised kernel is built from: mbarriers, TMA tile
+// loads that complete on them, named barriers, setmaxnreg and
+// elect.sync.  tests/warp_emul/hopper.cuh is its twin for
 // the CPU: the same calls done in scalar C++ on the PTX ISA's documented
 // register-fragment and swizzled shared-memory layouts.
 #pragma once
@@ -144,7 +147,128 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+#define WG_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+  "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_D64_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+
+// d (64 x 128, 64 registers) = A (64 x 16) · B (16 x 128), both from
+// shared memory as wgmma_ss, wgmma.mma_async m64n128k16.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : WG_D64_OPS(d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 #undef WG_D32
 #undef WG_D32_OPS
+#undef WG_D64
+#undef WG_D64_OPS
+
+// Keep registers that an asynchronous product reads (P, its A operand)
+// live and unmoved until this point: place it after the wgmma_wait that
+// retires the product.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// ---- mbarriers, TMA, named barriers, register reallocation ----------
+// An mbarrier is 8 bytes of shared memory at `bar`.  A phase completes
+// when its pending arrivals reach 0 and its transaction count is 0; a
+// thread waits on a phase by its parity.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// arrive and add `bytes` to the phase's transaction count
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// TMA: the box at coordinates (c0, c1, c2, c3) of the 4-d tensor map at
+// `map` (a __grid_constant__ kernel parameter) into shared memory at
+// `dst`, in the map's swizzle, elements outside the tensor as zeros; the
+// box's bytes complete on mbarrier `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+// named barrier `id` (1..15) over `n` threads (a multiple of 32): sync
+// waits for n arrivals, arrive counts without waiting
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// a warpgroup gives up registers (dec) or takes them (inc), to N a thread
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// true in one lane of the (converged) warp
+__device__ __forceinline__ bool elect_one() {
+  uint32_t pred = 0;
+  asm volatile(
+      "{\n.reg .b32 rx;\n.reg .pred px;\n"
+      "elect.sync rx|px, %1;\n@px mov.s32 %0, 1;\n}\n"
+      : "+r"(pred)
+      : "r"(0xffffffffu));
+  return pred != 0;
+}
 
 }  // namespace wg

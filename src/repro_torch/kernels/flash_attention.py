@@ -4,15 +4,22 @@ Replaces the Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` (body
 ``_kernel``): ``softmax(q kᵀ · D^-0.5) v`` per (batch, head) with a
 causal mask and an optional sliding window, accumulated in f32.  Each
-kernel gives one block to each (batch·head, 64-query tile); see the
-sources' headers for their designs.
+kernel gives one block to each (batch·head, query tile): 128 queries in
+the warp-specialised kernel, 64 in the others; see the sources' headers
+for their designs.
 
 The route is fixed before launch by the dtype and the head dim (``ROUTES``;
 :func:`route`):
 
-* **bf16 → the tensor-core kernel** (``csrc/flash_attention_tc.cu``,
-  entry ``flash_attention_tc_launch``): both products on ``wgmma`` with
-  f32 accumulation, P in one bf16 part;
+* **bf16 with D >= 64 → the warp-specialised tensor-core kernel**
+  (``csrc/flash_attention_ws.cu``, entry ``flash_attention_tc_ws_launch``,
+  ``WS_BF16``): TMA copies from one producer warpgroup, two consumer
+  warpgroups whose products overlap their softmax, both products on
+  ``wgmma`` with f32 accumulation, P in one bf16 part;
+* **bf16 with D <= 32 → the tensor-core kernel**
+  (``csrc/flash_attention_tc.cu``, entry ``flash_attention_tc_launch``,
+  ``TC_BF16``): one warpgroup a block, the same products and precision
+  (only the JAX sweep's shapes have such head dims);
 * **f32 with D <= 128 → the same tensor-core kernel**
   (``flash_attention_tc_f32_launch``): Q, K, V and P enter the products
   as three bf16 parts each, of whose cross products the six that reach
@@ -25,7 +32,9 @@ The route is fixed before launch by the dtype and the head dim (``ROUTES``;
 
 The FMA kernel (``csrc/flash_attention.cu``, ``FMA_F32``) takes f32 at
 every head dim but is on no route; ``chip_smoke.py`` holds it and times
-it beside the tensor-core routes through :func:`launch`.
+it beside the tensor-core routes through :func:`launch`, and so with
+``TC_BF16`` at D = 64, 128 and 256, the bf16 route there before
+``WS_BF16``.
 
 Each route counts its launches (``launches_tc`` for every tensor-core
 entry, ``launches_fma``; ``launches`` is their sum; ``launches_by``
@@ -75,14 +84,16 @@ launches_by: dict = {}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # A route: the kernel's library (csrc/<lib>.cu) and its C entry point.
 TC_BF16 = ("flash_attention_tc", "flash_attention_tc_launch")
+WS_BF16 = ("flash_attention_ws", "flash_attention_tc_ws_launch")
 TC_F32 = ("flash_attention_tc", "flash_attention_tc_f32_launch")
 TC_F32_256 = ("flash_attention_tc", "flash_attention_tc_f32_256_launch")
 FMA_F32 = ("flash_attention", "flash_attention_launch")
 TC_F32_MAX_D = 128          # fatc::F32_MAX_D in the source
 # dtype -> ((largest head dim, route), ...): the first that takes D serves.
-ROUTES = {torch.bfloat16: ((256, TC_BF16),),
+ROUTES = {torch.bfloat16: ((32, TC_BF16), (256, WS_BF16)),
           torch.float32: ((TC_F32_MAX_D, TC_F32), (256, TC_F32_256))}
 DTYPES = tuple(ROUTES)
+TC_LIBS = ("flash_attention_tc", "flash_attention_ws")   # tensor cores
 
 
 def route(dtype: torch.dtype, d: int):
@@ -124,9 +135,10 @@ def launch(lib, q, k, v, out, *, causal: bool, window: Optional[int],
     """Call ``entry`` of ``lib`` on checked tensors; returns the C entry
     point's error code.  ``flash_attention_launch`` (the FMA kernel) takes
     f32 tensors whose last axis is unit-stride, the tensor-core entries
-    (``flash_attention_tc_launch`` bf16, ``flash_attention_tc_f32_launch``
-    f32 at D <= 128, ``flash_attention_tc_f32_256_launch`` f32 at D =
-    256) tensors that :func:`_for_copies` accepts."""
+    (``flash_attention_tc_launch`` bf16, ``flash_attention_tc_ws_launch``
+    bf16 at D = 64, 128 and 256, ``flash_attention_tc_f32_launch`` f32 at
+    D <= 128, ``flash_attention_tc_f32_256_launch`` f32 at D = 256)
+    tensors that :func:`_for_copies` accepts."""
     b, h, s, d = q.shape
     strides = (ctypes.c_longlong * 12)(*(
         st for x in (q, k, v, out) for st in (x.stride(0), x.stride(1),
@@ -142,9 +154,9 @@ def launch(lib, q, k, v, out, *, causal: bool, window: Optional[int],
 
 
 def _for_copies(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if the tensor-core kernel's 16-byte reads can take it (unit
-    last stride, other strides multiples of 16 bytes, data 16-byte
-    aligned), else a contiguous copy."""
+    """``x`` if the tensor-core kernels' 16-byte reads and TMA tensor
+    maps can take it (unit last stride, other strides multiples of 16
+    bytes, data 16-byte aligned), else a contiguous copy."""
     per = 16 // x.element_size()
     if x.stride(-1) == 1 and all(st % per == 0 for st in x.stride()[:-1]) \
             and x.data_ptr() % 16 == 0:
@@ -164,7 +176,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     name, entry = route(q.dtype, q.shape[-1])
-    tc = name == "flash_attention_tc"
+    tc = name in TC_LIBS
     prep = _for_copies if tc else _unit_last
     q, k, v = prep(q), prep(k), prep(v)
     out = torch.empty_like(q)           # q's layout (dense, D unit-stride)

@@ -261,6 +261,44 @@ extern "C" int flash_attention_tc_f32_256_launch(
 }
 '''
 
+FLASH_WS_LAUNCH = r'''
+namespace faws {
+constexpr int emu_smem_bytes() {
+  return std::max({smem_bytes<64>(), smem_bytes<128>(), smem_bytes<256>()});
+}
+alignas(1024) unsigned char faws_smem[emu_smem_bytes()];
+}
+// the grid: a block per work tile, or at most emu_ws_grid blocks that
+// walk them (flash_ws_emu_grid; 0: a block per tile)
+static int emu_ws_grid = 0;
+extern "C" void flash_ws_emu_grid(int n) { emu_ws_grid = n; }
+template <int D>
+static int emu_flash_ws(const faws::Maps& m, const faws::Args& a,
+                        int blocks) {
+  wg::emu_smem_base = faws::faws_smem;
+  emu_run(blocks, [&] { faws::flash_ws_kernel<D>(m, a); }, faws::NT);
+  return 0;
+}
+extern "C" int flash_attention_tc_ws_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* st, int B, int H, int S, int D, int g, int causal,
+    int window, float scale, cudaStream_t) {
+  faws::Maps m;
+  faws::Args a;
+  if (faws::prepare(emu_tensor_map_encode_tiled, &m, &a, q, k, v, o, st, B,
+                    H, S, D, g, causal, window, scale))
+    return 1;
+  const int work = faws::n_work(B, H, S);
+  const int blocks = emu_ws_grid > 0 && emu_ws_grid < work ? emu_ws_grid
+                                                           : work;
+  switch (D) {
+    case 64: return emu_flash_ws<64>(m, a, blocks);
+    case 128: return emu_flash_ws<128>(m, a, blocks);
+    default: return emu_flash_ws<256>(m, a, blocks);
+  }
+}
+'''
+
 SSD_LAUNCH = r'''
 namespace ssd { alignas(16) float ssd_smem[1 << 16]; }
 extern "C" int ssd_scan_launch(

@@ -600,7 +600,9 @@ def test_wrappers_plain_on_cpu_shapes_on_meta_kernel_on_cuda(kernel):
                    lambda *a: types.SimpleNamespace(cuda_stream=0))
         with FakeTensorMode():
             cargs, kw = _wrapper_inputs(kernel, "cuda")
-            with pytest.raises(RuntimeError, match=f"launch {kernel}_tc"):
+            lib = (kfa.route(torch.bfloat16, 64)[0]
+                   if kernel == "flash_attention" else f"{kernel}_tc")
+            with pytest.raises(RuntimeError, match=f"launch {lib}"):
                 wrapper(*cargs, **kw)
     assert mod.launches == before
 

@@ -5,12 +5,16 @@
 // more (whole warps); blocks run one after another.  Warp intrinsics
 // (__shfl_*_sync, __ballot_sync, __any_sync, __reduce_{min,or}_sync)
 // exchange values through a shared slot array between two waits on the
-// block's barrier, so every thread of the block must reach them
-// together, as in the port's kernels; __syncwarp and
-// __syncthreads are a barrier wait, so a missing sync between a write and
+// warp's barrier, so every thread of the warp must reach them together,
+// as in the port's kernels; __syncwarp waits on the warp's barrier and
+// __syncthreads on the block's, so a missing sync between a write and
 // another thread's read shows up as a real race.  emu_warpgroup_sync
 // waits for the caller's 128 threads only (the warpgroup products of
-// hopper.cuh).  Blocks run in blockIdx order, so a kernel that chains its
+// hopper.cuh), and a named barrier (emu_named, hopper.cuh's bar_sync and
+// bar_arrive) for the count its first use names; named barriers start
+// afresh with each block.  Warps of a warp-specialised block may leave
+// early or wait on an mbarrier while the others go on.  Blocks run in
+// blockIdx order, so a kernel that chains its
 // blocks through global flags finds each flag it waits on already set.
 // Dynamic shared memory is a global array that the including file
 // defines under the kernel's own extern name.
@@ -35,6 +39,7 @@
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__
 #define __restrict__
+#define __grid_constant__
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -53,7 +58,10 @@ using std::min;
 
 struct WarpCtx {
   std::barrier<>* bar;
-  std::barrier<>* wg_bar[8];  // one per warpgroup of a block of >= 128
+  std::barrier<>* wg_bar[8];     // one per warpgroup of a block of >= 128
+  std::barrier<>* warp_bar[32];  // one per warp
+  std::unique_ptr<std::barrier<>> named[16];  // named barriers, by id
+  std::mutex named_mu;
   uint64_t slots[1024];
 };
 
@@ -76,15 +84,23 @@ inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
 inline WarpCtx* g_warp;
 inline std::mutex g_atomic;
 
-inline void __syncwarp(unsigned = 0xffffffffu) {
-  g_warp->bar->arrive_and_wait();
+inline void emu_warp_sync() {
+  g_warp->warp_bar[threadIdx.x / 32]->arrive_and_wait();
 }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_sync(); }
 inline void __syncthreads() { g_warp->bar->arrive_and_wait(); }
 inline void emu_warpgroup_sync() {
   if (blockDim.x <= 128)
     g_warp->bar->arrive_and_wait();
   else
     g_warp->wg_bar[threadIdx.x / 128]->arrive_and_wait();
+}
+// named barrier `id` of `n` threads (made at its first use in a block)
+inline std::barrier<>& emu_named(int id, int n) {
+  std::lock_guard<std::mutex> g(g_warp->named_mu);
+  auto& b = g_warp->named[id];
+  if (!b) b = std::make_unique<std::barrier<>>(n);
+  return *b;
 }
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
@@ -104,9 +120,9 @@ T emu_exchange(T v, int src) {
   uint64_t b = 0;
   std::memcpy(&b, &v, sizeof(T));
   g_warp->slots[threadIdx.x] = b;
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   const uint64_t got = g_warp->slots[(threadIdx.x & ~31u) | (src & 31)];
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   T r;
   std::memcpy(&r, &got, sizeof(T));
   return r;
@@ -127,12 +143,12 @@ T __shfl_up_sync(unsigned, T v, unsigned delta) {
 }
 inline unsigned __ballot_sync(unsigned, int pred) {
   g_warp->slots[threadIdx.x] = pred ? 1 : 0;
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   unsigned m = 0;
   const unsigned base = threadIdx.x & ~31u;
   for (int i = 0; i < 32; ++i)
     if (g_warp->slots[base + i]) m |= 1u << i;
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   return m;
 }
 inline int __any_sync(unsigned mask, int pred) {
@@ -140,21 +156,21 @@ inline int __any_sync(unsigned mask, int pred) {
 }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
   g_warp->slots[threadIdx.x] = v;
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   const unsigned base = threadIdx.x & ~31u;
   unsigned m = v;
   for (int i = 0; i < 32; ++i)
     m = std::min(m, static_cast<unsigned>(g_warp->slots[base + i]));
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   return m;
 }
 inline unsigned __reduce_or_sync(unsigned, unsigned v) {
   g_warp->slots[threadIdx.x] = v;
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   const unsigned base = threadIdx.x & ~31u;
   unsigned m = 0;
   for (int i = 0; i < 32; ++i) m |= static_cast<unsigned>(g_warp->slots[base + i]);
-  g_warp->bar->arrive_and_wait();
+  emu_warp_sync();
   return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -191,15 +207,20 @@ void emu_run(int blocks, F&& body, int threads = 32) {
   std::barrier<> bar(threads);
   static WarpCtx w;
   w.bar = &bar;
-  std::vector<std::unique_ptr<std::barrier<>>> wg_bars;
+  std::vector<std::unique_ptr<std::barrier<>>> wg_bars, warp_bars;
   for (int i = 0; i < threads / 128; ++i) {
     wg_bars.push_back(std::make_unique<std::barrier<>>(128));
     w.wg_bar[i] = wg_bars.back().get();
+  }
+  for (int i = 0; i < threads / 32; ++i) {
+    warp_bars.push_back(std::make_unique<std::barrier<>>(32));
+    w.warp_bar[i] = warp_bars.back().get();
   }
   g_warp = &w;
   blockDim.x = threads;
   gridDim.x = blocks;
   for (int b = 0; b < blocks; ++b) {
+    for (auto& n : w.named) n.reset();
     std::vector<std::thread> lanes;
     for (int l = 0; l < threads; ++l)
       lanes.emplace_back([&body, l, b] {

@@ -1,6 +1,15 @@
 // Host twin of src/repro_torch/kernels/csrc/hopper.cuh for g++ and the
 // warp emulation (cuda_emul.h): the same calls, done in scalar C++.
 //
+// The asynchronous copies are synchronous here: a TMA load has written
+// its box and completed its bytes on the mbarrier when it returns, and
+// a cp.async when it returns, so a missing wait or fence shows only on
+// the card.  An mbarrier is kept beside shared memory, by address, with
+// its count, pending arrivals, transaction count and phase, under one
+// lock; a wait blocks until its phase has completed (and aborts after
+// two minutes, a deadlock).  setmaxnreg does nothing and elect.sync
+// elects lane 0.
+//
 // Shared memory is the kernel's dynamic array, whose start the launcher
 // stores in emu_smem_base; a "shared address" is a byte offset from it
 // (the array is 1024-byte aligned, as the card's window is in effect).
@@ -28,10 +37,16 @@
 // the same release and acquire orders.
 #pragma once
 #include <atomic>
+#include <chrono>
+#include <condition_variable>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <map>
+#include <mutex>
 
+#include "cuda.h"
 #include "cuda_bf16.h"
 
 namespace wg {
@@ -124,6 +139,15 @@ inline void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
       [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
 }
 
+// m64n128k16, both from shared memory: 64 registers
+template <int TB>
+inline void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  const Desc a = decode(da), b = decode(db);
+  emu_mma(
+      d, [&](int m, int k) { return kmajor(a, m, k); },
+      [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
+}
+
 // m64n32k16, both operands from shared memory (B K-major): 16 registers
 inline void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
                          int scale_d) {
@@ -154,5 +178,100 @@ inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
       d, a_at, [&](int k, int n) { return b_elem<TB>(b, k, n); }, scale_d);
   emu_warpgroup_sync();
 }
+
+template <int N>
+inline void fence_regs(uint32_t (&)[N]) {}
+
+// ---- mbarriers, TMA, named barriers, register reallocation ----------
+struct EmuMbar {
+  int count, pending;
+  long long tx;
+  unsigned phase;  // phases completed
+};
+inline std::mutex emu_mbar_mu;
+inline std::condition_variable emu_mbar_cv;
+inline std::map<uint32_t, EmuMbar> emu_mbars;
+
+inline void emu_mbar_update(uint32_t bar, int arrivals, long long tx) {
+  {
+    std::lock_guard<std::mutex> g(emu_mbar_mu);
+    EmuMbar& m = emu_mbars.at(bar);
+    m.pending -= arrivals;
+    m.tx += tx;
+    if (m.pending < 0) std::abort();  // more arrivals than the count
+    if (m.pending == 0 && m.tx == 0) {
+      ++m.phase;
+      m.pending = m.count;
+    }
+  }
+  emu_mbar_cv.notify_all();
+}
+inline void mbar_init(uint32_t bar, int count) {
+  std::lock_guard<std::mutex> g(emu_mbar_mu);
+  emu_mbars[bar] = EmuMbar{count, count, 0, 0};
+}
+inline void fence_mbar_init() {}
+inline void mbar_arrive(uint32_t bar) { emu_mbar_update(bar, 1, 0); }
+inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  emu_mbar_update(bar, 1, bytes);
+}
+inline void mbar_wait(uint32_t bar, int parity) {
+  std::unique_lock<std::mutex> g(emu_mbar_mu);
+  const EmuMbar& m = emu_mbars.at(bar);
+  if (!emu_mbar_cv.wait_for(g, std::chrono::minutes(2), [&] {
+        return static_cast<int>(m.phase & 1u) != parity;
+      })) {
+    std::fprintf(stderr, "mbarrier at %u: phase %d never completed\n", bar,
+                 parity);
+    std::abort();
+  }
+}
+
+// the box at (c0, c1, c2, c3) of the 4-d map, bf16, elements outside the
+// tensor as zeros, laid out box row by box row (dim 0 innermost) from
+// dst; in the 128-byte swizzle the byte at x lands at
+// x ^ (((x >> 7) & 7) << 4), as wgmma's descriptors read it
+inline void tma_load_4d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                        int c1, int c2, int c3) {
+  const CUtensorMap& m = *static_cast<const CUtensorMap*>(map);
+  if (m.rank != 4 || (m.swizzle && (m.box[0] * m.elem != 128 || dst % 1024)))
+    std::abort();
+  const int c[4] = {c0, c1, c2, c3};
+  const uint32_t row = m.box[0] * m.elem;
+  uint32_t off = 0;
+  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1, off += row)
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0) {
+          const long long x[4] = {c[0] + static_cast<long long>(i0),
+                                  c[1] + static_cast<long long>(i1),
+                                  c[2] + static_cast<long long>(i2),
+                                  c[3] + static_cast<long long>(i3)};
+          bool in = true;
+          long long at = x[0] * m.elem;
+          for (int d = 0; d < 4; ++d) {
+            in = in && x[d] >= 0 && x[d] < static_cast<long long>(m.dims[d]);
+            if (d > 0) at += x[d] * static_cast<long long>(m.strides[d - 1]);
+          }
+          uint32_t a = dst + off + i0 * m.elem;
+          if (m.swizzle) a ^= ((a >> 7) & 7u) << 4;
+          if (in)
+            std::memcpy(emu_smem_base + a, m.base + at, m.elem);
+          else
+            std::memset(emu_smem_base + a, 0, m.elem);
+        }
+  emu_mbar_update(bar, 0, -static_cast<long long>(off));
+}
+
+inline void bar_sync(int id, int n) { emu_named(id, n).arrive_and_wait(); }
+inline void bar_arrive(int id, int n) {
+  auto token = emu_named(id, n).arrive();
+  (void)token;
+}
+template <int N>
+inline void setmaxnreg_dec() {}
+template <int N>
+inline void setmaxnreg_inc() {}
+inline bool elect_one() { return threadIdx.x % 32 == 0; }
 
 }  // namespace wg
