@@ -245,9 +245,8 @@ without CUDA.
     ``python3 chip_smoke.py --serve-only`` runs phases 5-7, 13 and 14
     alone and builds only their kernels.
 
-14. (run after phase 13) the MoE family: top-2 expert FFNs, each
-    expert's buffer as long as the token group at serving
-    (``drop=False``).  (a) mixtral-8x7b (1 layer, 1 x 4160 prompt, window
+14. (run after phase 13) the MoE family: top-2 expert FFNs, at serving
+    (``drop=False``) over each expert's routed rows alone.  (a) mixtral-8x7b (1 layer, 1 x 4160 prompt, window
     4096) and phi3.5-moe-42b (1 layer, 2 x 256) at full width in f32 with
     ``numpy_params(cfg, 0)`` (drawn on phase 13's background thread)
     against ``src/repro_torch/testdata/serve_ref_moe.json`` within 1e-5 of
@@ -261,9 +260,11 @@ without CUDA.
     ``ssd_scan_tc``), each with prefill ms, decode tokens/s and peak
     memory, every kernel call of its prefill against the plain version
     on the same inputs and its prefill logits against the same model
-    with each plain version swapped in (as in 13b), and mixtral's
-    prefill device time by kernel and by the op
-    that launched it; (c) the kernels at each new shape against their
+    with each plain version swapped in (as in 13b), the rows each MoE
+    layer's expert products saw (exactly ``3 * n * k``: gate, up and
+    down over the routed rows), and mixtral's prefill device time by
+    kernel and by the op that launched it, the expert products a group
+    of their own; (c) the kernels at each new shape against their
     plain versions, the attention timed beside
     ``scaled_dot_product_attention`` (in bf16 in turns with the present
     tensor-core kernel, as in 13c), each with its bound.
@@ -296,6 +297,17 @@ without CUDA.
     the lookup counts exactly the plain version's; its wall is printed
     beside its aim of 30 s.
 
+``python3 chip_smoke.py --serve-against OTHER [ARCH ...]`` runs only
+phase 14b's MoE serves (all three ids unless named) with this
+checkout's ``repro_torch`` and with the checkout OTHER's (e.g. the
+parent unpacked with ``git archive`` under ``build/``), in turns other,
+this, this, other, other, this, each turn a process of its own: per
+serve prefill ms, decode tokens/s and peak GiB (three serves a turn),
+the prefill's device time by kind, the expert rows per MoE layer, and
+a profiled decode (host ms a step in all and in the MoE layers, device
+ms and kernel launches a step, the ops with the most host and device
+time); then each tree's quartiles, and the card and one JSON line.
+
 ``python3 chip_smoke.py --against OLD.cu [B.cu ...]`` runs only a
 comparison of the package's cell scan with each other ``cell_scan.cu``
 (an earlier revision's, or a variant of
@@ -312,6 +324,7 @@ of each; it prints the card and one JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -3930,25 +3943,78 @@ def moe_config(arch, layers):
     return dataclasses.replace(cfg, n_layers=layers, block_pattern=pattern)
 
 
+@contextlib.contextmanager
+def moe_spied(rows=None, ranges=False):
+    """While open, wraps ``models.moe._moe_group`` (each routing group:
+    one a MoE layer at serving) and ``models.moe._bmm_f32`` (every expert
+    product): with ``ranges``, each in a ``record_function`` range
+    (``moe_layer``, ``moe_expert_product``); with a list ``rows``, each
+    group appends [its routed rows ``n * k``, the rows its expert
+    products saw]."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe
+    real_group, real_product = moe._moe_group, moe._bmm_f32
+
+    def group(p, xt, **kw):
+        if rows is not None:
+            rows.append([xt.shape[0] * kw["top_k"], 0])
+        if not ranges:
+            return real_group(p, xt, **kw)
+        with record_function("moe_layer"):
+            return real_group(p, xt, **kw)
+
+    def product(a, b, *out):
+        if rows is not None:
+            rows[-1][1] += a.shape[:-1].numel()
+        if not ranges:
+            return real_product(a, b, *out)
+        with record_function("moe_expert_product"):
+            return real_product(a, b, *out)
+    moe._moe_group, moe._bmm_f32 = group, product
+    try:
+        yield
+    finally:
+        moe._moe_group, moe._bmm_f32 = real_group, real_product
+
+
+def range_ms(prof, name):
+    """(host ms, device ms) of a ``record_function`` range: its host
+    event's CPU time and the device time of the kernels it launched (the
+    range also shows on the device as an annotation, which is no
+    kernel)."""
+    from torch.autograd import DeviceType
+    host = dev = 0.0
+    for e in prof.key_averages():
+        if e.key == name and e.device_type == DeviceType.CPU:
+            host += e.cpu_time_total / 1e3
+            dev += e.device_time_total / 1e3
+    return host, dev
+
+
 def moe_device_breakdown(torch, model, batch, max_len):
     """Device time of one bf16 prefill (``torch.profiler``): in all, by
-    kernel, and by the op that launched it: the expert products
-    (``aten::bmm``), the other GEMMs (``aten::mm``), attention (the
-    flash kernel), dispatch and combine (indexing, scatter, gather,
-    cumsum, argmax, one-hot, concatenation) and the rest (elementwise,
-    casts, reductions)."""
+    kernel, and by the op that launched it: the expert products (every
+    call of ``models.moe._bmm_f32``, in a range of ``moe_spied``: at
+    serving they are ``aten::mm``s over each expert's routed rows), the
+    other GEMMs (``aten::mm``, ``aten::addmm``), attention (the flash
+    kernel), dispatch and combine (indexing, scatter, gather, the sort and
+    the counts, argmax, concatenation) and the rest (elementwise, casts,
+    reductions)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with moe_spied(ranges=True), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with torch.inference_mode():
             T.prefill(model, batch, max_len)
         torch.cuda.synchronize()
+    experts = range_ms(prof, "moe_expert_product")[1]
     kernels, ops = [], {}
     for e in prof.key_averages():
         ms = e.self_device_time_total / 1e3
+        if e.key in ("moe_layer", "moe_expert_product"):
+            continue
         if e.device_type == DeviceType.CPU:
             ops[e.key] = ops.get(e.key, 0.0) + ms
         elif ms > 0:
@@ -3958,11 +4024,14 @@ def moe_device_breakdown(torch, model, batch, max_len):
     dispatch = ("aten::index_put_", "aten::index", "aten::index_add",
                 "aten::index_add_", "aten::cumsum", "aten::gather",
                 "aten::argmax", "aten::one_hot", "aten::cat",
-                "aten::scatter_", "aten::repeat", "aten::where",
-                "aten::eq", "aten::lt")
-    groups = {"expert products (aten::bmm)": ops.get("aten::bmm", 0.0),
-              "other GEMM (aten::mm)": ops.get("aten::mm", 0.0)
-              + ops.get("aten::addmm", 0.0),
+                "aten::scatter", "aten::scatter_", "aten::repeat",
+                "aten::where", "aten::eq", "aten::lt", "aten::sort",
+                "aten::arange", "aten::ones_like", "aten::stack",
+                "aten::remainder", "aten::_local_scalar_dense")
+    gemm = sum(ops.get(k, 0.0) for k in ("aten::mm", "aten::addmm",
+                                         "aten::bmm"))
+    groups = {"expert products (moe._bmm_f32)": experts,
+              "other GEMM (aten::mm)": gemm - experts,
               "attention (flash kernel)": sum(
                   r[1] for r in kernels
                   if "flash_tc_kernel" in r[0] or "flash_ws_kernel" in r[0]),
@@ -3970,6 +4039,73 @@ def moe_device_breakdown(torch, model, batch, max_len):
                                           for k in dispatch)}
     groups["rest"] = total - sum(groups.values())
     return total, groups, top
+
+
+def moe_expert_rows(torch, model, batch, max_len):
+    """One bf16 prefill under ``moe_spied``: for each routing group (one a
+    MoE layer at serving), [its routed rows ``n * k``, the rows its
+    expert products saw].  Gate, up and down each over the routed rows
+    alone make the second ``3 * n * k``."""
+    from repro_torch.models import transformer as T
+    seen = []
+    with moe_spied(rows=seen), torch.inference_mode():
+        T.prefill(model, batch, max_len)
+    return seen
+
+
+def moe_decode_profile(torch, model, batch, max_len, steps=8):
+    """``steps`` greedy decode steps after a prefill and two warm steps,
+    under ``torch.profiler`` with the MoE layers in ``moe_spied`` ranges:
+    per step, the host ms in all (the profiled loop's wall) and in the
+    MoE layers (their ranges' CPU time, each wait for the counts
+    included), the device ms (kernels) and the kernels launched; and
+    the six ops with the most host self time and the six kernels with
+    the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    s = batch["tokens"].shape[1]
+    prefill, decode = make_prefill_step(model, max_len), make_decode_step(
+        model)
+    with torch.inference_mode():
+        logits, caches = prefill(batch)
+        for i in range(2):
+            logits, caches = decode(logits.argmax(dim=-1)[:, None], caches,
+                                    s + i)
+        torch.cuda.synchronize()
+        with moe_spied(ranges=True), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(2, 2 + steps):
+                logits, caches = decode(logits.argmax(dim=-1)[:, None],
+                                        caches, s + i)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+    ev = prof.key_averages()
+    ranges = ("moe_layer", "moe_expert_product")
+    # the ranges show on the device as annotations as long as their
+    # walls, which are no kernels
+    dev = sum(e.self_device_time_total for e in ev
+              if e.device_type != DeviceType.CPU
+              and e.key not in ranges) / 1e3
+    launches = sum(e.count for e in ev if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cuLaunchKernelEx"))
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps,
+                    e.count // steps) for e in ev
+                   if e.device_type == DeviceType.CPU
+                   and e.key not in ranges), key=lambda r: -r[1])
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps,
+                       e.count // steps) for e in ev
+                      if e.device_type != DeviceType.CPU
+                      and e.self_device_time_total > 0
+                      and e.key not in ranges), key=lambda r: -r[1])
+    return dict(host_ms_per_step=wall * 1e3 / steps,
+                moe_host_ms_per_step=range_ms(prof, "moe_layer")[0] / steps,
+                device_ms_per_step=dev / steps,
+                launches_per_step=launches / steps, top_host=host[:6],
+                top_device=kernels[:6])
 
 
 def moe_serve(torch, arch, layers, n_req, prompt_len, want_fa, want_ssd):
@@ -4014,13 +4150,23 @@ def moe_serve(torch, arch, layers, n_req, prompt_len, want_fa, want_ssd):
              f"{want_ssd}")
     tok_s = n_req * 64 / res.decode_s
     max_len = prompt_len + 64
+    rows = moe_expert_rows(torch, model, batch, max_len)
+    n_moe = sum(s.moe for s in cfg.block_pattern) * (
+        cfg.n_layers // len(cfg.block_pattern))
+    nk = n_req * prompt_len * cfg.top_k
+    if rows != [[nk, 3 * nk]] * n_moe:
+        fail(f"phase 14b {arch}: the expert products' rows per MoE layer "
+             f"[routed n*k, seen by gate + up + down] were {rows}; "
+             f"expected [{nk}, {3 * nk}] in each of {n_moe} layers")
     kernels = [k for k, n in (("flash_attention", want_fa),
                               ("ssd_scan", want_ssd)) if n]
     check = logits_vs_plain(torch, model, batch, max_len, kernels)
     failed = plain_check_failure(check)
     print(f"phase 14b {arch} bf16 ({cfg.n_layers} of {full} layers, cut to "
           f"fit one card; {weights / 2 ** 30:.2f} GiB of weights) served "
-          f"{n_req} x {prompt_len} prompt + 64 greedy steps: prefill "
+          f"{n_req} x {prompt_len} prompt + 64 greedy steps; expert "
+          f"products over the n*k = {nk} routed rows in each of {n_moe} MoE "
+          f"layers; prefill "
           f"{res.prefill_s * 1e3:.1f} ms, decode {res.decode_s * 1e3:.1f} ms "
           f"({tok_s:.1f} tokens/s); launches flash {json.dumps(by_entry)}, "
           f"ssd_scan_tc {ssd_tc}; peak memory {peak:.2f} GiB; device fill "
@@ -4031,6 +4177,7 @@ def moe_serve(torch, arch, layers, n_req, prompt_len, want_fa, want_ssd):
     out = dict(layers=cfg.n_layers, of_layers=full, requests=n_req,
                prompt_len=prompt_len, weights_gib=weights / 2 ** 30,
                launches=by_entry, ssd_scan_tc_launches=ssd_tc,
+               expert_rows_per_moe_layer=nk, moe_layers=n_moe,
                counts=counts, prefill_ms=res.prefill_s * 1e3,
                decode_ms=res.decode_s * 1e3, decode_tok_s=tok_s,
                peak_gib=peak, fill_s=fill_s, vs_plain=check)
@@ -4048,6 +4195,140 @@ def moe_serve(torch, arch, layers, n_req, prompt_len, want_fa, want_ssd):
     del model
     torch.cuda.empty_cache()
     return out
+
+
+# --serve-against: the trees' order in turns (0 this checkout, 1 the
+# other) and the serves a turn
+SERVE_TURNS = (1, 0, 0, 1, 1, 0)
+SERVE_REPS = 5
+
+
+def serve_turn(torch, archs) -> dict:
+    """One turn of ``--serve-against``, in a process of its own whose
+    ``repro_torch`` is one tree's: each MoE id of ``archs`` at phase 14b's
+    shape (``MOE_SERVE``, ``moe_config``, ``device_fill`` weights from
+    seed 0), a warm-up, then ``SERVE_REPS`` serves of the prompt and 64
+    greedy steps (prefill ms, decode tokens/s, peak GiB, the first
+    tokens), the prefill's device time by kind
+    (``moe_device_breakdown``), the expert rows per MoE layer
+    (``moe_expert_rows``) and ``moe_decode_profile``."""
+    from repro_torch.launch.serve import random_batch, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import device_fill
+    out = {}
+    for arch in archs:
+        layers, n_req, prompt_len = MOE_SERVE[arch][:3]
+        cfg = moe_config(arch, layers)
+        torch.cuda.empty_cache()
+        model = device_fill(T.Transformer(cfg, "cuda"), 0)
+        batch = random_batch(cfg, n_req, prompt_len, 0, "cuda")
+        serve(model, batch, 2)
+        runs = []
+        for _ in range(SERVE_REPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = serve(model, batch, 64)
+            runs.append(dict(
+                prefill_ms=res.prefill_s * 1e3,
+                decode_tok_s=n_req * 64 / res.decode_s,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                first_tokens=res.tokens[0, :8].tolist()))
+        max_len = prompt_len + 64
+        dev_ms, groups, _ = moe_device_breakdown(torch, model, batch,
+                                                 max_len)
+        rows = moe_expert_rows(torch, model, batch, max_len)
+        out[arch] = dict(runs=runs, prefill_device_ms=dev_ms,
+                         prefill_by_kind=groups,
+                         expert_rows_per_moe_layer=rows[0][1] / 3,
+                         routed_rows=rows[0][0],
+                         decode=moe_decode_profile(torch, model, batch,
+                                                   max_len))
+        del model
+    return out
+
+
+def serve_against(other, archs) -> dict:
+    """``chip_smoke.py --serve-against OTHER [ARCH ...]``: phase 14b's MoE
+    serves (all three ids unless named) with this checkout's
+    ``repro_torch`` and with the checkout OTHER's, in turns (other,
+    this, this, other, other, this), each turn a ``serve_turn`` in a
+    process of its own; both trees' model kernels are built first, at
+    once.  Prints each metric turn by turn and each tree's quartiles
+    (its median alone where it has fewer than 4 values)."""
+    trees = (ROOT, os.path.abspath(other))
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1])"
+         "; from repro_torch.kernels import _build; "
+         "_build.build_all(sys.argv[2:])", os.path.join(t, "src"),
+         *MODEL_SOURCES]) for t in trees]
+    if any(b.wait() for b in builds):
+        fail("serve-against: a tree's kernels did not build")
+    import statistics
+    import tempfile
+    turns = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, t in enumerate(SERVE_TURNS):
+            path = os.path.join(tmp, f"turn{i}.json")
+            t0 = time.time()
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--serve-turn", os.path.join(trees[t], "src"),
+                            path, *archs], check=True, cwd=trees[t])
+            with open(path) as f:
+                turns.append(dict(tree=("this", "other")[t],
+                                  seconds=time.time() - t0,
+                                  serves=json.load(f)))
+            print(f"serve-against turn {i} ({turns[-1]['tree']}) in "
+                  f"{turns[-1]['seconds']:.1f} s", flush=True)
+    medians = {}
+    for arch in archs:
+        metrics = {
+            "prefill_ms": lambda v: [r["prefill_ms"] for r in v["runs"]],
+            "decode_tok_s": lambda v: [r["decode_tok_s"] for r in v["runs"]],
+            "peak_gib": lambda v: [r["peak_gib"] for r in v["runs"]],
+            "expert_device_ms": lambda v: [v["prefill_by_kind"][
+                "expert products (moe._bmm_f32)"]],
+            "prefill_device_ms": lambda v: [v["prefill_device_ms"]],
+            "expert_rows_per_moe_layer": lambda v: [
+                v["expert_rows_per_moe_layer"]],
+            "decode_host_ms_per_step": lambda v: [
+                v["decode"]["host_ms_per_step"]],
+            "decode_moe_host_ms_per_step": lambda v: [
+                v["decode"]["moe_host_ms_per_step"]],
+            "decode_device_ms_per_step": lambda v: [
+                v["decode"]["device_ms_per_step"]],
+            "decode_launches_per_step": lambda v: [
+                v["decode"]["launches_per_step"]]}
+        medians[arch] = {}
+        for key, get in metrics.items():
+            cells = [(turn["tree"], get(turn["serves"][arch]))
+                     for turn in turns]
+            print(f"{arch} {key}: " + "; ".join(
+                f"{tree} " + " / ".join(f"{v:.2f}" for v in vals)
+                for tree, vals in cells))
+            by_tree = {tree: [v for t, vals in cells if t == tree
+                              for v in vals] for tree in ("other", "this")}
+            # quartiles (statistics.quantiles) where a tree has 4 or more
+            # values, else the median alone
+            medians[arch][key] = {
+                tree: statistics.quantiles(v, n=4) if len(v) > 3
+                else statistics.median(v) for tree, v in by_tree.items()}
+        for turn in turns[1:3]:
+            dec = turn["serves"][arch]["decode"]
+            print(f"{arch} decode step ({turn['tree']}), the most host "
+                  f"self time: " + "; ".join(
+                      f"{k[:40]} {ms:.3f} ms x{n}"
+                      for k, ms, n in dec["top_host"]))
+            print(f"{arch} decode step ({turn['tree']}), the most device "
+                  f"time: " + "; ".join(
+                      f"{k[:60]} {ms:.3f} ms x{n}"
+                      for k, ms, n in dec["top_device"]))
+        tokens = {turn["tree"]: turn["serves"][arch]["runs"][0][
+            "first_tokens"] for turn in turns}
+        medians[arch]["first_tokens_equal"] = tokens["this"] == tokens[
+            "other"]
+        print(f"{arch} quartiles, or medians under 4 values (other -> "
+              f"this): " + json.dumps(medians[arch]))
+    return dict(other=trees[1], turns=turns, medians=medians)
 
 
 def past_abs_or_ulp(torch, got, want, lim) -> int:
@@ -4887,6 +5168,9 @@ def phase_analysis(torch):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--serve-turn"]:
+        # SRC OUT ARCH...: this process's repro_torch is SRC's
+        sys.path.insert(0, sys.argv[2])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -4922,6 +5206,16 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:2] == ["--serve-turn"]:
+        out = serve_turn(torch, sys.argv[4:])
+        with open(sys.argv[3], "w") as f:
+            json.dump(out, f)
+        return 0
+    if len(sys.argv) >= 3 and sys.argv[1] == "--serve-against":
+        print(json.dumps({"serve_against": serve_against(sys.argv[2],
+                                                         sys.argv[3:]
+                                                         or list(MOE_SERVE))}))
         return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--against":
         _build.build_all(("cell_scan", "cell_scan_profile"))

@@ -172,9 +172,20 @@ def opt_config(cfg: T.ModelConfig) -> AdamWConfig:
 
 def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
     """``bmm``'s flops, for its ``out_dtype`` overload too (the flop
-    counter's own formula takes that argument for ``out_shape``)."""
+    counter's own formula takes that argument for ``out_shape``): the
+    MoE expert products over training's capacity buffer."""
     b, m, k = a_shape
     return 2 * b * m * k * b_shape[-1]
+
+
+def _mm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
+    """``mm``'s flops, for its ``out_dtype`` overload too: the MoE expert
+    products over serving's routed rows, one expert at a time."""
+    m, k = a_shape
+    return 2 * m * k * b_shape[-1]
+
+
+FLOP_FORMULAS = {torch.ops.aten.bmm: _bmm_flop, torch.ops.aten.mm: _mm_flop}
 
 
 def meta_pass(cfg: T.ModelConfig, shape: Shape, opt_cfg: AdamWConfig,
@@ -184,8 +195,7 @@ def meta_pass(cfg: T.ModelConfig, shape: Shape, opt_cfg: AdamWConfig,
     as ``FlopCounterMode`` counts them.  Raises where it does not trace."""
     from torch.utils.flop_counter import FlopCounterMode
     model = params_specs(cfg)
-    counter = FlopCounterMode(display=False,
-                              custom_mapping={torch.ops.aten.bmm: _bmm_flop})
+    counter = FlopCounterMode(display=False, custom_mapping=FLOP_FORMULAS)
     with counter, T.moe_groups(groups), T.activation_sharding(act):
         if shape.kind == "train":
             opt = opt_state_specs(cfg, opt_cfg,

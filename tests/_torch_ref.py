@@ -25,6 +25,15 @@ side only:
 
 Use it through a module-scoped fixture, never at import time: the test
 runner's workers import every test file while collecting.
+
+Importing this module also gives each of an xdist run's workers its
+share of the cores for torch's intra-op threads (cores // workers, at
+least one).  By default each worker takes every core, so six workers'
+OpenMP threads outnumber the cores six to one and each parallel op
+waits for its slowest thread: an emulated cell-scan case (its eager
+``scan_cell`` against the kernel) took 73.8 s beside 5 busy processes
+with every core and 39.3 s with one thread (37.7 s on an idle machine).
+Every worker imports this module, since each one collects every file.
 """
 from __future__ import annotations
 
@@ -32,10 +41,16 @@ import contextlib
 import dataclasses
 import importlib
 import math
+import os
 import sys
 import types
 
 import numpy as np
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 MEANS = ("persist_lat_ns", "read_lat_ns")
 

@@ -14,12 +14,16 @@ The card itself is checked by ``chip_smoke.py``.
 The tests are split by kernel family, one file each, so that a run with
 ``--dist loadfile`` spreads them over its workers; each file builds
 only the emulated libraries its own tests use (:func:`build`, every
-g++ at once), and a cell-scan library only the kernel instantiations
-its cases launch (``CELL_SCAN_FAMILIES``).
+g++ at once, each library once a session whichever files load it), and
+a cell-scan library only the kernel instantiations its cases launch
+(``CELL_SCAN_FAMILIES``).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
+import os
 import shutil
 import subprocess
 from pathlib import Path
@@ -374,30 +378,65 @@ def emulated_source(name: str, launcher: str, prelude: str = "") -> str:
     return prelude + body + launcher
 
 
+GXX_FLAGS = ("-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
+             "-pthread", f"-I{EMUL}")
+
+
 def build(out: Path, sources) -> dict:
     """Each ``(library, kernel source, launcher[, prelude])`` of
     ``sources`` built by its own g++, all at once; ``{library:
-    loaded}``."""
+    loaded}``.
+
+    A library is built once a session, though several files load it: it
+    is named by a hash of its source, the headers and the flags, in a
+    directory that the session's xdist workers share (their base temps'
+    parent), and a worker that finds another one building it waits on
+    that build's lock instead of building it again."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is needed to build the emulated kernels")
-    procs = []
+    shared = out.parent.parent if os.environ.get("PYTEST_XDIST_WORKER") \
+        else out.parent
+    libs = shared / "warp_emul_libs"
+    libs.mkdir(exist_ok=True)
+    headers = "".join(h.read_text() for h in sorted(EMUL.glob("*.h*"))
+                      + sorted(CSRC.glob("*.cuh")))
+    jobs = []
     for lib, name, launcher, *prelude in sources:
-        cpp = out / f"{lib}.cpp"
-        cpp.write_text(emulated_source(name, launcher, *prelude))
-        so = out / f"lib{lib}.so"
-        procs.append((lib, so, subprocess.Popen(
-            [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-             "-shared", "-pthread", f"-I{EMUL}", "-o", str(so), str(cpp)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        text = emulated_source(name, launcher, *prelude)
+        key = hashlib.sha256("\0".join((text, headers) + GXX_FLAGS)
+                             .encode()).hexdigest()[:16]
+        so = libs / f"lib{lib}-{key}.so"
+        job = [lib, so, None, None]
+        jobs.append(job)
+        if so.exists():
+            continue
+        job[2] = lock = open(libs / f"lib{lib}-{key}.lock", "w")
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            continue                     # another worker builds it
+        if not so.exists():
+            cpp = out / f"{lib}.cpp"
+            cpp.write_text(text)
+            job[3] = subprocess.Popen(
+                [gxx, *GXX_FLAGS, "-o", str(out / so.name), str(cpp)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     loaded = {}
-    for lib, so, proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ of {lib} failed:\n{log.decode()}")
+    for lib, so, lock, proc in jobs:
+        if proc is not None:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ of {lib} failed:\n{log.decode()}")
+            os.replace(out / so.name, so)
+        elif lock is not None:
+            fcntl.flock(lock, fcntl.LOCK_EX)     # until the other build is done
+            if not so.exists():
+                raise RuntimeError(f"another worker's g++ of {lib} failed")
+        if lock is not None:
+            lock.close()
         loaded[lib] = ctypes.CDLL(str(so))
     return loaded
-
 
 
 # The cell-scan instantiations (SPL, D, FAB, EP, MAC) each family's

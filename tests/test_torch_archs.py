@@ -14,10 +14,11 @@ other summation orders, so values agree to ~1e-6 relative.
 Also here: twins of ``tests/test_models.py``'s softcap, qk-norm,
 encoder-decoder and vision-prefix tests with the decode-versus-forward
 contract (the enc-dec decoding given its encoder output), the kernel's
-route per layer contract, the serve CLI against the reference's launcher
-(F15 and F16 included, the MoE ids too), the shape of ``testdata/serve_ref_families.json``, and
-two train steps of the frontend and softcap configs against the
-reference's ``make_train_step``.
+route per layer contract, the shape of
+``testdata/serve_ref_families.json``, and two train steps of the
+frontend and softcap configs against the reference's
+``make_train_step``.  The serve CLI against the reference's launcher is
+in ``tests/test_torch_archs_serve_cli.py``.
 """
 from __future__ import annotations
 
@@ -359,55 +360,6 @@ def test_kernel_route_is_fixed_by_the_layer_contract(monkeypatch, arch):
     tt.set_trainable(model)
     tt.loss_fn(model, dict(batch, labels=batch["tokens"])).backward()
     assert len(calls) == 2 * PREFILL_CALLS[arch]
-
-
-# --------------------------------------------------------------- serve CLI
-MOE = ("mixtral-8x7b", "phi3.5-moe-42b", "jamba-1.5-large-398b")
-
-
-@pytest.mark.parametrize("arch,temperature", [
-    *(pytest.param(a, 0.0, id=a) for a in NEW + MOE),
-    pytest.param("mixtral-8x7b", 0.8, id="mixtral-8x7b-temperature-0.8")])
-def test_serve_cli_matches_reference_launcher(ref, arch, temperature,
-                                              capsys):
-    """The CLI's greedy tokens equal the reference launcher's loop on the
-    same weights and stub inputs, drawn in its order: prefix positions
-    counted, the enc-dec decoded without its encoder output (F15), and
-    ``--temperature`` taken and not read, so that decoding stays greedy
-    at any value (F16: the reference's launcher parses it and never
-    reads it)."""
-    import jax.numpy as jnp
-    b, s, gen = 2, 24, 12
-    res = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                       "--batch", str(b), "--prompt-len", str(s),
-                       "--gen", str(gen), "--seed", "5",
-                       "--temperature", str(temperature)])
-    assert "first sequence:" in capsys.readouterr().out
-    jcfg = ref.configs.get_config(arch, smoke=True)
-    cfg = tconfigs.get_config(arch, smoke=True)
-    params = _j(numpy_params(cfg, 5))
-    rng = np.random.default_rng(5)
-    batch = {"tokens": jnp.asarray(rng.integers(0, jcfg.vocab, (b, s)),
-                                   jnp.int32)}
-    if jcfg.is_enc_dec:
-        batch["enc_embeds"] = jnp.asarray(rng.standard_normal(
-            (b, s // 4, jcfg.d_model)), jnp.float32)
-    if jcfg.frontend == "vision":
-        batch["prefix_embeds"] = jnp.asarray(rng.standard_normal(
-            (b, jcfg.frontend_seq, jcfg.d_model)), jnp.float32)
-    extra = jcfg.frontend_seq if jcfg.frontend == "vision" else 0
-    logits, caches = ref.transformer.prefill(jcfg, params, batch,
-                                             s + gen + extra)
-    want = []
-    tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
-    for i in range(gen):
-        want.append(np.asarray(tok)[:, 0])
-        logits, caches = ref.transformer.decode_step(
-            jcfg, params, tok, caches,
-            pos0=jnp.asarray(s + extra + i, jnp.int32))
-        tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
-    assert res.tokens.shape == (b, gen)
-    assert np.array_equal(res.tokens, np.stack(want, axis=1))
 
 
 # ------------------------------------------------------------------- datum

@@ -175,17 +175,53 @@ def test_cells_at_cut_depth_on_the_fake_group(arch, cut, shape_name):
 
 
 def test_the_flop_counter_counts_the_bf16_expert_products():
-    """A bf16 ``bmm`` with ``out_dtype`` (the MoE expert products) counts
-    2 b m n k, as an f32 ``bmm`` does."""
+    """A bf16 ``bmm`` with ``out_dtype`` (training's MoE expert products)
+    counts 2 b m n k, as an f32 ``bmm`` does; a bf16 ``mm`` with
+    ``out_dtype`` (serving's, one expert's routed rows) 2 m n k, as an
+    f32 ``mm`` does."""
     from torch.utils.flop_counter import FlopCounterMode
-    a = torch.empty((3, 5, 7), dtype=torch.bfloat16, device="meta")
-    b = torch.empty((3, 7, 4), dtype=torch.bfloat16, device="meta")
-    for kw in ({"out_dtype": torch.float32}, {}):
-        counter = FlopCounterMode(
-            display=False, custom_mapping={torch.ops.aten.bmm: D._bmm_flop})
-        with counter:
-            torch.bmm(a, b, **kw)
-        assert counter.get_total_flops() == 2 * 3 * 5 * 7 * 4
+    ops = {torch.bmm: ((3, 5, 7), (3, 7, 4)), torch.mm: ((5, 7), (7, 4))}
+    for op, shapes in ops.items():
+        a, b = (torch.empty(s, dtype=torch.bfloat16, device="meta")
+                for s in shapes)
+        for kw in ({"out_dtype": torch.float32}, {}):
+            counter = FlopCounterMode(display=False,
+                                      custom_mapping=D.FLOP_FORMULAS)
+            with counter:
+                op(a, b, **kw)
+            assert counter.get_total_flops() == 2 * (
+                3 if op is torch.bmm else 1) * 5 * 7 * 4
+
+
+@pytest.mark.parametrize("shape_name", ("prefill_32k", "decode_32k"))
+def test_a_moe_meta_pass_traces_the_ragged_path(shape_name, monkeypatch):
+    """mixtral-8x7b, one layer, served on the meta device: the expert
+    products are ``mm``s over the routed rows, each group's ``n * k``
+    split over the experts by ``ceil(n * k / e)``, and the pass counts
+    their routed flops, not the ``cap = n`` buffer's ``e / k`` times
+    more."""
+    from repro_torch.models import moe as tmoe
+    cfg = _cut("mixtral-8x7b", 1)
+    shape = SHAPES[shape_name]
+    groups = 16 if shape.kind == "prefill" else 1
+    seen = []
+    real = tmoe._ragged_experts
+
+    def spy(p, xs, counts):
+        out = real(p, xs, counts)
+        seen.append((xs.device.type, xs.shape[0], out.shape[0]))
+        return out
+    monkeypatch.setattr(tmoe, "_ragged_experts", spy)
+    flops = D.meta_pass(cfg, shape, D.opt_config(cfg), groups)
+    tokens = shape.global_batch * (shape.seq_len if shape.kind == "prefill"
+                                   else 1)
+    nk = tokens // groups * cfg.top_k
+    assert seen == [("meta", nk, nk)] * groups
+    experts = 3 * 2 * tokens * cfg.top_k * cfg.d_model * cfg.d_ff
+    monkeypatch.setattr(tmoe, "_ragged_experts", lambda p, xs, c: torch.zeros(
+        xs.shape, dtype=torch.float32, device=xs.device))
+    rest = D.meta_pass(cfg, shape, D.opt_config(cfg), groups)
+    assert flops - rest == experts
 
 
 def test_cli_summary_rows_and_exit_code(tmp_path, capsys):

@@ -1,6 +1,7 @@
 """The cell scan's switch-chain instantiations (``D >= 1``, no fabric,
 schedule or macro-steps), run from their CUDA source on the CPU
-(``_warp_emul``) against the eager ``scan_cell``."""
+(``_warp_emul``) against the eager ``scan_cell``.  The cases about
+the chain's batches are in ``test_torch_warp_emul_chain_batches.py``."""
 from __future__ import annotations
 
 import pytest
@@ -16,9 +17,7 @@ def lib(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case", ["chain_d1", "chain_d2", "chain_d3",
-                                  "chain_wide", "chain_long_spl2",
-                                  "chain_long_spl4", "chain_bank",
-                                  "chain_gate", "chain_dup"])
+                                  "chain_wide", "chain_bank"])
 def test_emulated_cell_scan_equals_eager_scan_cell(lib, chain_batches, case):
     """The emulated kernel against the eager ``scan_cell`` on every
     output, each case reaching what it is for in the eager chain

@@ -1,0 +1,23 @@
+"""The cell scan's epoch-schedule instantiations (``EP``) over a fabric,
+run from their CUDA source on the CPU (``_warp_emul``) against the
+eager ``scan_cell``.  One of the epochs family's five files (see
+``test_torch_warp_emul_epochs_chain.py``)."""
+from __future__ import annotations
+
+import pytest
+
+import _warp_emul as we
+from _warp_emul import chain_batches  # noqa: F401  (a fixture)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return we.build(tmp_path_factory.mktemp("warp_emul"),
+                    (we.cell_scan_source("epochs"),))["cell_scan"]
+
+
+@pytest.mark.parametrize("case", ["epochs_fabric"])
+def test_emulated_cell_scan_equals_eager_scan_cell(lib, chain_batches, case):
+    """The emulated kernel against the eager ``scan_cell`` on every
+    output, each case reaching the epochs and instantiation it is for."""
+    we.check_cell_scan_case(lib, chain_batches, case)

@@ -1,6 +1,7 @@
 """The cell scan's fabric instantiations (``FAB``, macro-steps and
 schedules off), run from their CUDA source on the CPU (``_warp_emul``)
-against the eager ``scan_cell``."""
+against the eager ``scan_cell``.  The packed two-leaf case is in
+``test_torch_warp_emul_fabric_packed.py``."""
 from __future__ import annotations
 
 import pytest
@@ -15,9 +16,8 @@ def lib(tmp_path_factory):
                     (we.cell_scan_source("fabric"),))["cell_scan"]
 
 
-@pytest.mark.parametrize("case", ["fabric_l2_packed", "fabric_l4_spread_bp",
-                                  "fabric_l8", "fabric_mixed",
-                                  "fabric_crash"])
+@pytest.mark.parametrize("case", ["fabric_l4_spread_bp", "fabric_l8",
+                                  "fabric_mixed", "fabric_crash"])
 def test_emulated_cell_scan_equals_eager_scan_cell(lib, chain_batches, case):
     """The emulated kernel against the eager ``scan_cell`` on every
     output."""

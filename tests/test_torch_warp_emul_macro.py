@@ -8,7 +8,10 @@ the op word (runs cut by the plan and by a stream's end), another core
 issuing just before or after a window's second op, a replay that
 commits or clears the guard, epoch boundaries settled by the floor and
 by the replay, cells whose fabric or chain settles every head (powered
-throughout: counted from the run plan alone; or losing power)."""
+throughout: counted from the run plan alone; or losing power).  The
+cases ``macro_reasons``, ``macro_dead``, ``macro_tenants``,
+``macro_edges``, ``macro_gates`` and ``macro_epochs`` are in
+``test_torch_warp_emul_macro_reasons.py``."""
 from __future__ import annotations
 
 import pytest
@@ -23,12 +26,9 @@ def lib(tmp_path_factory):
                     (we.cell_scan_source("macro"),))["cell_scan"]
 
 
-@pytest.mark.parametrize("case", ["macro_commits", "macro_reasons",
-                                  "macro_dead", "macro_tenants",
-                                  "macro_many_cores", "macro_tie",
-                                  "macro_window", "macro_guard",
-                                  "macro_edges", "macro_gates",
-                                  "macro_epochs"])
+@pytest.mark.parametrize("case", ["macro_commits", "macro_many_cores",
+                                  "macro_tie", "macro_window",
+                                  "macro_guard"])
 def test_emulated_cell_scan_equals_eager_scan_cell(lib, chain_batches, case):
     """The emulated kernel against the eager ``scan_cell`` with
     macro-steps on, on every output and counter, each case counting the

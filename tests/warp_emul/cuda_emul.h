@@ -4,28 +4,40 @@
 // A block is one warp of 32 std::threads unless the launcher asks for
 // more (whole warps); blocks run one after another.  Warp intrinsics
 // (__shfl_*_sync, __ballot_sync, __any_sync, __reduce_{min,or}_sync)
-// exchange values through a shared slot array between two waits on the
-// warp's barrier, so every thread of the warp must reach them together,
+// exchange values through two shared slot sets, in turn, with one wait
+// on the warp's barrier, so every thread of the warp must reach them together,
 // as in the port's kernels; __syncwarp waits on the warp's barrier and
 // __syncthreads on the block's, so a missing sync between a write and
 // another thread's read shows up as a real race.  emu_warpgroup_sync
 // waits for the caller's 128 threads only (the warpgroup products of
 // hopper.cuh), and a named barrier (emu_named, hopper.cuh's bar_sync and
 // bar_arrive) for the count its first use names; named barriers start
-// afresh with each block.  Warps of a warp-specialised block may leave
+// afresh with each block.  Every barrier is an EmuBarrier: a futex of
+// its own, so that a completed phase wakes its own waiters alone, and a
+// deadline: a wait that outlasts EMU_DEADLINE (a deadlock: a wrong
+// count, a thread that left early) aborts with a message naming the
+// barrier, its count and its arrivals.  Warps of a warp-specialised block may leave
 // early or wait on an mbarrier while the others go on.  Blocks run in
 // blockIdx order, so a kernel that chains its
 // blocks through global flags finds each flag it waits on already set.
 // Dynamic shared memory is a global array that the including file
 // defines under the kernel's own extern name.
 #pragma once
+#include <linux/futex.h>
+#include <sys/syscall.h>
+#include <unistd.h>
+
 #include <algorithm>
 #include <atomic>
-#include <barrier>
-#include <memory>
+#include <chrono>
+#include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <ctime>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -56,13 +68,84 @@ using std::fmin;
 using std::max;
 using std::min;
 
+// How long a thread may wait on one barrier phase before the emulation
+// calls it a deadlock (seconds; a test of the deadline builds with less).
+#ifndef EMU_DEADLINE_S
+#define EMU_DEADLINE_S 120
+#endif
+inline constexpr auto EMU_DEADLINE = std::chrono::seconds(EMU_DEADLINE_S);
+
+// A barrier of `count` threads: arrive() returns the phase it arrived
+// in, wait(p) returns once phase p has completed.  One atomic word holds
+// the completed phases (high half) and this phase's arrivals (low half);
+// the thread that completes a phase bumps `wakes` and wakes the futex on
+// it, which only this barrier's waiters sleep on.  Not std::barrier:
+// libstdc++ waits on its one-byte phase through waiter pools that all
+// barriers share, so each phase woke the waiters of other barriers too,
+// and it yields before it sleeps, which on a loaded CPU hands the core
+// to another process for a whole time slice.  Not a mutex and condition
+// variable either: every woken waiter then queues for the mutex.
+struct EmuBarrier {
+  EmuBarrier(int n, const char* what, int which)
+      : count(n), kind(what), id(which) {}
+  unsigned arrive() {
+    const uint64_t old = word.fetch_add(1, std::memory_order_acq_rel);
+    if (static_cast<uint32_t>(old) + 1 == static_cast<uint32_t>(count)) {
+      // the next phase, with no arrival (or those that came early)
+      word.fetch_add((uint64_t{1} << 32) - static_cast<uint64_t>(count),
+                     std::memory_order_acq_rel);
+      wakes.fetch_add(1, std::memory_order_release);
+      syscall(SYS_futex, &wakes, FUTEX_WAKE_PRIVATE, INT_MAX, nullptr,
+              nullptr, 0);
+    }
+    // an arrival after the completing one and before the phase moved on
+    // counts toward the next phase, and waits for that one
+    return static_cast<unsigned>(old >> 32) +
+           (static_cast<uint32_t>(old) >= static_cast<uint32_t>(count) ? 1u
+                                                                       : 0u);
+  }
+  // Sleeps at once: polling first is cheaper on an idle CPU and many
+  // times dearer on a loaded one, where the pollers take the cores from
+  // the threads they wait for.
+  void wait(unsigned p) {
+    const auto deadline = std::chrono::steady_clock::now() + EMU_DEADLINE;
+    for (;;) {
+      const uint32_t w = wakes.load(std::memory_order_acquire);
+      const uint64_t now = word.load(std::memory_order_acquire);
+      // phase p has completed once the count of completed phases is
+      // past it (an early arrival waits on a phase not yet begun)
+      if (static_cast<int32_t>(static_cast<uint32_t>(now >> 32) - p) > 0)
+        return;
+      if (std::chrono::steady_clock::now() > deadline) {
+        std::fprintf(stderr,
+                     "%s barrier %d of %d threads: phase %u never completed "
+                     "(%u arrived)\n",
+                     kind, id, count, p, static_cast<uint32_t>(now));
+        std::abort();
+      }
+      // returns at a wake, at once if `wakes` moved since it was read,
+      // or after a second, to look at the deadline again
+      timespec second{1, 0};
+      syscall(SYS_futex, &wakes, FUTEX_WAIT_PRIVATE, w, &second, nullptr,
+              0);
+    }
+  }
+  void arrive_and_wait() { wait(arrive()); }
+
+  std::atomic<uint64_t> word{0};
+  std::atomic<uint32_t> wakes{0};
+  const int count;
+  const char* const kind;
+  const int id;
+};
+
 struct WarpCtx {
-  std::barrier<>* bar;
-  std::barrier<>* wg_bar[8];     // one per warpgroup of a block of >= 128
-  std::barrier<>* warp_bar[32];  // one per warp
-  std::unique_ptr<std::barrier<>> named[16];  // named barriers, by id
+  EmuBarrier* bar;
+  EmuBarrier* wg_bar[8];     // one per warpgroup of a block of >= 128
+  EmuBarrier* warp_bar[32];  // one per warp
+  std::unique_ptr<EmuBarrier> named[16];  // named barriers, by id
   std::mutex named_mu;
-  uint64_t slots[1024];
+  uint64_t slots[2][1024];  // two sets, used in turn (emu_publish)
 };
 
 struct float2 {
@@ -96,10 +179,15 @@ inline void emu_warpgroup_sync() {
     g_warp->wg_bar[threadIdx.x / 128]->arrive_and_wait();
 }
 // named barrier `id` of `n` threads (made at its first use in a block)
-inline std::barrier<>& emu_named(int id, int n) {
+inline EmuBarrier& emu_named(int id, int n) {
   std::lock_guard<std::mutex> g(g_warp->named_mu);
   auto& b = g_warp->named[id];
-  if (!b) b = std::make_unique<std::barrier<>>(n);
+  if (!b) b = std::make_unique<EmuBarrier>(n, "named", id);
+  if (b->count != n) {
+    std::fprintf(stderr, "named barrier %d: %d threads, first used with %d\n",
+                 id, n, b->count);
+    std::abort();
+  }
   return *b;
 }
 inline void __threadfence() {
@@ -115,14 +203,23 @@ inline float __uint_as_float(unsigned u) {
   return f;
 }
 
+// The warp's values for one exchange: this lane's `v` is written to its
+// slot of the lane's next slot set, the warp's barrier passed, and the
+// warp's 32 slots of that set returned.  The two sets take turns, so an
+// exchange needs one barrier: a lane writes a set again only after the
+// next exchange's barrier, which each lane reaches after its read here.
+inline thread_local unsigned emu_turn;
+inline const uint64_t* emu_publish(uint64_t v) {
+  uint64_t* set = g_warp->slots[emu_turn++ & 1u];
+  set[threadIdx.x] = v;
+  emu_warp_sync();
+  return set + (threadIdx.x & ~31u);
+}
 template <class T>
 T emu_exchange(T v, int src) {
   uint64_t b = 0;
   std::memcpy(&b, &v, sizeof(T));
-  g_warp->slots[threadIdx.x] = b;
-  emu_warp_sync();
-  const uint64_t got = g_warp->slots[(threadIdx.x & ~31u) | (src & 31)];
-  emu_warp_sync();
+  const uint64_t got = emu_publish(b)[src & 31];
   T r;
   std::memcpy(&r, &got, sizeof(T));
   return r;
@@ -142,35 +239,25 @@ T __shfl_up_sync(unsigned, T v, unsigned delta) {
                                                         : lane));
 }
 inline unsigned __ballot_sync(unsigned, int pred) {
-  g_warp->slots[threadIdx.x] = pred ? 1 : 0;
-  emu_warp_sync();
+  const uint64_t* warp = emu_publish(pred ? 1 : 0);
   unsigned m = 0;
-  const unsigned base = threadIdx.x & ~31u;
   for (int i = 0; i < 32; ++i)
-    if (g_warp->slots[base + i]) m |= 1u << i;
-  emu_warp_sync();
+    if (warp[i]) m |= 1u << i;
   return m;
 }
 inline int __any_sync(unsigned mask, int pred) {
   return __ballot_sync(mask, pred) != 0;
 }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
-  g_warp->slots[threadIdx.x] = v;
-  emu_warp_sync();
-  const unsigned base = threadIdx.x & ~31u;
+  const uint64_t* warp = emu_publish(v);
   unsigned m = v;
-  for (int i = 0; i < 32; ++i)
-    m = std::min(m, static_cast<unsigned>(g_warp->slots[base + i]));
-  emu_warp_sync();
+  for (int i = 0; i < 32; ++i) m = std::min(m, static_cast<unsigned>(warp[i]));
   return m;
 }
 inline unsigned __reduce_or_sync(unsigned, unsigned v) {
-  g_warp->slots[threadIdx.x] = v;
-  emu_warp_sync();
-  const unsigned base = threadIdx.x & ~31u;
+  const uint64_t* warp = emu_publish(v);
   unsigned m = 0;
-  for (int i = 0; i < 32; ++i) m |= static_cast<unsigned>(g_warp->slots[base + i]);
-  emu_warp_sync();
+  for (int i = 0; i < 32; ++i) m |= static_cast<unsigned>(warp[i]);
   return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -204,16 +291,16 @@ T atomicMax(T* p, T v) {
 // of 32, at most 1024).
 template <class F>
 void emu_run(int blocks, F&& body, int threads = 32) {
-  std::barrier<> bar(threads);
+  EmuBarrier bar(threads, "block", 0);
   static WarpCtx w;
   w.bar = &bar;
-  std::vector<std::unique_ptr<std::barrier<>>> wg_bars, warp_bars;
+  std::vector<std::unique_ptr<EmuBarrier>> wg_bars, warp_bars;
   for (int i = 0; i < threads / 128; ++i) {
-    wg_bars.push_back(std::make_unique<std::barrier<>>(128));
+    wg_bars.push_back(std::make_unique<EmuBarrier>(128, "warpgroup", i));
     w.wg_bar[i] = wg_bars.back().get();
   }
   for (int i = 0; i < threads / 32; ++i) {
-    warp_bars.push_back(std::make_unique<std::barrier<>>(32));
+    warp_bars.push_back(std::make_unique<EmuBarrier>(32, "warp", i));
     w.warp_bar[i] = warp_bars.back().get();
   }
   g_warp = &w;

@@ -5,10 +5,11 @@
 // its box and completed its bytes on the mbarrier when it returns, and
 // a cp.async when it returns, so a missing wait or fence shows only on
 // the card.  An mbarrier is kept beside shared memory, by address, with
-// its count, pending arrivals, transaction count and phase, under one
-// lock; a wait blocks until its phase has completed (and aborts after
-// two minutes, a deadlock).  setmaxnreg does nothing and elect.sync
-// elects lane 0.
+// its count, pending arrivals, transaction count and phase, under its
+// own lock; a wait blocks on its own condition variable until its phase
+// has completed (and aborts after EMU_DEADLINE, a deadlock).  Named
+// barriers are cuda_emul.h's EmuBarrier, with the same deadline.
+// setmaxnreg does nothing and elect.sync elects lane 0.
 //
 // Shared memory is the kernel's dynamic array, whose start the launcher
 // stores in emu_smem_base; a "shared address" is a byte offset from it
@@ -184,31 +185,47 @@ inline void fence_regs(uint32_t (&)[N]) {}
 
 // ---- mbarriers, TMA, named barriers, register reallocation ----------
 struct EmuMbar {
-  int count, pending;
-  long long tx;
-  unsigned phase;  // phases completed
+  std::mutex mu;
+  std::condition_variable cv;
+  int count = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;  // phases completed
 };
-inline std::mutex emu_mbar_mu;
-inline std::condition_variable emu_mbar_cv;
+inline std::mutex emu_mbars_mu;  // guards the map, not its entries
 inline std::map<uint32_t, EmuMbar> emu_mbars;
 
+inline EmuMbar& emu_mbar(uint32_t bar) {
+  std::lock_guard<std::mutex> g(emu_mbars_mu);
+  return emu_mbars.at(bar);
+}
 inline void emu_mbar_update(uint32_t bar, int arrivals, long long tx) {
+  EmuMbar& m = emu_mbar(bar);
   {
-    std::lock_guard<std::mutex> g(emu_mbar_mu);
-    EmuMbar& m = emu_mbars.at(bar);
+    std::lock_guard<std::mutex> g(m.mu);
     m.pending -= arrivals;
     m.tx += tx;
-    if (m.pending < 0) std::abort();  // more arrivals than the count
+    if (m.pending < 0) {
+      std::fprintf(stderr, "mbarrier at %u: more arrivals than its %d\n",
+                   bar, m.count);
+      std::abort();
+    }
     if (m.pending == 0 && m.tx == 0) {
       ++m.phase;
       m.pending = m.count;
     }
   }
-  emu_mbar_cv.notify_all();
+  m.cv.notify_all();
 }
 inline void mbar_init(uint32_t bar, int count) {
-  std::lock_guard<std::mutex> g(emu_mbar_mu);
-  emu_mbars[bar] = EmuMbar{count, count, 0, 0};
+  EmuMbar* m;
+  {
+    std::lock_guard<std::mutex> g(emu_mbars_mu);
+    m = &emu_mbars[bar];
+  }
+  std::lock_guard<std::mutex> g(m->mu);
+  m->count = m->pending = count;
+  m->tx = 0;
+  m->phase = 0;
 }
 inline void fence_mbar_init() {}
 inline void mbar_arrive(uint32_t bar) { emu_mbar_update(bar, 1, 0); }
@@ -216,13 +233,15 @@ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   emu_mbar_update(bar, 1, bytes);
 }
 inline void mbar_wait(uint32_t bar, int parity) {
-  std::unique_lock<std::mutex> g(emu_mbar_mu);
-  const EmuMbar& m = emu_mbars.at(bar);
-  if (!emu_mbar_cv.wait_for(g, std::chrono::minutes(2), [&] {
+  EmuMbar& m = emu_mbar(bar);
+  std::unique_lock<std::mutex> g(m.mu);
+  if (!m.cv.wait_for(g, EMU_DEADLINE, [&] {
         return static_cast<int>(m.phase & 1u) != parity;
       })) {
-    std::fprintf(stderr, "mbarrier at %u: phase %d never completed\n", bar,
-                 parity);
+    std::fprintf(stderr,
+                 "mbarrier at %u: phase %d never completed (%d of %d "
+                 "arrivals pending, %lld tx bytes)\n",
+                 bar, parity, m.pending, m.count, m.tx);
     std::abort();
   }
 }
